@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+card:
+
+    python3 chip_smoke.py
+
+It needs CUDA and the checkout's ``src/``; without either it exits nonzero
+before printing any result. Phases, each of which raises on failure:
+
+1. the card's name and power limit (``nvidia-smi``); build every kernel of
+   the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
+   started together) and time the build.
+2. every kernel against its plain PyTorch version on the card: the test
+   cases at head_dim 128 (and 16 / 64 / 256), then the full-width
+   qwen2.5-32b decode and prefill shapes, with the kernel's, the plain
+   version's and one library call's times and the bound.
+3. qwen2.5-32b at full width cut to 4 layers: one prefill chunk plus 8
+   decode steps through ``impl="kernel"`` and ``impl="einsum"``; logits
+   allclose and greedy tokens equal.
+4. the main path: ``ServeEngine.build("qwen2.5-32b", ...)`` at full width,
+   4 layers, serving 16 requests (100-700 prompt tokens, half sharing a
+   256-token prefix, 32 generated each), with the kernel's launch counts
+   set to 0 just before and read just after.
+
+Then one JSON line describing each kernel, and as the last line
+``{"ok": true, "device": {...}}``. TF32 is off throughout: every number is
+fp32, as the reference computes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models.registry import get_model, init_paged_cache  # noqa: E402
+from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # same fp32 math, other sum order
+MODEL_TOL = 1e-3                 # logits after 4 full-width fp32 layers
+INACTIVE = 1 << 30
+ARCH = "qwen2.5-32b"
+LAYERS = 4
+SLOTS, S_MAX, PS = 8, 1024, 16
+DEV = torch.device("cuda")
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ timing
+_FLUSH = None
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` launches, each timed
+    with CUDA events after a 64 MB write that evicts the 50 MB L2 (the
+    serving path finds K/V pages cold: the layer weights stream in between)."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(16 << 20, dtype=torch.float32, device=DEV)
+    for _ in range(2):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        _FLUSH.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+# ------------------------------------------------------------- phase 2 data
+def paged_case(seed, B, Sq, H, KV, hd, P, ps, mps, fill):
+    """Random q / pools and block tables giving slot b ceil(fill[b] / ps)
+    distinct pages in a shuffled order (the CPU tests' generator)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    pk = rng.standard_normal((P, ps, KV, hd)).astype(np.float32)
+    pv = rng.standard_normal((P, ps, KV, hd)).astype(np.float32)
+    bt = np.full((B, mps), -1, np.int32)
+    perm = rng.permutation(P)
+    nxt = 0
+    for b in range(B):
+        need = -(-fill[b] // ps)
+        bt[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+    return q, pk, pv, bt
+
+
+def on_card(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in arrays]
+
+
+def check_case(name, args, window=0, kind="prefill"):
+    """Kernel vs plain version on the card; returns max |diff|."""
+    got = pa.paged_attention(*args, window=window, kind=kind)
+    want = ref.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, **KERNEL_TOL):
+        raise AssertionError(f"{name}: kernel differs from plain version, "
+                             f"max abs err {err}")
+    log(f"  {name}: max abs err {err:.3e}")
+    return got, err
+
+
+def phase2_cases():
+    """The CPU test cases, on the card, at head_dim 128 and beyond."""
+    errs = {"decode": 0.0, "prefill": 0.0}
+    cases = [dict(Sq=8, H=4, KV=2, ps=8, mps=4, window=0),
+             dict(Sq=1, H=4, KV=4, ps=8, mps=4, window=0),
+             dict(Sq=16, H=8, KV=2, ps=4, mps=8, window=6),
+             dict(Sq=8, H=2, KV=1, ps=16, mps=2, window=0)]
+    for hd in (128, 16, 64, 256):
+        for i, c in enumerate(cases if hd == 128 else cases[:2]):
+            B, P = 2, 2 * c["mps"] + 3
+            fill = [c["ps"] + c["ps"] // 2 + c["Sq"], c["ps"] // 2 + c["Sq"]]
+            q, pk, pv, bt = paged_case(3, B, c["Sq"], c["H"], c["KV"], hd, P,
+                                       c["ps"], c["mps"], fill)
+            start = np.asarray([f - c["Sq"] for f in fill], np.int32)
+            kind = "decode" if c["Sq"] == 1 else "prefill"
+            _, err = check_case(f"case{i} hd={hd}",
+                                on_card(q, pk, pv, bt, start), c["window"],
+                                kind)
+            errs[kind] = max(errs[kind], err)
+
+    hd = 128
+    # poisoned rows (no valid key of any slot) never contribute, bitwise
+    B, Sq, H, KV, P, ps, mps = 2, 4, 4, 2, 8, 8, 4
+    q, pk, pv, bt = paged_case(4, B, Sq, H, KV, hd, P, ps, mps, [12, 4])
+    start = np.asarray([8, 0], np.int32)
+    base, err = check_case("poison base", on_card(q, pk, pv, bt, start))
+    valid = np.zeros(P * ps, bool)
+    for b, last in enumerate([11, 3]):
+        for r in range(last + 1):
+            valid[bt[b, r // ps] * ps + r % ps] = True
+    poison = lambda a: np.where(valid[:, None, None],  # noqa: E731
+                                a.reshape(P * ps, KV, hd),
+                                1e9).astype(np.float32).reshape(a.shape)
+    got, _ = check_case("poisoned", on_card(q, poison(pk), poison(pv), bt,
+                                            start))
+    if not torch.equal(got, base):
+        raise AssertionError("poisoned rows changed the kernel's output")
+    errs["prefill"] = max(errs["prefill"], err)
+
+    # a freed slot (all -1 table, INACTIVE position) returns exact zeros;
+    # a mid-prefill slot (pages held, INACTIVE position) stays finite
+    q, pk, pv, bt = paged_case(6, 3, 1, 40, 8, hd, 10, 16, 4, [40, 20, 0])
+    start = np.asarray([39, INACTIVE, INACTIVE + 5], np.int32)
+    got, err = check_case("freed + mid-prefill slots",
+                          on_card(q, pk, pv, bt, start), kind="decode")
+    if not (torch.all(got[2] == 0) and torch.isfinite(got).all()):
+        raise AssertionError("freed slot not exactly 0 / non-finite output")
+    errs["decode"] = max(errs["decode"], err)
+
+    # two slots aliasing one prefix page, equal tails: equal outputs
+    rng = np.random.default_rng(7)
+    q1 = rng.standard_normal((1, 4, 4, hd)).astype(np.float32)
+    pk = rng.standard_normal((6, 8, 2, hd)).astype(np.float32)
+    pv = rng.standard_normal((6, 8, 2, hd)).astype(np.float32)
+    pk[4], pv[4] = pk[0], pv[0]
+    bt = np.asarray([[2, 0, -1], [2, 4, -1]], np.int32)
+    got, err = check_case("aliased prefix pages", on_card(
+        np.concatenate([q1, q1]), pk, pv, bt, np.asarray([10, 10], np.int32)))
+    if not torch.equal(got[0], got[1]):
+        raise AssertionError("aliased prefix pages gave different outputs")
+    errs["prefill"] = max(errs["prefill"], err)
+
+    # one page per slot (page_size == s_max, 64 rows: several smem tiles)
+    q, pk, pv, bt = paged_case(8, 2, 64, 8, 2, hd, 2, 64, 1, [64, 64])
+    _, err = check_case("one page spans s_max",
+                        on_card(q, pk, pv, bt, np.zeros(2, np.int32)))
+    errs["prefill"] = max(errs["prefill"], err)
+    return errs
+
+
+def full_width_case(Sq, seed):
+    """The serving shapes of qwen2.5-32b: 8 slots, 40 query heads over 8 kv
+    heads, head_dim 128, page_size 16, s_max 1024; each slot holds 100-732
+    rows (a 100-700 token prompt plus up to 32 generated tokens)."""
+    cfg = configs.get_config(ARCH)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mps = S_MAX // PS
+    rng = np.random.default_rng(seed)
+    fill = rng.integers(100, 733, SLOTS)
+    q, pk, pv, bt = paged_case(seed, SLOTS, Sq, H, KV, hd, SLOTS * mps, PS,
+                               mps, fill)
+    start = (fill - Sq).astype(np.int32)
+    return on_card(q, pk, pv, bt, start), fill
+
+
+def bound_ms(args, fill) -> tuple:
+    """Least time for the work this data needs: every live K/V row a query
+    can see read once, q read once, out written once, at the HBM rate;
+    against the fp32 FMAs of the valid (query, key) pairs (score and value
+    products) at the fp32 peak. Returns (ms, 'bytes' | 'operations')."""
+    q = args[0]
+    B, Sq, H, hd = q.shape
+    KV = args[1].shape[2]
+    rows = int(np.sum(fill))                          # keys up to last query
+    nbytes = (2 * rows * KV * hd * 4 + 2 * q.numel() * 4
+              + args[3].numel() * 4 + args[4].numel() * 4)
+    pairs = sum(int(f - Sq + i + 1) for f in fill for i in range(Sq))
+    flops = 4 * pairs * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(args):
+    """One library call for the same function on the gathered view:
+    ``scaled_dot_product_attention`` with GQA and a boolean mask. Timed as
+    a yardstick only; the port never calls it."""
+    q, pk, pv, bt, start = args
+    B, Sq, H, hd = q.shape
+    P, ps, KV, _ = pk.shape
+    n = bt.shape[1] * ps
+    j = torch.arange(n, device=DEV)
+    page = bt.long()[:, j // ps]
+    ok = page >= 0
+    phys = torch.where(ok, page * ps + j % ps, 0)
+    k = pk.reshape(P * ps, KV, hd)[phys].transpose(1, 2).contiguous()
+    v = pv.reshape(P * ps, KV, hd)[phys].transpose(1, 2).contiguous()
+    qpos = start.long()[:, None] + torch.arange(Sq, device=DEV)
+    mask = (ok[:, None, :] & (j[None, None, :] <= qpos[:, :, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def phase2_full_width():
+    out = {}
+    for kind, Sq, seed in (("decode", 1, 11), ("prefill", 64, 12)):
+        args, fill = full_width_case(Sq, seed)
+        _, err = check_case(f"full width {kind} (B={SLOTS}, Sq={Sq}, H=40, "
+                            f"KV=8, hd=128, ps={PS})", args, kind=kind)
+        lib = sdpa_call(args)
+        want = ref.paged_attention(*args)
+        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        ms = time_ms(lambda: pa.paged_attention(*args, kind=kind), 50)
+        plain = time_ms(lambda: ref.paged_attention(*args), 10)
+        lib_ms = time_ms(lib, 10)
+        bms, by = bound_ms(args, fill)
+        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
+            f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
+        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by)
+    return out
+
+
+# ------------------------------------------------------------ phase 3
+def phase3_model():
+    """Full-width qwen2.5-32b, 4 layers, random weights from seed 0: one
+    64-token prefill chunk for 8 slots, then 8 greedy decode steps, through
+    the kernel and through the masked-einsum reference read."""
+    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=LAYERS)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {ARCH} x {LAYERS} layers: {n / 1e9:.3f} B params fp32")
+    mps = S_MAX // PS
+    bt = torch.arange(SLOTS * mps, dtype=torch.int32,
+                      device=DEV).reshape(SLOTS, mps)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
+                            ).to(DEV)
+    runs = {}
+    for impl in ("kernel", "einsum"):
+        cache = init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
+                                 num_pages=SLOTS * mps, device=DEV)
+        cache["block_tables"].copy_(bt)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_chunk_paged(
+            params, toks, cache, bt_rows=bt, start=0, write_floor=0,
+            attn_impl=impl)
+        cache["pos"].fill_(64)
+        seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
+        tokens = [tok]
+        for _ in range(8):
+            logits, cache = model.decode_step(params, tok, cache,
+                                              paged_attn_impl=impl)
+            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+            seq.append(logits)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+        log(f"  impl={impl}: prefill + 8 decode steps in "
+            f"{time.perf_counter() - t0:.3f} s (host clock)")
+        runs[impl] = (seq, torch.cat(tokens, 1))
+        del cache
+    (sk, tk), (se, te) = runs["kernel"], runs["einsum"]
+    worst = 0.0
+    for a, b in zip(sk, se):
+        if a.shape != (SLOTS, 1, cfg.padded_vocab) or not torch.isfinite(
+                a[..., :cfg.vocab_size]).all():
+            raise AssertionError(f"bad logits {tuple(a.shape)}")
+        worst = max(worst, (a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(f"kernel vs einsum logits differ: {worst}")
+    if not torch.equal(tk, te):
+        raise AssertionError("kernel and einsum greedy tokens differ")
+    log(f"  logits max abs diff kernel vs einsum {worst:.3e} (tol "
+        f"{MODEL_TOL}); greedy tokens equal over 9 steps x {SLOTS} slots")
+    del params, runs, sk, se
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# ------------------------------------------------------------ phase 4
+def phase4_serve():
+    """The main path as a user drives it: build, submit, run."""
+    t0 = time.perf_counter()
+    engine = ServeEngine.build(ARCH, config=ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": LAYERS}, page_size=PS,
+        s_max=S_MAX, batch_slots=SLOTS))
+    torch.cuda.synchronize()
+    log(f"  built in {time.perf_counter() - t0:.2f} s: attn "
+        f"{engine.paged_attn_impl}, prefix cache {engine.prefix_cache}, "
+        f"{engine.num_pages} pages")
+    vocab = engine.cfg.vocab_size
+    rng = np.random.default_rng(2)
+    header = rng.integers(0, vocab, 256)
+    prompts = []
+    for i in range(16):
+        n = int(rng.integers(100, 701))
+        if i % 2:
+            n = max(n, 257)
+            prompts.append(np.concatenate([header,
+                                           rng.integers(0, vocab, n - 256)]))
+        else:
+            prompts.append(rng.integers(0, vocab, n))
+    pa.reset_launches()
+    reqs = [engine.submit(p, 32) for p in prompts]
+    m = engine.run()
+    launches = dict(pa.LAUNCHES)
+    bad = [r.rid for r in reqs if r.state.value != "done"
+           or len(r.tokens) != 32
+           or not all(0 <= t < vocab for t in r.tokens)]
+    if bad:
+        raise AssertionError(f"requests not served in full: {bad}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernel not launched on the main path: "
+                             f"{launches}")
+    if (launches["decode"] != m["decode_steps"] * LAYERS
+            or launches["prefill"] != m["prefill_chunks"] * LAYERS):
+        raise AssertionError(f"launches {launches} != one per layer per "
+                             f"decode step ({m['decode_steps']}) / prefill "
+                             f"chunk ({m['prefill_chunks']})")
+    engine.assert_page_invariants()
+    log(f"  served {m['completed']}/16 requests, {m['total_tokens']} tokens "
+        f"in {m['wall_s']:.3f} s: {m['throughput_tokens_per_s']:.1f} tok/s | "
+        f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.1f} ms | ITL p50 "
+        f"{m['itl_s']['p50'] * 1e3:.2f} ms | prefill "
+        f"{m['prefill_tokens_per_s']:.0f} tok/s")
+    log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
+        f"lookups, {m['prefix']['hit_tokens']} tokens, "
+        f"{m['prefix']['cow_copies']} COW copies")
+    log(f"  paged-attention launches: decode {launches['decode']} "
+        f"({m['decode_steps']} steps x {LAYERS} layers), prefill "
+        f"{launches['prefill']} ({m['prefill_chunks']} chunks x {LAYERS} "
+        f"layers)")
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("phase 1: card and build")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    took = _build.build(["paged_attention"])
+    log(f"  built {sorted(took) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    log("phase 2: kernels against their plain versions")
+    errs = phase2_cases()
+    full = phase2_full_width()
+    log("phase 3: full width, 4 layers, kernel vs einsum")
+    phase3_model()
+    log("phase 4: ServeEngine main path")
+    launches = phase4_serve()
+
+    kernels = []
+    for kind in ("decode", "prefill"):
+        f = full[kind]
+        kernels.append({
+            "name": f"paged_attention[{kind}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:52",
+            "launches": launches[kind],
+            "max_abs_err": max(errs[kind], f["err"]),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

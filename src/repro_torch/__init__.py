@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of ``repro``, grown beside it slice by slice.
+
+It imports ``torch`` and ``numpy``, never ``jax`` and nothing of ``repro``.
+Module names follow ``repro`` so each counterpart is easy to find. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; the
+paged-attention kernel is CUDA C++ for Hopper (``kernels/csrc``), with a
+plain PyTorch version beside it that CPU tensors take.
+"""

@@ -1,0 +1,26 @@
+"""Config registry: ``get_config(name)`` / ``list_archs()`` (the port's own
+copy of ``repro.configs``; arch ids and values are identical)."""
+from repro_torch.configs.base import ArchConfig, Family, MoEConfig
+
+from repro_torch.configs import (moonshot_v1_16b_a3b, dbrx_132b,
+                                 whisper_large_v3, minicpm_2b, command_r_35b,
+                                 codeqwen1_5_7b, qwen2_5_32b, qwen2_5_32b_mla,
+                                 hymba_1_5b, rwkv6_7b, llama_3_2_vision_11b)
+
+_ARCHS = {}
+for _m in (moonshot_v1_16b_a3b, dbrx_132b, whisper_large_v3, minicpm_2b,
+           command_r_35b, codeqwen1_5_7b, qwen2_5_32b, qwen2_5_32b_mla,
+           hymba_1_5b, rwkv6_7b, llama_3_2_vision_11b):
+    _ARCHS[_m.CONFIG.name] = _m.CONFIG
+
+__all__ = ["ArchConfig", "Family", "MoEConfig", "get_config", "list_archs"]
+
+
+def list_archs():
+    return sorted(_ARCHS)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return _ARCHS[name]

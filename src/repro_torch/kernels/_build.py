@@ -1,0 +1,84 @@
+"""Builds the port's CUDA C++ kernels and loads them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` is compiled at first use, by ``nvcc`` for
+``sm_90a``, into a shared library with a plain C interface under
+``kernels/build/`` (listed in ``.gitignore``). The library's file name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a built one is reused. :func:`build` starts one ``nvcc`` per missing
+source, all together, and waits for them; :func:`load` returns the loaded
+library. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict, Iterable
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    process each, all started together. Returns seconds per name built;
+    raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, lib, time.perf_counter())
+    took, errors = {}, []
+    for name, (proc, tmp, lib, t0) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed for {name}.cu:\n{log.decode()}")
+        else:
+            os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

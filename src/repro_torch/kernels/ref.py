@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the port's kernels: the ground truth the kernel
+is held against on the card, and the path a wrapper takes for tensors that
+lie on the CPU. Also home to :func:`mask_value`, the shared masking
+sentinel. Counterpart of ``repro/kernels/ref.py``."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def mask_value(dtype: torch.dtype) -> float:
+    """Finite large-negative sentinel for where-masking in ``dtype``: -1e30
+    where representable (float32/bfloat16), else half the dtype's minimum
+    (float16 would overflow -1e30 to -inf and turn a fully-masked softmax
+    row into NaN)."""
+    fi = torch.finfo(dtype)
+    if float(fi.max) > 1e30:
+        return -1e30
+    return float(fi.min) / 2
+
+
+def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
+    """Plain version of the paged-attention kernel: gather each slot's
+    logical view through its block table and run a masked softmax.
+
+    q: (B, Sq, H, hd); pool_k/pool_v: (P, ps, KV, hd); block_tables:
+    (B, mps) int32 (-1 = unallocated); start: (B,) int32 first query
+    position per slot (query row i is at start[b] + i; logical key row r
+    lives in page r // ps at offset r % ps). Masked probabilities are
+    zeroed, so a query row with no valid key anywhere (a freed slot with an
+    all--1 block table) returns exactly 0, like the kernel's l == 0 guard."""
+    B, Sq, H, hd = q.shape
+    P, ps, KV, _ = pool_k.shape
+    mps = block_tables.shape[1]
+    G = H // KV
+    n_rows = mps * ps
+    dev = q.device
+    j = torch.arange(n_rows, device=dev)
+    page = block_tables.long()[:, j // ps]                  # (B, n_rows)
+    ok = page >= 0
+    phys = torch.where(ok, page * ps + j % ps, 0)
+    view_k = pool_k.reshape(P * ps, KV, hd)[phys]          # (B, n_rows, KV, hd)
+    view_v = pool_v.reshape(P * ps, KV, hd)[phys]
+    q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        valid &= j[None, None, :] > q_pos[:, :, None] - window
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, view_k.to(q.dtype)
+                     ).float() / math.sqrt(hd)
+    vm = valid[:, None, None, :, :]
+    s = torch.where(vm, s, mask_value(s.dtype))
+    m = s.amax(dim=-1)
+    p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype),
+                       view_v.to(q.dtype)).float()
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B,KV,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)

@@ -1,0 +1,69 @@
+"""Serving CLI of the port — the counterpart of ``python -m
+repro.launch.serve``. Serves synthetic greedy requests through
+``repro_torch.serve.ServeEngine`` on the card (``--device cpu`` to run on
+the CPU) and prints tok/s, TTFT p50 and latency p95:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
+      --no-reduced --num-layers 4 --page-size 16 --s-max 1024 --requests 8
+
+``--num-layers`` cuts the depth of the arch (its widths stay), which is
+how a full-width arch fits one card. The cache is always paged: the dense
+cache is not ported yet (ROADMAP queue 1 item 4).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.engine import ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2.5-32b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the arch to this many layers (0 = keep)")
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--s-max", type=int, default=64)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="0 = slots x s_max / page_size")
+    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", action="store_true", help="print full metrics")
+    args = ap.parse_args(argv)
+
+    engine = ServeEngine.build(args.arch, config=ServeConfig(
+        reduced=args.reduced,
+        cfg_overrides=({"num_layers": args.num_layers} if args.num_layers
+                       else None),
+        batch_slots=args.batch_slots, s_max=args.s_max, seed=args.seed,
+        page_size=args.page_size, num_pages=args.num_pages or None,
+        prefix_cache=None if args.prefix_cache else False,
+        prefill_chunk_tokens=args.prefill_chunk, device=args.device))
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        engine.submit(rng.integers(0, engine.cfg.vocab_size, args.prompt_len),
+                      args.gen_len)
+    m = engine.run()
+    if args.json:
+        print(json.dumps(m, indent=2, default=float))
+    print(f"served {m['requests']} requests on {engine.device}, "
+          f"{m['throughput_tokens_per_s']:.1f} tok/s | "
+          f"ttft p50 {m['ttft_s']['p50'] * 1e3:.1f} ms | "
+          f"latency p95 {m['latency_s']['p95'] * 1e3:.1f} ms")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,604 @@
+"""Continuous-batching serve engine over a paged fp32 KV cache — the port of
+``repro/serve/engine.py`` on its main path:
+
+* **Paged KV.** K/V live in a shared page pool (L, num_pages, page_size,
+  KV, hd) addressed through per-slot block tables; a host-side refcounted
+  ``PageAllocator`` hands pages out at admission (the request's worst case,
+  all or nothing) and takes them back on completion. Admission peeks and
+  defers in strict FIFO order when the free list is short.
+* **Parallel chunked prefill, incremental splice.** Prompts are ingested
+  in bucketed chunks (the chunk size and the powers of two below it), at
+  most ``prefill_chunk_tokens`` positions between two decode ticks. Each
+  chunk writes its K/V straight into the group's reserved pages and attends
+  them through the block table — through the paged-attention kernel on the
+  card — so completion only flips the group's positions.
+* **Prefix cache (on by itself).** Completed prompt pages are chain-hashed
+  into a ``PrefixIndex``; admission aliases the longest cached page-aligned
+  prefix into the block table and runs only the uncached tail. A partial
+  hit gets a fresh page into which the shared rows are copied
+  (copy-on-write); LRU index-only pages are evicted before admission
+  defers.
+* **Greedy decode.** One decode tick per step for every running slot, then
+  ``argmax`` (the first index on ties, like ``jnp.argmax``). Freed slots
+  are parked at ``layers.INACTIVE_POS`` with an all--1 block table, so their
+  writes drop and their attention output is exactly 0.
+
+Everything else ``repro``'s engine does raises ``NotImplementedError``
+naming its ROADMAP item. A failing kernel build or launch raises out of
+``step``; nothing is caught.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import Family
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models.layers import INACTIVE_POS
+from repro_torch.models.registry import Model, get_model, reduced_config
+from repro_torch.serve.config import ServeConfig, resolve_device
+from repro_torch.serve.kvcache import (PREFIX_CACHE_FAMILIES, KVBackend,
+                                       make_backend)
+from repro_torch.serve.metrics import MetricsRecorder
+from repro_torch.serve.prefix import PrefixIndex, PrefixPlan
+from repro_torch.serve.scheduler import (Request, RequestState, SchedPolicy,
+                                         Scheduler)
+
+
+def chunk_ladder(chunk_tokens: int) -> List[int]:
+    """The bucketed chunk-length ladder: the chunk size plus every power of
+    two below it, descending."""
+    if chunk_tokens < 1:
+        raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
+    ladder = {chunk_tokens}
+    p = 1
+    while p < chunk_tokens:
+        ladder.add(p)
+        p <<= 1
+    return sorted(ladder, reverse=True)
+
+
+def chunk_plan(prompt_len: int, ladder: List[int]) -> List[int]:
+    """Greedy largest-first decomposition of a prompt into ladder chunks."""
+    plan, rem = [], prompt_len
+    for c in ladder:
+        while rem >= c:
+            plan.append(c)
+            rem -= c
+    return plan
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """One in-flight chunked prefill: K same-length requests ingested
+    jointly into their reserved pages. ``prompts`` holds only the TAIL the
+    chunks compute (positions ``tail_start`` onward); ``write_floor`` is
+    the first cache row the chunks may write — rows below it live in
+    shared immutable prefix pages."""
+    slots: List[int]
+    reqs: List[Request]
+    prompts: np.ndarray            # (K, P - tail_start) uncached tail tokens
+    plan: List[int]                # bucketed chunk lengths, sums to the tail
+    idx: int = 0                   # next chunk index
+    filled: int = 0                # tail tokens already ingested
+    tail_start: int = 0            # first prompt position the chunks compute
+    write_floor: int = 0
+    prefix_plans: Optional[List[PrefixPlan]] = None
+
+
+class PageAllocator:
+    """Host-side REFCOUNTED free-list allocator over a fixed pool of KV
+    pages (a copy of ``repro``'s): ``alloc`` is all-or-nothing at refcount
+    1, ``share`` adds a reference, ``release`` drops one and frees a page
+    at zero; releasing a free page raises."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._ref: Dict[int, int] = {}
+
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    @property
+    def held(self) -> set:
+        return set(self._ref)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def share(self, page: int):
+        if page not in self._ref:
+            raise ValueError(f"share of unheld page {page}")
+        self._ref[page] += 1
+
+    def release(self, pages: List[int]):
+        for p in pages:
+            n = self._ref.get(p, 0)
+            if n <= 0:
+                raise ValueError(f"double free of page {p}")
+            if n == 1:
+                del self._ref[p]
+                self._free.append(p)
+            else:
+                self._ref[p] = n - 1
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
+                               f"item {item})")
+
+
+class ServeEngine:
+    """Slot-based continuous-batching engine over the paged fp32 cache,
+    greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
+    passed)."""
+
+    def __init__(self, model: Model, params, *, batch_slots: int, s_max: int,
+                 compute_dtype=torch.float32,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 kv_backend=None,
+                 prefix_cache: Optional[bool] = None,
+                 prefill_mode: str = "parallel",
+                 prefill_chunk_tokens: int = 64,
+                 paged_attn_impl: str = "auto",
+                 scheduler: Optional[Scheduler] = None,
+                 metrics: Optional[MetricsRecorder] = None,
+                 policy: Optional[SchedPolicy] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = model.cfg
+        self.params = params
+        self.batch_slots = batch_slots
+        self.s_max = s_max
+        self.compute_dtype = compute_dtype
+        if int(top_k) < 0:
+            raise ValueError(f"top_k must be >= 0 (0 = off), got {top_k}")
+        if not 0.0 < float(top_p) <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if prefill_mode not in ("parallel", "scan"):
+            raise ValueError(f"prefill_mode must be 'parallel' or 'scan', "
+                             f"got {prefill_mode!r}")
+        if paged_attn_impl not in ("auto", "kernel", "einsum"):
+            raise ValueError(f"paged_attn_impl must be 'auto', 'kernel' or "
+                             f"'einsum', got {paged_attn_impl!r}")
+        if float(temperature) > 0.0:
+            raise _not_ported("sampling at temperature > 0", "6")
+        if prefill_mode == "scan":
+            raise _not_ported("prefill_mode='scan'", "4")
+        if policy is not None and policy != SchedPolicy():
+            raise _not_ported("a non-default SchedPolicy", "8")
+        if self.cfg.family != Family.DENSE:
+            raise _not_ported(f"serving the {self.cfg.family.value} family",
+                              "5" if self.cfg.family in (
+                                  Family.MOE, Family.VLM, Family.ENCDEC)
+                              else "9")
+        if page_size is None:
+            raise _not_ported("the dense (unpaged) cache", "4")
+        if s_max % page_size:
+            raise ValueError(f"s_max {s_max} must be a multiple of "
+                             f"page_size {page_size}")
+        self.prefill_chunk_tokens = min(int(prefill_chunk_tokens), s_max)
+        self.prefill_ladder = chunk_ladder(self.prefill_chunk_tokens)
+        self.scheduler = Scheduler() if scheduler is None else scheduler
+        self.metrics = MetricsRecorder() if metrics is None else metrics
+        self._jobs: List[_PrefillJob] = []
+
+        self.page_size = page_size
+        self.max_pages_per_slot = s_max // page_size
+        self.num_pages = (num_pages if num_pages is not None
+                          else batch_slots * self.max_pages_per_slot)
+        self.backend: KVBackend = make_backend(
+            kv_backend, family=self.cfg.family, page_size=page_size,
+            num_pages=self.num_pages)
+        self.capacity = self.backend.capacity(self.cfg, s_max)
+        self.allocator = PageAllocator(self.num_pages)
+        self.slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
+        self._bt_host = np.full((batch_slots, self.max_pages_per_slot), -1,
+                                np.int32)
+
+        supported = self.cfg.family in PREFIX_CACHE_FAMILIES
+        self.prefix_cache = supported if prefix_cache is None else bool(
+            prefix_cache and supported)
+        self.prefix_index = (PrefixIndex(self.allocator, self.page_size)
+                             if self.prefix_cache else None)
+
+        if paged_attn_impl == "auto":
+            paged_attn_impl = self.backend.resolve_attn_impl(
+                self.cfg.family, self.max_pages_per_slot > 1)
+        if paged_attn_impl != "kernel":
+            # the einsum read path prefills through a transient request
+            # cache and a completion splice (the page_size == s_max anchor)
+            raise _not_ported("the einsum/transient prefill path "
+                              "(paged_attn_impl='einsum', page_size == "
+                              "s_max)", "4")
+        self.paged_attn_impl = paged_attn_impl
+        self._decode = steps_mod.make_decode_step(
+            model, compute_dtype=compute_dtype,
+            paged_attn_impl=paged_attn_impl)
+        self._chunk = steps_mod.make_prefill_chunk_paged(
+            model, compute_dtype=compute_dtype, attn_impl=paged_attn_impl)
+        self.cache = self.backend.init_cache(model, batch_slots, s_max,
+                                             compute_dtype, self.device)
+
+        # (head rid, free pages, index version) at the last deferral: admit()
+        # short-circuits while nothing that could change the outcome moved
+        self._defer_state: Optional[tuple] = None
+        self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        self.cur_token = np.zeros((batch_slots, 1), np.int64)
+        self.requests: Dict[int, Request] = {}
+        self._next_rid = 0
+
+    # ------------------------------------------------------------ factory
+    @classmethod
+    def build(cls, arch: str = "qwen2.5-32b", *,
+              config: Optional[ServeConfig] = None) -> "ServeEngine":
+        """Construct model + random params (from ``config.seed``) on
+        ``config.device`` and the engine over them; ``config.validate`` runs
+        before any weights are built. ``cfg_overrides`` are applied after
+        reduction (``reduced=False, cfg_overrides={"num_layers": 4}`` keeps
+        every width of the arch and cuts its depth)."""
+        config = ServeConfig() if config is None else config
+        device = resolve_device(config.device)
+        cfg = configs.get_config(arch)
+        if config.reduced:
+            cfg = reduced_config(cfg)
+        if config.cfg_overrides:
+            cfg = dataclasses.replace(cfg, **config.cfg_overrides)
+        config.validate(cfg)
+        if config.quantize_int8:
+            raise _not_ported("int8 weight quantization", "11")
+        model = get_model(cfg)
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        params = model.init(gen, device)
+        return cls(model, params, **config.engine_kwargs())
+
+    # ------------------------------------------------------------ sampling
+    def _sample_rows(self, logits) -> np.ndarray:
+        """logits: (B, 1, V_padded) -> (B,) greedy token per row."""
+        row = logits[:, 0, : self.cfg.vocab_size]
+        return torch.argmax(row, dim=-1).cpu().numpy()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------ paging
+    @staticmethod
+    def _rows_needed(prompt_len: int, gen_len: int) -> int:
+        """Cache rows a request writes: the prompt plus the gen_len - 1
+        fed-back decode tokens (the final sampled token is never written)."""
+        return prompt_len + max(int(gen_len) - 1, 0)
+
+    def _pages_for_rows(self, rows: int) -> int:
+        return -(-min(rows, self.capacity) // self.page_size)
+
+    def _pages_needed(self, req: Request) -> int:
+        return self._pages_for_rows(
+            self._rows_needed(len(req.prompt), req.remaining))
+
+    def _upload_block_tables(self):
+        self.cache["block_tables"].copy_(torch.from_numpy(self._bt_host))
+
+    # ------------------------------------------------------------ lifecycle
+    def submit(self, prompt, gen_len: int, priority: int = 0) -> Request:
+        """Enqueue a request; admission happens on the next step()/run().
+        Rejects up front what can never be served (empty prompt, negative
+        gen_len, rows beyond s_max or beyond the whole pool), so admission
+        is infallible."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1:
+            raise ValueError(f"prompt must be a 1-D token vector, got shape "
+                             f"{prompt.shape}")
+        if prompt.size == 0:
+            raise ValueError("empty prompt: prefill needs at least one token")
+        if int(gen_len) < 0:
+            raise ValueError(f"gen_len must be >= 0, got {gen_len}")
+        rows = self._rows_needed(len(prompt), gen_len)
+        if len(prompt) > self.s_max or rows > self.s_max:
+            raise ValueError(
+                f"prompt_len {len(prompt)} + gen_len {gen_len} does not fit "
+                f"s_max {self.s_max}; raise s_max or shorten the request")
+        need = self._pages_for_rows(rows)
+        if need > self.num_pages:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.num_pages}; grow num_pages")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, gen_len=int(gen_len),
+                      priority=priority)
+        if (self.prefix_index is not None
+                and getattr(self.scheduler, "prefix_aware", False)):
+            req.prefix_hint = self.prefix_index.probe_len(prompt)
+        self.requests[rid] = req
+        self.metrics.on_submit(rid, len(req.prompt), priority)
+        self.scheduler.submit(req)
+        return req
+
+    @property
+    def free_slots(self) -> List[int]:
+        return [s for s, r in enumerate(self.slot_req) if r is None]
+
+    @property
+    def active(self) -> int:
+        return sum(1 for r in self.slot_req if r is not None)
+
+    @property
+    def running(self) -> int:
+        return sum(1 for r in self.slot_req
+                   if r is not None and r.state == RequestState.RUNNING)
+
+    def admit(self) -> int:
+        """Admit waiting requests into free slots; returns #admitted.
+
+        Admission PEEKS before popping: when the free list cannot cover the
+        head request's worst case (after LRU eviction of index-only prefix
+        pages), it stops and the head stays queued. With the prefix cache,
+        the longest cached page-aligned prefix aliases into the block table
+        and only the rest is freshly allocated. Admitted requests are
+        grouped by (prompt_len, cached_len) into chunked prefill jobs."""
+        pairs = []
+        plans: Dict[int, Optional[PrefixPlan]] = {}
+        for slot in self.free_slots:
+            req = self.scheduler.peek()
+            if req is None:
+                break
+            defer_state = (req.rid, self.allocator.free,
+                           self.prefix_index.version
+                           if self.prefix_index is not None else 0)
+            if defer_state == self._defer_state:
+                break       # same head, same pages, same index: still short
+            plan = None
+            shared: List[int] = []
+            refs: List[int] = []
+            if self.prefix_index is not None:
+                plan = self.prefix_index.lookup(req.prompt)
+                shared = list(plan.shared_pages)
+                # ref every page the plan READS (aliases and the partial COW
+                # source) so eviction for a later slot in this loop cannot
+                # free them; the partial ref drops after the COW copy
+                refs = shared + ([plan.partial[0]] if plan.partial else [])
+                for pg in refs:
+                    self.allocator.share(pg)
+            need = self._pages_needed(req) - len(shared)
+            fresh = self.allocator.alloc(need)
+            if fresh is None and self.prefix_index is not None:
+                evicted = self.prefix_index.evict(need - self.allocator.free)
+                if evicted:
+                    self.metrics.on_prefix_evict(evicted)
+                fresh = self.allocator.alloc(need)
+            if fresh is None:
+                if refs:
+                    self.allocator.release(refs)
+                self._defer_state = (req.rid, self.allocator.free,
+                                     self.prefix_index.version
+                                     if self.prefix_index is not None else 0)
+                break
+            if plan is not None:
+                self.metrics.on_prefix_lookup(plan.cached_len, len(shared),
+                                              plan.cow)
+            pages = shared + fresh
+            self.slot_pages[slot] = pages
+            self._bt_host[slot, :] = -1
+            self._bt_host[slot, :len(pages)] = pages
+            self.scheduler.next_request()       # pop the peeked head
+            req.state = RequestState.PREFILLING
+            req.slot = slot
+            self.slot_req[slot] = req
+            self.metrics.on_admit(req.rid)
+            self.metrics.on_prefill(req.rid, len(req.prompt))
+            plans[slot] = plan
+            pairs.append((slot, req))
+        if pairs:
+            self._upload_block_tables()
+        groups: Dict[tuple, list] = {}
+        for slot, req in pairs:
+            plan = plans[slot]
+            cached = plan.cached_len if plan is not None else 0
+            groups.setdefault((len(req.prompt), cached), []).append(
+                (slot, req))
+        for (plen, cached), group in groups.items():
+            # at least one position always runs: the last prompt position's
+            # logits sample the first token, so a full hit recomputes it
+            tail_start = min(cached, plen - 1)
+            job = _PrefillJob(
+                slots=[s for s, _ in group],
+                reqs=[r for _, r in group],
+                prompts=np.stack([r.prompt[tail_start:] for _, r in group]),
+                plan=chunk_plan(plen - tail_start, self.prefill_ladder),
+                tail_start=tail_start,
+                write_floor=(cached // self.page_size * self.page_size
+                             if cached else 0),
+                prefix_plans=([plans[s] for s, _ in group]
+                              if self.prefix_index is not None else None))
+            if cached:
+                self._cow_materialise_job(job, cached)
+            self._jobs.append(job)
+        return len(pairs)
+
+    def _cow_materialise_job(self, job: _PrefillJob, cached_len: int):
+        """Prefix-hit half of admission: aliased FULL pages need no work
+        (the chunks read them through the block table), but a partial hit's
+        rows ``[write_floor, cached_len)`` live in a shared SOURCE page
+        while the block table holds a fresh page in its place — copy them
+        across, then drop the admission-time source references. The copy
+        wall is charged to prefill."""
+        ps = self.page_size
+        n = cached_len - job.write_floor          # partial rows to copy
+        if n > 0:
+            oob = self.num_pages * ps
+            K = len(job.slots)
+            src = np.zeros((K, ps), np.int64)
+            dst = np.full((K, ps), oob, np.int64)
+            offs = np.arange(ps)
+            for i, (slot, plan) in enumerate(zip(job.slots,
+                                                 job.prefix_plans)):
+                if plan.partial is None:
+                    continue
+                fresh = self.slot_pages[slot][cached_len // ps]
+                src[i, :n] = plan.partial[0] * ps + offs[:n]
+                dst[i, :n] = fresh * ps + offs[:n]
+            t0 = self.metrics.now()
+            self.backend.copy_rows(self.cache,
+                                   torch.from_numpy(src).to(self.device),
+                                   torch.from_numpy(dst).to(self.device))
+            self._sync()
+            self.metrics.on_prefix_gather(self.metrics.now() - t0)
+        for plan in job.prefix_plans:
+            if plan.partial is not None:
+                self.allocator.release([plan.partial[0]])
+
+    # ------------------------------------------------- chunked prefill
+    def _prefill_tick(self) -> int:
+        """Ingest at most ``prefill_chunk_tokens`` prompt positions of
+        queued prefill work, in strict job-FIFO order: ladder chunks that
+        fit the remaining budget run back to back. Returns positions
+        ingested."""
+        budget = self.prefill_chunk_tokens
+        while self._jobs and budget > 0:
+            job = self._jobs[0]
+            if job.plan[job.idx] > budget:
+                break
+            budget -= self._run_chunk(job)
+        return self.prefill_chunk_tokens - budget
+
+    def _run_chunk(self, job: _PrefillJob) -> int:
+        """Run ``job``'s next chunk: its K/V go straight into the group's
+        pages. On the final chunk, start the group. Returns the chunk
+        length."""
+        C = job.plan[job.idx]
+        K = len(job.slots)
+        dev = self.device
+        batch = {
+            "tokens": torch.from_numpy(
+                job.prompts[:, job.filled:job.filled + C].astype(np.int64)
+            ).to(dev),
+            "bt": torch.from_numpy(self._bt_host[job.slots]).to(dev),
+            "start": job.tail_start + job.filled,
+            "floor": job.write_floor,
+        }
+        t0 = self.metrics.now()
+        logits, self.cache = self._chunk(self.params, self.cache, batch)
+        self._sync()
+        self.metrics.on_prefill_chunk(K * C, self.metrics.now() - t0)
+        job.idx += 1
+        job.filled += C
+        if job.idx == len(job.plan):
+            self._jobs.remove(job)
+            self._splice_and_start(job.slots, job.reqs, logits,
+                                   prefix_plans=job.prefix_plans)
+        return C
+
+    def _splice_and_start(self, slot_ids, reqs, logits, *,
+                          prefix_plans=None):
+        """Complete a group prefill: every chunk already wrote its rows
+        into the group's pages, so completion flips the group's ``pos``
+        from INACTIVE_POS to prompt_len, registers the freshly computed
+        prompt pages in the prefix index, samples each request's first
+        token from the last chunk's logits and marks the group RUNNING."""
+        slots = torch.as_tensor(slot_ids, dtype=torch.int64,
+                                device=self.device)
+        plens = torch.as_tensor([len(r.prompt) for r in reqs],
+                                dtype=torch.int32, device=self.device)
+        self.cache["pos"][slots] = plens
+        if self.prefix_index is not None and prefix_plans is not None:
+            for slot, req, plan in zip(slot_ids, reqs, prefix_plans):
+                self.prefix_index.register(plan, self.slot_pages[slot],
+                                           len(req.prompt))
+        toks = self._sample_rows(logits)
+        for i, (slot, req) in enumerate(zip(slot_ids, reqs)):
+            req.state = RequestState.RUNNING
+            if req.gen_len <= 0:
+                self._finish(slot)
+                continue
+            req.tokens.append(int(toks[i]))
+            self.cur_token[slot, 0] = int(toks[i])
+            self.metrics.on_first_token(req.rid)
+            if req.done:
+                self._finish(slot)
+
+    def _finish(self, slot: int):
+        """Retire a slot: park its position at INACTIVE_POS (its writes drop
+        from now on), zero its feedback token and return its pages."""
+        req = self.slot_req[slot]
+        if req is None:
+            return
+        req.state = RequestState.DONE
+        self.metrics.on_done(req.rid)
+        self.slot_req[slot] = None
+        self.cur_token[slot, 0] = 0
+        self.cache["pos"][slot] = INACTIVE_POS
+        self.allocator.release(self.slot_pages[slot])
+        self.slot_pages[slot] = []
+        self._bt_host[slot, :] = -1
+        self._upload_block_tables()
+
+    def cancel(self, rid: int) -> bool:
+        raise _not_ported("cancel", "8")
+
+    def assert_page_invariants(self):
+        """Raise on violated page bookkeeping: no page both free and
+        referenced, every live block-table or index page referenced, and
+        free + held partitions the pool."""
+        free = set(self.allocator._free)
+        held = self.allocator.held
+        assert not (free & held), f"pages both free and referenced: {free & held}"
+        assert free | held == set(range(self.num_pages)), "page leaked"
+        live = {pg for pages in self.slot_pages for pg in pages}
+        assert not (free & live), "page both free and in a live block table"
+        for pg in live:
+            assert self.allocator.refcount(pg) >= 1, f"live page {pg} unref'd"
+        if self.prefix_index is not None:
+            idx = set(self.prefix_index.pages)
+            assert not (free & idx), "page both free and in the prefix index"
+            for pg in idx:
+                assert self.allocator.refcount(pg) >= 1, \
+                    f"indexed page {pg} unref'd"
+
+    def step(self) -> int:
+        """One engine tick: admit, ingest at most one prefill-chunk budget,
+        one decode tick for every RUNNING slot, admit again into slots freed
+        on this tick. Returns #active after the tick."""
+        self.admit()
+        self._prefill_tick()
+        if self.running:
+            batch = {"token": torch.from_numpy(self.cur_token).to(self.device)}
+            logits, self.cache = self._decode(self.params, self.cache, batch)
+            self.metrics.on_decode_step()
+            nxt = self._sample_rows(logits)
+            for slot, req in enumerate(self.slot_req):
+                if req is None or req.state != RequestState.RUNNING:
+                    continue
+                req.tokens.append(int(nxt[slot]))
+                self.cur_token[slot, 0] = int(nxt[slot])
+                self.metrics.on_token(req.rid)
+                if req.done:
+                    self._finish(slot)
+        self.admit()
+        return self.active
+
+    def run(self) -> dict:
+        """Serve until queue and slots drain; returns the metrics summary."""
+        self.metrics.on_start()
+        while self.scheduler.waiting or self.active:
+            self.step()
+        self._sync()
+        self.metrics.on_stop()
+        return self.metrics.summary()

@@ -40,3 +40,8 @@ def run_multidevice(code: str, n_devices: int = 8, timeout: int = 420) -> str:
 @pytest.fixture
 def multidevice():
     return run_multidevice
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one")

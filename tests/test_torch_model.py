@@ -1,0 +1,106 @@
+"""The port's dense transformer against ``repro.models.transformer`` on the
+reduced qwen2.5-32b (2 layers, d_model 64, 4 query heads over 1 kv head,
+head_dim 16, vocab 512, QKV bias) with bridged weights: one paged prefill
+chunk, then 4 paged decode steps, through both read paths.
+
+Logits and page pools must be allclose at rtol 1e-4, atol 1e-5: each
+package computes the same fp32 network, but XLA and PyTorch sum every
+matmul and softmax in their own order, and those last-bit differences
+compound through two layers, the final norm and the vocab projection."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import registry as treg  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+PS, S_MAX, P = 16, 64, 12
+INACTIVE = 1 << 30
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jreg.reduced_config(jconfigs.get_config("qwen2.5-32b"))
+    tcfg = treg.reduced_config(tconfigs.get_config("qwen2.5-32b"))
+    assert (jcfg.num_layers, jcfg.d_model, jcfg.num_heads, jcfg.num_kv_heads,
+            jcfg.head_dim, jcfg.vocab_size, jcfg.qkv_bias) == \
+        (tcfg.num_layers, tcfg.d_model, tcfg.num_heads, tcfg.num_kv_heads,
+         tcfg.head_dim, tcfg.vocab_size, tcfg.qkv_bias) == \
+        (2, 64, 4, 1, 16, 512, True)
+    jparams = jtf.init(jcfg, jax.random.PRNGKey(0))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _cache_pair(jcfg, tcfg, bt, pos):
+    jmodel = jreg.get_model(jcfg)
+    jc = jreg.init_paged_cache(jmodel, 3, S_MAX, page_size=PS, num_pages=P,
+                               dtype=jnp.float32)
+    jc = dict(jc, block_tables=jnp.asarray(bt), pos=jnp.asarray(pos))
+    tc = treg.init_paged_cache(treg.get_model(tcfg), 3, S_MAX, page_size=PS,
+                               num_pages=P, device="cpu")
+    tc["block_tables"].copy_(torch.from_numpy(bt))
+    tc["pos"].copy_(torch.from_numpy(pos))
+    assert set(jc) == set(tc)
+    for key in jc:
+        assert tuple(jc[key].shape) == tuple(tc[key].shape), key
+    return jc, tc
+
+
+def _assert_pools(jc, tc):
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]), **TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "einsum"])
+def test_prefill_chunk_then_decode_matches_reference(models, impl):
+    """Slots 0 and 1 prefill a 24-token chunk jointly (it spans two pages);
+    slot 2 holds pages but is still at INACTIVE_POS (mid-prefill), so its
+    decode writes drop. Then 4 decode steps feed the reference's greedy
+    tokens to both packages. Logits of the live slots and both pools stay
+    allclose throughout."""
+    jcfg, jparams, tcfg, tparams = models
+    bt = np.asarray([[3, 7, 1, 10], [0, 5, 9, 2], [4, 6, -1, -1]], np.int32)
+    jc, tc = _cache_pair(jcfg, tcfg, bt, np.full((3,), INACTIVE, np.int32))
+    rng = np.random.default_rng(21)
+    C = 24
+    toks = rng.integers(0, jcfg.vocab_size, (2, C)).astype(np.int32)
+
+    jl, jc = jtf.prefill_chunk_paged(
+        jparams, jcfg, jnp.asarray(toks), jc, bt_rows=jnp.asarray(bt[:2]),
+        start=0, write_floor=0, compute_dtype=jnp.float32, attn_impl=impl)
+    tl, tc = ttf.prefill_chunk_paged(
+        tparams, tcfg, torch.from_numpy(toks).long(), tc,
+        bt_rows=torch.from_numpy(bt[:2]), start=0, write_floor=0,
+        attn_impl=impl)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_pools(jc, tc)
+
+    pos = np.asarray([C, C, INACTIVE], np.int32)
+    jc = dict(jc, pos=jnp.asarray(pos))
+    tc["pos"].copy_(torch.from_numpy(pos))
+    nxt = np.zeros((3, 1), np.int32)
+    nxt[:2, 0] = np.asarray(jnp.argmax(jl[:, 0, :jcfg.vocab_size], -1))
+    for _ in range(4):
+        jl, jc = jtf.decode_step(jparams, jcfg, jnp.asarray(nxt), jc,
+                                 compute_dtype=jnp.float32,
+                                 paged_attn_impl=impl)
+        tl, tc = ttf.decode_step(tparams, tcfg, torch.from_numpy(nxt).long(),
+                                 tc, paged_attn_impl=impl)
+        np.testing.assert_allclose(tl[:2].numpy(), np.asarray(jl[:2]), **TOL)
+        _assert_pools(jc, tc)
+        np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+        nxt[:2, 0] = np.asarray(jnp.argmax(jl[:2, 0, :jcfg.vocab_size], -1))
+        assert (tl[:2, 0, :tcfg.vocab_size].argmax(-1).numpy()
+                == nxt[:2, 0]).all()
