@@ -10,25 +10,33 @@ before printing any result. Phases, each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``); build every kernel of
    the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
    started together) and time the build.
-2. every kernel against its plain PyTorch version on the card: the test
-   cases at head_dim 128 (and 16 / 64 / 256), then the full-width
-   qwen2.5-32b decode and prefill shapes, with the kernel's, the plain
+2. every kernel against its plain PyTorch version on the card: paged
+   attention (K1) and flash attention (K2) on the test cases at head_dim
+   128 (and 16 / 64 / 256), then at the full-width qwen2.5-32b shapes the
+   serving and forward paths give them, with the kernel's, the plain
    version's and one library call's times and the bound.
-3. qwen2.5-32b at full width cut to 4 layers: one prefill chunk plus 8
-   decode steps through ``impl="kernel"`` and ``impl="einsum"``; logits
-   allclose and greedy tokens equal.
-4. the main path: ``ServeEngine.build("qwen2.5-32b", ...)`` at full width,
-   4 layers, serving 16 requests (100-700 prompt tokens, half sharing a
-   256-token prefix, 32 generated each), with the kernel's launch counts
-   set to 0 just before and read just after.
+3. qwen2.5-32b at full width cut to 4 layers (the weights of
+   ``ServeEngine.build``, built once for phases 3-5): one paged prefill
+   chunk plus 8 decode steps through ``impl="kernel"`` and
+   ``impl="einsum"``; (3b) the full-sequence prefill step and a dense
+   prefill chunk plus 8 dense decode steps through the flash kernel and
+   through the einsum. Logits allclose and greedy tokens equal.
+4. paged serving: 16 requests (100-700 prompt tokens, half sharing a
+   256-token prefix, 32 generated each) through the paged engine.
+5. the main path: ``ServeEngine.build("qwen2.5-32b", ...)`` with the
+   default dense cache serving the same 16 requests; its tokens against
+   phase 4's.
+6. the prefill anchors at the reduced width: dense parallel, dense scan,
+   paged one-page einsum and paged kernel give equal greedy streams.
 
-Then one JSON line describing each kernel, and as the last line
-``{"ok": true, "device": {...}}``. TF32 is off throughout: every number is
-fp32, as the reference computes.
+Each serving path (3b's forward, 4, 5) runs with the kernels' launch
+counts set to 0 just before and read just after. Then one JSON line
+describing each kernel, and as the last line ``{"ok": true, "device":
+{...}}``. TF32 is off throughout: every number is fp32, as the reference
+computes.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import pathlib
 import subprocess
@@ -43,9 +51,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.models.registry import get_model, init_paged_cache  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models.registry import init_paged_cache  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -56,6 +66,10 @@ INACTIVE = 1 << 30
 ARCH = "qwen2.5-32b"
 LAYERS = 4
 SLOTS, S_MAX, PS = 8, 1024, 16
+# K2 at full width: a serving first chunk (B slots x C) and the forward
+FLASH_SHAPES = {"prefill": (SLOTS, 64), "forward": (4, 1024)}
+# phase 3b's full-sequence prefill step (B, S)
+FORWARD_BATCH = (2, 512)
 DEV = torch.device("cuda")
 
 
@@ -269,14 +283,109 @@ def phase2_full_width():
     return out
 
 
+# --------------------------------------------------- phase 2: flash (K2)
+def flash_case(seed, B, Sq, Sk, H, KV, hd):
+    rng = np.random.default_rng(seed)
+    return on_card(rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+                   rng.standard_normal((B, Sk, KV, hd)).astype(np.float32),
+                   rng.standard_normal((B, Sk, KV, hd)).astype(np.float32))
+
+
+def check_flash(name, args, causal=True, window=0, kind="forward"):
+    """K2 vs its plain version on the card; returns max |diff|."""
+    got = fa.flash_attention(*args, causal=causal, window=window, kind=kind)
+    want = ref.flash_attention(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, **KERNEL_TOL):
+        raise AssertionError(f"{name}: kernel differs from plain version, "
+                             f"max abs err {err}")
+    log(f"  {name}: max abs err {err:.3e}")
+    return err
+
+
+def phase2_flash_cases():
+    """The CPU tests' cases and more: causal and not, G = 1 / 5 / 8, a
+    window of 64 (whose first tiles are wholly masked for late rows),
+    Sq != Sk, the engine's chunk lengths, head_dim 16 / 64 / 128 / 256.
+    Chunk-shaped cases count toward the prefill row, the rest toward the
+    forward row."""
+    errs = {"prefill": 0.0, "forward": 0.0}
+    cases = [dict(Sq=256, Sk=256, H=8, KV=8, causal=True, window=0),
+             dict(Sq=256, Sk=256, H=40, KV=8, causal=False, window=0),
+             dict(Sq=256, Sk=256, H=16, KV=2, causal=True, window=64),
+             dict(Sq=128, Sk=512, H=8, KV=1, causal=False, window=0),
+             dict(Sq=300, Sk=300, H=40, KV=8, causal=True, window=64)]
+    for hd in (128, 16, 64, 256):
+        for i, c in enumerate(cases if hd == 128 else cases[:4]):
+            args = flash_case(20 + i, 2, c["Sq"], c["Sk"], c["H"], c["KV"],
+                              hd)
+            errs["forward"] = max(errs["forward"], check_flash(
+                f"flash case{i} hd={hd}", args, c["causal"], c["window"]))
+    for C in (1, 2, 37, 64, 100):
+        for window in (0, 64):
+            args = flash_case(30 + C, 3, C, C, 40, 8, 128)
+            errs["prefill"] = max(errs["prefill"], check_flash(
+                f"flash chunk C={C} window={window}", args, window=window,
+                kind="prefill"))
+    return errs
+
+
+def flash_bound_ms(args, causal=True, window=0) -> tuple:
+    """Least time for K2's work on these inputs: q, K and V read once and
+    the output written once at the HBM rate, against the fp32 FMAs of the
+    visible (query, key) pairs (score and value products) at the fp32
+    peak. Returns (ms, 'bytes' | 'operations')."""
+    q, k, v = args
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    i = np.arange(Sq)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(i, Sk - 1) if causal else np.full_like(i, Sk - 1)
+    pairs = B * H * int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * pairs * hd / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2_flash_full_width():
+    """K2 at the shapes qwen2.5-32b gives it: 40 query heads over 8 kv
+    heads, head_dim 128, causal; a serving first chunk and the forward."""
+    cfg = configs.get_config(ARCH)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for kind, (B, S) in FLASH_SHAPES.items():
+        args = flash_case(40, B, S, S, H, KV, hd)
+        err = check_flash(f"full width flash {kind} (B={B}, S={S}, H={H}, "
+                          f"KV={KV}, hd={hd})", args, kind=kind)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        want = ref.flash_attention(*args)
+        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        del want
+        iters = 50 if kind == "prefill" else 10
+        ms = time_ms(lambda: fa.flash_attention(*args, kind=kind), iters)
+        plain = time_ms(lambda: ref.flash_attention(*args), 5)
+        lib_ms = time_ms(lib, iters)
+        bms, by = flash_bound_ms(args)
+        log(f"  flash {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
+            f"{bms:.4f} ms ({by})")
+        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by)
+        del args, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 3
-def phase3_model():
-    """Full-width qwen2.5-32b, 4 layers, random weights from seed 0: one
+def phase3_model(model, params):
+    """Full-width qwen2.5-32b, 4 layers, the main path's weights: one
     64-token prefill chunk for 8 slots, then 8 greedy decode steps, through
     the kernel and through the masked-einsum reference read."""
-    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=LAYERS)
-    model = get_model(cfg)
-    params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    cfg = model.cfg
     n = sum(t.numel() for t in _leaves(params))
     log(f"  {ARCH} x {LAYERS} layers: {n / 1e9:.3f} B params fp32")
     mps = S_MAX // PS
@@ -308,21 +417,82 @@ def phase3_model():
             f"{time.perf_counter() - t0:.3f} s (host clock)")
         runs[impl] = (seq, torch.cat(tokens, 1))
         del cache
-    (sk, tk), (se, te) = runs["kernel"], runs["einsum"]
+    compare_runs(runs, cfg, "kernel", "einsum")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def compare_runs(runs, cfg, a_name, b_name):
+    """Two runs of (logits per step, greedy tokens): finite logits of the
+    right shape, allclose within MODEL_TOL, and equal tokens."""
+    (sa, ta), (sb, tb) = runs[a_name], runs[b_name]
     worst = 0.0
-    for a, b in zip(sk, se):
-        if a.shape != (SLOTS, 1, cfg.padded_vocab) or not torch.isfinite(
+    for a, b in zip(sa, sb):
+        if a.shape[-1] != cfg.padded_vocab or not torch.isfinite(
                 a[..., :cfg.vocab_size]).all():
             raise AssertionError(f"bad logits {tuple(a.shape)}")
         worst = max(worst, (a - b).abs().max().item())
         if not torch.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
-            raise AssertionError(f"kernel vs einsum logits differ: {worst}")
-    if not torch.equal(tk, te):
-        raise AssertionError("kernel and einsum greedy tokens differ")
-    log(f"  logits max abs diff kernel vs einsum {worst:.3e} (tol "
-        f"{MODEL_TOL}); greedy tokens equal over 9 steps x {SLOTS} slots")
-    del params, runs, sk, se
+            raise AssertionError(f"{a_name} vs {b_name} logits differ: "
+                                 f"{worst}")
+    if not torch.equal(ta, tb):
+        raise AssertionError(f"{a_name} and {b_name} greedy tokens differ")
+    log(f"  logits max abs diff {a_name} vs {b_name} {worst:.3e} (tol "
+        f"{MODEL_TOL}); greedy tokens equal, {tuple(ta.shape)} "
+        f"(rows x steps)")
+
+
+def phase3b_flash_model(model, params):
+    """The flash kernel in the model at full width, 4 layers: the
+    full-sequence prefill step (last-position logits; the forward's K2
+    launches are counted here) and a dense first chunk plus 8 dense decode
+    steps, each through 'pallas' and through 'einsum'."""
+    cfg = model.cfg
+    B, S = FORWARD_BATCH
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(DEV)
+    runs, launches = {}, None
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits = steps.make_prefill(model, attn_impl=impl)(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            launches = fa.LAUNCHES["forward"]
+            if launches != LAYERS:
+                raise AssertionError(f"forward launched K2 {launches} times, "
+                                     f"not once per layer ({LAYERS})")
+        log(f"  make_prefill attn_impl={impl} (B={B}, S={S}): "
+            f"{time.perf_counter() - t0:.3f} s (host clock)")
+        runs[impl] = ([logits], logits[..., :cfg.vocab_size].argmax(-1))
+    compare_runs(runs, cfg, "pallas", "einsum")
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
+                            ).to(DEV)
+    runs = {}
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        first = steps.make_prefill_chunk(model, s_max=S_MAX, first=True,
+                                         attn_impl=impl)
+        logits, cache = first(params, {"tokens": toks})
+        if fa.LAUNCHES["prefill"] != (LAYERS if impl == "pallas" else 0):
+            raise AssertionError(f"dense first chunk ({impl}) launched K2 "
+                                 f"{fa.LAUNCHES['prefill']} times")
+        seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
+        tokens = [tok]
+        for _ in range(8):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+            seq.append(logits)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+        runs[impl] = (seq, torch.cat(tokens, 1))
+        del cache
+    compare_runs(runs, cfg, "pallas", "einsum")
+    del runs
     torch.cuda.empty_cache()
+    return launches
 
 
 def _leaves(tree):
@@ -330,18 +500,10 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-# ------------------------------------------------------------ phase 4
-def phase4_serve():
-    """The main path as a user drives it: build, submit, run."""
-    t0 = time.perf_counter()
-    engine = ServeEngine.build(ARCH, config=ServeConfig(
-        reduced=False, cfg_overrides={"num_layers": LAYERS}, page_size=PS,
-        s_max=S_MAX, batch_slots=SLOTS))
-    torch.cuda.synchronize()
-    log(f"  built in {time.perf_counter() - t0:.2f} s: attn "
-        f"{engine.paged_attn_impl}, prefix cache {engine.prefix_cache}, "
-        f"{engine.num_pages} pages")
-    vocab = engine.cfg.vocab_size
+# ------------------------------------------------------------ phases 4, 5
+def serve_prompts(vocab):
+    """16 prompts of 100-700 tokens; every other one starts with a shared
+    256-token header."""
     rng = np.random.default_rng(2)
     header = rng.integers(0, vocab, 256)
     prompts = []
@@ -353,15 +515,56 @@ def phase4_serve():
                                            rng.integers(0, vocab, n - 256)]))
         else:
             prompts.append(rng.integers(0, vocab, n))
-    pa.reset_launches()
+    return prompts
+
+
+def serve(engine, prompts):
+    """Submit, run; every request served in full with in-vocab tokens.
+    Also returns each request's first-token logits (rid -> row)."""
+    firsts = {}
+    splice = engine._splice_and_start
+
+    def keep_first(slot_ids, reqs, rcache, logits, **kw):
+        for r, row in zip(reqs, logits[:, 0, :engine.cfg.vocab_size]):
+            firsts[r.rid] = row.clone()
+        return splice(slot_ids, reqs, rcache, logits, **kw)
+
+    engine._splice_and_start = keep_first
     reqs = [engine.submit(p, 32) for p in prompts]
     m = engine.run()
-    launches = dict(pa.LAUNCHES)
+    engine._splice_and_start = splice
+    vocab = engine.cfg.vocab_size
     bad = [r.rid for r in reqs if r.state.value != "done"
            or len(r.tokens) != 32
            or not all(0 <= t < vocab for t in r.tokens)]
     if bad:
         raise AssertionError(f"requests not served in full: {bad}")
+    return reqs, m, [firsts[r.rid] for r in reqs]
+
+
+def log_serving(m, card):
+    log(f"  served {m['completed']}/16 requests, {m['total_tokens']} tokens "
+        f"in {m['wall_s']:.3f} s: {m['throughput_tokens_per_s']:.1f} tok/s | "
+        f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.1f} ms | ITL p50 "
+        f"{m['itl_s']['p50'] * 1e3:.2f} ms | prefill "
+        f"{m['prefill_tokens_per_s']:.0f} tok/s ({card})")
+
+
+def phase4_serve(model, params, prompts, card):
+    """Paged serving (the first slice's path) over the main path's
+    weights."""
+    engine = ServeEngine(model, params, **ServeConfig(
+        reduced=False, page_size=PS, s_max=S_MAX,
+        batch_slots=SLOTS).engine_kwargs())
+    log(f"  paged engine: attn {engine.paged_attn_impl}, prefix cache "
+        f"{engine.prefix_cache}, {engine.num_pages} pages")
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    launches = dict(pa.LAUNCHES)
+    if sum(fa.LAUNCHES.values()):
+        raise AssertionError(f"the paged kernel path launched K2: "
+                             f"{fa.LAUNCHES}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"kernel not launched on the main path: "
                              f"{launches}")
@@ -371,11 +574,7 @@ def phase4_serve():
                              f"decode step ({m['decode_steps']}) / prefill "
                              f"chunk ({m['prefill_chunks']})")
     engine.assert_page_invariants()
-    log(f"  served {m['completed']}/16 requests, {m['total_tokens']} tokens "
-        f"in {m['wall_s']:.3f} s: {m['throughput_tokens_per_s']:.1f} tok/s | "
-        f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.1f} ms | ITL p50 "
-        f"{m['itl_s']['p50'] * 1e3:.2f} ms | prefill "
-        f"{m['prefill_tokens_per_s']:.0f} tok/s")
+    log_serving(m, card)
     log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
         f"lookups, {m['prefix']['hit_tokens']} tokens, "
         f"{m['prefix']['cow_copies']} COW copies")
@@ -383,7 +582,88 @@ def phase4_serve():
         f"({m['decode_steps']} steps x {LAYERS} layers), prefill "
         f"{launches['prefill']} ({m['prefill_chunks']} chunks x {LAYERS} "
         f"layers)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, reqs, firsts
+
+
+def phase5_serve_dense(engine, prompts, card, paged):
+    """The main path: the default dense cache, its first chunks through the
+    flash kernel. Then its tokens against the paged engine's (phase 4)."""
+    log(f"  dense engine: prefill attn {engine.prefill_attn_impl}, prefix "
+        f"cache {engine.prefix_cache}, transient prefill caches")
+    n_first = [0]
+    first = engine._chunk_first
+
+    def counted(*args):
+        n_first[0] += 1
+        return first(*args)
+
+    engine._chunk_first = counted
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    launches = dict(fa.LAUNCHES)
+    engine._chunk_first = first
+    if sum(pa.LAUNCHES.values()) or launches["forward"]:
+        raise AssertionError(f"dense serving launched {pa.LAUNCHES} (K1), "
+                             f"{launches} (K2)")
+    if launches["prefill"] != n_first[0] * LAYERS or not n_first[0]:
+        raise AssertionError(f"K2 prefill launches {launches['prefill']} != "
+                             f"{n_first[0]} first chunks x {LAYERS} layers")
+    log_serving(m, card)
+    log(f"  flash-attention launches: prefill {launches['prefill']} "
+        f"({n_first[0]} first chunks x {LAYERS} layers) of "
+        f"{m['prefill_chunks']} chunks; {engine.max_transient_cache_bytes} "
+        f"transient cache bytes at most")
+
+    p_reqs, p_firsts = paged
+    same_first = same_tok = 0
+    for r, pr, fd, fp in zip(reqs, p_reqs, firsts, p_firsts):
+        same_tok += sum(a == b for a, b in zip(r.tokens, pr.tokens))
+        a, b = r.tokens[0], pr.tokens[0]
+        if a == b:
+            same_first += 1
+            continue
+        gap = max((fd[a] - fd[b]).item(), (fp[b] - fp[a]).item())
+        log(f"  request {r.rid}: first token {a} (dense) vs {b} (paged), "
+            f"logit gap {gap:.2e}")
+        if gap > 1e-3:
+            raise AssertionError(f"request {r.rid}: dense and paged first "
+                                 f"tokens differ by a logit gap of {gap}")
+    total = sum(len(r.tokens) for r in reqs)
+    log(f"  dense vs paged: first token equal for {same_first}/{len(reqs)} "
+        f"requests, {same_tok}/{total} tokens equal")
     return launches
+
+
+# ------------------------------------------------------------ phase 6
+def phase6_anchors():
+    """Reduced qwen2.5-32b on the card: the dense cache (parallel prefill,
+    its first chunk through K2, and the scan anchor), the paged one-page
+    einsum anchor and the paged kernel path give equal greedy streams."""
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n) for n in (5, 17, 40, 64 - 15, 3, 30)]
+    streams = {}
+    for name, fields in (
+            ("dense parallel", dict()),
+            ("dense scan", dict(prefill_mode="scan")),
+            ("paged one-page einsum", dict(page_size=64)),
+            ("paged kernel", dict(page_size=16))):
+        engine = ServeEngine.build(ARCH, config=ServeConfig(
+            s_max=64, batch_slots=4, **fields))
+        reqs = [engine.submit(p, 16) for p in prompts]
+        engine.run()
+        streams[name] = [list(r.tokens) for r in reqs]
+        log(f"  {name}: paged attn {engine.paged_attn_impl}, prefill attn "
+            f"{engine.prefill_attn_impl}, {sum(map(len, streams[name]))} "
+            f"tokens")
+    first = next(iter(streams.values()))
+    for name, got in streams.items():
+        if got != first:
+            raise AssertionError(f"{name} greedy stream differs from dense "
+                                 f"parallel")
+    log(f"  greedy streams equal across {len(streams)} paths")
 
 
 def main():
@@ -401,17 +681,39 @@ def main():
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    took = _build.build(["paged_attention"])
+    took = _build.build(["paged_attention", "flash_attention"])
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log("phase 2: kernels against their plain versions")
     errs = phase2_cases()
     full = phase2_full_width()
-    log("phase 3: full width, 4 layers, kernel vs einsum")
-    phase3_model()
-    log("phase 4: ServeEngine main path")
-    launches = phase4_serve()
+    flash_errs = phase2_flash_cases()
+    flash_full = phase2_flash_full_width()
+
+    t0 = time.perf_counter()
+    dense = ServeEngine.build(ARCH, config=ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": LAYERS}, s_max=S_MAX,
+        batch_slots=SLOTS))
+    torch.cuda.synchronize()
+    log(f"main path engine built in {time.perf_counter() - t0:.2f} s "
+        f"(dense cache, weights shared by phases 3-5)")
+    model, params = dense.model, dense.params
+    log("phase 3: full width, 4 layers, paged kernel vs einsum")
+    phase3_model(model, params)
+    log("phase 3b: full width, 4 layers, flash kernel vs einsum")
+    forward_launches = phase3b_flash_model(model, params)
+    prompts = serve_prompts(dense.cfg.vocab_size)
+    log("phase 4: paged serving")
+    launches, p_reqs, p_firsts = phase4_serve(model, params, prompts, card)
+    log("phase 5: ServeEngine main path (dense cache)")
+    flash_launches = phase5_serve_dense(dense, prompts, card,
+                                        (p_reqs, p_firsts))
+    flash_launches["forward"] = forward_launches
+    del dense, model, params
+    torch.cuda.empty_cache()
+    log("phase 6: prefill anchors at reduced width")
+    phase6_anchors()
 
     kernels = []
     for kind in ("decode", "prefill"):
@@ -422,6 +724,17 @@ def main():
             "replaces": "src/repro/kernels/paged_attention.py:52",
             "launches": launches[kind],
             "max_abs_err": max(errs[kind], f["err"]),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
+    for kind in ("prefill", "forward"):
+        f = flash_full[kind]
+        kernels.append({
+            "name": f"flash_attention[{kind}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:26",
+            "launches": flash_launches[kind],
+            "max_abs_err": max(flash_errs[kind], f["err"]),
             "ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})

@@ -3,6 +3,7 @@
 It imports ``torch`` and ``numpy``, never ``jax`` and nothing of ``repro``.
 Module names follow ``repro`` so each counterpart is easy to find. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; the
-paged-attention kernel is CUDA C++ for Hopper (``kernels/csrc``), with a
-plain PyTorch version beside it that CPU tensors take.
+kernels (paged attention, flash attention) are CUDA C++ for Hopper
+(``kernels/csrc``), each with a plain PyTorch version beside it that CPU
+tensors take.
 """

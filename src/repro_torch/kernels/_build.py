@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled at first use, by ``nvcc`` for
 ``sm_90a``, into a shared library with a plain C interface under
 ``kernels/build/`` (listed in ``.gitignore``). The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a built one is reused. :func:`build` starts one ``nvcc`` per missing
-source, all together, and waits for them; :func:`load` returns the loaded
-library. Nothing here runs at import time.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and a built one is reused.
+:func:`build` starts one ``nvcc`` per missing source, all together, and
+waits for them; :func:`load` returns the loaded library. Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

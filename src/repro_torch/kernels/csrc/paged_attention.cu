@@ -36,27 +36,20 @@
 
 #include <cuda_runtime.h>
 
+#include "warp.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using repro::FULL;
+using repro::NEG_INF;
+using repro::warp_max;
+using repro::warp_sum;
+
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS = WARPS * ROWS_PER_WARP;  // query rows per block
 constexpr int TILE_FLOATS = 8192;            // K + V tile: 32 KB of shared memory
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
 
 // HC = ceil(hd / 32): the head-dim entries each lane holds per query row.
 template <int HC>

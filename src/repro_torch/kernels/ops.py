@@ -2,11 +2,17 @@
 ``repro/kernels/ops.py``.
 
 On the card there is no shape-based route to a plain version: the TPU
-dispatch sent only (8, 128)-tileable shapes to its kernel, while the Hopper
-kernel takes every page size and every head_dim up to 256 and raises on
-anything else. A CPU tensor runs the plain version (see the wrapper)."""
+dispatch sent only tileable shapes (and, for flash attention, only calls
+without positions) to its kernels, while the Hopper kernels take every page
+size, sequence length and window and every head_dim up to 256 that is a
+multiple of 4, and raise on anything else. A CPU tensor runs the plain
+version (see the wrappers)."""
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 
 
@@ -33,3 +39,35 @@ def paged_prefill(q, pool_k, pool_v, block_tables, start, *,
     uniformly through the block table."""
     return paged_attention(q, pool_k, pool_v, block_tables, start,
                            window=window, kind="prefill")
+
+
+def _check_row_positions(positions, n: int, name: str):
+    """The kernel derives positions from row indices: positions given by a
+    caller must be exactly 0..n-1 in every batch row."""
+    want = torch.arange(n, device=positions.device)
+    if positions.shape[-1] != n or not torch.equal(
+            positions.long(), want.expand_as(positions)):
+        raise ValueError(f"flash_attention takes {name} 0..{n - 1} only (the "
+                         f"kernel derives positions from row indices)")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_positions=None, k_positions=None):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd): the
+    full-sequence forward's attention. Positions are accepted for API
+    parity with ``ref.flash_attention`` and must be the row indices."""
+    if q_positions is not None:
+        _check_row_positions(q_positions, q.shape[1], "q_positions")
+    if k_positions is not None:
+        _check_row_positions(k_positions, k.shape[1], "k_positions")
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            kind="forward")
+
+
+def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
+    """K/V-exporting prefill attention: returns ``(O, K, V)`` where K and V
+    are the input tensors themselves, the post-RoPE rows a serving prefill
+    writes into its cache (the TPU export is a passthrough of its inputs,
+    so no copy runs here either)."""
+    return (_flash_attention(q, k, v, causal=causal, window=window,
+                             kind="prefill"), k, v)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the port's kernels: the ground truth the kernel
-is held against on the card, and the path a wrapper takes for tensors that
-lie on the CPU. Also home to :func:`mask_value`, the shared masking
-sentinel. Counterpart of ``repro/kernels/ref.py``."""
+"""Plain PyTorch versions of the port's kernels (paged attention, flash
+attention): the ground truth each kernel is held against on the card, and
+the path a wrapper takes for tensors that lie on the CPU. Also home to
+:func:`mask_value`, the shared masking sentinel. Counterpart of
+``repro/kernels/ref.py``."""
 from __future__ import annotations
 
 import math
@@ -58,3 +59,40 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
                        view_v.to(q.dtype)).float()
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_positions=None,
+                    k_positions=None):
+    """Plain version of the flash-attention kernel, as the reference's
+    oracle computes it: GQA by head grouping, dot then divide by sqrt(hd),
+    ``mask_value`` where a key is masked, softmax. q: (B, Sq, H, hd); k, v:
+    (B, Sk, KV, hd) -> (B, Sq, H, hd). Positions default to the row indices
+    (query i at i, key j at j). A query row that sees no key at all gets
+    the softmax's uniform average here and exact zeros from the kernel;
+    no caller of the port builds such a row."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev).expand(B, Sq)
+    if k_positions is None:
+        k_positions = torch.arange(Sk, device=dev).expand(B, Sk)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+    diff = (q_positions.long()[:, None, None, :, None]
+            - k_positions.long()[:, None, None, None, :])
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=dev)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    s = torch.where(ok, s, mask_value(s.dtype))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v).reshape(B, Sq, H, hd)
+
+
+def flash_attention_kv(q, k, v, *, causal=True, window=0):
+    """Plain version of the K/V-exporting prefill: the attention output and
+    the K/V inputs themselves, the ``(O, K, V)`` contract."""
+    return flash_attention(q, k, v, causal=causal, window=window), k, v

@@ -4,11 +4,13 @@ repro.launch.serve``. Serves synthetic greedy requests through
 the CPU) and prints tok/s, TTFT p50 and latency p95:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
-      --no-reduced --num-layers 4 --page-size 16 --s-max 1024 --requests 8
+      --no-reduced --num-layers 4 --s-max 1024 --requests 8
 
 ``--num-layers`` cuts the depth of the arch (its widths stay), which is
-how a full-width arch fits one card. The cache is always paged: the dense
-cache is not ported yet (ROADMAP queue 1 item 4).
+how a full-width arch fits one card. As in ``ServeConfig``, the cache is
+dense unless ``--page-size`` is given; ``--prefill-mode`` and
+``--prefill-attn-impl`` choose the prefill path (``auto``: the
+flash-attention kernel on the card).
 """
 from __future__ import annotations
 
@@ -30,10 +32,15 @@ def main(argv=None):
                     help="cut the arch to this many layers (0 = keep)")
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--s-max", type=int, default=64)
-    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="page the cache (default: dense)")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="0 = slots x s_max / page_size")
     ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--prefill-mode", default="parallel",
+                    choices=("parallel", "scan"))
+    ap.add_argument("--prefill-attn-impl", default="auto",
+                    help="auto | pallas (the flash kernel) | einsum")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--requests", type=int, default=8)
@@ -51,7 +58,9 @@ def main(argv=None):
         batch_slots=args.batch_slots, s_max=args.s_max, seed=args.seed,
         page_size=args.page_size, num_pages=args.num_pages or None,
         prefix_cache=None if args.prefix_cache else False,
-        prefill_chunk_tokens=args.prefill_chunk, device=args.device))
+        prefill_chunk_tokens=args.prefill_chunk,
+        prefill_mode=args.prefill_mode,
+        prefill_attn_impl=args.prefill_attn_impl, device=args.device))
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         engine.submit(rng.integers(0, engine.cfg.vocab_size, args.prompt_len),

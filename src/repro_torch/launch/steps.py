@@ -1,6 +1,6 @@
 """Serving step builders, as in ``repro/launch/steps.py``. PyTorch runs
 eagerly, so a builder returns a plain function where ``repro`` returned one
-to be jitted."""
+to be jitted, and a Python loop takes the place of ``lax.scan``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,6 +8,86 @@ from typing import Optional
 import torch
 
 from repro_torch.models.registry import Model
+
+
+def head_weight(model: Model, params):
+    """(weights, tied?) for the LM head."""
+    if "unembed" in params:
+        return params["unembed"]["w"], False
+    return params["embed"]["table"], True
+
+
+def make_prefill(model: Model, *, compute_dtype=torch.float32,
+                 attn_impl: str = "chunked", return_cache: bool = False,
+                 s_max: int = 0, cache_dtype=torch.float32):
+    """Prefill step builder.
+
+    Default: ``prefill(params, batch) -> (B, 1, Vp)`` float32 last-position
+    logits of a full-sequence forward (``attn_impl`` as in
+    ``layers.attention``); the padded vocab columns are not masked, as in
+    ``repro``. (``repro``'s ``batch_chunks`` slicing has no caller in the
+    port yet.)
+
+    ``return_cache=True``: the scan anchor. ``prefill(params, batch) ->
+    (last_logits, cache)`` teacher-forces the prompt through
+    ``decode_step`` one position at a time into a fresh dense cache of
+    ``s_max`` rows (scalar pos), which ends at pos == prompt_len."""
+    if return_cache:
+        if s_max <= 0:
+            raise ValueError("return_cache=True requires s_max > 0")
+
+        def prefill_cache(params, batch):
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            cache = model.init_cache(B, s_max, cache_dtype,
+                                     device=tokens.device)
+            logits = torch.zeros((B, 1, model.cfg.padded_vocab),
+                                 device=tokens.device)
+            for t in range(S):
+                logits, cache = model.decode_step(
+                    params, tokens[:, t:t + 1], cache,
+                    compute_dtype=compute_dtype)
+            return logits, cache
+        return prefill_cache
+
+    def prefill(params, batch):
+        feats, _ = model.forward(params, batch["tokens"],
+                                 compute_dtype=compute_dtype,
+                                 attn_impl=attn_impl, return_features=True)
+        w, tied = head_weight(model, params)
+        last = feats[:, -1:]
+        wd = w.to(last.dtype)
+        return (last @ wd.T if tied else last @ wd).float()
+    return prefill
+
+
+def make_prefill_chunk(model: Model, *, compute_dtype=torch.float32,
+                       s_max: int = 0, cache_dtype=torch.float32,
+                       first: bool = False, attn_impl: str = "einsum"):
+    """Parallel chunked prefill into a dense transient request cache.
+
+    ``first=True``: ``first_chunk(params, batch) -> (logits, cache)``
+    creates the (K, s_max) cache and runs the chunk at position 0, where
+    ``attn_impl='pallas'`` sends the attention through the flash kernel.
+    ``first=False``: ``chunk(params, cache, batch) -> (logits, cache)``
+    continues at ``cache['pos']``. The cache is written in place."""
+    if s_max <= 0 and first:
+        raise ValueError("first=True requires s_max > 0")
+
+    def run_chunk(params, cache, batch):
+        return model.prefill_chunk(params, batch["tokens"], cache,
+                                   compute_dtype=compute_dtype,
+                                   attn_impl=attn_impl, first=first)
+
+    if not first:
+        return run_chunk
+
+    def first_chunk(params, batch):
+        tokens = batch["tokens"]
+        cache = model.init_cache(tokens.shape[0], s_max, cache_dtype,
+                                 device=tokens.device)
+        return run_chunk(params, cache, batch)
+    return first_chunk
 
 
 def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.float32,
@@ -27,9 +107,10 @@ def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.float32,
 
 def make_decode_step(model: Model, *, compute_dtype=torch.float32,
                      paged_attn_impl: Optional[str] = None):
-    """One-token decode against the paged cache, updated in place.
+    """One-token decode against the serving cache, updated in place.
     ``paged_attn_impl`` ('kernel' | 'einsum') selects the paged read path;
-    None keeps the model's default (the masked-einsum reference)."""
+    None keeps the model's default (the masked-einsum reference). A dense
+    cache ignores it."""
     extra = {}
     if paged_attn_impl is not None:
         extra["paged_attn_impl"] = paged_attn_impl

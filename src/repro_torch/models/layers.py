@@ -1,14 +1,16 @@
-"""Model layers of the port's serving path: norms, RoPE, the QKV projection,
-paged-KV decode and prefill-chunk attention, the gated MLP, embeddings and
-logits. Counterpart of the same-named functions in ``repro/models/layers.py``
-(same argument layouts and operation order); parameters are dicts of
-tensors.
+"""Model layers of the port: norms, RoPE, the QKV projection, full-sequence
+attention (einsum, chunked, banded, flash kernel), decode and prefill-chunk
+attention against a dense or a paged KV cache, the gated MLP, embeddings
+and logits. Counterpart of the same-named functions in
+``repro/models/layers.py`` (same argument layouts and operation order);
+parameters are dicts of tensors.
 
-Where ``repro`` returns a functionally updated page pool
-(``.at[].set(mode="drop")``), the port writes the pool IN PLACE and returns
-the same tensor. Rows that JAX would drop (freed slots, unallocated pages,
-rows below a prefix write floor) are removed by masking the indices first,
-because ``index_put_`` does not drop out-of-range indices.
+Where ``repro`` returns a functionally updated cache or page pool
+(``dynamic_update_slice``, ``.at[].set(mode="drop")``), the port writes it
+IN PLACE and returns the same tensor. Rows that JAX would drop (freed
+slots, unallocated pages, rows below a prefix write floor) are removed by
+masking first, because ``index_put_`` does not drop out-of-range indices,
+and a slice start is clamped as ``dynamic_update_slice`` clamps it.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class AttnDims:
     qkv_bias: bool = False
     window: int = 0          # 0 = full causal
     rope_theta: float = 10000.0
+    causal: bool = True
 
 
 def attn_init(gen, dims: AttnDims, lead=(), device=None):
@@ -118,8 +121,94 @@ def _qkv(params, x, dims: AttnDims, positions):
     return q, k, v
 
 
+def _mask_bias(q_pos, k_pos, window: int, causal: bool):
+    """(..., Sq, Sk) additive float32 mask from absolute positions: 0 where
+    a key is visible, ``mask_value`` where it is not."""
+    diff = q_pos[..., :, None].long() - k_pos[..., None, :].long()
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    return torch.where(ok, 0.0, mask_value(torch.float32)).float()
+
+
+def _sdpa_einsum(q, k, v, q_pos, k_pos, dims: AttnDims):
+    """Reference attention. q: (B,Sq,H,hd); k, v: (B,Sk,KV,hd). GQA K/V are
+    repeated to H heads, as ``repro`` does, so every tensor carries one
+    head axis."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    scores = torch.einsum("bqhe,bshe->bhqs", q, k).float() / math.sqrt(hd)
+    scores = scores + _mask_bias(q_pos, k_pos, dims.window,
+                                 dims.causal)[:, None]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshe->bqhe", probs, v)
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, dims: AttnDims, q_chunk: int = 1024):
+    """``_sdpa_einsum`` over query chunks of about ``q_chunk`` rows, which
+    bounds live memory to O(q_chunk * Sk). ``repro`` checkpoints each chunk
+    for its backward pass; without autograd a loop is the whole of it."""
+    B, Sq, H, hd = q.shape
+    n_chunks = max(1, Sq // q_chunk)
+    q_chunk = Sq // n_chunks
+    qs = q.reshape(B, n_chunks, q_chunk, H, hd)
+    qp = q_pos.reshape(B, n_chunks, q_chunk)
+    return torch.cat([_sdpa_einsum(qs[:, c], k, v, qp[:, c], k_pos, dims)
+                      for c in range(n_chunks)], dim=1)
+
+
+def _sdpa_banded(q, k, v, dims: AttnDims, q_chunk: int = 1024):
+    """Sliding-window attention over the diagonal band only: each query
+    chunk attends key rows [chunk_start - window, chunk_end), so the work is
+    O(S * (window + chunk)). Positions are the row indices (0..S-1)."""
+    B, Sq, H, hd = q.shape
+    W = dims.window
+    n_chunks = max(1, Sq // q_chunk)
+    q_chunk = Sq // n_chunks
+    dev = q.device
+    outs = []
+    for ci in range(n_chunks):
+        qs = ci * q_chunk
+        ks = max(0, qs - W)
+        ke = qs + q_chunk
+        q_pos = torch.arange(qs, qs + q_chunk, device=dev).expand(B, q_chunk)
+        k_pos = torch.arange(ks, ke, device=dev).expand(B, ke - ks)
+        outs.append(_sdpa_einsum(q[:, qs:qs + q_chunk], k[:, ks:ke],
+                                 v[:, ks:ke], q_pos, k_pos, dims))
+    return torch.cat(outs, dim=1)
+
+
+def attention(params, x, dims: AttnDims, positions, impl: str = "einsum"):
+    """Full-sequence self-attention. ``impl``: 'einsum' (the reference),
+    'chunked' (query chunks; the band only for a causal window), 'banded'
+    or 'pallas' (the flash-attention kernel, ``kernels.ops``). Without a
+    mesh ``repro``'s context-parallel banded form is the banded one, which
+    is what runs here (ROADMAP queue 1 item 12 ports the mesh form)."""
+    q, k, v = _qkv(params, x, dims, positions)
+    k_pos = positions
+    if impl == "banded" or (impl == "chunked" and dims.window > 0
+                            and dims.causal):
+        out = _sdpa_banded(q, k, v, dims)
+    elif impl == "chunked":
+        out = _sdpa_chunked(q, k, v, positions, k_pos, dims)
+    elif impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, causal=dims.causal,
+                                   window=dims.window, q_positions=positions,
+                                   k_positions=k_pos)
+    else:
+        out = _sdpa_einsum(q, k, v, positions, k_pos, dims)
+    B, S, H, hd = out.shape
+    return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+
+
 # Sentinel cache position of an INACTIVE (freed / never-admitted) serving
-# slot: >= any reachable position, so every paged write from such a slot is
+# slot: >= any reachable position, so every cache write from such a slot is
 # dropped and freed rows stay bit-stable.
 INACTIVE_POS = 1 << 30
 
@@ -150,6 +239,91 @@ def _decode_sdpa_local(q, ck, cv, cache_pos, k_positions, window, hd):
     acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype),
                        cv.to(q.dtype)).float()
     return l, acc
+
+
+def _write_row(cache, rows, cache_pos):
+    """The dense decode write, in place: rows (B, KV, hd) land at
+    ``cache[b, cache_pos[b]]`` for a (B,) vector (an out-of-range position,
+    a freed slot's, is dropped as ``.at[].set(mode="drop")`` drops it), or
+    at ``cache[:, cache_pos]`` for an int, clamped into range as
+    ``dynamic_update_slice`` clamps its start."""
+    S = cache.shape[1]
+    if isinstance(cache_pos, int):
+        cache[:, min(max(cache_pos, 0), S - 1)] = rows.to(cache.dtype)
+        return
+    b = torch.arange(cache.shape[0], device=cache.device)
+    pos = cache_pos.long()
+    ok = ((pos >= 0) & (pos < S))[:, None, None]
+    idx = pos.clamp(0, S - 1)
+    cache[b, idx] = torch.where(ok, rows.to(cache.dtype), cache[b, idx])
+
+
+def attention_decode(params, x, dims: AttnDims, cache_k, cache_v, cache_pos,
+                     positions):
+    """Single-token decode against a dense cache, written IN PLACE.
+
+    x: (B, 1, D); cache_k/cache_v: (B, S_max, KV, hd), one layer's slice;
+    cache_pos: a (B,) tensor of per-slot positions (the serving engine) or
+    a scalar (the lockstep scan prefill). The new K/V row is written at
+    each slot's position, then rows at positions <= cache_pos (and inside
+    the window) are attended. Returns (out, cache_k, cache_v)."""
+    q, k, v = _qkv(params, x, dims, positions)
+    B, S_max, KV, hd = cache_k.shape
+    G = dims.num_heads // KV
+    if cache_pos.dim() == 0:
+        cache_pos = int(cache_pos)
+        mask_pos = cache_pos
+    else:
+        mask_pos = cache_pos.long()[:, None]
+    _write_row(cache_k, k[:, 0], cache_pos)
+    _write_row(cache_v, v[:, 0], cache_pos)
+    k_positions = torch.arange(S_max, device=x.device)[None, :]
+    l, acc = _decode_sdpa_local(q.reshape(B, 1, KV, G, hd), cache_k, cache_v,
+                                mask_pos, k_positions, dims.window, hd)
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, dims.num_heads * hd)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+def attention_prefill_chunk(params, x, dims: AttnDims, cache_k, cache_v,
+                            start: int, positions, use_kernel: bool = False):
+    """Prefill-chunk attention against a dense per-request cache, written
+    IN PLACE.
+
+    x: (B, C, D); cache_k/cache_v: (B, S_max, KV, hd); ``start``: the
+    chunk's first position (clamped into range as ``dynamic_update_slice``
+    clamps it); positions: (B, C). The chunk's post-RoPE K/V land in rows
+    [start, start + C); all C queries then attend every row at a position
+    <= theirs. ``use_kernel`` sends the attention through the flash kernel
+    (``kernels.ops.flash_prefill``), which is right only for a first chunk
+    (start == 0), where chunk-local causal attention is the whole mask.
+    Returns (out (B, C, D), cache_k, cache_v)."""
+    q, k, v = _qkv(params, x, dims, positions)
+    B, C, KV, hd = k.shape
+    H = dims.num_heads
+    S_max = cache_k.shape[1]
+    s = min(max(int(start), 0), S_max - C)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        out, k, v = kops.flash_prefill(q, k, v, causal=dims.causal,
+                                       window=dims.window)
+        out = out.reshape(B, C, H * hd)
+    cache_k[:, s:s + C] = k.to(cache_k.dtype)
+    cache_v[:, s:s + C] = v.to(cache_v.dtype)
+    if not use_kernel:
+        qg = q.reshape(B, C, KV, H // KV, hd)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg, cache_k.to(q.dtype)
+                              ).float() / math.sqrt(hd)
+        k_pos = torch.arange(S_max, device=x.device)
+        valid = k_pos[None, None, :] <= positions[:, :, None]      # (B,C,S)
+        if dims.window > 0:
+            valid &= k_pos[None, None, :] > positions[:, :, None] - dims.window
+        scores = torch.where(valid[:, None, None, :, :], scores,
+                             mask_value(scores.dtype))
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgqs,bskh->bqkgh", probs, cache_v.to(q.dtype)
+                           ).reshape(B, C, H * hd)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v
 
 
 # ------------------------------------------------------- paged KV

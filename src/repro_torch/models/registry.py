@@ -1,12 +1,15 @@
-"""Model facade and the paged serving cache, as in
-``repro/models/registry.py``. The port serves the dense family; every other
-family raises ``NotImplementedError`` naming its ROADMAP item.
+"""Model facade and the serving caches, as in ``repro/models/registry.py``.
+The port serves the dense family; every other family raises
+``NotImplementedError`` naming its ROADMAP item.
 
-Paged cache convention (shared with ``repro``): the K/V leaves are shared
-page pools (L, num_pages, page_size, KV, hd) with no batch axis, addressed
-through a "block_tables" leaf (B, max_pages_per_slot) int32 (-1 =
-unallocated), and "pos" is a (B,) int32 per-slot position vector that
-starts at ``layers.INACTIVE_POS`` for every slot.
+Cache conventions (shared with ``repro``). DENSE: "k"/"v" are (L, B, S,
+KV, hd) and "pos" is a scalar (a lockstep batch, a transient prefill
+cache) or a (B,) int32 per-slot vector (the serving cache). PAGED: the K/V
+leaves are shared page pools (L, num_pages, page_size, KV, hd) with no
+batch axis, addressed through a "block_tables" leaf (B,
+max_pages_per_slot) int32 (-1 = unallocated). A serving slot's "pos"
+starts at ``layers.INACTIVE_POS``; its writes are dropped until it is
+admitted. The splices below write the resident cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -32,8 +35,14 @@ class Model:
                    device=None):
         return self.mod.init_cache(self.cfg, batch, s_max, dtype, device)
 
+    def forward(self, params, tokens, **kw):
+        return self.mod.forward(params, self.cfg, tokens, **kw)
+
     def decode_step(self, params, token, cache, **kw):
         return self.mod.decode_step(params, self.cfg, token, cache, **kw)
+
+    def prefill_chunk(self, params, tokens, cache, **kw):
+        return self.mod.prefill_chunk(params, self.cfg, tokens, cache, **kw)
 
     def prefill_chunk_paged(self, params, tokens, cache, **kw):
         return self.mod.prefill_chunk_paged(params, self.cfg, tokens, cache,
@@ -43,6 +52,79 @@ class Model:
 def get_model(cfg: ArchConfig) -> Model:
     transformer._check_supported(cfg)
     return Model(cfg=cfg, mod=transformer)
+
+
+def vectorize_cache_pos(cache, batch: int, inactive: bool = False):
+    """Scalar-pos cache (init_cache output) -> per-slot (B,) positions for
+    continuous-batching decode; ``inactive=True`` starts every slot at
+    INACTIVE_POS (nothing admitted yet)."""
+    pos = cache["pos"]
+    if pos.dim() == 0:
+        fill = INACTIVE_POS if inactive else int(pos)
+        cache["pos"] = torch.full((batch,), fill, dtype=torch.int32,
+                                  device=pos.device)
+    return cache
+
+
+def insert_cache_rows(cache, request_cache, slots):
+    """Write a batch-K transient prefill cache into rows ``slots`` ((K,)
+    int64 tensor) of a dense serving cache, in place; other slots are
+    untouched bit for bit. Returns ``cache``."""
+    for key, leaf in cache.items():
+        req = request_cache[key]
+        if key == "pos":            # a scalar (all K at prompt_len) or (K,)
+            leaf[slots] = req.to(leaf.dtype)
+        else:
+            leaf[:, slots] = req.to(leaf.dtype)
+    return cache
+
+
+def insert_cache_rows_paged(cache, request_cache, slots, phys_rows):
+    """Paged twin of insert_cache_rows: splice a batch-K dense transient
+    cache into the page pools, in place. ``phys_rows``: (K, C) int64 map
+    from each request's logical row to a flattened pool row (page *
+    page_size + offset); entries >= num_pages * page_size (rows past the
+    request's reservation, or below a prefix write floor) are dropped.
+    "pos" splices as in the dense path; "block_tables" belongs to the
+    engine. Returns ``cache``."""
+    for key, leaf in cache.items():
+        if key == "block_tables":
+            continue
+        req = request_cache[key]
+        if key in ("k", "v"):
+            Lr, P, ps = leaf.shape[:3]
+            flat = leaf.view((Lr, P * ps) + tuple(leaf.shape[3:]))
+            C = phys_rows.shape[1]
+            keep = (phys_rows >= 0) & (phys_rows < P * ps)
+            flat[:, phys_rows[keep]] = req[:, :, :C][:, keep].to(leaf.dtype)
+        elif key == "pos":
+            leaf[slots] = req.to(leaf.dtype)
+        else:
+            leaf[:, slots] = req.to(leaf.dtype)
+    return cache
+
+
+def seed_prefix_cache(model: Model, cache, phys_rows, row_ok, pos,
+                      s_max: int, dtype=torch.float32):
+    """A dense batch-K transient prefill cache whose leading rows are
+    GATHERED from a paged cache's pools: a prefix-cache hit on the
+    transient path starts from the cached prefix and runs only the tail.
+    ``phys_rows``: (K, s_max) int64 flattened pool rows; ``row_ok`` masks
+    the rows past the cached prefix (zeros, as in a fresh cache, and
+    causally invisible to the tail); ``pos``: the position the tail starts
+    at."""
+    K = phys_rows.shape[0]
+    out = model.init_cache(K, s_max, dtype, device=cache["k"].device)
+    idx = torch.where(row_ok, phys_rows, 0)
+    for key in ("k", "v"):
+        pool = cache[key]                   # (L, P, ps, KV, hd)
+        Lr, P, ps = pool.shape[:3]
+        rows = pool.view((Lr, P * ps) + tuple(pool.shape[3:]))[:, idx]
+        out[key] = torch.where(row_ok[None, :, :, None, None], rows,
+                               0.0).to(out[key].dtype)
+    out["pos"] = torch.tensor(int(pos), dtype=torch.int32,
+                              device=cache["k"].device)
+    return out
 
 
 def cache_capacity(cfg: ArchConfig, s_max: int) -> int:

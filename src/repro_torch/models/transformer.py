@@ -1,12 +1,15 @@
-"""Decoder-only transformer LM, dense family, on the paged serving path.
-Counterpart of ``repro/models/transformer.py``: layer parameters are
-stacked along a leading L axis as in ``repro``, and a Python loop over
-layers takes the place of ``lax.fori_loop``; each layer's slice of the page
-pools is a view, so the in-place page writes land in the cache itself.
+"""Decoder-only transformer LM, dense family: the full-sequence forward and
+serving over a dense or a paged KV cache. Counterpart of
+``repro/models/transformer.py``: layer parameters are stacked along a
+leading L axis as in ``repro``, and a Python loop over layers takes the
+place of ``lax.scan`` / ``lax.fori_loop``; each layer's slice of the cache
+is a view, so the in-place writes land in the cache itself.
 
 Public API (used by models.registry):
     init(cfg, gen, device)                        -> params
-    init_cache(cfg, batch, s_max, dtype, device)  -> dense cache (shapes)
+    forward(params, cfg, tokens, ...)             -> logits, aux
+    init_cache(cfg, batch, s_max, dtype, device)  -> dense cache
+    prefill_chunk(params, cfg, tokens, cache, ...) -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, cache, ...) -> logits, cache
     decode_step(params, cfg, token, cache, ...)   -> logits, cache
 """
@@ -60,10 +63,33 @@ def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     return params
 
 
+def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
+            attn_impl: str = "einsum", return_features: bool = False):
+    """tokens: (B, S) at positions 0..S-1 -> (logits (B, S, Vp) float32,
+    aux), or (features after the final norm, aux) with
+    ``return_features``. ``attn_impl`` is ``layers.attention``'s. ``aux``
+    holds the MoE losses ``repro`` returns, zero for the dense family."""
+    B, S = tokens.shape
+    x = L.embed_lookup(params["embed"], tokens, compute_dtype)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    dims = _attn_dims(cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        x = x + L.attention(lp["attn"], L.rmsnorm(x, lp["ln1"]["scale"]),
+                            dims, positions, impl=attn_impl)
+        x = x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+    zero = torch.zeros((), device=x.device)
+    aux = {"moe_aux": zero, "moe_z": zero}
+    if return_features:
+        return L.rmsnorm(x, params["final_norm"]["scale"]), aux
+    return _logits(params, cfg, x), aux
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                dtype=torch.float32, device=None):
-    """Dense per-slot cache; the paged cache (registry.init_paged_cache)
-    takes its shapes from here (on the ``meta`` device)."""
+    """Dense per-slot cache (L, batch, s_max, KV, hd) with a scalar ``pos``;
+    the paged cache (registry.init_paged_cache) takes its shapes from here
+    (on the ``meta`` device)."""
     _check_supported(cfg)
     shape = (cfg.num_layers, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -80,6 +106,59 @@ def _logits(params, cfg: ArchConfig, x):
     x = L.rmsnorm(x, params["final_norm"]["scale"])
     w_un = params["unembed"]["w"] if not cfg.tie_embeddings else None
     return L.lm_logits(params["embed"], x, w_un, vocab=cfg.vocab_size).float()
+
+
+def _decode_layer(cfg: ArchConfig, lp, x, ck, cv, pos, positions,
+                  block_tables=None, paged_impl: str = "einsum"):
+    """One decode layer; ck/cv are one layer's dense cache (B, S_max, KV,
+    hd) or, with ``block_tables``, its (P, ps, KV, hd) page pool slice."""
+    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    if block_tables is not None:
+        out, _, _ = L.attention_decode_paged(
+            lp["attn"], h, _attn_dims(cfg), ck, cv, block_tables, pos,
+            positions, impl=paged_impl)
+    else:
+        out, _, _ = L.attention_decode(lp["attn"], h, _attn_dims(cfg), ck, cv,
+                                       pos, positions)
+    x = x + out
+    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+
+
+def _prefill_chunk_layer(cfg: ArchConfig, lp, x, ck, cv, start: int,
+                         positions, use_kernel: bool):
+    """One layer over a whole prompt chunk against a dense per-request
+    cache: ``_decode_layer``'s math at the chunk's width."""
+    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    out, _, _ = L.attention_prefill_chunk(lp["attn"], h, _attn_dims(cfg), ck,
+                                          cv, start, positions,
+                                          use_kernel=use_kernel)
+    x = x + out
+    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens, cache, *,
+                  compute_dtype=torch.float32, attn_impl: str = "einsum",
+                  first: bool = False):
+    """One prompt chunk into a dense per-request cache, at full width.
+
+    tokens: (B, C), consecutive positions from ``cache["pos"]`` (from 0 for
+    a ``first`` chunk). Each layer writes the chunk's K/V rows into the
+    cache in place and attends every row up to each query's position; a
+    first chunk with ``attn_impl='pallas'`` attends through the flash
+    kernel. Returns (last-position logits (B, 1, Vp) float32, cache with
+    ``pos`` advanced by C)."""
+    B, C = tokens.shape
+    start = 0 if first else int(cache["pos"])
+    positions = start + torch.arange(C, device=tokens.device).expand(B, C)
+    use_kernel = first and attn_impl == "pallas"
+    x = L.embed_lookup(params["embed"], tokens, compute_dtype)
+    for i in range(cfg.num_layers):
+        x = _prefill_chunk_layer(cfg, _layer(params["layers"], i), x,
+                                 cache["k"][i], cache["v"][i], start,
+                                 positions, use_kernel)
+    cache["pos"] = torch.tensor(start + C, dtype=torch.int32,
+                                device=tokens.device)
+    return _logits(params, cfg, x[:, -1:]), cache
 
 
 def prefill_chunk_paged(params, cfg: ArchConfig, tokens, cache, *, bt_rows,
@@ -114,27 +193,19 @@ def prefill_chunk_paged(params, cfg: ArchConfig, tokens, cache, *, bt_rows,
 def decode_step(params, cfg: ArchConfig, token, cache, *,
                 compute_dtype=torch.float32, paged_attn_impl: str = "einsum"):
     """token: (B, 1). Returns (logits (B, 1, Vp) float32, cache with pos
-    advanced by one). The cache must be PAGED (registry.init_paged_cache):
-    "k"/"v" are (L, P, page_size, KV, hd) page pools, written in place, and
-    attention reads them through the block tables — via the paged-attention
-    kernel with ``paged_attn_impl='kernel'``, the masked-einsum reference
-    otherwise."""
-    if "block_tables" not in cache:
-        raise NotImplementedError("decode from a dense cache is not ported "
-                                  "yet (ROADMAP queue 1 item 4)")
+    advanced by one); the cache is written in place. ``cache["pos"]`` is a
+    scalar (lockstep) or a (B,) per-slot vector. A cache with a
+    "block_tables" leaf is PAGED (registry.init_paged_cache): "k"/"v" are
+    (L, P, page_size, KV, hd) page pools read through the block tables —
+    via the paged-attention kernel with ``paged_attn_impl='kernel'``, the
+    masked-einsum reference otherwise."""
     B = token.shape[0]
     pos = cache["pos"]
-    bt = cache["block_tables"]
+    bt = cache.get("block_tables")
     positions = L.decode_positions(pos, B)
     x = L.embed_lookup(params["embed"], token, compute_dtype)
-    dims = _attn_dims(cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        h = L.rmsnorm(x, lp["ln1"]["scale"])
-        out, _, _ = L.attention_decode_paged(
-            lp["attn"], h, dims, cache["k"][i], cache["v"][i], bt, pos,
-            positions, impl=paged_attn_impl)
-        x = x + out
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+        x = _decode_layer(cfg, _layer(params["layers"], i), x, cache["k"][i],
+                          cache["v"][i], pos, positions, bt, paged_attn_impl)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache

@@ -129,9 +129,7 @@ class ServeConfig:
 
     def engine_kwargs(self) -> dict:
         """The ``ServeEngine.__init__`` keyword subset (build() resolves
-        reduced, quantize_int8, tp and cfg_overrides itself;
-        ``prefill_attn_impl`` selects the transient prefill path, which is
-        not ported)."""
+        reduced, quantize_int8, tp and cfg_overrides itself)."""
         return dict(
             batch_slots=self.batch_slots, s_max=self.s_max,
             compute_dtype=self.compute_dtype, temperature=self.temperature,
@@ -139,5 +137,6 @@ class ServeConfig:
             num_pages=self.num_pages, kv_backend=self.kv_backend,
             prefix_cache=self.prefix_cache, prefill_mode=self.prefill_mode,
             prefill_chunk_tokens=self.prefill_chunk_tokens,
+            prefill_attn_impl=self.prefill_attn_impl,
             paged_attn_impl=self.paged_attn_impl, policy=self.policy,
             device=self.device)

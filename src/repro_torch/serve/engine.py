@@ -1,27 +1,37 @@
-"""Continuous-batching serve engine over a paged fp32 KV cache — the port of
-``repro/serve/engine.py`` on its main path:
+"""Continuous-batching serve engine over a dense or a paged fp32 KV cache —
+the port of ``repro/serve/engine.py``, greedy and FIFO:
 
-* **Paged KV.** K/V live in a shared page pool (L, num_pages, page_size,
-  KV, hd) addressed through per-slot block tables; a host-side refcounted
-  ``PageAllocator`` hands pages out at admission (the request's worst case,
-  all or nothing) and takes them back on completion. Admission peeks and
-  defers in strict FIFO order when the free list is short.
-* **Parallel chunked prefill, incremental splice.** Prompts are ingested
-  in bucketed chunks (the chunk size and the powers of two below it), at
-  most ``prefill_chunk_tokens`` positions between two decode ticks. Each
-  chunk writes its K/V straight into the group's reserved pages and attends
-  them through the block table — through the paged-attention kernel on the
-  card — so completion only flips the group's positions.
-* **Prefix cache (on by itself).** Completed prompt pages are chain-hashed
-  into a ``PrefixIndex``; admission aliases the longest cached page-aligned
-  prefix into the block table and runs only the uncached tail. A partial
-  hit gets a fresh page into which the shared rows are copied
-  (copy-on-write); LRU index-only pages are evicted before admission
+* **The cache.** ``page_size=None`` (the default) keeps per-slot (B, s_max)
+  rows. With a page size, K/V live in a shared page pool (L, num_pages,
+  page_size, KV, hd) addressed through per-slot block tables; a host-side
+  refcounted ``PageAllocator`` hands pages out at admission (the request's
+  worst case, all or nothing) and takes them back on completion. Admission
+  peeks and defers in strict FIFO order when the free list is short.
+* **Parallel chunked prefill.** Prompts are ingested in bucketed chunks
+  (the chunk size and the powers of two below it), at most
+  ``prefill_chunk_tokens`` positions between two decode ticks. With the
+  paged-attention kernel (``paged_attn_impl`` 'kernel', the 'auto' choice
+  for multi-page slots) each chunk writes its K/V straight into the group's
+  pages (the incremental splice), so completion only flips the group's
+  positions. Otherwise (the dense cache, 'einsum', ``page_size == s_max``)
+  the chunks fill a transient dense request cache — the first chunk
+  through the flash-attention kernel with ``prefill_attn_impl`` 'pallas',
+  the 'auto' choice on the card — which completion splices into the
+  group's rows or pages.
+* **Scan prefill** (``prefill_mode='scan'``): the prompt is teacher-forced
+  through ``decode_step`` at admission, the bit-exactness anchor.
+* **Prefix cache (on by itself when paged with parallel prefill).**
+  Completed prompt pages are chain-hashed into a ``PrefixIndex``; admission
+  aliases the longest cached page-aligned prefix into the block table and
+  runs only the uncached tail. A partial hit's shared rows are copied into
+  a fresh page (copy-on-write), by the pool copy on the incremental path
+  and by the completion splice on the transient one (whose cache is seeded
+  from the pages); LRU index-only pages are evicted before admission
   defers.
 * **Greedy decode.** One decode tick per step for every running slot, then
   ``argmax`` (the first index on ties, like ``jnp.argmax``). Freed slots
-  are parked at ``layers.INACTIVE_POS`` with an all--1 block table, so their
-  writes drop and their attention output is exactly 0.
+  are parked at ``layers.INACTIVE_POS`` (and, paged, an all--1 block
+  table), so their writes drop.
 
 Everything else ``repro``'s engine does raises ``NotImplementedError``
 naming its ROADMAP item. A failing kernel build or launch raises out of
@@ -30,6 +40,7 @@ naming its ROADMAP item. A failing kernel build or launch raises out of
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,12 +52,15 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models.layers import INACTIVE_POS
 from repro_torch.models.registry import Model, get_model, reduced_config
 from repro_torch.serve.config import ServeConfig, resolve_device
-from repro_torch.serve.kvcache import (PREFIX_CACHE_FAMILIES, KVBackend,
+from repro_torch.serve.kvcache import (PAGED_KERNEL_FAMILIES,
+                                       PREFIX_CACHE_FAMILIES, KVBackend,
                                        make_backend)
 from repro_torch.serve.metrics import MetricsRecorder
 from repro_torch.serve.prefix import PrefixIndex, PrefixPlan
 from repro_torch.serve.scheduler import (Request, RequestState, SchedPolicy,
                                          Scheduler)
+
+log = logging.getLogger("repro_torch.serve.engine")
 
 
 def chunk_ladder(chunk_tokens: int) -> List[int]:
@@ -75,10 +89,12 @@ def chunk_plan(prompt_len: int, ladder: List[int]) -> List[int]:
 @dataclasses.dataclass
 class _PrefillJob:
     """One in-flight chunked prefill: K same-length requests ingested
-    jointly into their reserved pages. ``prompts`` holds only the TAIL the
-    chunks compute (positions ``tail_start`` onward); ``write_floor`` is
-    the first cache row the chunks may write — rows below it live in
-    shared immutable prefix pages."""
+    jointly. ``cache`` is the transient dense request cache (None on the
+    incremental path, and until the first chunk runs unless a prefix hit
+    seeded it). ``prompts`` holds only the TAIL the chunks compute
+    (positions ``tail_start`` onward); ``write_floor`` is the first cache
+    row the chunks or the completion splice may write — rows below it live
+    in shared immutable prefix pages."""
     slots: List[int]
     reqs: List[Request]
     prompts: np.ndarray            # (K, P - tail_start) uncached tail tokens
@@ -88,6 +104,7 @@ class _PrefillJob:
     tail_start: int = 0            # first prompt position the chunks compute
     write_floor: int = 0
     prefix_plans: Optional[List[PrefixPlan]] = None
+    cache: Optional[dict] = None
 
 
 class PageAllocator:
@@ -143,9 +160,11 @@ def _not_ported(what: str, item: str):
 
 
 class ServeEngine:
-    """Slot-based continuous-batching engine over the paged fp32 cache,
-    greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
-    passed)."""
+    """Slot-based continuous-batching engine over a dense or paged fp32
+    cache, greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
+    passed). ``prefill_attn_impl='auto'`` resolves to the flash-attention
+    kernel ('pallas') on the card and to the einsum reference on the CPU,
+    as ``repro`` resolves it on and off the TPU."""
 
     def __init__(self, model: Model, params, *, batch_slots: int, s_max: int,
                  compute_dtype=torch.float32,
@@ -156,6 +175,7 @@ class ServeEngine:
                  prefix_cache: Optional[bool] = None,
                  prefill_mode: str = "parallel",
                  prefill_chunk_tokens: int = 64,
+                 prefill_attn_impl: str = "auto",
                  paged_attn_impl: str = "auto",
                  scheduler: Optional[Scheduler] = None,
                  metrics: Optional[MetricsRecorder] = None,
@@ -180,8 +200,6 @@ class ServeEngine:
                              f"'einsum', got {paged_attn_impl!r}")
         if float(temperature) > 0.0:
             raise _not_ported("sampling at temperature > 0", "6")
-        if prefill_mode == "scan":
-            raise _not_ported("prefill_mode='scan'", "4")
         if policy is not None and policy != SchedPolicy():
             raise _not_ported("a non-default SchedPolicy", "8")
         if self.cfg.family != Family.DENSE:
@@ -189,53 +207,90 @@ class ServeEngine:
                               "5" if self.cfg.family in (
                                   Family.MOE, Family.VLM, Family.ENCDEC)
                               else "9")
-        if page_size is None:
-            raise _not_ported("the dense (unpaged) cache", "4")
-        if s_max % page_size:
-            raise ValueError(f"s_max {s_max} must be a multiple of "
-                             f"page_size {page_size}")
+        self.prefill_mode = prefill_mode
         self.prefill_chunk_tokens = min(int(prefill_chunk_tokens), s_max)
         self.prefill_ladder = chunk_ladder(self.prefill_chunk_tokens)
+        if prefill_attn_impl == "auto":
+            prefill_attn_impl = ("pallas" if self.device.type == "cuda"
+                                 else "einsum")
+        self.prefill_attn_impl = prefill_attn_impl
         self.scheduler = Scheduler() if scheduler is None else scheduler
         self.metrics = MetricsRecorder() if metrics is None else metrics
         self._jobs: List[_PrefillJob] = []
 
         self.page_size = page_size
-        self.max_pages_per_slot = s_max // page_size
-        self.num_pages = (num_pages if num_pages is not None
-                          else batch_slots * self.max_pages_per_slot)
-        self.backend: KVBackend = make_backend(
-            kv_backend, family=self.cfg.family, page_size=page_size,
-            num_pages=self.num_pages)
-        self.capacity = self.backend.capacity(self.cfg, s_max)
-        self.allocator = PageAllocator(self.num_pages)
-        self.slot_pages: List[List[int]] = [[] for _ in range(batch_slots)]
-        self._bt_host = np.full((batch_slots, self.max_pages_per_slot), -1,
-                                np.int32)
+        self.paged = page_size is not None
+        if self.paged:
+            if s_max % page_size:
+                raise ValueError(f"s_max {s_max} must be a multiple of "
+                                 f"page_size {page_size}")
+            self.max_pages_per_slot = s_max // page_size
+            self.num_pages = (num_pages if num_pages is not None
+                              else batch_slots * self.max_pages_per_slot)
+            self.backend: KVBackend = make_backend(
+                kv_backend, family=self.cfg.family, page_size=page_size,
+                num_pages=self.num_pages)
+            self.capacity = self.backend.capacity(self.cfg, s_max)
+            self.allocator = PageAllocator(self.num_pages)
+            self.slot_pages: List[List[int]] = [[] for _ in
+                                                range(batch_slots)]
+            self._bt_host = np.full((batch_slots, self.max_pages_per_slot),
+                                    -1, np.int32)
+        else:
+            self.backend = make_backend(kv_backend, family=self.cfg.family)
+        self.cache = self.backend.init_cache(model, batch_slots, s_max,
+                                             compute_dtype, self.device)
 
-        supported = self.cfg.family in PREFIX_CACHE_FAMILIES
-        self.prefix_cache = supported if prefix_cache is None else bool(
-            prefix_cache and supported)
+        # prefix cache: paged + parallel prefill + an attention-only family
+        # (None = on where supported; an explicit True elsewhere warns and
+        # falls back to full prefill, as repro does)
+        supported = (self.paged and prefill_mode == "parallel"
+                     and self.cfg.family in PREFIX_CACHE_FAMILIES)
+        if prefix_cache is None:
+            prefix_cache = supported
+        elif prefix_cache and not supported:
+            log.warning("prefix_cache unsupported here (needs paged cache, "
+                        "parallel prefill, and a dense/MoE/VLM family; got "
+                        "paged=%s mode=%s family=%s) — falling back to full "
+                        "prefill", self.paged, prefill_mode, self.cfg.family)
+            prefix_cache = False
+        self.prefix_cache = bool(prefix_cache)
         self.prefix_index = (PrefixIndex(self.allocator, self.page_size)
                              if self.prefix_cache else None)
 
+        kernel_ok = self.paged and self.cfg.family in PAGED_KERNEL_FAMILIES
         if paged_attn_impl == "auto":
-            paged_attn_impl = self.backend.resolve_attn_impl(
+            # the one-page-per-slot config (page_size == s_max) stays on the
+            # einsum path: it is the dense bit-exactness anchor
+            paged_attn_impl = (self.backend.resolve_attn_impl(
                 self.cfg.family, self.max_pages_per_slot > 1)
-        if paged_attn_impl != "kernel":
-            # the einsum read path prefills through a transient request
-            # cache and a completion splice (the page_size == s_max anchor)
-            raise _not_ported("the einsum/transient prefill path "
-                              "(paged_attn_impl='einsum', page_size == "
-                              "s_max)", "4")
+                if self.paged else "einsum")
+        elif paged_attn_impl == "kernel" and not kernel_ok:
+            log.warning("paged_attn_impl='kernel' unsupported here (needs a "
+                        "paged cache on a dense/MoE/VLM/encdec family; got "
+                        "paged=%s family=%s) — using the masked-einsum path",
+                        self.paged, self.cfg.family)
+            paged_attn_impl = "einsum"
         self.paged_attn_impl = paged_attn_impl
+        # incremental splice: chunks write K/V straight into their pages and
+        # attend them through the block table; no transient request cache
+        self.incremental_splice = (self.paged and prefill_mode == "parallel"
+                                   and paged_attn_impl == "kernel")
+        self.max_transient_cache_bytes = 0
         self._decode = steps_mod.make_decode_step(
             model, compute_dtype=compute_dtype,
-            paged_attn_impl=paged_attn_impl)
-        self._chunk = steps_mod.make_prefill_chunk_paged(
+            paged_attn_impl=paged_attn_impl if self.paged else None)
+        self._chunk_paged = steps_mod.make_prefill_chunk_paged(
             model, compute_dtype=compute_dtype, attn_impl=paged_attn_impl)
-        self.cache = self.backend.init_cache(model, batch_slots, s_max,
-                                             compute_dtype, self.device)
+        self._chunk_first = steps_mod.make_prefill_chunk(
+            model, compute_dtype=compute_dtype, s_max=s_max,
+            cache_dtype=compute_dtype, first=True,
+            attn_impl=prefill_attn_impl)
+        self._chunk_cont = steps_mod.make_prefill_chunk(
+            model, compute_dtype=compute_dtype, attn_impl=prefill_attn_impl)
+        self._prefill_scan = steps_mod.make_prefill(
+            model, compute_dtype=compute_dtype, return_cache=True,
+            s_max=s_max, cache_dtype=compute_dtype)
 
         # (head rid, free pages, index version) at the last deferral: admit()
         # short-circuits while nothing that could change the outcome moved
@@ -296,6 +351,43 @@ class ServeEngine:
     def _upload_block_tables(self):
         self.cache["block_tables"].copy_(torch.from_numpy(self._bt_host))
 
+    def _phys_rows(self, slots: List[int], floor: int = 0) -> np.ndarray:
+        """(K, capacity) flattened pool row per logical cache row of a
+        prefill group; rows beyond a slot's reservation, and rows below
+        ``floor`` (shared immutable prefix pages), map out of bounds and
+        are dropped by the paged splice."""
+        ps = self.page_size
+        C = self.capacity
+        oob = self.num_pages * ps
+        phys = np.full((len(slots), C), oob, np.int64)
+        j = np.arange(C)
+        for i, slot in enumerate(slots):
+            pages = np.asarray(self.slot_pages[slot], np.int64)
+            cov = min(C, len(pages) * ps)
+            phys[i, :cov] = pages[j[:cov] // ps] * ps + j[:cov] % ps
+        if floor > 0:
+            phys[:, :min(floor, C)] = oob
+        return phys
+
+    def _prefix_gather_rows(self, plans: List[PrefixPlan], cached_len: int):
+        """(K, s_max) flattened pool rows and validity mask covering each
+        request's cached prefix: rows [0, cached_len) map through the hit's
+        full pages and a partial hit's copy-on-write SOURCE page (not the
+        fresh page the block table holds in its place)."""
+        ps = self.page_size
+        K = len(plans)
+        phys = np.zeros((K, self.s_max), np.int64)
+        ok = np.zeros((K, self.s_max), bool)
+        j = np.arange(cached_len)
+        for i, plan in enumerate(plans):
+            pages = list(plan.shared_pages)
+            if plan.partial is not None:
+                pages.append(plan.partial[0])
+            pages = np.asarray(pages, np.int64)
+            phys[i, :cached_len] = pages[j // ps] * ps + j % ps
+            ok[i, :cached_len] = True
+        return phys, ok
+
     # ------------------------------------------------------------ lifecycle
     def submit(self, prompt, gen_len: int, priority: int = 0) -> Request:
         """Enqueue a request; admission happens on the next step()/run().
@@ -315,11 +407,12 @@ class ServeEngine:
             raise ValueError(
                 f"prompt_len {len(prompt)} + gen_len {gen_len} does not fit "
                 f"s_max {self.s_max}; raise s_max or shorten the request")
-        need = self._pages_for_rows(rows)
-        if need > self.num_pages:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.num_pages}; grow num_pages")
+        if self.paged:
+            need = self._pages_for_rows(rows)
+            if need > self.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool only has "
+                    f"{self.num_pages}; grow num_pages")
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, gen_len=int(gen_len),
@@ -348,56 +441,63 @@ class ServeEngine:
     def admit(self) -> int:
         """Admit waiting requests into free slots; returns #admitted.
 
-        Admission PEEKS before popping: when the free list cannot cover the
-        head request's worst case (after LRU eviction of index-only prefix
-        pages), it stops and the head stays queued. With the prefix cache,
-        the longest cached page-aligned prefix aliases into the block table
-        and only the rest is freshly allocated. Admitted requests are
-        grouped by (prompt_len, cached_len) into chunked prefill jobs."""
+        Paged admission PEEKS before popping: when the free list cannot
+        cover the head request's worst case (after LRU eviction of
+        index-only prefix pages), it stops and the head stays queued. With
+        the prefix cache, the longest cached page-aligned prefix aliases
+        into the block table and only the rest is freshly allocated.
+        Admitted requests are grouped by (prompt_len, cached_len): in
+        ``parallel`` mode each group becomes a chunked prefill job, in
+        ``scan`` mode it is prefilled here in one teacher-forced pass."""
         pairs = []
         plans: Dict[int, Optional[PrefixPlan]] = {}
         for slot in self.free_slots:
             req = self.scheduler.peek()
             if req is None:
                 break
-            defer_state = (req.rid, self.allocator.free,
-                           self.prefix_index.version
-                           if self.prefix_index is not None else 0)
-            if defer_state == self._defer_state:
-                break       # same head, same pages, same index: still short
             plan = None
-            shared: List[int] = []
-            refs: List[int] = []
-            if self.prefix_index is not None:
-                plan = self.prefix_index.lookup(req.prompt)
-                shared = list(plan.shared_pages)
-                # ref every page the plan READS (aliases and the partial COW
-                # source) so eviction for a later slot in this loop cannot
-                # free them; the partial ref drops after the COW copy
-                refs = shared + ([plan.partial[0]] if plan.partial else [])
-                for pg in refs:
-                    self.allocator.share(pg)
-            need = self._pages_needed(req) - len(shared)
-            fresh = self.allocator.alloc(need)
-            if fresh is None and self.prefix_index is not None:
-                evicted = self.prefix_index.evict(need - self.allocator.free)
-                if evicted:
-                    self.metrics.on_prefix_evict(evicted)
+            if self.paged:
+                defer_state = (req.rid, self.allocator.free,
+                               self.prefix_index.version
+                               if self.prefix_index is not None else 0)
+                if defer_state == self._defer_state:
+                    break   # same head, same pages, same index: still short
+                shared: List[int] = []
+                refs: List[int] = []
+                if self.prefix_index is not None:
+                    plan = self.prefix_index.lookup(req.prompt)
+                    shared = list(plan.shared_pages)
+                    # ref every page the plan READS (aliases and the partial
+                    # COW source) so eviction for a later slot in this loop
+                    # cannot free them; the partial ref drops after the COW
+                    # copy (or the transient path's seed gather)
+                    refs = shared + ([plan.partial[0]] if plan.partial
+                                     else [])
+                    for pg in refs:
+                        self.allocator.share(pg)
+                need = self._pages_needed(req) - len(shared)
                 fresh = self.allocator.alloc(need)
-            if fresh is None:
-                if refs:
-                    self.allocator.release(refs)
-                self._defer_state = (req.rid, self.allocator.free,
-                                     self.prefix_index.version
-                                     if self.prefix_index is not None else 0)
-                break
-            if plan is not None:
-                self.metrics.on_prefix_lookup(plan.cached_len, len(shared),
-                                              plan.cow)
-            pages = shared + fresh
-            self.slot_pages[slot] = pages
-            self._bt_host[slot, :] = -1
-            self._bt_host[slot, :len(pages)] = pages
+                if fresh is None and self.prefix_index is not None:
+                    evicted = self.prefix_index.evict(
+                        need - self.allocator.free)
+                    if evicted:
+                        self.metrics.on_prefix_evict(evicted)
+                    fresh = self.allocator.alloc(need)
+                if fresh is None:
+                    if refs:
+                        self.allocator.release(refs)
+                    self._defer_state = (req.rid, self.allocator.free,
+                                         self.prefix_index.version
+                                         if self.prefix_index is not None
+                                         else 0)
+                    break
+                if plan is not None:
+                    self.metrics.on_prefix_lookup(plan.cached_len,
+                                                  len(shared), plan.cow)
+                pages = shared + fresh
+                self.slot_pages[slot] = pages
+                self._bt_host[slot, :] = -1
+                self._bt_host[slot, :len(pages)] = pages
             self.scheduler.next_request()       # pop the peeked head
             req.state = RequestState.PREFILLING
             req.slot = slot
@@ -406,7 +506,7 @@ class ServeEngine:
             self.metrics.on_prefill(req.rid, len(req.prompt))
             plans[slot] = plan
             pairs.append((slot, req))
-        if pairs:
+        if self.paged and pairs:
             self._upload_block_tables()
         groups: Dict[tuple, list] = {}
         for slot, req in pairs:
@@ -415,6 +515,9 @@ class ServeEngine:
             groups.setdefault((len(req.prompt), cached), []).append(
                 (slot, req))
         for (plen, cached), group in groups.items():
+            if self.prefill_mode == "scan":
+                self._prefill_group_scan(group)
+                continue
             # at least one position always runs: the last prompt position's
             # logits sample the first token, so a full hit recomputes it
             tail_start = min(cached, plen - 1)
@@ -429,9 +532,32 @@ class ServeEngine:
                 prefix_plans=([plans[s] for s, _ in group]
                               if self.prefix_index is not None else None))
             if cached:
-                self._cow_materialise_job(job, cached)
+                if self.incremental_splice:
+                    # aliased full pages are read in place by the paged
+                    # chunk attention: only a partial hit's page is copied
+                    self._cow_materialise_job(job, cached)
+                else:
+                    self._seed_prefix_job(job, cached)
             self._jobs.append(job)
         return len(pairs)
+
+    def _seed_prefix_job(self, job: _PrefillJob, cached_len: int):
+        """Transient-path half of a prefix hit: gather the cached rows (full
+        pages and the partial copy-on-write source) into a fresh dense
+        batch-K cache positioned at the tail start, so every chunk is a
+        continuation; the completion splice lands the partial rows in the
+        fresh page. The gather wall is charged to prefill."""
+        phys, ok = self._prefix_gather_rows(job.prefix_plans, cached_len)
+        t0 = self.metrics.now()
+        job.cache = self.backend.seed_prefix(
+            self.model, self.s_max, self.compute_dtype)(
+            self.cache, torch.from_numpy(phys).to(self.device),
+            torch.from_numpy(ok).to(self.device), job.tail_start)
+        self._sync()
+        self.metrics.on_prefix_gather(self.metrics.now() - t0)
+        for plan in job.prefix_plans:
+            if plan.partial is not None:
+                self.allocator.release([plan.partial[0]])
 
     def _cow_materialise_job(self, job: _PrefillJob, cached_len: int):
         """Prefix-hit half of admission: aliased FULL pages need no work
@@ -465,6 +591,20 @@ class ServeEngine:
             if plan.partial is not None:
                 self.allocator.release([plan.partial[0]])
 
+    def _prefill_group_scan(self, group):
+        """Prefill K same-length requests jointly in one teacher-forced pass
+        through ``decode_step`` (the bit-exactness anchor), then splice."""
+        plen = len(group[0][1].prompt)
+        prompts = torch.from_numpy(np.stack(
+            [r.prompt for _, r in group]).astype(np.int64)).to(self.device)
+        t0 = self.metrics.now()
+        logits, rcache = self._prefill_scan(self.params, {"tokens": prompts})
+        self._sync()
+        self.metrics.on_prefill_chunk(len(group) * plen,
+                                      self.metrics.now() - t0)
+        self._splice_and_start([s for s, _ in group], [r for _, r in group],
+                               rcache, logits)
+
     # ------------------------------------------------- chunked prefill
     def _prefill_tick(self) -> int:
         """Ingest at most ``prefill_chunk_tokens`` prompt positions of
@@ -480,44 +620,67 @@ class ServeEngine:
         return self.prefill_chunk_tokens - budget
 
     def _run_chunk(self, job: _PrefillJob) -> int:
-        """Run ``job``'s next chunk: its K/V go straight into the group's
-        pages. On the final chunk, start the group. Returns the chunk
-        length."""
+        """Run ``job``'s next chunk: on the incremental path its K/V go
+        straight into the group's pages; otherwise into the job's transient
+        cache (created by the first chunk). On the final chunk, splice and
+        start the group. Returns the chunk length."""
         C = job.plan[job.idx]
         K = len(job.slots)
         dev = self.device
-        batch = {
-            "tokens": torch.from_numpy(
-                job.prompts[:, job.filled:job.filled + C].astype(np.int64)
-            ).to(dev),
-            "bt": torch.from_numpy(self._bt_host[job.slots]).to(dev),
-            "start": job.tail_start + job.filled,
-            "floor": job.write_floor,
-        }
+        toks = torch.from_numpy(
+            job.prompts[:, job.filled:job.filled + C].astype(np.int64)).to(dev)
         t0 = self.metrics.now()
-        logits, self.cache = self._chunk(self.params, self.cache, batch)
+        if self.incremental_splice:
+            batch = {"tokens": toks,
+                     "bt": torch.from_numpy(self._bt_host[job.slots]).to(dev),
+                     "start": job.tail_start + job.filled,
+                     "floor": job.write_floor}
+            logits, self.cache = self._chunk_paged(self.params, self.cache,
+                                                   batch)
+        elif job.cache is None:
+            logits, job.cache = self._chunk_first(self.params,
+                                                  {"tokens": toks})
+        else:
+            logits, job.cache = self._chunk_cont(self.params, job.cache,
+                                                 {"tokens": toks})
         self._sync()
         self.metrics.on_prefill_chunk(K * C, self.metrics.now() - t0)
+        self.max_transient_cache_bytes = max(
+            self.max_transient_cache_bytes, self.transient_cache_bytes())
         job.idx += 1
         job.filled += C
         if job.idx == len(job.plan):
             self._jobs.remove(job)
-            self._splice_and_start(job.slots, job.reqs, logits,
+            self._splice_and_start(job.slots, job.reqs, job.cache, logits,
+                                   write_floor=job.write_floor,
                                    prefix_plans=job.prefix_plans)
         return C
 
-    def _splice_and_start(self, slot_ids, reqs, logits, *,
-                          prefix_plans=None):
-        """Complete a group prefill: every chunk already wrote its rows
-        into the group's pages, so completion flips the group's ``pos``
-        from INACTIVE_POS to prompt_len, registers the freshly computed
-        prompt pages in the prefix index, samples each request's first
-        token from the last chunk's logits and marks the group RUNNING."""
+    def _splice_and_start(self, slot_ids, reqs, rcache, logits, *,
+                          write_floor: int = 0, prefix_plans=None):
+        """Complete a group prefill: land its K/V in the resident cache,
+        register the freshly computed prompt pages in the prefix index,
+        sample each request's first token from the prefill logits and mark
+        the group RUNNING.
+
+        ``rcache`` is the group's transient request cache, spliced into its
+        rows (dense) or pages (paged; rows below ``write_floor``, in shared
+        prefix pages, are dropped, and a partial hit's rows land in the
+        fresh page) — or None on the incremental path, where the chunks
+        already wrote the pages and completion only flips the group's
+        ``pos`` from INACTIVE_POS to prompt_len."""
         slots = torch.as_tensor(slot_ids, dtype=torch.int64,
                                 device=self.device)
-        plens = torch.as_tensor([len(r.prompt) for r in reqs],
-                                dtype=torch.int32, device=self.device)
-        self.cache["pos"][slots] = plens
+        if rcache is None:
+            plens = torch.as_tensor([len(r.prompt) for r in reqs],
+                                    dtype=torch.int32, device=self.device)
+            self.cache["pos"][slots] = plens
+        elif self.paged:
+            phys = torch.from_numpy(self._phys_rows(slot_ids, write_floor))
+            self.cache = self.backend.insert_rows(self.cache, rcache, slots,
+                                                  phys.to(self.device))
+        else:
+            self.cache = self.backend.insert_rows(self.cache, rcache, slots)
         if self.prefix_index is not None and prefix_plans is not None:
             for slot, req, plan in zip(slot_ids, reqs, prefix_plans):
                 self.prefix_index.register(plan, self.slot_pages[slot],
@@ -545,18 +708,27 @@ class ServeEngine:
         self.slot_req[slot] = None
         self.cur_token[slot, 0] = 0
         self.cache["pos"][slot] = INACTIVE_POS
-        self.allocator.release(self.slot_pages[slot])
-        self.slot_pages[slot] = []
-        self._bt_host[slot, :] = -1
-        self._upload_block_tables()
+        if self.paged:
+            self.allocator.release(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self._bt_host[slot, :] = -1
+            self._upload_block_tables()
 
     def cancel(self, rid: int) -> bool:
         raise _not_ported("cancel", "8")
 
+    def transient_cache_bytes(self) -> int:
+        """Device bytes held right now by in-flight prefill jobs' transient
+        request caches: 0 on the incremental path by construction."""
+        return sum(t.numel() * t.element_size() for job in self._jobs
+                   if job.cache is not None for t in job.cache.values())
+
     def assert_page_invariants(self):
         """Raise on violated page bookkeeping: no page both free and
         referenced, every live block-table or index page referenced, and
-        free + held partitions the pool."""
+        free + held partitions the pool. Nothing to check when dense."""
+        if not self.paged:
+            return
         free = set(self.allocator._free)
         held = self.allocator.held
         assert not (free & held), f"pages both free and referenced: {free & held}"

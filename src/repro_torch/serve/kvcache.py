@@ -1,16 +1,23 @@
 """KV-cache backends: the seam between the serving engine's orchestration
 and the cache's representation, as in ``repro/serve/kvcache.py``.
 
-The port implements :class:`PagedFP32Backend`, the vLLM-style shared fp32
-page pool. The other backends keep their registry names, so ``ServeConfig``
-resolves and validates them as ``repro`` does, but constructing one raises
-``NotImplementedError`` naming its ROADMAP item.
+The port implements :class:`DenseBackend` (per-slot rows) and
+:class:`PagedFP32Backend` (the vLLM-style shared fp32 page pool). The other
+backends keep their registry names, so ``ServeConfig`` resolves and
+validates them as ``repro`` does, but constructing one raises
+``NotImplementedError`` naming its ROADMAP item. The splices write the
+resident cache in place and return it.
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.models.registry import (Model, cache_capacity, copy_pool_rows,
-                                         init_paged_cache)
+                                         init_paged_cache, insert_cache_rows,
+                                         insert_cache_rows_paged,
+                                         seed_prefix_cache,
+                                         vectorize_cache_pos)
 
 # families whose transient prefill state is exactly (k, v, pos): the ones
 # page-level prefix caching can serve
@@ -54,8 +61,18 @@ class KVBackend:
                    device):
         raise NotImplementedError
 
+    def insert_rows(self, cache, request_cache, slots, phys_rows=None):
+        """Completion splice of a transient batch-K prefill cache into the
+        resident cache (phys_rows: the paged row map, None for dense)."""
+        raise NotImplementedError
+
     def copy_rows(self, cache, src_rows, dst_rows):
         """COW re-materialisation of a partial prefix page (paged only)."""
+        raise NotImplementedError(f"{self.name} backend has no pages")
+
+    def seed_prefix(self, model: Model, s_max: int, dtype):
+        """-> fn(cache, phys_rows, row_ok, pos) building the dense transient
+        cache of a prefix-hit tail prefill (paged only)."""
         raise NotImplementedError(f"{self.name} backend has no pages")
 
     def resolve_attn_impl(self, family: Family, multi_page: bool) -> str:
@@ -72,9 +89,20 @@ class _NotPorted(KVBackend):
 
 
 @register_backend
-class DenseBackend(_NotPorted):
+class DenseBackend(KVBackend):
+    """The page_size == None layout: per-slot (B, s_max) rows, a batch-axis
+    completion splice, no pages, COW or prefix sharing."""
+
     name = "dense"
-    roadmap = "ROADMAP queue 1 item 4"
+
+    def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
+                   device):
+        return vectorize_cache_pos(
+            model.init_cache(batch_slots, s_max, dtype, device), batch_slots,
+            inactive=True)
+
+    def insert_rows(self, cache, request_cache, slots, phys_rows=None):
+        return insert_cache_rows(cache, request_cache, slots)
 
 
 @register_backend(aliases=("paged_fp32",))
@@ -96,8 +124,15 @@ class PagedFP32Backend(KVBackend):
                                 num_pages=self.num_pages, dtype=dtype,
                                 device=device)
 
+    def insert_rows(self, cache, request_cache, slots, phys_rows=None):
+        return insert_cache_rows_paged(cache, request_cache, slots, phys_rows)
+
     def copy_rows(self, cache, src_rows, dst_rows):
         return copy_pool_rows(cache, src_rows, dst_rows)
+
+    def seed_prefix(self, model: Model, s_max: int, dtype):
+        return functools.partial(seed_prefix_cache, model, s_max=s_max,
+                                 dtype=dtype)
 
     def resolve_attn_impl(self, family: Family, multi_page: bool) -> str:
         # the one-page-per-slot config stays on the einsum path: it is the

@@ -19,6 +19,11 @@ PORT = REPO / "src" / "repro_torch"
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"kernels/flash_attention.py", "kernels/paged_attention.py",
+            "kernels/ops.py", "kernels/ref.py", "models/layers.py",
+            "models/transformer.py", "models/registry.py", "launch/steps.py",
+            "launch/serve.py", "serve/engine.py", "serve/kvcache.py"} <= names
     return files
 
 

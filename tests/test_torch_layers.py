@@ -2,7 +2,9 @@
 same numpy inputs, fp32: norms, RoPE, the QKV projection, decode
 positions, the paged row helpers and writes, both read paths (``kernel``
 and ``einsum``) of paged decode and paged prefill-chunk attention, the
-gated MLP, embeddings and logits.
+full-sequence attention in every impl, dense-cache decode (scalar and
+per-slot positions) and dense prefill-chunk attention with and without
+the flash kernel, the gated MLP, embeddings and logits.
 
 Tolerance rtol = 1e-5 (atol 1e-6 for entries near zero): the same fp32
 arithmetic summed in a different order by XLA and PyTorch."""
@@ -190,6 +192,117 @@ def test_attention_prefill_chunk_paged_matches(impl, write_floor):
         _j(p), jnp.asarray(x), JL.AttnDims(**DIMS), jnp.asarray(pk),
         jnp.asarray(pv), jnp.asarray(bt), jnp.asarray(positions),
         jnp.asarray(write_floor, jnp.int32), impl=impl)
+    _close(got, want)
+    _close(gk, wk)
+    _close(gv, wv)
+
+
+def test_mask_bias_matches():
+    q_pos = np.asarray([[0, 1, 2, 9], [4, 5, 6, 7]], np.int32)
+    k_pos = np.asarray([[0, 1, 2, 3, 4, 5, 6, 9], [0, 1, 2, 3, 4, 5, 6, 7]],
+                       np.int32)
+    for window, causal in ((0, True), (3, True), (3, False), (0, False)):
+        np.testing.assert_array_equal(
+            TL._mask_bias(torch.from_numpy(q_pos), torch.from_numpy(k_pos),
+                          window, causal).numpy(),
+            np.asarray(JL._mask_bias(jnp.asarray(q_pos), jnp.asarray(k_pos),
+                                     window, causal)))
+
+
+@pytest.mark.parametrize("impl", ["einsum", "chunked", "banded", "pallas"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_attention_full_sequence_matches(impl, window):
+    """``layers.attention`` over a 40-token sequence in every impl (the
+    reference's 'pallas' with positions runs its oracle; the port's runs
+    the kernel wrapper, which takes the plain version on the CPU)."""
+    rng = np.random.default_rng(RNG_SEED + 3)
+    p = _attn_params(rng)
+    x = _rand(rng, 2, 40, D)
+    pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40)).copy()
+    dims = dict(DIMS, window=window)
+    got = TL.attention(_t(p), torch.from_numpy(x), TL.AttnDims(**dims),
+                       torch.from_numpy(pos), impl=impl)
+    want = JL.attention(_j(p), jnp.asarray(x), JL.AttnDims(**dims),
+                        jnp.asarray(pos), impl=impl)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_and_banded_sdpa_over_several_chunks(causal):
+    """The query-chunk loops with 16-row chunks over 48 rows (three
+    chunks), GQA 4 over 2 heads, a window of 8 for the band."""
+    rng = np.random.default_rng(RNG_SEED + 4)
+    q = _rand(rng, 2, 48, 4, HD)
+    k = _rand(rng, 2, 48, 2, HD)
+    v = _rand(rng, 2, 48, 2, HD)
+    pos = np.broadcast_to(np.arange(48, dtype=np.int32), (2, 48)).copy()
+    dims = dict(DIMS, num_kv_heads=2, window=8, causal=causal)
+    tq, tk, tv, tp = map(torch.from_numpy, (q, k, v, pos))
+    jq, jk, jv, jp = map(jnp.asarray, (q, k, v, pos))
+    _close(TL._sdpa_chunked(tq, tk, tv, tp, tp, TL.AttnDims(**dims), 16),
+           JL._sdpa_chunked(jq, jk, jv, jp, jp, JL.AttnDims(**dims), 16))
+    _close(TL._sdpa_banded(tq, tk, tv, TL.AttnDims(**dims), 16),
+           JL._sdpa_banded(jq, jk, jv, JL.AttnDims(**dims), 16))
+
+
+@pytest.mark.parametrize("vector", [True, False])
+@pytest.mark.parametrize("window", [0, 8])
+def test_attention_decode_dense_matches(vector, window):
+    """Decode against a dense cache: per-slot positions with a freed slot
+    at INACTIVE_POS (its write drops) and a slot at the last row, or one
+    scalar position for the whole batch. The outputs and both caches after
+    the write."""
+    rng = np.random.default_rng(RNG_SEED + 5)
+    p = _attn_params(rng)
+    S_max = 32
+    ck = _rand(rng, 3, S_max, KV, HD)
+    cv = _rand(rng, 3, S_max, KV, HD)
+    x = _rand(rng, 3, 1, D)
+    if vector:
+        cache_pos = np.asarray([19, JL.INACTIVE_POS, S_max - 1], np.int32)
+        positions = cache_pos[:, None]
+    else:
+        cache_pos = np.asarray(7, np.int32)
+        positions = np.full((3, 1), 7, np.int32)
+    dims = dict(DIMS, window=window)
+    got, gk, gv = TL.attention_decode(
+        _t(p), torch.from_numpy(x), TL.AttnDims(**dims),
+        torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
+        torch.from_numpy(cache_pos), torch.from_numpy(positions))
+    want, wk, wv = JL.attention_decode(
+        _j(p), jnp.asarray(x), JL.AttnDims(**dims), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray(cache_pos), jnp.asarray(positions))
+    _close(got, want)
+    _close(gk, wk)
+    _close(gv, wv)
+    if vector:      # the freed slot's row is untouched bit for bit
+        np.testing.assert_array_equal(gk[1].numpy(), ck[1])
+
+
+@pytest.mark.parametrize("use_kernel,start", [(True, 0), (False, 0),
+                                              (False, 10), (False, 28)])
+def test_attention_prefill_chunk_dense_matches(use_kernel, start):
+    """A 12-row chunk into a dense cache holding older rows: a first chunk
+    through the flash kernel and through the einsum, a continuation, and a
+    start past S_max - C, which ``dynamic_update_slice`` clamps (and the
+    port with it)."""
+    rng = np.random.default_rng(RNG_SEED + 6)
+    p = _attn_params(rng)
+    S_max, C = 32, 12
+    ck = _rand(rng, 2, S_max, KV, HD)
+    cv = _rand(rng, 2, S_max, KV, HD)
+    x = _rand(rng, 2, C, D)
+    positions = np.broadcast_to(np.arange(start, start + C, dtype=np.int32),
+                                (2, C)).copy()
+    dims = dict(DIMS, window=8)
+    got, gk, gv = TL.attention_prefill_chunk(
+        _t(p), torch.from_numpy(x), TL.AttnDims(**dims),
+        torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()), start,
+        torch.from_numpy(positions), use_kernel=use_kernel)
+    want, wk, wv = JL.attention_prefill_chunk(
+        _j(p), jnp.asarray(x), JL.AttnDims(**dims), jnp.asarray(ck),
+        jnp.asarray(cv), start, jnp.asarray(positions),
+        use_kernel=use_kernel)
     _close(got, want)
     _close(gk, wk)
     _close(gv, wv)

@@ -1,7 +1,11 @@
 """The port's dense transformer against ``repro.models.transformer`` on the
 reduced qwen2.5-32b (2 layers, d_model 64, 4 query heads over 1 kv head,
 head_dim 16, vocab 512, QKV bias) with bridged weights: one paged prefill
-chunk, then 4 paged decode steps, through both read paths.
+chunk, then 4 paged decode steps, through both read paths; the
+full-sequence forward in every attention impl and the prefill step built
+on it; dense-cache prefill chunks (a first chunk through the flash kernel
+or the einsum, then a continuation) followed by dense decode steps; the
+scan prefill.
 
 Logits and page pools must be allclose at rtol 1e-4, atol 1e-5: each
 package computes the same fp32 network, but XLA and PyTorch sum every
@@ -17,8 +21,10 @@ import numpy as np  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -104,3 +110,99 @@ def test_prefill_chunk_then_decode_matches_reference(models, impl):
         nxt[:2, 0] = np.asarray(jnp.argmax(jl[:2, 0, :jcfg.vocab_size], -1))
         assert (tl[:2, 0, :tcfg.vocab_size].argmax(-1).numpy()
                 == nxt[:2, 0]).all()
+
+
+@pytest.mark.parametrize("impl", ["einsum", "chunked", "pallas"])
+def test_forward_matches_reference(models, impl):
+    """Full-sequence logits (B=2, S=24) and the last-position prefill step
+    built on the forward."""
+    jcfg, jparams, tcfg, tparams = models
+    toks = np.random.default_rng(22).integers(0, jcfg.vocab_size, (2, 24))
+    jl, jaux = jtf.forward(jparams, jcfg, jnp.asarray(toks, jnp.int32),
+                           compute_dtype=jnp.float32, attn_impl=impl)
+    tl, taux = ttf.forward(tparams, tcfg, torch.from_numpy(toks),
+                           attn_impl=impl)
+    assert tl.shape == (2, 24, tcfg.padded_vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert set(taux) == set(jaux)
+    jpre = jsteps.make_prefill(jreg.get_model(jcfg), attn_impl=impl,
+                               compute_dtype=jnp.float32)
+    tpre = tsteps.make_prefill(treg.get_model(tcfg), attn_impl=impl)
+    np.testing.assert_allclose(
+        tpre(tparams, {"tokens": torch.from_numpy(toks)}).numpy(),
+        np.asarray(jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})),
+        **TOL)
+
+
+def _assert_dense(jc, tc):
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]), **TOL)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "einsum"])
+def test_dense_prefill_chunks_then_decode_matches(models, attn_impl):
+    """Two slots prefill a 16-token first chunk (through the flash kernel
+    with 'pallas') and an 8-token continuation into a fresh dense cache
+    (the engine's transient cache); the cache then serves 4 decode steps at
+    per-slot positions, next to a freed slot at INACTIVE_POS. Logits and
+    the cache leaves stay allclose throughout."""
+    jcfg, jparams, tcfg, tparams = models
+    jmodel, tmodel = jreg.get_model(jcfg), treg.get_model(tcfg)
+    rng = np.random.default_rng(23)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 24))
+    jfirst = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
+                                       s_max=S_MAX, first=True,
+                                       attn_impl=attn_impl)
+    jcont = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
+                                      s_max=S_MAX, attn_impl=attn_impl)
+    tfirst = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
+                                       attn_impl=attn_impl)
+    tcont = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX,
+                                      attn_impl=attn_impl)
+    jl, jc = jfirst(jparams, {"tokens": jnp.asarray(toks[:, :16], jnp.int32)})
+    tl, tc = tfirst(tparams, {"tokens": torch.from_numpy(toks[:, :16])})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_dense(jc, tc)
+    jl, jc = jcont(jparams, jc, {"tokens": jnp.asarray(toks[:, 16:],
+                                                       jnp.int32)})
+    tl, tc = tcont(tparams, tc, {"tokens": torch.from_numpy(toks[:, 16:])})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_dense(jc, tc)
+
+    # a 3-slot serving cache: slots 0 and 2 take the prefill, slot 1 is free
+    jserve = jreg.vectorize_cache_pos(
+        jtf.init_cache(jcfg, 3, S_MAX, jnp.float32), 3, inactive=True)
+    tserve = treg.vectorize_cache_pos(
+        ttf.init_cache(tcfg, 3, S_MAX, device="cpu"), 3, inactive=True)
+    _assert_dense(jserve, tserve)
+    jserve = jreg.insert_cache_rows(jserve, jc, jnp.asarray([0, 2]))
+    tserve = treg.insert_cache_rows(tserve, tc, torch.tensor([0, 2]))
+    _assert_dense(jserve, tserve)
+    nxt = np.zeros((3, 1), np.int32)
+    nxt[[0, 2], 0] = np.asarray(jnp.argmax(jl[:, 0, :jcfg.vocab_size], -1))
+    for _ in range(4):
+        jl, jserve = jtf.decode_step(jparams, jcfg, jnp.asarray(nxt), jserve,
+                                     compute_dtype=jnp.float32)
+        tl, tserve = ttf.decode_step(tparams, tcfg,
+                                     torch.from_numpy(nxt).long(), tserve)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _assert_dense(jserve, tserve)
+        nxt[[0, 2], 0] = np.asarray(
+            jnp.argmax(jl[[0, 2], 0, :jcfg.vocab_size], -1))
+
+
+def test_scan_prefill_matches_reference(models):
+    """The scan anchor: a 12-token prompt teacher-forced through
+    decode_step into a fresh dense cache (scalar position)."""
+    jcfg, jparams, tcfg, tparams = models
+    toks = np.random.default_rng(24).integers(0, jcfg.vocab_size, (2, 12))
+    jpre = jsteps.make_prefill(jreg.get_model(jcfg),
+                               compute_dtype=jnp.float32, return_cache=True,
+                               s_max=S_MAX)
+    tpre = tsteps.make_prefill(treg.get_model(tcfg), return_cache=True,
+                               s_max=S_MAX)
+    jl, jc = jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, tc = tpre(tparams, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_dense(jc, tc)
