@@ -11,26 +11,39 @@ before printing any result. Phases, each of which raises on failure:
    the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
    started together) and time the build.
 2. every kernel against its plain PyTorch version on the card: paged
-   attention (K1) and flash attention (K2) on the test cases at head_dim
-   128 (and 16 / 64 / 256), then at the full-width qwen2.5-32b shapes the
-   serving and forward paths give them, with the kernel's, the plain
+   attention over fp32 pools (K1) and over int8 pools (K3) on the test
+   cases at head_dim 128 (and 16 / 64 / 256), latent paged attention (K4)
+   at latent widths 10/8, 64/48, 576/512 and 1024/512, and flash attention
+   (K2); then each at the full-width shapes the serving and forward paths
+   give it (qwen2.5-32b, qwen2.5-32b-mla), with the kernel's, the plain
    version's and one library call's times and the bound.
 3. qwen2.5-32b at full width cut to 4 layers (the weights of
    ``ServeEngine.build``, built once for phases 3-5): one paged prefill
    chunk plus 8 decode steps through ``impl="kernel"`` and
-   ``impl="einsum"``; (3b) the full-sequence prefill step and a dense
-   prefill chunk plus 8 dense decode steps through the flash kernel and
-   through the einsum. Logits allclose and greedy tokens equal.
+   ``impl="einsum"``, on fp32 pages and (3c) on int8 pages; (3b) the
+   full-sequence prefill step and a dense prefill chunk plus 8 dense
+   decode steps through the flash kernel and through the einsum. Logits
+   allclose and greedy tokens equal.
 4. paged serving: 16 requests (100-700 prompt tokens, half sharing a
-   256-token prefix, 32 generated each) through the paged engine.
+   256-token prefix, 32 generated each) through the paged engine; (4b)
+   the same requests on int8 pages (``kv_backend="paged_int8"``), every
+   attention through K3, tokens against phase 4's reported.
 5. the main path: ``ServeEngine.build("qwen2.5-32b", ...)`` with the
    default dense cache serving the same 16 requests; its tokens against
    phase 4's.
 6. the prefill anchors at the reduced width: dense parallel, dense scan,
-   paged one-page einsum and paged kernel give equal greedy streams.
+   paged one-page einsum and paged kernel give equal greedy streams; int8
+   pages read through K3 and through the q8 einsum give equal streams;
+   the MLA dense latent cache, one-page latent einsum and multi-page K4
+   give equal streams.
+7. qwen2.5-32b-mla at full width cut to 4 layers (after the qwen2.5-32b
+   weights are freed): paged latent prefill chunk plus 8 decode steps
+   through K4 and through the latent einsum; the 16 requests on the dense
+   latent cache and on latent pages, every paged attention through K4,
+   streams compared.
 
-Each serving path (3b's forward, 4, 5) runs with the kernels' launch
-counts set to 0 just before and read just after. Then one JSON line
+Each serving path (3b's forward, 4, 4b, 5, 7) runs with the kernels'
+launch counts set to 0 just before and read just after. Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
 computes.
@@ -50,6 +63,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core.quantize import page_scale  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -57,13 +71,21 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models.registry import init_paged_cache  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.kvcache import (PagedInt8Backend,  # noqa: E402
+                                       PagedLatentBackend)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # same fp32 math, other sum order
 MODEL_TOL = 1e-3                 # logits after 4 full-width fp32 layers
+# int8 pages: the two read paths write K/V rows that differ in the last
+# bit from layer 2 on, and a row value on a rounding tie then lands one
+# int8 step (a page's amax / 127) apart; such flips, not the kernel, set
+# the logits gap of the int8 model comparison
+Q8_MODEL_TOL = 1e-2
 INACTIVE = 1 << 30
 ARCH = "qwen2.5-32b"
+MLA_ARCH = "qwen2.5-32b-mla"
 LAYERS = 4
 SLOTS, S_MAX, PS = 8, 1024, 16
 # K2 at full width: a serving first chunk (B slots x C) and the forward
@@ -125,10 +147,9 @@ def on_card(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in arrays]
 
 
-def check_case(name, args, window=0, kind="prefill"):
-    """Kernel vs plain version on the card; returns max |diff|."""
-    got = pa.paged_attention(*args, window=window, kind=kind)
-    want = ref.paged_attention(*args, window=window)
+def held(name, got, want):
+    """A kernel's output against its plain version's on the same inputs,
+    within KERNEL_TOL; returns (got, max |diff|)."""
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, **KERNEL_TOL):
@@ -136,6 +157,22 @@ def check_case(name, args, window=0, kind="prefill"):
                              f"max abs err {err}")
     log(f"  {name}: max abs err {err:.3e}")
     return got, err
+
+
+def check_case(name, args, window=0, kind="prefill", **scales):
+    """Paged attention (K1, or K3 given int8 pools and their scales) vs
+    its plain version on the card; returns (out, max |diff|)."""
+    return held(name, pa.paged_attention(*args, window=window, kind=kind,
+                                         **scales),
+                ref.paged_attention(*args, window=window, **scales))
+
+
+def roofline(nbytes, flops) -> tuple:
+    """The least time for the work: bytes at the HBM rate against fp32
+    operations at the fp32 peak. Returns (ms, 'bytes' | 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase2_cases():
@@ -223,22 +260,27 @@ def full_width_case(Sq, seed):
     return on_card(q, pk, pv, bt, start), fill
 
 
-def bound_ms(args, fill) -> tuple:
+def visible_pairs(fill, Sq) -> int:
+    """(query row, key) pairs the causal mask lets through, per head, for
+    slots whose last query sees fill[b] rows."""
+    return sum(int(f - Sq + i + 1) for f in fill for i in range(Sq))
+
+
+def bound_ms(args, fill, kv_bytes=4) -> tuple:
     """Least time for the work this data needs: every live K/V row a query
-    can see read once, q read once, out written once, at the HBM rate;
-    against the fp32 FMAs of the valid (query, key) pairs (score and value
-    products) at the fp32 peak. Returns (ms, 'bytes' | 'operations')."""
+    can see read once (``kv_bytes`` per element; int8 pools add one f32
+    scale per live page for K and for V), q read once, out written once,
+    at the HBM rate; against the fp32 FMAs of the valid (query, key) pairs
+    (score and value products) at the fp32 peak."""
     q = args[0]
     B, Sq, H, hd = q.shape
-    KV = args[1].shape[2]
+    ps, KV = args[1].shape[1:3]
     rows = int(np.sum(fill))                          # keys up to last query
-    nbytes = (2 * rows * KV * hd * 4 + 2 * q.numel() * 4
+    scales = 0 if kv_bytes == 4 else 2 * 4 * sum(-(-int(f) // ps)
+                                                 for f in fill)
+    nbytes = (2 * rows * KV * hd * kv_bytes + scales + 2 * q.numel() * 4
               + args[3].numel() * 4 + args[4].numel() * 4)
-    pairs = sum(int(f - Sq + i + 1) for f in fill for i in range(Sq))
-    flops = 4 * pairs * H * hd
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, 4 * visible_pairs(fill, Sq) * H * hd)
 
 
 def sdpa_call(args):
@@ -280,6 +322,200 @@ def phase2_full_width():
             f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
         out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
                          bound_ms=bms, bound_by=by)
+    return out
+
+
+# ----------------------------------------------- phase 2: int8 pages (K3)
+def quantize_pages(pool):
+    """Each page of an fp32 pool as int8 with its own symmetric scale (the
+    int8 backend's block): returns (int8 pool, (P,) f32 scales)."""
+    scale = page_scale(pool.abs().amax(dim=(1, 2, 3)))
+    q = torch.clamp(torch.round(pool / scale[:, None, None, None]),
+                    -127, 127).to(torch.int8)
+    return q, scale
+
+
+def q8_args(args):
+    """fp32 (q, pool_k, pool_v, bt, start) -> the same with int8 pools,
+    and the scales as keyword arguments."""
+    q, pk, pv, bt, start = args
+    (pkq, ks), (pvq, vs) = quantize_pages(pk), quantize_pages(pv)
+    return [q, pkq, pvq, bt, start], dict(k_scale=ks, v_scale=vs)
+
+
+def phase2_q8_cases():
+    """K1's cases over int8 pools: head_dim 128 (and 16 / 64 / 256), a
+    window, a freed slot (exact zeros) and NaN scales on every page no
+    slot visits (never read: the output is unchanged bit for bit)."""
+    errs = {"decode_q8": 0.0, "prefill_q8": 0.0}
+    cases = [dict(Sq=8, H=4, KV=2, ps=8, mps=4, window=0),
+             dict(Sq=1, H=4, KV=4, ps=8, mps=4, window=0),
+             dict(Sq=16, H=8, KV=2, ps=4, mps=8, window=6),
+             dict(Sq=8, H=2, KV=1, ps=16, mps=2, window=0)]
+    for hd in (128, 16, 64, 256):
+        for i, c in enumerate(cases if hd == 128 else cases[:2]):
+            B, P = 2, 2 * c["mps"] + 3
+            fill = [c["ps"] + c["ps"] // 2 + c["Sq"], c["ps"] // 2 + c["Sq"]]
+            q, pk, pv, bt = paged_case(3, B, c["Sq"], c["H"], c["KV"], hd, P,
+                                       c["ps"], c["mps"], fill)
+            start = np.asarray([f - c["Sq"] for f in fill], np.int32)
+            args, sc = q8_args(on_card(q, pk, pv, bt, start))
+            kind = "decode_q8" if c["Sq"] == 1 else "prefill_q8"
+            _, err = check_case(f"q8 case{i} hd={hd}", args, c["window"],
+                                kind, **sc)
+            errs[kind] = max(errs[kind], err)
+
+    q, pk, pv, bt = paged_case(6, 3, 1, 40, 8, 128, 12, 16, 4, [40, 20, 0])
+    start = np.asarray([39, 19, INACTIVE], np.int32)
+    args, sc = q8_args(on_card(q, pk, pv, bt, start))
+    base, err = check_case("q8 freed slot", args, kind="decode_q8", **sc)
+    if not torch.all(base[2] == 0):
+        raise AssertionError("q8: freed slot not exactly 0")
+    unused = torch.ones(12, dtype=torch.bool, device=DEV)
+    unused[args[3][args[3] >= 0].long()] = False
+    nan_sc = {k: torch.where(unused, float("nan"), v) for k, v in sc.items()}
+    got = pa.paged_attention(*args, kind="decode_q8", **nan_sc)
+    torch.cuda.synchronize()
+    if not torch.equal(got, base):
+        raise AssertionError("q8: a scale of an unvisited page was read")
+    log("  q8 NaN scales on unvisited pages: output unchanged")
+    errs["decode_q8"] = max(errs["decode_q8"], err)
+    return errs
+
+
+def phase2_q8_full_width():
+    """K3 at qwen2.5-32b's serving shapes, int8 pools. The library call is
+    SDPA on the pre-gathered, pre-dequantized view, timed alone."""
+    out = {}
+    for kind, Sq, seed in (("decode_q8", 1, 13), ("prefill_q8", 64, 14)):
+        f32_args, fill = full_width_case(Sq, seed)
+        args, sc = q8_args(f32_args)
+        _, err = check_case(f"full width {kind} (B={SLOTS}, Sq={Sq}, H=40, "
+                            f"KV=8, hd=128, ps={PS}, int8)", args, kind=kind,
+                            **sc)
+        deq = [args[0]] + [p.float() * s[:, None, None, None] for p, s in
+                           ((args[1], sc["k_scale"]),
+                            (args[2], sc["v_scale"]))] + args[3:]
+        lib = sdpa_call(deq)
+        want = ref.paged_attention(*args, **sc)
+        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        ms = time_ms(lambda: pa.paged_attention(*args, kind=kind, **sc), 50)
+        plain = time_ms(lambda: ref.paged_attention(*args, **sc), 10)
+        lib_ms = time_ms(lib, 10)
+        bms, by = bound_ms(args, fill, kv_bytes=1)
+        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
+            f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
+        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by)
+        del f32_args, args, deq, want
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------- phase 2: latent pages (K4)
+def latent_case(seed, B, Sq, H, Lw, P, ps, mps, fill):
+    """Random absorbed queries, a latent pool (P, ps, 1, Lw) and tables
+    giving slot b ceil(fill[b] / ps) shuffled pages (none for fill 0)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, Lw)).astype(np.float32)
+    pool = rng.standard_normal((P, ps, 1, Lw)).astype(np.float32)
+    bt = np.full((B, mps), -1, np.int32)
+    perm = rng.permutation(P)
+    nxt = 0
+    for b in range(B):
+        need = -(-int(fill[b]) // ps)
+        bt[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+    return q, pool, bt
+
+
+def check_latent(name, args, scale_dim, d_v, kind="prefill_latent"):
+    return held(name, pa.paged_attention_latent(
+        *args, scale_dim=scale_dim, d_v=d_v, kind=kind),
+        ref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=d_v))
+
+
+def phase2_latent_cases():
+    """K4 at latent widths 10/8 (the reduced config), 64/48, 576/512 (full
+    width) and 1024/512 (the widest it takes), decode and chunk shapes,
+    two live slots at mid-page frontiers and a freed slot (exact zeros)."""
+    errs = {"decode_latent": 0.0, "prefill_latent": 0.0}
+    for Lw, d_v, scale_dim in ((10, 8, 18), (64, 48, 96), (576, 512, 192),
+                               (1024, 512, 192)):
+        for Sq in (1, 4, 37):
+            ps, mps = 16, 4
+            fill = [ps + ps // 2 + Sq, ps // 2 + Sq, 0]
+            q, pool, bt = latent_case(50 + Sq, 3, Sq, 40, Lw, 12, ps, mps,
+                                      fill)
+            start = np.asarray([fill[0] - Sq, fill[1] - Sq, INACTIVE],
+                               np.int32)
+            kind = "decode_latent" if Sq == 1 else "prefill_latent"
+            got, err = check_latent(f"latent {Lw}/{d_v} Sq={Sq}",
+                                    on_card(q, pool, bt, start), scale_dim,
+                                    d_v, kind)
+            if not torch.all(got[2] == 0):
+                raise AssertionError("latent: freed slot not exactly 0")
+            errs[kind] = max(errs[kind], err)
+    return errs
+
+
+def phase2_latent_full_width():
+    """K4 at qwen2.5-32b-mla's serving shapes: 8 slots of 100-732 latent
+    rows (576 floats; values the first 512), 40 heads, page_size 16, the
+    softmax scaled by 1/sqrt(192). The library call is SDPA with q
+    (B, 40, Sq, 576), the gathered latent view as its one K head and the
+    view's first 512 columns as V, timed alone."""
+    cfg = configs.get_config(MLA_ARCH)
+    H, c, r = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    Lw, scale_dim = c + r, cfg.head_dim + r
+    mps = S_MAX // PS
+    out = {}
+    for kind, Sq, seed in (("decode_latent", 1, 15),
+                           ("prefill_latent", 64, 16)):
+        fill = np.random.default_rng(seed).integers(100, 733, SLOTS)
+        q, pool, bt = latent_case(seed, SLOTS, Sq, H, Lw, SLOTS * mps, PS,
+                                  mps, fill)
+        args = on_card(q, pool, bt, (fill - Sq).astype(np.int32))
+        _, err = check_latent(f"full width {kind} (B={SLOTS}, Sq={Sq}, "
+                              f"H={H}, {Lw}/{c}, ps={PS})", args, scale_dim,
+                              c, kind)
+        qd, pool_d, bt_d, st_d = args
+        n = mps * PS
+        j = torch.arange(n, device=DEV)
+        page = bt_d.long()[:, j // PS]
+        ok = page >= 0
+        view = pool_d.reshape(-1, Lw)[torch.where(ok, page * PS + j % PS, 0)]
+        k = view[:, None].contiguous()                   # (B, 1, n, Lw)
+        v = view[:, None, :, :c].contiguous()
+        qpos = st_d.long()[:, None] + torch.arange(Sq, device=DEV)
+        mask = ok[:, None, :] & (j[None, None, :] <= qpos[:, :, None])
+        mask = mask[:, None]
+        qt = qd.transpose(1, 2).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, k, v, attn_mask=mask, scale=scale_dim ** -0.5,
+            enable_gqa=True)
+        want = ref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=c)
+        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        ms = time_ms(lambda: pa.paged_attention_latent(
+            *args, scale_dim=scale_dim, d_v=c, kind=kind), 50)
+        plain = time_ms(lambda: ref.paged_attention_latent(
+            *args, scale_dim=scale_dim, d_v=c), 10)
+        lib_ms = time_ms(lib, 10)
+        # each slot's latent rows read once for all heads; q read and the
+        # output written once; (Lw + c) FMAs per visible (row, head, key)
+        rows = int(np.sum(fill))
+        nbytes = 4 * (rows * Lw + qd.numel() + SLOTS * Sq * H * c
+                      + bt_d.numel() + st_d.numel())
+        bms, by = roofline(nbytes,
+                           2 * (Lw + c) * visible_pairs(fill, Sq) * H)
+        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
+            f"{bms:.4f} ms ({by}) | live rows {rows}")
+        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by)
+        del args, qd, pool_d, view, k, v, qt, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -344,9 +580,7 @@ def flash_bound_ms(args, causal=True, window=0) -> tuple:
     hi = np.minimum(i, Sk - 1) if causal else np.full_like(i, Sk - 1)
     pairs = B * H * int(np.maximum(hi - lo + 1, 0).sum())
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * pairs * hd / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, 4 * pairs * hd)
 
 
 def phase2_flash_full_width():
@@ -381,24 +615,33 @@ def phase2_flash_full_width():
 
 
 # ------------------------------------------------------------ phase 3
-def phase3_model(model, params):
-    """Full-width qwen2.5-32b, 4 layers, the main path's weights: one
-    64-token prefill chunk for 8 slots, then 8 greedy decode steps, through
-    the kernel and through the masked-einsum reference read."""
+def phase3_model(model, params, backend=None, label="fp32 pages",
+                 tol=MODEL_TOL):
+    """Full-width model, 4 layers: one 64-token prefill chunk for 8 slots
+    on a fresh paged cache (fp32 pages, or the cache ``backend`` builds),
+    then 8 greedy decode steps, through the kernel and through the
+    masked-einsum reference read; logits (within ``tol``) and tokens
+    compared, and how far the two final caches' pools differ reported."""
     cfg = model.cfg
     n = sum(t.numel() for t in _leaves(params))
-    log(f"  {ARCH} x {LAYERS} layers: {n / 1e9:.3f} B params fp32")
+    log(f"  {cfg.name} x {LAYERS} layers: {n / 1e9:.3f} B params fp32, "
+        f"{label}")
     mps = S_MAX // PS
     bt = torch.arange(SLOTS * mps, dtype=torch.int32,
                       device=DEV).reshape(SLOTS, mps)
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
                             ).to(DEV)
-    runs = {}
+    runs, caches = {}, {}
     for impl in ("kernel", "einsum"):
-        cache = init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
-                                 num_pages=SLOTS * mps, device=DEV)
+        if backend is None:
+            cache = init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
+                                     num_pages=SLOTS * mps, device=DEV)
+        else:
+            cache = backend.init_cache(model, SLOTS, S_MAX, torch.float32,
+                                       DEV)
         cache["block_tables"].copy_(bt)
+        pa.reset_launches()
         t0 = time.perf_counter()
         logits, cache = model.prefill_chunk_paged(
             params, toks, cache, bt_rows=bt, start=0, write_floor=0,
@@ -413,33 +656,47 @@ def phase3_model(model, params):
             seq.append(logits)
             tokens.append(tok)
         torch.cuda.synchronize()
+        launched = sum(pa.LAUNCHES.values())
+        if launched != (9 * LAYERS if impl == "kernel" else 0):
+            raise AssertionError(f"impl={impl}: {pa.LAUNCHES} paged "
+                                 f"attention launches for 1 chunk + 8 steps "
+                                 f"x {LAYERS} layers")
         log(f"  impl={impl}: prefill + 8 decode steps in "
-            f"{time.perf_counter() - t0:.3f} s (host clock)")
+            f"{time.perf_counter() - t0:.3f} s (host clock), "
+            f"{launched} kernel launches")
         runs[impl] = (seq, torch.cat(tokens, 1))
-        del cache
-    compare_runs(runs, cfg, "kernel", "einsum")
+        caches[impl] = cache
+    for key in ("k", "v"):
+        if key in caches["kernel"]:
+            a, b = caches["kernel"][key], caches["einsum"][key]
+            diff = (a.float() - b.float()).abs()
+            log(f"  final {key} pool: {(diff == 0).float().mean().item():.6f}"
+                f" of entries equal, max |diff| {diff.max().item():.3e}")
+    del caches
+    compare_runs(runs, cfg, "kernel", "einsum", tol)
     del runs
     torch.cuda.empty_cache()
 
 
-def compare_runs(runs, cfg, a_name, b_name):
+def compare_runs(runs, cfg, a_name, b_name, tol=MODEL_TOL):
     """Two runs of (logits per step, greedy tokens): finite logits of the
-    right shape, allclose within MODEL_TOL, and equal tokens."""
+    right shape, allclose within ``tol``, and equal tokens."""
     (sa, ta), (sb, tb) = runs[a_name], runs[b_name]
-    worst = 0.0
+    worst, close = 0.0, True
     for a, b in zip(sa, sb):
         if a.shape[-1] != cfg.padded_vocab or not torch.isfinite(
                 a[..., :cfg.vocab_size]).all():
             raise AssertionError(f"bad logits {tuple(a.shape)}")
         worst = max(worst, (a - b).abs().max().item())
-        if not torch.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
-            raise AssertionError(f"{a_name} vs {b_name} logits differ: "
-                                 f"{worst}")
-    if not torch.equal(ta, tb):
-        raise AssertionError(f"{a_name} and {b_name} greedy tokens differ")
+        close &= torch.allclose(a, b, rtol=tol, atol=tol)
+    same = torch.equal(ta, tb)
     log(f"  logits max abs diff {a_name} vs {b_name} {worst:.3e} (tol "
-        f"{MODEL_TOL}); greedy tokens equal, {tuple(ta.shape)} "
-        f"(rows x steps)")
+        f"{tol}); greedy tokens {'equal' if same else 'DIFFER'}, "
+        f"{tuple(ta.shape)} (rows x steps)")
+    if not close:
+        raise AssertionError(f"{a_name} vs {b_name} logits differ: {worst}")
+    if not same:
+        raise AssertionError(f"{a_name} and {b_name} greedy tokens differ")
 
 
 def phase3b_flash_model(model, params):
@@ -561,30 +818,91 @@ def phase4_serve(model, params, prompts, card):
     pa.reset_launches()
     fa.reset_launches()
     reqs, m, firsts = serve(engine, prompts)
-    launches = dict(pa.LAUNCHES)
-    if sum(fa.LAUNCHES.values()):
-        raise AssertionError(f"the paged kernel path launched K2: "
-                             f"{fa.LAUNCHES}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"kernel not launched on the main path: "
-                             f"{launches}")
-    if (launches["decode"] != m["decode_steps"] * LAYERS
-            or launches["prefill"] != m["prefill_chunks"] * LAYERS):
-        raise AssertionError(f"launches {launches} != one per layer per "
-                             f"decode step ({m['decode_steps']}) / prefill "
-                             f"chunk ({m['prefill_chunks']})")
+    launches = check_paged_launches(("decode", "prefill"), m,
+                                    "paged-attention (K1)")
     engine.assert_page_invariants()
     log_serving(m, card)
     log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
         f"lookups, {m['prefix']['hit_tokens']} tokens, "
         f"{m['prefix']['cow_copies']} COW copies")
-    log(f"  paged-attention launches: decode {launches['decode']} "
-        f"({m['decode_steps']} steps x {LAYERS} layers), prefill "
-        f"{launches['prefill']} ({m['prefill_chunks']} chunks x {LAYERS} "
-        f"layers)")
+    nbytes = engine.resident_cache_bytes()
     del engine
     torch.cuda.empty_cache()
-    return launches, reqs, firsts
+    return launches, reqs, firsts, nbytes
+
+
+def check_paged_launches(kinds, m, what):
+    """Every multi-page attention of a paged serving run went through the
+    kernel: ``kinds`` = (decode key, prefill key) of ``pa.LAUNCHES`` equal
+    layers x decode steps and layers x prefill chunks, and no other kernel
+    was launched. Returns the counts."""
+    launches = dict(pa.LAUNCHES)
+    others = {k: v for k, v in launches.items() if k not in kinds}
+    if sum(others.values()) or sum(fa.LAUNCHES.values()):
+        raise AssertionError(f"{what} launched other kernels: {others}, "
+                             f"{fa.LAUNCHES}")
+    dec, pre = kinds
+    if (launches[dec] != m["decode_steps"] * LAYERS
+            or launches[pre] != m["prefill_chunks"] * LAYERS
+            or not launches[dec] or not launches[pre]):
+        raise AssertionError(f"{what}: launches {launches} != one per layer "
+                             f"per decode step ({m['decode_steps']}) / "
+                             f"prefill chunk ({m['prefill_chunks']})")
+    log(f"  {what} launches: {dec} {launches[dec]} ({m['decode_steps']} "
+        f"steps x {LAYERS} layers), {pre} {launches[pre]} "
+        f"({m['prefill_chunks']} chunks x {LAYERS} layers)")
+    return {"decode": launches[dec], "prefill": launches[pre]}
+
+
+def phase4b_serve_int8(model, params, prompts, card, fp32):
+    """The same 16 requests on int8 pages (``kv_backend="paged_int8"``,
+    page_size 16), every attention through K3. Int8 tokens differ from
+    fp32 tokens by design: the match against phase 4 is reported."""
+    engine = ServeEngine(model, params, **ServeConfig(
+        reduced=False, page_size=PS, s_max=S_MAX, batch_slots=SLOTS,
+        kv_backend="paged_int8").engine_kwargs())
+    log(f"  int8 engine: {type(engine.backend).__name__}, attn "
+        f"{engine.paged_attn_impl}, prefix cache {engine.prefix_cache}")
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    launches = check_paged_launches(("decode_q8", "prefill_q8"), m,
+                                    "int8 paged-attention (K3)")
+    engine.assert_page_invariants()
+    log_serving(m, card)
+    log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
+        f"lookups, {m['prefix']['cow_copies']} COW copies; resident cache "
+        f"{engine.resident_cache_bytes()} bytes = "
+        f"{engine.resident_cache_bytes() / fp32[2]:.4f} x the fp32 pages'")
+    compare_streams("int8", (reqs, firsts), "fp32 pages", fp32[:2],
+                    strict=False)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def compare_streams(a_name, a, b_name, b, strict=True):
+    """Two engines' streams for the same requests: first tokens equal
+    unless the two logits sit within 1e-3 of a tie (raises otherwise when
+    ``strict``); logs how many first tokens and tokens agree."""
+    same_first = same_tok = 0
+    for ra, rb, fa_, fb in zip(a[0], b[0], a[1], b[1]):
+        same_tok += sum(x == y for x, y in zip(ra.tokens, rb.tokens))
+        x, y = ra.tokens[0], rb.tokens[0]
+        if x == y:
+            same_first += 1
+            continue
+        gap = max((fa_[x] - fa_[y]).item(), (fb[y] - fb[x]).item())
+        log(f"  request {ra.rid}: first token {x} ({a_name}) vs {y} "
+            f"({b_name}), logit gap {gap:.2e}")
+        if strict and gap > 1e-3:
+            raise AssertionError(f"request {ra.rid}: {a_name} and {b_name} "
+                                 f"first tokens differ by a logit gap of "
+                                 f"{gap}")
+    total = sum(len(r.tokens) for r in a[0])
+    log(f"  {a_name} vs {b_name}: first token equal for {same_first}/"
+        f"{len(a[0])} requests, {same_tok}/{total} tokens equal")
+    return same_first, same_tok, total
 
 
 def phase5_serve_dense(engine, prompts, card, paged):
@@ -617,23 +935,7 @@ def phase5_serve_dense(engine, prompts, card, paged):
         f"{m['prefill_chunks']} chunks; {engine.max_transient_cache_bytes} "
         f"transient cache bytes at most")
 
-    p_reqs, p_firsts = paged
-    same_first = same_tok = 0
-    for r, pr, fd, fp in zip(reqs, p_reqs, firsts, p_firsts):
-        same_tok += sum(a == b for a, b in zip(r.tokens, pr.tokens))
-        a, b = r.tokens[0], pr.tokens[0]
-        if a == b:
-            same_first += 1
-            continue
-        gap = max((fd[a] - fd[b]).item(), (fp[b] - fp[a]).item())
-        log(f"  request {r.rid}: first token {a} (dense) vs {b} (paged), "
-            f"logit gap {gap:.2e}")
-        if gap > 1e-3:
-            raise AssertionError(f"request {r.rid}: dense and paged first "
-                                 f"tokens differ by a logit gap of {gap}")
-    total = sum(len(r.tokens) for r in reqs)
-    log(f"  dense vs paged: first token equal for {same_first}/{len(reqs)} "
-        f"requests, {same_tok}/{total} tokens equal")
+    compare_streams("dense", (reqs, firsts), "paged", paged)
     return launches
 
 
@@ -658,12 +960,107 @@ def phase6_anchors():
         log(f"  {name}: paged attn {engine.paged_attn_impl}, prefill attn "
             f"{engine.prefill_attn_impl}, {sum(map(len, streams[name]))} "
             f"tokens")
-    first = next(iter(streams.values()))
+    equal_streams(streams)
+
+    # int8 pages: the same engine (incremental splice) reading through K3
+    # and, with the step functions swapped, through the q8 einsum
+    streams = {}
+    for impl in ("kernel", "einsum"):
+        engine = ServeEngine.build(ARCH, config=ServeConfig(
+            s_max=64, batch_slots=4, page_size=16, kv_backend="paged_int8"))
+        if impl == "einsum":
+            engine._decode = steps.make_decode_step(
+                engine.model, paged_attn_impl="einsum")
+            engine._chunk_paged = steps.make_prefill_chunk_paged(
+                engine.model, attn_impl="einsum")
+        pa.reset_launches()
+        reqs = [engine.submit(p, 16) for p in prompts]
+        engine.run()
+        q8 = pa.LAUNCHES["decode_q8"] + pa.LAUNCHES["prefill_q8"]
+        if (q8 > 0) != (impl == "kernel"):
+            raise AssertionError(f"int8 {impl}: {pa.LAUNCHES}")
+        streams[f"int8 {impl}"] = [list(r.tokens) for r in reqs]
+        log(f"  int8 {impl}: {q8} K3 launches, "
+            f"{sum(map(len, streams[f'int8 {impl}']))} tokens")
+    equal_streams(streams)
+
+    streams = {}
+    for name, fields in (
+            ("MLA dense latent", dict()),
+            ("MLA one-page latent einsum", dict(page_size=64,
+                                                kv_backend="paged_latent")),
+            ("MLA latent pages (K4)", dict(page_size=16))):
+        engine = ServeEngine.build(MLA_ARCH, config=ServeConfig(
+            s_max=64, batch_slots=4, **fields))
+        pa.reset_launches()
+        reqs = [engine.submit(p, 16) for p in prompts]
+        engine.run()
+        streams[name] = [list(r.tokens) for r in reqs]
+        log(f"  {name}: paged attn {engine.paged_attn_impl}, "
+            f"{pa.LAUNCHES['decode_latent'] + pa.LAUNCHES['prefill_latent']}"
+            f" K4 launches, {sum(map(len, streams[name]))} tokens")
+    equal_streams(streams)
+
+
+def equal_streams(streams):
+    first_name, first = next(iter(streams.items()))
     for name, got in streams.items():
         if got != first:
-            raise AssertionError(f"{name} greedy stream differs from dense "
-                                 f"parallel")
+            raise AssertionError(f"{name} greedy stream differs from "
+                                 f"{first_name}")
     log(f"  greedy streams equal across {len(streams)} paths")
+
+
+# ------------------------------------------------------------ phase 7
+def phase7_mla(card):
+    """qwen2.5-32b-mla at full width cut to 4 layers: the model step on
+    latent pages through K4 against the latent einsum, then the 16
+    requests on the dense latent cache (einsum only, no kernel) and on
+    latent pages (every paged attention through K4); streams compared."""
+    t0 = time.perf_counter()
+    dense = ServeEngine.build(MLA_ARCH, config=ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": LAYERS}, s_max=S_MAX,
+        batch_slots=SLOTS))
+    torch.cuda.synchronize()
+    model, params = dense.model, dense.params
+    log(f"  engine built in {time.perf_counter() - t0:.2f} s (dense latent "
+        f"cache {dense.resident_cache_bytes()} bytes)")
+    mps = S_MAX // PS
+    phase3_model(model, params, PagedLatentBackend(PS, SLOTS * mps),
+                 "latent pages")
+    prompts = serve_prompts(model.cfg.vocab_size)
+
+    pa.reset_launches()
+    fa.reset_launches()
+    d_reqs, m, d_firsts = serve(dense, prompts)
+    if sum(pa.LAUNCHES.values()) or sum(fa.LAUNCHES.values()):
+        raise AssertionError(f"the dense latent cache launched a kernel: "
+                             f"{pa.LAUNCHES}, {fa.LAUNCHES}")
+    log("  dense latent cache (no kernel):")
+    log_serving(m, card)
+    del dense
+    torch.cuda.empty_cache()
+
+    paged = ServeEngine(model, params, **ServeConfig(
+        reduced=False, page_size=PS, s_max=S_MAX, batch_slots=SLOTS,
+        kv_backend="paged_latent").engine_kwargs())
+    log(f"  latent pages: attn {paged.paged_attn_impl}, prefix cache "
+        f"{paged.prefix_cache}, {paged.num_pages} pages, resident cache "
+        f"{paged.resident_cache_bytes()} bytes")
+    pa.reset_launches()
+    fa.reset_launches()
+    p_reqs, m, p_firsts = serve(paged, prompts)
+    launches = check_paged_launches(("decode_latent", "prefill_latent"), m,
+                                    "latent paged-attention (K4)")
+    paged.assert_page_invariants()
+    log_serving(m, card)
+    log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
+        f"lookups, {m['prefix']['cow_copies']} COW copies")
+    compare_streams("dense latent", (d_reqs, d_firsts), "latent pages",
+                    (p_reqs, p_firsts))
+    del paged, model, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -681,13 +1078,18 @@ def main():
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    took = _build.build(["paged_attention", "flash_attention"])
+    took = _build.build(["paged_attention", "paged_attention_latent",
+                         "flash_attention"])
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     log("phase 2: kernels against their plain versions")
     errs = phase2_cases()
     full = phase2_full_width()
+    errs.update(phase2_q8_cases())
+    full.update(phase2_q8_full_width())
+    errs.update(phase2_latent_cases())
+    full.update(phase2_latent_full_width())
     flash_errs = phase2_flash_cases()
     flash_full = phase2_flash_full_width()
 
@@ -703,9 +1105,16 @@ def main():
     phase3_model(model, params)
     log("phase 3b: full width, 4 layers, flash kernel vs einsum")
     forward_launches = phase3b_flash_model(model, params)
+    log("phase 3c: full width, 4 layers, int8 pages, K3 vs q8 einsum")
+    phase3_model(model, params, PagedInt8Backend(PS, SLOTS * S_MAX // PS),
+                 "int8 pages", Q8_MODEL_TOL)
     prompts = serve_prompts(dense.cfg.vocab_size)
     log("phase 4: paged serving")
-    launches, p_reqs, p_firsts = phase4_serve(model, params, prompts, card)
+    launches, p_reqs, p_firsts, p_bytes = phase4_serve(model, params,
+                                                       prompts, card)
+    log("phase 4b: int8 pages serving")
+    q8_launches = phase4b_serve_int8(model, params, prompts, card,
+                                     (p_reqs, p_firsts, p_bytes))
     log("phase 5: ServeEngine main path (dense cache)")
     flash_launches = phase5_serve_dense(dense, prompts, card,
                                         (p_reqs, p_firsts))
@@ -714,19 +1123,26 @@ def main():
     torch.cuda.empty_cache()
     log("phase 6: prefill anchors at reduced width")
     phase6_anchors()
+    log("phase 7: qwen2.5-32b-mla at full width, 4 layers")
+    latent_launches = phase7_mla(card)
 
     kernels = []
-    for kind in ("decode", "prefill"):
-        f = full[kind]
-        kernels.append({
-            "name": f"paged_attention[{kind}]", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:52",
-            "launches": launches[kind],
-            "max_abs_err": max(errs[kind], f["err"]),
-            "ms": f["ms"], "plain_ms": f["plain_ms"],
-            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-            "library_ms": f["library_ms"]})
+    paged_rows = (("", "paged_attention.cu", 52, launches),
+                  ("_q8", "paged_attention.cu", 112, q8_launches),
+                  ("_latent", "paged_attention_latent.cu", 168,
+                   latent_launches))
+    for suffix, source, line, counts in paged_rows:
+        for kind in ("decode", "prefill"):
+            f = full[kind + suffix]
+            kernels.append({
+                "name": f"paged_attention{suffix}[{kind}]", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/paged_attention.py:{line}",
+                "launches": counts[kind],
+                "max_abs_err": max(errs[kind + suffix], f["err"]),
+                "ms": f["ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "library_ms": f["library_ms"]})
     for kind in ("prefill", "forward"):
         f = flash_full[kind]
         kernels.append({

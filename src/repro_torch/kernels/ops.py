@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_latent)
 
 
 def paged_decode(q, pool_k, pool_v, block_tables, cache_pos, *,
@@ -39,6 +40,56 @@ def paged_prefill(q, pool_k, pool_v, block_tables, start, *,
     uniformly through the block table."""
     return paged_attention(q, pool_k, pool_v, block_tables, start,
                            window=window, kind="prefill")
+
+
+def _squeeze_scale(s):
+    """A (P,) scale table, or the int8 backend's (P, 1) single-group column
+    taken as (P,) (tensor-parallel scale groups are not ported)."""
+    if s is not None and s.dim() == 2:
+        s = s[:, 0]
+    return s
+
+
+def paged_decode_q8(q, pool_k, pool_v, k_scale, v_scale, block_tables,
+                    cache_pos, *, window: int = 0):
+    """:func:`paged_decode` over INT8 pools: pool_k/pool_v are int8 and
+    k_scale/v_scale their (P,) or (P, 1) f32 per-page symmetric scales. The
+    kernel dequantizes each page it gathers, so only int8 payload moves."""
+    return paged_attention(q, pool_k, pool_v, block_tables, cache_pos,
+                           window=window, kind="decode_q8",
+                           k_scale=_squeeze_scale(k_scale),
+                           v_scale=_squeeze_scale(v_scale))
+
+
+def paged_prefill_q8(q, pool_k, pool_v, k_scale, v_scale, block_tables,
+                     start, *, window: int = 0):
+    """:func:`paged_prefill` over INT8 pools (see paged_decode_q8)."""
+    return paged_attention(q, pool_k, pool_v, block_tables, start,
+                           window=window, kind="prefill_q8",
+                           k_scale=_squeeze_scale(k_scale),
+                           v_scale=_squeeze_scale(v_scale))
+
+
+def paged_decode_latent(q, pool_c, block_tables, cache_pos, *,
+                        scale_dim: int, d_v: int):
+    """Single-token decode attention over MLA latent pages. q: (B, 1, H,
+    c+r) absorbed queries; pool_c: (P, page_size, 1, c+r), one latent row
+    per token read once per page for both the scores and (its leading
+    ``d_v`` columns) the values. Returns (B, 1, H, d_v) in latent space;
+    the caller applies wkv_b's value half and ``wo``."""
+    return paged_attention_latent(q, pool_c, block_tables, cache_pos,
+                                  scale_dim=scale_dim, d_v=d_v,
+                                  kind="decode_latent")
+
+
+def paged_prefill_latent(q, pool_c, block_tables, start, *, scale_dim: int,
+                         d_v: int):
+    """Prefill-chunk attention over MLA latent pages (see
+    paged_decode_latent). q: (B, C, H, c+r); the chunk's latent rows must
+    already be spliced into the slot's pages."""
+    return paged_attention_latent(q, pool_c, block_tables, start,
+                                  scale_dim=scale_dim, d_v=d_v,
+                                  kind="prefill_latent")
 
 
 def _check_row_positions(positions, n: int, name: str):

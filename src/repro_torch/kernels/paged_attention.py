@@ -1,11 +1,15 @@
-"""Paged attention: block-table-indirect GQA attention over a shared fp32
-KV page pool, for both serving shapes (decode Sq = 1, prefill chunk Sq = C).
+"""Paged attention: block-table-indirect attention over a shared KV page
+pool, for both serving shapes (decode Sq = 1, prefill chunk Sq = C), in
+three representations: fp32 GQA pools, int8 GQA pools with per-page f32
+scales, and MLA latent pools (one row per token shared by every head).
 
 On a CUDA tensor :func:`paged_attention` launches the hand-written Hopper
-kernel in ``csrc/paged_attention.cu`` (it replaces the Pallas kernel
-``repro/kernels/paged_attention.py::_kernel``) or raises; on a CPU tensor it
-runs the plain version, ``kernels.ref.paged_attention``. There is no other
-route and no fallback.
+kernel in ``csrc/paged_attention.cu`` (it replaces the Pallas kernels
+``repro/kernels/paged_attention.py::_kernel`` and, given scales,
+``::_kernel_q8``) and :func:`paged_attention_latent` the one in
+``csrc/paged_attention_latent.cu`` (replacing ``::_kernel_latent``), or
+they raise; on a CPU tensor each runs its plain version in
+``kernels.ref``. There is no other route and no fallback.
 """
 from __future__ import annotations
 
@@ -16,12 +20,26 @@ import torch
 
 from repro_torch.kernels import ref
 
-# kernel launches per caller ("decode", "prefill"): plain integers, raised
-# by one exactly where the kernel is launched, so a run can show that its
-# attention went through the kernel
-LAUNCHES = {"decode": 0, "prefill": 0}
+# kernel launches per caller: plain integers, raised by one exactly where a
+# kernel is launched, so a run can show that its attention went through the
+# kernel. fp32 pools count under "decode" / "prefill", int8 pools under
+# "*_q8", latent pools under "*_latent".
+LAUNCHES = {"decode": 0, "prefill": 0, "decode_q8": 0, "prefill_q8": 0,
+            "decode_latent": 0, "prefill_latent": 0}
 
 MAX_HEAD_DIM = 256
+MAX_LATENT_WIDTH = 1024
+
+_FN = {"f32": ("paged_attention", "repro_paged_attention_f32",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+               + [ctypes.c_float, ctypes.c_void_p]),
+       "i8": ("paged_attention", "repro_paged_attention_i8",
+              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+              + [ctypes.c_float, ctypes.c_void_p]),
+       "latent": ("paged_attention_latent",
+                  "repro_paged_attention_latent_f32",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_void_p])}
 
 
 def reset_launches():
@@ -29,13 +47,12 @@ def reset_launches():
         LAUNCHES[key] = 0
 
 
-def _lib():
+def _lib(which: str):
     from repro_torch.kernels import _build
-    lib = _build.load("paged_attention")
-    fn = lib.repro_paged_attention_f32
+    source, symbol, argtypes = _FN[which]
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -50,6 +67,10 @@ def _check(q, pool_k, pool_v, block_tables, start):
     if hd_p != hd or H % KV:
         raise ValueError(f"head_dim {hd} vs pool {hd_p}, H={H} KV={KV}: "
                          f"H must be a multiple of KV and widths must match")
+    _check_tables(B, block_tables, start)
+
+
+def _check_tables(B, block_tables, start):
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or tuple(start.shape) != (B,):
         raise ValueError(f"block_tables must be (B, mps) and start (B,) with "
@@ -57,54 +78,134 @@ def _check(q, pool_k, pool_v, block_tables, start):
                          f"{tuple(start.shape)}")
 
 
-def paged_attention(q, pool_k, pool_v, block_tables, start, *,
-                    window: int = 0, kind: str = "decode"):
-    """q: (B, Sq, H, hd) float32; pool_k/pool_v: (P, page_size, KV, hd)
-    float32; block_tables: (B, mps) int32 page ids (-1 = unallocated);
-    start: (B,) int32 position of each slot's first query row. Returns
-    (B, Sq, H, hd) float32. ``kind`` names the caller whose launch count
-    the kernel raises ('decode' or 'prefill')."""
-    _check(q, pool_k, pool_v, block_tables, start)
-    if kind not in LAUNCHES:
-        raise ValueError(f"kind must be one of {sorted(LAUNCHES)}, got "
-                         f"{kind!r}")
-    tensors = (q, pool_k, pool_v, block_tables, start)
-    if not q.is_cuda:
-        if any(t.is_cuda for t in tensors):
-            raise ValueError("paged_attention: all tensors must share q's "
-                             "device")
-        return ref.paged_attention(q, pool_k, pool_v, block_tables, start,
-                                   window=window)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("paged_attention: all tensors must share q's device")
-    for name, t, dt in (("q", q, torch.float32),
-                        ("pool_k", pool_k, torch.float32),
-                        ("pool_v", pool_v, torch.float32),
-                        ("block_tables", block_tables, torch.int32),
-                        ("start", start, torch.int32)):
+def _check_kind(kind: str, suffix: str):
+    kinds = ("decode" + suffix, "prefill" + suffix)
+    if kind not in kinds:
+        raise ValueError(f"kind must be one of {kinds}, got {kind!r}")
+
+
+def _check_on_card(name, q, named):
+    """Every tensor on q's device, with its dtype, contiguous."""
+    for arg, t, dt in named:
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must share q's device")
         if t.dtype != dt:
-            raise TypeError(f"paged_attention: {name} must be {dt}, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name}: {arg} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be contiguous")
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _on_cpu(name, tensors) -> bool:
+    if tensors[0].is_cuda:
+        return False
+    if any(t.is_cuda for t in tensors):
+        raise ValueError(f"{name}: all tensors must share q's device")
+    return True
+
+
+def paged_attention(q, pool_k, pool_v, block_tables, start, *,
+                    window: int = 0, kind: str = "decode", k_scale=None,
+                    v_scale=None):
+    """q: (B, Sq, H, hd) float32; pool_k/pool_v: (P, page_size, KV, hd),
+    float32, or int8 with ``k_scale``/``v_scale`` (P,) float32 per-page
+    symmetric scales; block_tables: (B, mps) int32 page ids (-1 =
+    unallocated); start: (B,) int32 position of each slot's first query
+    row. Returns (B, Sq, H, hd) float32. ``kind`` names the caller whose
+    launch count the kernel raises ('decode' or 'prefill', with '_q8' for
+    int8 pools)."""
+    _check(q, pool_k, pool_v, block_tables, start)
+    quantized = k_scale is not None or v_scale is not None
+    _check_kind(kind, "_q8" if quantized else "")
+    tensors = (q, pool_k, pool_v, block_tables, start)
+    if quantized:
+        if k_scale is None or v_scale is None:
+            raise ValueError("paged_attention: give k_scale and v_scale "
+                             "together")
+        P = pool_k.shape[0]
+        if tuple(k_scale.shape) != (P,) or tuple(v_scale.shape) != (P,):
+            raise ValueError(f"paged_attention: scales must be (P,) = "
+                             f"({P},); got {tuple(k_scale.shape)}, "
+                             f"{tuple(v_scale.shape)}")
+        tensors += (k_scale, v_scale)
+    if _on_cpu("paged_attention", tensors):
+        return ref.paged_attention(q, pool_k, pool_v, block_tables, start,
+                                   window=window, k_scale=k_scale,
+                                   v_scale=v_scale)
+    pool_dt = torch.int8 if quantized else torch.float32
+    named = [("q", q, torch.float32), ("pool_k", pool_k, pool_dt),
+             ("pool_v", pool_v, pool_dt),
+             ("block_tables", block_tables, torch.int32),
+             ("start", start, torch.int32)]
+    if quantized:
+        named += [("k_scale", k_scale, torch.float32),
+                  ("v_scale", v_scale, torch.float32)]
+    _check_on_card("paged_attention", q, named)
     B, Sq, H, hd = q.shape
     P, ps, KV, _ = pool_k.shape
     if hd > MAX_HEAD_DIM or hd % 4:
         raise ValueError(f"paged_attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM} and a multiple of 4, got {hd}")
-    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
-        raise ValueError("paged_attention: q and pools must be 16-byte "
-                         "aligned")
+    align = 4 if quantized else 16      # one 4-element unit of a row
+    if q.data_ptr() % 16 or any(t.data_ptr() % align
+                                for t in (pool_k, pool_v)):
+        raise ValueError(f"paged_attention: q must be 16-byte and the pools "
+                         f"{align}-byte aligned")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized else ())
+    dims = (B, Sq, H, KV, hd, P, ps, block_tables.shape[1], int(window),
+            1.0 / math.sqrt(hd), stream)
     with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                     block_tables.data_ptr(), start.data_ptr(),
-                     out.data_ptr(), B, Sq, H, KV, hd, P, ps,
-                     block_tables.shape[1], int(window),
-                     1.0 / math.sqrt(hd), stream)
+        err = _lib("i8" if quantized else "f32")(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
+            block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), *dims)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
+    LAUNCHES[kind] += 1
+    return out
+
+
+def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim: int,
+                           d_v: int, kind: str = "decode_latent"):
+    """MLA attention over latent pages. q: (B, Sq, H, c+r) float32 absorbed
+    queries; pool_c: (P, page_size, 1, c+r) float32, one latent row per
+    token; block_tables / start as in :func:`paged_attention`. Scores are
+    scaled by 1/sqrt(``scale_dim``); values are the leading ``d_v``
+    columns of the same rows. Returns (B, Sq, H, d_v) float32. ``kind``:
+    'decode_latent' or 'prefill_latent'."""
+    if q.dim() != 4 or pool_c.dim() != 4 or pool_c.shape[2] != 1 \
+            or pool_c.shape[3] != q.shape[3]:
+        raise ValueError(f"paged_attention_latent wants q (B,Sq,H,L) and a "
+                         f"pool (P,ps,1,L); got {tuple(q.shape)}, "
+                         f"{tuple(pool_c.shape)}")
+    B, Sq, H, Lw = q.shape
+    _check_tables(B, block_tables, start)
+    _check_kind(kind, "_latent")
+    if not 1 <= d_v <= Lw or scale_dim < 1:
+        raise ValueError(f"paged_attention_latent: need 1 <= d_v <= {Lw} and "
+                         f"scale_dim >= 1, got d_v={d_v}, "
+                         f"scale_dim={scale_dim}")
+    if _on_cpu("paged_attention_latent", (q, pool_c, block_tables, start)):
+        return ref.paged_attention_latent(q, pool_c, block_tables, start,
+                                          scale_dim=scale_dim, d_v=d_v)
+    _check_on_card("paged_attention_latent", q, [
+        ("q", q, torch.float32), ("pool_c", pool_c, torch.float32),
+        ("block_tables", block_tables, torch.int32),
+        ("start", start, torch.int32)])
+    if Lw > MAX_LATENT_WIDTH:
+        raise ValueError(f"paged_attention_latent kernel takes latent rows "
+                         f"of at most {MAX_LATENT_WIDTH} floats, got {Lw}")
+    P, ps = pool_c.shape[:2]
+    out = torch.empty((B, Sq, H, d_v), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _lib("latent")(
+            q.data_ptr(), pool_c.data_ptr(), block_tables.data_ptr(),
+            start.data_ptr(), out.data_ptr(), B, Sq, H, Lw, d_v, P, ps,
+            block_tables.shape[1], 1.0 / math.sqrt(scale_dim), stream)
+    if err:
+        raise RuntimeError(f"paged_attention_latent kernel launch failed: "
+                           f"CUDA error {err}")
     LAUNCHES[kind] += 1
     return out

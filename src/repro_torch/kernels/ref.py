@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the port's kernels (paged attention, flash
-attention): the ground truth each kernel is held against on the card, and
-the path a wrapper takes for tensors that lie on the CPU. Also home to
-:func:`mask_value`, the shared masking sentinel. Counterpart of
-``repro/kernels/ref.py``."""
+"""Plain PyTorch versions of the port's kernels (paged attention over fp32
+and int8 pools, latent paged attention, flash attention): the ground truth
+each kernel is held against on the card, and the path a wrapper takes for
+tensors that lie on the CPU. Also home to :func:`mask_value`, the shared
+masking sentinel, and :func:`mla_attention_naive`, the oracle of the MLA
+absorb path. Counterpart of ``repro/kernels/ref.py``."""
 from __future__ import annotations
 
 import math
@@ -21,7 +22,8 @@ def mask_value(dtype: torch.dtype) -> float:
     return float(fi.min) / 2
 
 
-def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
+def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0,
+                    k_scale=None, v_scale=None):
     """Plain version of the paged-attention kernel: gather each slot's
     logical view through its block table and run a masked softmax.
 
@@ -30,7 +32,12 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
     position per slot (query row i is at start[b] + i; logical key row r
     lives in page r // ps at offset r % ps). Masked probabilities are
     zeroed, so a query row with no valid key anywhere (a freed slot with an
-    all--1 block table) returns exactly 0, like the kernel's l == 0 guard."""
+    all--1 block table) returns exactly 0, like the kernel's l == 0 guard.
+
+    k_scale/v_scale: the int8 pools' f32 per-page symmetric scales, (P,)
+    or (P, T) with group t covering the contiguous KV/T kv heads; the
+    gathered view is dequantized page by page before the softmax, as the
+    int8 kernel dequantizes each page it gathers."""
     B, Sq, H, hd = q.shape
     P, ps, KV, _ = pool_k.shape
     mps = block_tables.shape[1]
@@ -43,6 +50,16 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
     phys = torch.where(ok, page * ps + j % ps, 0)
     view_k = pool_k.reshape(P * ps, KV, hd)[phys]          # (B, n_rows, KV, hd)
     view_v = pool_v.reshape(P * ps, KV, hd)[phys]
+    if k_scale is not None:
+        pg = torch.where(ok, page, 0)
+        ks, vs = k_scale[pg], v_scale[pg]       # (B, n_rows) or (..., T)
+        if ks.dim() == 2:
+            ks, vs = ks[..., None], vs[..., None]
+        rep = KV // ks.shape[-1]                # heads per scale group
+        ks = ks.repeat_interleave(rep, dim=-1)  # (B, n_rows, KV)
+        vs = vs.repeat_interleave(rep, dim=-1)
+        view_k = (view_k.float() * ks[..., None]).to(q.dtype)
+        view_v = (view_v.float() * vs[..., None]).to(q.dtype)
     q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
     if window > 0:
@@ -59,6 +76,69 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0):
                        view_v.to(q.dtype)).float()
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim,
+                           d_v):
+    """Plain version of the latent paged-attention kernel (MLA): gather
+    each slot's latent rows through its block table and run a masked
+    softmax in latent space.
+
+    q: (B, Sq, H, c+r) absorbed queries; pool_c: (P, ps, 1, c+r), one
+    latent row per token shared by every head (values are the leading
+    ``d_v`` columns of the same rows). Scores divide by
+    sqrt(``scale_dim``), the logical head width, not the latent width.
+    Masked probabilities are zeroed, so a freed slot returns exactly 0.
+    Returns (B, Sq, H, d_v), still in latent space."""
+    B, Sq, H, Lw = q.shape
+    P, ps = pool_c.shape[:2]
+    mps = block_tables.shape[1]
+    n_rows = mps * ps
+    dev = q.device
+    j = torch.arange(n_rows, device=dev)
+    page = block_tables.long()[:, j // ps]
+    ok = page >= 0
+    phys = torch.where(ok, page * ps + j % ps, 0)
+    view = pool_c.reshape(P * ps, Lw)[phys]                 # (B, n_rows, c+r)
+    q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
+    s = torch.einsum("bqhl,bsl->bhqs", q, view.to(q.dtype)
+                     ).float() / math.sqrt(scale_dim)
+    vm = valid[:, None, :, :]
+    s = torch.where(vm, s, mask_value(s.dtype))
+    m = s.amax(dim=-1)
+    p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqs,bsl->bhql", p.to(q.dtype),
+                       view[..., :d_v].to(q.dtype)).float()
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B, H, Sq, d_v)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def mla_attention_naive(q_nope, q_pe, latent, wb_k, wb_v, q_positions,
+                        k_positions):
+    """The MLA oracle by naive expansion: per-head K/V materialised from
+    the latent rows, then ordinary attention. The absorb path (wkv_b folded
+    into the query and output einsums) must stay allclose to it.
+
+    q_nope: (B, Sq, H, hd) queries before absorption; q_pe: (B, Sq, H, r)
+    RoPE'd decoupled queries; latent: (B, Sk, c + r) cached rows; wb_k:
+    (H, hd, c), wb_v: (H, c, hd), the halves of wkv_b. Returns
+    (B, Sq, H, hd), the per-head output before ``wo``."""
+    hd = q_nope.shape[-1]
+    r = q_pe.shape[-1]
+    c = latent.shape[-1] - r
+    ck, k_pe = latent[..., :c], latent[..., c:]
+    k_nope = torch.einsum("bsc,hdc->bshd", ck, wb_k)
+    v = torch.einsum("bsc,hcd->bshd", ck, wb_v)
+    s = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+         + torch.einsum("bqhr,bsr->bhqs", q_pe, k_pe)
+         ).float() / math.sqrt(hd + r)
+    diff = (q_positions.long()[:, None, :, None]
+            - k_positions.long()[:, None, None, :])
+    s = torch.where(diff >= 0, s, mask_value(s.dtype))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p, v)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_positions=None,

@@ -8,7 +8,10 @@ the CPU) and prints tok/s, TTFT p50 and latency p95:
 
 ``--num-layers`` cuts the depth of the arch (its widths stay), which is
 how a full-width arch fits one card. As in ``ServeConfig``, the cache is
-dense unless ``--page-size`` is given; ``--prefill-mode`` and
+dense unless ``--page-size`` is given; ``--kv-backend`` picks its
+representation by the reference's names (``paged_int8``: int8 pages;
+``paged_latent``: MLA latent pages, with an MLA arch such as
+``qwen2.5-32b-mla``); ``--prefill-mode`` and
 ``--prefill-attn-impl`` choose the prefill path (``auto``: the
 flash-attention kernel on the card).
 """
@@ -21,6 +24,7 @@ import numpy as np
 
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.kvcache import BACKENDS
 
 
 def main(argv=None):
@@ -36,6 +40,9 @@ def main(argv=None):
                     help="page the cache (default: dense)")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="0 = slots x s_max / page_size")
+    ap.add_argument("--kv-backend", default=None, choices=sorted(BACKENDS),
+                    help="cache representation (default: follows "
+                         "--page-size)")
     ap.add_argument("--prefill-chunk", type=int, default=64)
     ap.add_argument("--prefill-mode", default="parallel",
                     choices=("parallel", "scan"))
@@ -57,6 +64,7 @@ def main(argv=None):
                        else None),
         batch_slots=args.batch_slots, s_max=args.s_max, seed=args.seed,
         page_size=args.page_size, num_pages=args.num_pages or None,
+        kv_backend=args.kv_backend,
         prefix_cache=None if args.prefix_cache else False,
         prefill_chunk_tokens=args.prefill_chunk,
         prefill_mode=args.prefill_mode,

@@ -1,7 +1,8 @@
 """Model layers of the port: norms, RoPE, the QKV projection, full-sequence
 attention (einsum, chunked, banded, flash kernel), decode and prefill-chunk
-attention against a dense or a paged KV cache, the gated MLP, embeddings
-and logits. Counterpart of the same-named functions in
+attention against a dense or a paged KV cache (fp32 or int8 pages), MLA
+latent attention (dense latent cache or latent pages), the gated MLP,
+embeddings and logits. Counterpart of the same-named functions in
 ``repro/models/layers.py`` (same argument layouts and operation order);
 parameters are dicts of tensors.
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import page_scale
 from repro_torch.kernels.ref import mask_value
 
 
@@ -358,9 +360,121 @@ def paged_write_rows(pool, rows, row_idx, valid):
     return pool
 
 
+# ------------------------------------------- int8 page writes (q8 backend)
+def _requant_page(blk, content, groups: int = 1):
+    """Symmetric int8 scales per page from its LIVE rows only, one per
+    kv-head group (``groups`` = 1 without tensor parallelism: the whole
+    page). blk: (B, ps, KV, hd) f32 dequantized page content; content:
+    (B, ps) bool — rows past the sequence frontier may hold a recycled
+    page's stale payload, so they are left out of the amax and zeroed.
+    Returns (q (B, ps, KV, hd) int8, scale (B, groups) f32)."""
+    B, ps, KV, hd = blk.shape
+    masked = torch.where(content[..., None, None], blk, 0.0)
+    g = masked.reshape(B, ps, groups, KV // groups, hd)
+    scale = page_scale(g.abs().amax(dim=(1, 3, 4)))
+    q = torch.clamp(torch.round(g / scale[:, None, :, None, None]),
+                    -127, 127).to(torch.int8)
+    return q.reshape(B, ps, KV, hd), scale
+
+
+def _dequant_page_block(pool_pg, scale_pg):
+    """Dequantize gathered int8 pages (B, ps, KV, hd) with their per-group
+    scales (B, T): group t scales the contiguous KV/T kv-head slab t."""
+    B, ps, KV, hd = pool_pg.shape
+    T = scale_pg.shape[-1]
+    g = pool_pg.float().reshape(B, ps, T, KV // T, hd)
+    return (g * scale_pg[:, None, :, None, None]).reshape(B, ps, KV, hd)
+
+
+def paged_append_row_q8(pool, scale, rows, block_tables, safe_pos, valid):
+    """Decode-append one K/V row per slot into an INT8 page pool, IN PLACE.
+
+    The page is the quantization block: the slot's current page is
+    dequantized, the new row overlaid at ``safe_pos % ps``, rows past it
+    zeroed (stale), and the page re-quantized with fresh scales. Invalid
+    writes (freed slots, unallocated pages) drop both the page and its
+    scale. pool: (P, ps, KV, hd) int8; scale: (P, T) f32; rows: (B, KV,
+    hd); safe_pos: (B,) clipped positions; valid: (B,) bool. Returns
+    (pool, scale)."""
+    P, ps = pool.shape[:2]
+    mps = block_tables.shape[1]
+    B = rows.shape[0]
+    T = scale.shape[-1]
+    safe_pos = safe_pos.long()
+    page = torch.gather(block_tables.long(), 1,
+                        (safe_pos // ps).clamp(0, mps - 1)[:, None])[:, 0]
+    pg = page.clamp(0, P - 1)
+    blk = _dequant_page_block(pool[pg], scale[pg])
+    off = safe_pos % ps
+    blk[torch.arange(B, device=blk.device), off] = rows.float()
+    content = torch.arange(ps, device=blk.device)[None, :] <= off[:, None]
+    q, new_scale = _requant_page(blk, content, T)
+    keep = valid & (page >= 0)
+    pool[pg[keep]] = q[keep]
+    scale[pg[keep]] = new_scale[keep]
+    return pool, scale
+
+
+def paged_splice_chunk_q8(pool, scale, rows, block_tables, positions,
+                          write_floor):
+    """Chunk-splice C rows per slot into an INT8 page pool, IN PLACE (the
+    incremental prefill splice, quantized). Each logical page the chunk
+    overlaps (at most C // ps + 2) is dequantized, overlaid with the
+    chunk's rows and re-quantized whole, so a copy-on-write partial page
+    gets its fresh scales here, once. Pages the chunk does not write
+    (aliased prefix pages below ``write_floor``) keep payload and scales.
+
+    pool: (P, ps, KV, hd) int8; scale: (P, T) f32; rows: (B, C, KV, hd);
+    positions: (B, C) absolute positions (contiguous, shared start);
+    write_floor: the first writable logical row. Returns (pool, scale)."""
+    P, ps = pool.shape[:2]
+    B, C = positions.shape
+    mps = block_tables.shape[1]
+    n_rows = mps * ps
+    T = scale.shape[-1]
+    dev = pool.device
+    positions = positions.long()
+    start = positions[:, :1]                          # (B, 1)
+    b_idx = torch.arange(B, device=dev)[:, None]
+    for t in range((C - 1) // ps + 2):
+        lpg = positions[:, 0] // ps + t               # (B,) logical page
+        page = torch.gather(block_tables.long(), 1,
+                            lpg.clamp(0, mps - 1)[:, None])[:, 0]
+        in_range = (lpg < mps) & (page >= 0)
+        pg = page.clamp(0, P - 1)
+        blk = _dequant_page_block(pool[pg], scale[pg])
+        row_pos = lpg[:, None] * ps + torch.arange(ps, device=dev)[None, :]
+        ci = row_pos - start                          # chunk-relative index
+        from_chunk = ((ci >= 0) & (ci < C) & (row_pos >= write_floor)
+                      & (row_pos < n_rows))
+        chunk_rows = rows[b_idx, ci.clamp(0, C - 1)]  # (B, ps, KV, hd)
+        blk = torch.where(from_chunk[..., None, None], chunk_rows.float(), blk)
+        content = (row_pos <= start + C - 1) & (row_pos < n_rows)
+        q, new_scale = _requant_page(blk, content, T)
+        keep = from_chunk.any(dim=1) & in_range
+        pool[pg[keep]] = q[keep]
+        scale[pg[keep]] = new_scale[keep]
+    return pool, scale
+
+
+def dequant_paged_view(view, phys, scale, page_size: int, dtype):
+    """Dequantize a block-table-gathered int8 view (B, n_rows, KV, hd) with
+    the (P,) or (P, T) scales of the pages each row came from."""
+    P = scale.shape[0]
+    pg = (phys // page_size).clamp(0, P - 1)
+    sc = scale[pg]                       # (B, n_rows) or (B, n_rows, T)
+    if sc.dim() == 2:
+        sc = sc[..., None]
+    B, n, KV, hd = view.shape
+    T = sc.shape[-1]
+    g = view.float().reshape(B, n, T, KV // T, hd)
+    return (g * sc[..., None, None]).reshape(view.shape).to(dtype)
+
+
 def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
                            block_tables, cache_pos, positions,
-                           impl: str = "einsum"):
+                           impl: str = "einsum", *, k_scale=None,
+                           v_scale=None):
     """Single-token decode against a PAGED KV cache.
 
     x: (B,1,D); pool_k/pool_v: (P, page_size, KV, hd), one layer's slice of
@@ -371,7 +485,13 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
     page is unallocated are dropped. ``impl='kernel'`` reads through the
     paged-attention kernel (``kernels.ops.paged_decode``); ``'einsum'`` is
     the masked-gather reference over the full block-table span. Returns
-    (out, pool_k, pool_v)."""
+    (out, pool_k, pool_v).
+
+    ``k_scale``/``v_scale``: the int8 backend's (P, 1) per-page scales of
+    this layer. The new row's write re-quantizes the slot's current page
+    in place (``paged_append_row_q8``), reads dequantize per page (inside
+    the kernel's gather on the kernel path), and the return grows to
+    (out, pool_k, pool_v, k_scale, v_scale)."""
     q, k, v = _qkv(params, x, dims, positions)
     P, ps, KV, hd = pool_k.shape
     B = q.shape[0]
@@ -379,38 +499,55 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
     n_rows = mps * ps
     H = dims.num_heads
     G = H // KV
+    quantized = k_scale is not None
 
     pos = cache_pos.long()
-    w_row, page_ok = paged_write_target(block_tables, pos.clamp(0, n_rows - 1),
-                                        ps)
+    safe_pos = pos.clamp(0, n_rows - 1)
+    w_row, page_ok = paged_write_target(block_tables, safe_pos, ps)
     w_ok = (pos >= 0) & (pos < n_rows) & page_ok
-    paged_write_rows(pool_k, k[:, 0], w_row, w_ok)
-    paged_write_rows(pool_v, v[:, 0], w_row, w_ok)
+    if quantized:
+        paged_append_row_q8(pool_k, k_scale, k[:, 0], block_tables, safe_pos,
+                            w_ok)
+        paged_append_row_q8(pool_v, v_scale, v[:, 0], block_tables, safe_pos,
+                            w_ok)
+    else:
+        paged_write_rows(pool_k, k[:, 0], w_row, w_ok)
+        paged_write_rows(pool_v, v[:, 0], w_row, w_ok)
 
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
-        out = kops.paged_decode(q, pool_k, pool_v,
-                                block_tables.int().contiguous(),
-                                cache_pos.int().contiguous(),
-                                window=dims.window)
+        bt, cp = block_tables.int().contiguous(), cache_pos.int().contiguous()
+        if quantized:
+            out = kops.paged_decode_q8(q, pool_k, pool_v, k_scale, v_scale,
+                                       bt, cp, window=dims.window)
+        else:
+            out = kops.paged_decode(q, pool_k, pool_v, bt, cp,
+                                    window=dims.window)
         out = out.reshape(B, 1, H * hd)
     else:
         qg = q.reshape(B, 1, KV, G, hd)
         phys, ok = paged_row_indices(block_tables, ps, n_rows)
         view_k = pool_k.reshape(P * ps, KV, hd)[phys]   # (B, n_rows, KV, hd)
         view_v = pool_v.reshape(P * ps, KV, hd)[phys]
+        if quantized:
+            view_k = dequant_paged_view(view_k, phys, k_scale, ps, q.dtype)
+            view_v = dequant_paged_view(view_v, phys, v_scale, ps, q.dtype)
         k_positions = torch.where(
             ok, torch.arange(n_rows, device=x.device)[None, :], INACTIVE_POS)
         l, acc = _decode_sdpa_local(qg, view_k, view_v, pos[:, None],
                                        k_positions, dims.window, hd)
         out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
-    return out @ params["wo"].to(x.dtype), pool_k, pool_v
+    out = out @ params["wo"].to(x.dtype)
+    if quantized:
+        return out, pool_k, pool_v, k_scale, v_scale
+    return out, pool_k, pool_v
 
 
 def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
                                   block_tables, positions, write_floor: int,
-                                  impl: str = "kernel"):
+                                  impl: str = "kernel", *, k_scale=None,
+                                  v_scale=None):
     """Prefill-chunk attention directly against the paged pool.
 
     x: (B, C, D); pool_k/pool_v: one layer's (P, ps, KV, hd) pool slice;
@@ -421,30 +558,48 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
     prefix pages) are dropped. Attention then reads prior chunks, aliased
     prefix pages and the chunk itself through the block table
     (``impl='kernel'``: ``ops.paged_prefill``; ``'einsum'``: masked gather).
-    Returns (out (B, C, D), pool_k, pool_v)."""
+    Returns (out (B, C, D), pool_k, pool_v).
+
+    ``k_scale``/``v_scale``: the int8 backend's (P, 1) per-page scales of
+    this layer. The splice re-quantizes each page the chunk writes
+    (``paged_splice_chunk_q8``; aliased prefix pages keep their shared
+    scales), reads dequantize per page, and the return grows to (out,
+    pool_k, pool_v, k_scale, v_scale)."""
     q, k, v = _qkv(params, x, dims, positions)
     B, C, KV, hd = k.shape
     P, ps = pool_k.shape[:2]
     mps = block_tables.shape[1]
     n_rows = mps * ps
     H = dims.num_heads
+    quantized = k_scale is not None
 
     pos = positions.long()
-    page = torch.gather(block_tables.long(), 1, (pos // ps).clamp(0, mps - 1))
-    w_ok = ((page >= 0) & (pos >= write_floor) & (pos >= 0)
-            & (pos < n_rows))
-    w_rows = (page * ps + pos % ps)[w_ok]
     flat_k = pool_k.view(P * ps, KV, hd)
     flat_v = pool_v.view(P * ps, KV, hd)
-    flat_k[w_rows] = k[w_ok].to(flat_k.dtype)
-    flat_v[w_rows] = v[w_ok].to(flat_v.dtype)
+    if quantized:
+        paged_splice_chunk_q8(pool_k, k_scale, k, block_tables, positions,
+                              write_floor)
+        paged_splice_chunk_q8(pool_v, v_scale, v, block_tables, positions,
+                              write_floor)
+    else:
+        page = torch.gather(block_tables.long(), 1,
+                            (pos // ps).clamp(0, mps - 1))
+        w_ok = ((page >= 0) & (pos >= write_floor) & (pos >= 0)
+                & (pos < n_rows))
+        w_rows = (page * ps + pos % ps)[w_ok]
+        flat_k[w_rows] = k[w_ok].to(flat_k.dtype)
+        flat_v[w_rows] = v[w_ok].to(flat_v.dtype)
 
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
-        out = kops.paged_prefill(q, pool_k, pool_v,
-                                 block_tables.int().contiguous(),
-                                 positions[:, 0].int().contiguous(),
-                                 window=dims.window)
+        bt = block_tables.int().contiguous()
+        st = positions[:, 0].int().contiguous()
+        if quantized:
+            out = kops.paged_prefill_q8(q, pool_k, pool_v, k_scale, v_scale,
+                                        bt, st, window=dims.window)
+        else:
+            out = kops.paged_prefill(q, pool_k, pool_v, bt, st,
+                                     window=dims.window)
         out = out.reshape(B, C, H * hd)
     else:
         G = H // KV
@@ -452,6 +607,9 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
         phys, ok = paged_row_indices(block_tables, ps, n_rows)
         view_k = flat_k[phys]                          # (B, n_rows, KV, hd)
         view_v = flat_v[phys]
+        if quantized:
+            view_k = dequant_paged_view(view_k, phys, k_scale, ps, q.dtype)
+            view_v = dequant_paged_view(view_v, phys, v_scale, ps, q.dtype)
         scores = torch.einsum("bqkgh,bskh->bkgqs", qg, view_k.to(q.dtype)
                               ).float() / math.sqrt(hd)
         k_pos = torch.where(ok, torch.arange(n_rows, device=x.device)[None, :],
@@ -464,7 +622,237 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bkgqs,bskh->bqkgh", probs, view_v.to(q.dtype)
                            ).reshape(B, C, H * hd)
-    return out @ params["wo"].to(x.dtype), pool_k, pool_v
+    out = out @ params["wo"].to(x.dtype)
+    if quantized:
+        return out, pool_k, pool_v, k_scale, v_scale
+    return out, pool_k, pool_v
+
+
+# ------------------------------------------------- MLA (latent attention)
+# Multi-head latent attention. The cache stores, per token, ONE row of
+# kv_lora_rank + qk_rope_head_dim floats: the rms-normed compressed KV
+# latent and a decoupled RoPE key head shared by every query head. Every
+# path runs the ABSORB form: wkv_b's key half folds into the queries and
+# its value half into the output projection, so attention contracts over
+# the latent rows and per-head K/V never exist. All variants share one
+# operation order, which is what keeps the dense latent cache and the
+# one-page latent pages bit-exact.
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    d_model: int
+    num_heads: int
+    kv_lora_rank: int        # c: compressed KV latent width
+    qk_rope_head_dim: int    # r: decoupled RoPE key head width
+    head_dim: int            # qk_nope width == value head width
+    rope_theta: float = 10000.0
+
+    @property
+    def latent_dim(self) -> int:
+        """Cached floats per token: c + r (one latent page row)."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def scale_dim(self) -> int:
+        """Softmax scale denominator: the per-head query width (qk_nope +
+        rope), not the latent width the absorbed dot runs over."""
+        return self.head_dim + self.qk_rope_head_dim
+
+
+def mla_init(gen, dims: MLADims, lead=(), device=None):
+    """MLA weights with leading axes ``lead`` (the layer stack)."""
+    D, H = dims.d_model, dims.num_heads
+    c, r, hd = dims.kv_lora_rank, dims.qk_rope_head_dim, dims.head_dim
+    lead = tuple(lead)
+    return {"wq": _dense(gen, lead + (D, H * (hd + r)), D, device),
+            "wkv_a": _dense(gen, lead + (D, c + r), D, device),
+            "kv_norm": torch.zeros(lead + (c,), device=device),
+            "wkv_b": _dense(gen, lead + (c, H * 2 * hd), c, device),
+            "wo": _dense(gen, lead + (H * hd, D), H * hd, device)}
+
+
+def _mla_wkv_b(params, dims: MLADims, dtype):
+    """wkv_b split into its absorbable halves: (wb_k (H, hd, c), which folds
+    q_nope into latent space; wb_v (H, c, hd), which expands the latent
+    attention output to value heads)."""
+    c, H, hd = dims.kv_lora_rank, dims.num_heads, dims.head_dim
+    wb = params["wkv_b"].to(dtype).reshape(c, H, 2 * hd)
+    wb_k = wb[:, :, :hd].permute(1, 2, 0)        # (H, hd, c)
+    wb_v = wb[:, :, hd:].permute(1, 0, 2)        # (H, c, hd)
+    return wb_k, wb_v
+
+
+def mla_absorbed_queries(params, x, dims: MLADims, positions):
+    """ABSORBED queries (B, S, H, c + r): the nope half pushed through wb_k
+    into latent space, the rope half rotated; they dot the cached latent
+    rows directly."""
+    B, S, _ = x.shape
+    H, hd, r = dims.num_heads, dims.head_dim, dims.qk_rope_head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, H, hd + r)
+    q_nope, q_pe = q[..., :hd], q[..., hd:]
+    q_pe = apply_rope(q_pe, positions, dims.rope_theta)
+    wb_k, _ = _mla_wkv_b(params, dims, x.dtype)
+    q_abs = torch.einsum("bshd,hdc->bshc", q_nope, wb_k)
+    return torch.cat([q_abs, q_pe], dim=-1)
+
+
+def mla_latent_rows(params, x, dims: MLADims, positions):
+    """Per-token latent cache rows (B, S, 1, c + r): the rms-normed
+    compressed latent and the RoPE'd decoupled key head (one shared 'kv
+    head')."""
+    c = dims.kv_lora_rank
+    kv = x @ params["wkv_a"].to(x.dtype)          # (B, S, c + r)
+    ckv = rmsnorm(kv[..., :c], params["kv_norm"])
+    k_pe = apply_rope(kv[..., None, c:], positions, dims.rope_theta)
+    return torch.cat([ckv[:, :, None, :], k_pe], dim=-1)
+
+
+def _mla_out(params, attn, dims: MLADims, x):
+    """Absorbed output projection: latent attention output (B, S, H, c) ->
+    value heads through wb_v -> wo. (The reference all-gathers the value
+    heads before ``wo`` under tensor parallelism, which is not ported.)"""
+    B, S, H, _ = attn.shape
+    _, wb_v = _mla_wkv_b(params, dims, x.dtype)
+    out = torch.einsum("bshc,hcd->bshd", attn, wb_v)
+    return out.reshape(B, S, H * dims.head_dim) @ params["wo"].to(x.dtype)
+
+
+def mla_attention_decode(params, x, dims: MLADims, cache_c, cache_pos,
+                         positions):
+    """Single-token MLA decode against a DENSE latent cache, written IN
+    PLACE. x: (B, 1, D); cache_c: (B, S_max, 1, c + r); ``cache_pos`` a
+    (B,) vector or a scalar, as in ``attention_decode``. Scores and values
+    read the same latent rows (values: the leading c columns). Returns
+    (out, cache_c)."""
+    B = x.shape[0]
+    H, c = dims.num_heads, dims.kv_lora_rank
+    q = mla_absorbed_queries(params, x, dims, positions)     # (B,1,H,c+r)
+    rows = mla_latent_rows(params, x, dims, positions)       # (B,1,1,c+r)
+    if cache_pos.dim() == 0:
+        cache_pos = int(cache_pos)
+        mask_pos = cache_pos
+    else:
+        mask_pos = cache_pos.long()[:, None]
+    _write_row(cache_c, rows[:, 0], cache_pos)
+    qg = q.reshape(B, 1, 1, H, dims.latent_dim)              # KV=1, G=H
+    k_positions = torch.arange(cache_c.shape[1], device=x.device)[None, :]
+    l, acc = _decode_sdpa_local(qg, cache_c, cache_c[..., :c], mask_pos,
+                                k_positions, 0, dims.scale_dim)
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, c)
+    return _mla_out(params, attn, dims, x), cache_c
+
+
+def mla_attention_prefill_chunk(params, x, dims: MLADims, cache_c, start,
+                                positions):
+    """Multi-token MLA prefill chunk against a dense latent cache, written
+    IN PLACE (rows [start, start + C), the start clamped as
+    ``dynamic_update_slice`` clamps it). Returns (out (B, C, D),
+    cache_c)."""
+    c = dims.kv_lora_rank
+    q = mla_absorbed_queries(params, x, dims, positions)     # (B,C,H,c+r)
+    rows = mla_latent_rows(params, x, dims, positions)       # (B,C,1,c+r)
+    B, C, H, _ = q.shape
+    S_max = cache_c.shape[1]
+    s = min(max(int(start), 0), S_max - C)
+    cache_c[:, s:s + C] = rows.to(cache_c.dtype)
+    qg = q.reshape(B, C, 1, H, dims.latent_dim)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, cache_c.to(q.dtype)
+                          ).float() / math.sqrt(dims.scale_dim)
+    k_pos = torch.arange(S_max, device=x.device)
+    valid = k_pos[None, None, :] <= positions[:, :, None]    # (B,C,S)
+    scores = torch.where(valid[:, None, None, :, :], scores,
+                         mask_value(scores.dtype))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    attn = torch.einsum("bkgqs,bskh->bqkgh", probs,
+                        cache_c[..., :c].to(q.dtype)).reshape(B, C, H, c)
+    return _mla_out(params, attn, dims, x), cache_c
+
+
+def mla_attention_decode_paged(params, x, dims: MLADims, pool_c,
+                               block_tables, cache_pos, positions,
+                               impl: str = "einsum"):
+    """Single-token MLA decode against a LATENT page pool, written IN
+    PLACE. pool_c: one layer's (P, page_size, 1, c + r) slice; the write
+    and the gather use the K/V path's block-table helpers. ``impl='kernel'``
+    reads through the latent paged-attention kernel
+    (``ops.paged_decode_latent``); 'einsum' is the masked gather, bit-exact
+    with ``mla_attention_decode`` at page_size == s_max. Returns (out,
+    pool_c)."""
+    H, c = dims.num_heads, dims.kv_lora_rank
+    q = mla_absorbed_queries(params, x, dims, positions)     # (B,1,H,c+r)
+    rows = mla_latent_rows(params, x, dims, positions)       # (B,1,1,c+r)
+    P, ps = pool_c.shape[:2]
+    B = q.shape[0]
+    n_rows = block_tables.shape[1] * ps
+    pos = cache_pos.long()
+    w_row, page_ok = paged_write_target(block_tables, pos.clamp(0, n_rows - 1),
+                                        ps)
+    w_ok = (pos >= 0) & (pos < n_rows) & page_ok
+    paged_write_rows(pool_c, rows[:, 0], w_row, w_ok)
+
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        attn = kops.paged_decode_latent(q, pool_c,
+                                        block_tables.int().contiguous(),
+                                        cache_pos.int().contiguous(),
+                                        scale_dim=dims.scale_dim, d_v=c)
+    else:
+        qg = q.reshape(B, 1, 1, H, dims.latent_dim)
+        phys, ok = paged_row_indices(block_tables, ps, n_rows)
+        view = pool_c.reshape(P * ps, 1, dims.latent_dim)[phys]
+        k_positions = torch.where(
+            ok, torch.arange(n_rows, device=x.device)[None, :], INACTIVE_POS)
+        l, acc = _decode_sdpa_local(qg, view, view[..., :c], pos[:, None],
+                                    k_positions, 0, dims.scale_dim)
+        out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+        attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, c)
+    return _mla_out(params, attn, dims, x), pool_c
+
+
+def mla_attention_prefill_chunk_paged(params, x, dims: MLADims, pool_c,
+                                      block_tables, positions,
+                                      write_floor: int, impl: str = "kernel"):
+    """Multi-token MLA prefill chunk splicing its latent rows straight into
+    the page pool (IN PLACE; rows below ``write_floor``, in aliased prefix
+    pages, are dropped) and attending through the block table: the latent
+    twin of ``attention_prefill_chunk_paged``. Returns (out (B, C, D),
+    pool_c)."""
+    H, c = dims.num_heads, dims.kv_lora_rank
+    q = mla_absorbed_queries(params, x, dims, positions)     # (B,C,H,c+r)
+    rows = mla_latent_rows(params, x, dims, positions)       # (B,C,1,c+r)
+    B, C = positions.shape
+    P, ps = pool_c.shape[:2]
+    mps = block_tables.shape[1]
+    n_rows = mps * ps
+
+    pos = positions.long()
+    page = torch.gather(block_tables.long(), 1, (pos // ps).clamp(0, mps - 1))
+    w_ok = ((page >= 0) & (pos >= write_floor) & (pos >= 0)
+            & (pos < n_rows))
+    flat = pool_c.view(P * ps, 1, dims.latent_dim)
+    flat[(page * ps + pos % ps)[w_ok]] = rows[w_ok].to(flat.dtype)
+
+    if impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        attn = kops.paged_prefill_latent(q, pool_c,
+                                         block_tables.int().contiguous(),
+                                         positions[:, 0].int().contiguous(),
+                                         scale_dim=dims.scale_dim, d_v=c)
+    else:
+        qg = q.reshape(B, C, 1, H, dims.latent_dim)
+        phys, ok = paged_row_indices(block_tables, ps, n_rows)
+        view = flat[phys]                        # (B, n_rows, 1, c+r)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg, view.to(q.dtype)
+                              ).float() / math.sqrt(dims.scale_dim)
+        k_pos = torch.where(ok, torch.arange(n_rows, device=x.device)[None, :],
+                            INACTIVE_POS)
+        valid = k_pos[:, None, :] <= pos[:, :, None]          # (B,C,S)
+        scores = torch.where(valid[:, None, None, :, :], scores,
+                             mask_value(scores.dtype))
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        attn = torch.einsum("bkgqs,bskh->bqkgh", probs,
+                            view[..., :c].to(q.dtype)).reshape(B, C, H, c)
+    return _mla_out(params, attn, dims, x), pool_c
 
 
 # ---------------------------------------------------------------- MLP

@@ -9,7 +9,10 @@ leaves are shared page pools (L, num_pages, page_size, KV, hd) with no
 batch axis, addressed through a "block_tables" leaf (B,
 max_pages_per_slot) int32 (-1 = unallocated). A serving slot's "pos"
 starts at ``layers.INACTIVE_POS``; its writes are dropped until it is
-admitted. The splices below write the resident cache IN PLACE.
+admitted. An MLA cache has a single latent leaf "k" (one (c + r)-wide
+row per token, shaped as one kv head) and no "v"; every splice below is
+generic over the pool leaves the cache holds. The splices write the
+resident cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -116,7 +119,7 @@ def seed_prefix_cache(model: Model, cache, phys_rows, row_ok, pos,
     K = phys_rows.shape[0]
     out = model.init_cache(K, s_max, dtype, device=cache["k"].device)
     idx = torch.where(row_ok, phys_rows, 0)
-    for key in ("k", "v"):
+    for key in _pool_keys(out):
         pool = cache[key]                   # (L, P, ps, KV, hd)
         Lr, P, ps = pool.shape[:3]
         rows = pool.view((Lr, P * ps) + tuple(pool.shape[3:]))[:, idx]
@@ -142,14 +145,21 @@ def init_paged_cache(model: Model, batch: int, s_max: int, *, page_size: int,
         raise ValueError(f"s_max {s_max} must be a multiple of page_size "
                          f"{page_size} (paged view == dense view)")
     dense = model.init_cache(batch, s_max, dtype, device="meta")
-    Lr, _, _, KV, hd = dense["k"].shape
-    pool = (Lr, num_pages, page_size, KV, hd)
-    return {"k": torch.zeros(pool, dtype=dtype, device=device),
-            "v": torch.zeros(pool, dtype=dtype, device=device),
-            "pos": torch.full((batch,), INACTIVE_POS, dtype=torch.int32,
-                              device=device),
-            "block_tables": torch.full((batch, s_max // page_size), -1,
-                                       dtype=torch.int32, device=device)}
+    out = {}
+    for key in _pool_keys(dense):           # (L, B, S, KV, hd) -> pool
+        Lr, _, _, KV, hd = dense[key].shape
+        out[key] = torch.zeros((Lr, num_pages, page_size, KV, hd),
+                               dtype=dtype, device=device)
+    out["pos"] = torch.full((batch,), INACTIVE_POS, dtype=torch.int32,
+                            device=device)
+    out["block_tables"] = torch.full((batch, s_max // page_size), -1,
+                                     dtype=torch.int32, device=device)
+    return out
+
+
+def _pool_keys(cache):
+    """The K/V leaves a cache holds: ("k", "v"), or ("k",) for MLA."""
+    return tuple(key for key in ("k", "v") if key in cache)
 
 
 def copy_pool_rows(cache, src_rows, dst_rows):
@@ -158,7 +168,7 @@ def copy_pool_rows(cache, src_rows, dst_rows):
     dst_rows: (K, R) int64 flattened pool rows (page * page_size + offset);
     entries with dst >= num_pages * page_size are dropped. Returns
     ``cache``."""
-    for key in ("k", "v"):
+    for key in _pool_keys(cache):
         pool = cache[key]                   # (L, P, ps, KV, hd)
         Lr, P, ps = pool.shape[:3]
         flat = pool.view((Lr, P * ps) + tuple(pool.shape[3:]))

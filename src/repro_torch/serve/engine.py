@@ -1,9 +1,13 @@
-"""Continuous-batching serve engine over a dense or a paged fp32 KV cache —
-the port of ``repro/serve/engine.py``, greedy and FIFO:
+"""Continuous-batching serve engine over a dense or a paged KV cache — the
+port of ``repro/serve/engine.py``, greedy and FIFO:
 
 * **The cache.** ``page_size=None`` (the default) keeps per-slot (B, s_max)
   rows. With a page size, K/V live in a shared page pool (L, num_pages,
-  page_size, KV, hd) addressed through per-slot block tables; a host-side
+  page_size, KV, hd) addressed through per-slot block tables — fp32, or
+  int8 with per-page scales (``kv_backend="paged_int8"``); an MLA arch
+  caches one latent row per token instead (dense, or latent pages). The
+  ``KVBackend`` owns the representation and the engine carries whatever
+  leaves it declares. A host-side
   refcounted ``PageAllocator`` hands pages out at admission (the request's
   worst case, all or nothing) and takes them back on completion. Admission
   peeks and defers in strict FIFO order when the free list is short.
@@ -160,8 +164,8 @@ def _not_ported(what: str, item: str):
 
 
 class ServeEngine:
-    """Slot-based continuous-batching engine over a dense or paged fp32
-    cache, greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
+    """Slot-based continuous-batching engine over a dense or paged cache,
+    greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
     passed). ``prefill_attn_impl='auto'`` resolves to the flash-attention
     kernel ('pallas') on the card and to the einsum reference on the CPU,
     as ``repro`` resolves it on and off the TPU."""
@@ -717,6 +721,13 @@ class ServeEngine:
     def cancel(self, rid: int) -> bool:
         raise _not_ported("cancel", "8")
 
+    def resident_cache_bytes(self) -> int:
+        """Device bytes of the resident serving cache: every leaf the
+        backend built (pools, per-page scales, block tables, positions),
+        not a fixed k/v pair, so int8 scales and a single latent pool
+        count as they are."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
     def transient_cache_bytes(self) -> int:
         """Device bytes held right now by in-flight prefill jobs' transient
         request caches: 0 on the incremental path by construction."""
@@ -725,8 +736,9 @@ class ServeEngine:
 
     def assert_page_invariants(self):
         """Raise on violated page bookkeeping: no page both free and
-        referenced, every live block-table or index page referenced, and
-        free + held partitions the pool. Nothing to check when dense."""
+        referenced, every live block-table or index page referenced, free +
+        held partitions the pool, and the backend's per-page metadata (the
+        int8 scales) is well formed. Nothing to check when dense."""
         if not self.paged:
             return
         free = set(self.allocator._free)
@@ -743,6 +755,7 @@ class ServeEngine:
             for pg in idx:
                 assert self.allocator.refcount(pg) >= 1, \
                     f"indexed page {pg} unref'd"
+        self.backend.check_page_meta(self.cache, self.num_pages)
 
     def step(self) -> int:
         """One engine tick: admit, ingest at most one prefill-chunk budget,

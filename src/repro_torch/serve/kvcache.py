@@ -1,23 +1,37 @@
 """KV-cache backends: the seam between the serving engine's orchestration
 and the cache's representation, as in ``repro/serve/kvcache.py``.
 
-The port implements :class:`DenseBackend` (per-slot rows) and
-:class:`PagedFP32Backend` (the vLLM-style shared fp32 page pool). The other
-backends keep their registry names, so ``ServeConfig`` resolves and
-validates them as ``repro`` does, but constructing one raises
-``NotImplementedError`` naming its ROADMAP item. The splices write the
+* :class:`DenseBackend`: per-slot (B, s_max) rows.
+* :class:`PagedFP32Backend`: the vLLM-style shared fp32 page pool.
+* :class:`PagedInt8Backend`: int8 page pools with one symmetric f32 scale
+  per page (the page is the quantization block), held in (L, P, 1)
+  "k_scale"/"v_scale" leaves beside the pools. Writes re-quantize the page
+  they touch; reads dequantize inside the paged kernel's gather. A prefix
+  hit aliases a page's scales with its payload; copy-on-write carries the
+  source page's scale and the next splice re-quantizes the fresh page once.
+* :class:`PagedLatentBackend`: MLA latent pages, one (c + r)-wide row per
+  token shared by every head, in a single "k" pool.
+
+Tensor parallelism (the reference's sharding hooks and per-shard scale
+groups) is not ported (ROADMAP queue 1 item 12). The splices write the
 resident cache in place and return it.
 """
 from __future__ import annotations
 
 import functools
+import logging
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, Family
+from repro_torch.core.quantize import page_scale
 from repro_torch.models.registry import (Model, cache_capacity, copy_pool_rows,
                                          init_paged_cache, insert_cache_rows,
                                          insert_cache_rows_paged,
                                          seed_prefix_cache,
                                          vectorize_cache_pos)
+
+log = logging.getLogger("repro_torch.serve")
 
 # families whose transient prefill state is exactly (k, v, pos): the ones
 # page-level prefix caching can serve
@@ -25,6 +39,102 @@ PREFIX_CACHE_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM)
 
 # families whose paged decode/prefill can route through the paged kernel
 PAGED_KERNEL_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM, Family.ENCDEC)
+
+# families the int8 backend supports (the quantized writes live in the
+# transformer's attention; other families keep fp32 pages)
+INT8_KV_FAMILIES = PREFIX_CACHE_FAMILIES
+
+
+# ------------------------------------------------------------ int8 splices
+def _quantize_pool_rows(req, C: int, ps: int, groups: int = 1):
+    """Quantize a transient-cache leaf (L, K, >=C, KV, hd) page block by
+    page block. Returns (q (L, K, C, KV, hd) int8, scale (L, K, C // ps,
+    groups) f32): one symmetric scale per logical page and kv-head group.
+    The engine's write floor is page-aligned, so a splice drops whole
+    pages and payload and scale stay consistent."""
+    rows = req[:, :, :C].float()
+    Lr, K = rows.shape[:2]
+    KV, hd = rows.shape[3], rows.shape[4]
+    blocks = rows.reshape(Lr, K, C // ps, ps, groups, KV // groups, hd)
+    scale = page_scale(blocks.abs().amax(dim=(3, 5, 6)))
+    q = torch.clamp(torch.round(blocks / scale[:, :, :, None, :, None, None]),
+                    -127, 127).to(torch.int8)
+    return q.reshape(Lr, K, C, KV, hd), scale
+
+
+def insert_cache_rows_paged_q8(cache, request_cache, slots, phys_rows):
+    """Int8 completion splice, in place: as
+    ``registry.insert_cache_rows_paged``, but the fp32 transient K/V rows
+    are quantized page by page on the way into the int8 pools and each
+    written page's scales land in the (L, P, 1) scale leaves. Rows and
+    pages outside the request's reservation (phys >= P * ps, everything
+    below a page-aligned write floor included) drop from payload and scale
+    alike. Returns ``cache``."""
+    for key, leaf in cache.items():
+        if key == "block_tables" or key.endswith("_scale"):
+            continue                        # scales are written with k/v
+        req = request_cache[key]
+        if key in ("k", "v"):
+            Lr, P, ps = leaf.shape[:3]
+            C = phys_rows.shape[1]
+            q, scale = _quantize_pool_rows(req, C, ps,
+                                           cache[key + "_scale"].shape[-1])
+            flat = leaf.view((Lr, P * ps) + tuple(leaf.shape[3:]))
+            keep = (phys_rows >= 0) & (phys_rows < P * ps)
+            flat[:, phys_rows[keep]] = q[:, keep]
+            # a logical page's rows are pool-contiguous: its page id is its
+            # first row's phys // ps (out-of-range rows land on page P)
+            page_idx = phys_rows[:, ::ps] // ps              # (K, C // ps)
+            pkeep = page_idx < P
+            cache[key + "_scale"][:, page_idx[pkeep]] = scale[:, pkeep]
+        elif key == "pos":
+            leaf[slots] = req.to(leaf.dtype)
+        else:
+            leaf[:, slots] = req.to(leaf.dtype)
+    return cache
+
+
+def copy_pool_rows_q8(cache, src_rows, dst_rows):
+    """Int8 copy-on-write, in place: the int8 rows copy verbatim and the
+    DESTINATION page takes the SOURCE page's scale, the only one its
+    payload decodes under. The tail chunk's splice then re-quantizes the
+    fresh page, payload and scale together, once."""
+    copy_pool_rows(cache, src_rows, dst_rows)
+    for key in ("k", "v"):
+        P, ps = cache[key].shape[1:3]
+        src_pg = (src_rows[:, 0] // ps).clamp(0, P - 1)
+        keep = dst_rows[:, 0] < P * ps
+        sc = cache[key + "_scale"]
+        sc[:, dst_rows[:, 0][keep] // ps] = sc[:, src_pg[keep]]
+    return cache
+
+
+def seed_prefix_cache_q8(model: Model, cache, phys_rows, row_ok, pos,
+                         s_max: int, dtype=torch.float32):
+    """Int8 prefix seed: gather the shared prefix rows as
+    ``registry.seed_prefix_cache`` does and DEQUANTIZE them with each
+    row's page scales, so the transient tail-prefill cache is an f32 view
+    of the aliased int8 pages."""
+    K = phys_rows.shape[0]
+    out = model.init_cache(K, s_max, dtype, device=cache["k"].device)
+    idx = torch.where(row_ok, phys_rows, 0)
+    for key in ("k", "v"):
+        pool = cache[key]                   # (L, P, ps, KV, hd) int8
+        Lr, P, ps = pool.shape[:3]
+        T = cache[key + "_scale"].shape[-1]
+        flat = pool.view((Lr, P * ps) + tuple(pool.shape[3:]))
+        pg = (idx // ps).clamp(0, P - 1)
+        raw = flat[:, idx].float()                  # (L, K, S, KV, hd)
+        KV, hd = raw.shape[-2:]
+        grouped = raw.reshape(raw.shape[:3] + (T, KV // T, hd))
+        sc = cache[key + "_scale"][:, pg]           # (L, K, S, T)
+        rows = (grouped * sc[..., None, None]).reshape(raw.shape)
+        out[key] = torch.where(row_ok[None, :, :, None, None], rows,
+                               0.0).to(out[key].dtype)
+    out["pos"] = torch.tensor(int(pos), dtype=torch.int32,
+                              device=cache["k"].device)
+    return out
+
 
 # string-keyed registry: name -> KVBackend subclass
 BACKENDS: dict = {}
@@ -79,13 +189,8 @@ class KVBackend:
         """'auto' policy: which paged read path serves this config."""
         return "einsum"
 
-
-class _NotPorted(KVBackend):
-    roadmap = ""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"kv_backend={self.name!r} is not ported "
-                                  f"yet ({self.roadmap})")
+    def check_page_meta(self, cache, num_pages: int) -> None:
+        """Invariant hook for per-page metadata (assert_page_invariants)."""
 
 
 @register_backend
@@ -143,23 +248,75 @@ class PagedFP32Backend(KVBackend):
 
 
 @register_backend
-class PagedInt8Backend(_NotPorted):
+class PagedInt8Backend(PagedFP32Backend):
+    """Int8 page pools and per-page symmetric f32 scales. Block tables, the
+    allocator contract and the attention dispatch are the fp32 pool's; the
+    representation ops quantize (the splice), carry the scale (COW) and
+    dequantize (the prefix seed, the reads)."""
+
     name = "paged_int8"
-    paged = True
-    roadmap = "ROADMAP queue 1 item 7"
+
+    def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
+                   device):
+        cache = super().init_cache(model, batch_slots, s_max, dtype, device)
+        for key in ("k", "v"):
+            shape = cache[key].shape
+            cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
+            # scale 1.0 everywhere: a never-written page dequantizes to
+            # exact zeros, as the fp32 pool's zero init reads
+            cache[key + "_scale"] = torch.ones(tuple(shape[:2]) + (1,),
+                                               dtype=torch.float32,
+                                               device=device)
+        return cache
+
+    def insert_rows(self, cache, request_cache, slots, phys_rows=None):
+        return insert_cache_rows_paged_q8(cache, request_cache, slots,
+                                          phys_rows)
+
+    def copy_rows(self, cache, src_rows, dst_rows):
+        return copy_pool_rows_q8(cache, src_rows, dst_rows)
+
+    def seed_prefix(self, model: Model, s_max: int, dtype):
+        return functools.partial(seed_prefix_cache_q8, model, s_max=s_max,
+                                 dtype=dtype)
+
+    def check_page_meta(self, cache, num_pages: int) -> None:
+        for key in ("k_scale", "v_scale"):
+            sc = cache[key]
+            want = (cache[key[0]].shape[0], num_pages, 1)
+            assert tuple(sc.shape) == want, \
+                f"{key} shape {tuple(sc.shape)} != {want}"
+            assert bool(torch.isfinite(sc).all() and (sc > 0).all()), \
+                f"{key} has non-finite or non-positive entries"
 
 
 @register_backend
-class PagedLatentBackend(_NotPorted):
+class PagedLatentBackend(PagedFP32Backend):
+    """MLA latent pages: each pool row is one per-token (kv_lora_rank +
+    qk_rope_head_dim)-wide latent that every query head reads (the absorb
+    path), so the cache holds a single "k" pool (L, P, page_size, 1, c + r)
+    and no "v". The splice, COW and seed are the fp32 pool's, which are
+    generic over the pool leaves: COW copies latent rows."""
+
     name = "paged_latent"
-    paged = True
-    roadmap = "ROADMAP queue 1 item 7"
+
+    def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
+                   device):
+        if getattr(model.cfg, "kv_lora_rank", 0) <= 0:
+            raise ValueError(
+                f"kv_backend='paged_latent' needs an MLA arch "
+                f"(kv_lora_rank > 0); {model.cfg.name!r} caches per-head "
+                f"K/V — use kv_backend='paged' (its pages would hold the "
+                f"same rows anyway)")
+        return super().init_cache(model, batch_slots, s_max, dtype, device)
 
 
 def make_backend(spec, *, family: Family, page_size=None, num_pages=None):
     """Resolve an engine ``kv_backend`` spec: None (layout follows
     page_size), a name registered in :data:`BACKENDS`, or a ready
-    KVBackend instance."""
+    KVBackend instance. Int8 on a family outside
+    :data:`INT8_KV_FAMILIES` falls back to fp32 pages with a warning, as
+    the reference does."""
     if isinstance(spec, KVBackend):
         return spec
     if spec is None:
@@ -175,4 +332,9 @@ def make_backend(spec, *, family: Family, page_size=None, num_pages=None):
         return cls()
     if page_size is None:
         raise ValueError(f"kv_backend={spec!r} needs page_size")
+    if cls is PagedInt8Backend and family not in INT8_KV_FAMILIES:
+        log.warning("paged_int8 KV backend supports %s (got %s); "
+                    "falling back to fp32 pages",
+                    [f.name for f in INT8_KV_FAMILIES], family)
+        cls = PagedFP32Backend
     return cls(page_size, num_pages)

@@ -6,10 +6,19 @@ are the prefix-hit / copy-on-write counters — and on the transient paths:
 the dense cache with the einsum or the flash kernel on the first chunk,
 the scan prefill, the paged einsum path with the prefix cache on and off,
 and the ``page_size == s_max`` anchor, which the port also holds bit for
-bit to its own dense engine. Also: ``chain_hash`` keys are byte-equal,
+bit to its own dense engine. The same for int8 pages
+(``kv_backend="paged_int8"``: streams and counters equal to the
+reference's with the prefix cache on and off; a prefix hit aliases pages
+and their scales; copy-on-write hands the fresh page the source's scale
+and the tail splice re-quantizes it) and for the reduced qwen2.5-32b-mla
+(the dense latent cache, latent pages with the backend implicit or
+explicit, prefix on and off; one-page latent pages bit-equal to the dense
+latent cache in the port). Also: ``chain_hash`` keys are byte-equal,
 ``ServeConfig.validate()`` messages are equal, the prefix-cache rule falls
-back with a warning where unsupported, and an entry point with no device
-given raises on a host without CUDA."""
+back with a warning where unsupported, int8 on an unported family falls
+back to fp32 pages with the reference's warning, latent pages on a
+per-head arch raise the reference's error, and an entry point with no
+device given raises on a host without CUDA."""
 import logging
 
 import pytest
@@ -21,13 +30,16 @@ import numpy as np  # noqa: E402
 
 from repro.serve import ServeConfig as JConfig  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
+from repro.serve import kvcache as jkv  # noqa: E402
 from repro.serve import prefix as jprefix  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs.base import Family  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.serve import ServeConfig as TConfig  # noqa: E402
 from repro_torch.serve import SchedPolicy as TPolicy  # noqa: E402
 from repro_torch.serve import ServeEngine as TEngine  # noqa: E402
+from repro_torch.serve import kvcache as tkv  # noqa: E402
 from repro_torch.serve import prefix as tprefix  # noqa: E402
 from repro_torch.serve.scheduler import RequestState  # noqa: E402
 
@@ -71,7 +83,7 @@ def _port_engine(ref, prefix_cache=None, **fields):
     """The port's engine over the reference's weights, built from the same
     ServeConfig fields the reference was (plus device='cpu')."""
     model = treg.get_model(treg.reduced_config(
-        tconfigs.get_config("qwen2.5-32b")))
+        tconfigs.get_config(ref.cfg.name)))
     params = bridge.params_from_numpy(jax.tree.map(np.asarray, ref.params),
                                       "cpu")
     fields = dict(dict(page_size=PS, s_max=S_MAX), **fields)
@@ -254,6 +266,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch,
         cli.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TEngine.build("qwen2.5-32b", config=TConfig())
+    for arch, config in (("qwen2.5-32b", TConfig(page_size=PS,
+                                                 kv_backend="paged_int8")),
+                         ("qwen2.5-32b-mla", TConfig()),
+                         ("qwen2.5-32b-mla", TConfig(page_size=PS))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TEngine.build(arch, config=config)
     for config in (TConfig(page_size=PS, device="cpu"),
                    TConfig(device="cpu")):
         cpu = TEngine.build("qwen2.5-32b", config=config)
@@ -265,8 +283,6 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch,
 
 
 @pytest.mark.parametrize("kw", [dict(temperature=0.5),
-                                dict(kv_backend="paged_int8"),
-                                dict(kv_backend="paged_latent"),
                                 dict(policy=TPolicy(drr=True)),
                                 dict(policy=TPolicy(
                                     max_consecutive_prefill_ticks=2))])
@@ -304,3 +320,270 @@ def test_cli_defaults_to_the_dense_cache(monkeypatch, capsys):
     assert (paged.page_size, paged.prefill_mode, paged.prefill_attn_impl) \
         == (16, "scan", "pallas")
     assert capsys.readouterr().out.count("served 2 requests on cpu") == 2
+
+
+def test_cli_kv_backend_reaches_the_engine(monkeypatch, capsys):
+    """--kv-backend takes the reference's backend names (default None:
+    the layout follows --page-size) and ends in ServeConfig.kv_backend."""
+    from repro_torch.launch import serve as cli
+    built = []
+    build = TEngine.build.__func__
+
+    def spy(cls, arch, *, config):
+        built.append(config)
+        engine = build(cls, arch, config=config)
+        built.append(engine)
+        return engine
+
+    monkeypatch.setattr(TEngine, "build", classmethod(spy))
+    args = ["--device", "cpu", "--requests", "2", "--prompt-len", "5",
+            "--gen-len", "3", "--page-size", "16"]
+    cli.main(args)
+    cli.main(args + ["--kv-backend", "paged_int8"])
+    cli.main(args + ["--kv-backend", "paged_latent", "--arch",
+                     "qwen2.5-32b-mla"])
+    (implicit, e0), (int8, e1), (latent, e2) = zip(built[::2], built[1::2])
+    assert implicit.kv_backend is None and JConfig().kv_backend is None
+    assert (int8.kv_backend, type(e1.backend)) == ("paged_int8",
+                                                   tkv.PagedInt8Backend)
+    assert (latent.kv_backend, type(e2.backend)) == ("paged_latent",
+                                                     tkv.PagedLatentBackend)
+    assert type(e0.backend) is tkv.PagedFP32Backend
+    assert set(tkv.BACKENDS) == set(jkv.BACKENDS)
+    assert capsys.readouterr().out.count("served 2 requests on cpu") == 3
+    with pytest.raises(SystemExit):
+        cli.main(args + ["--kv-backend", "latent"])
+
+
+# ------------------------------------------------------------ int8 pages
+@pytest.mark.parametrize("prefix_cache", [None, False])
+def test_int8_greedy_streams_equal_reference(reference, prefix_cache):
+    """int8 pages (page_size 16) over the reference's weights: the same
+    greedy streams and prefix counters as the reference's int8 engine,
+    with the prefix cache on by itself and off; scale tables well formed."""
+    fields = dict(page_size=PS, s_max=S_MAX, kv_backend="paged_int8",
+                  prefix_cache=prefix_cache)
+    jeng = JEngine(reference.model, reference.params,
+                   **JConfig(**fields).engine_kwargs())
+    teng = _port_engine(reference, **fields)
+    assert isinstance(teng.backend, tkv.PagedInt8Backend)
+    assert teng.incremental_splice and teng.paged_attn_impl == "kernel"
+    assert teng.cache["k"].dtype == torch.int8
+    assert tuple(teng.cache["k_scale"].shape) == \
+        tuple(jeng.cache["k_scale"].shape)
+    waves = _waves(reference.cfg.vocab_size)
+    assert _serve(teng, waves) == _serve(jeng, waves)
+    jp, tp = jeng.metrics.summary()["prefix"], teng.metrics.summary()["prefix"]
+    assert {k: v for k, v in tp.items() if k != "hit_rate"} == \
+        {k: v for k, v in jp.items() if k != "hit_rate"}
+    if prefix_cache is None:
+        assert tp["hits"] >= 3 and tp["cow_copies"] >= 1
+    teng.assert_page_invariants()
+    assert teng.resident_cache_bytes() < _port_engine(
+        reference, page_size=PS, s_max=S_MAX).resident_cache_bytes()
+
+
+def _scales(engine):
+    return {k: engine.cache[k].clone() for k in ("k_scale", "v_scale")}
+
+
+def test_int8_prefix_hit_aliases_pages_and_scales(reference):
+    """A repeat prompt aliases the donor's prefix pages: their int8
+    payload and their scales are untouched by the second request, and its
+    stream equals the first's."""
+    rng = np.random.default_rng(41)
+    prompt = rng.integers(0, reference.cfg.vocab_size, 16)
+    teng = _port_engine(reference, page_size=PS, s_max=S_MAX,
+                        kv_backend="paged_int8")
+    r1 = teng.submit(prompt, 5)
+    teng.run()
+    donor = sorted(teng.prefix_index.pages)
+    assert donor
+    before = _scales(teng)
+    payload = teng.cache["k"][:, donor].clone()
+    r2 = teng.submit(prompt, 5)
+    teng.run()
+    assert r1.tokens == r2.tokens
+    assert teng.metrics.summary()["prefix"]["hits"] == 1
+    for key, sc in _scales(teng).items():
+        assert torch.equal(sc[:, donor], before[key][:, donor]), key
+    assert torch.equal(teng.cache["k"][:, donor], payload)
+    teng.assert_page_invariants()
+    teng.cache["k_scale"][0, 0] = 0.0
+    with pytest.raises(AssertionError, match="k_scale"):
+        teng.assert_page_invariants()
+
+
+def test_int8_cow_requantizes_the_fresh_page_once(reference):
+    """An unaligned repeat (the cached prefix ends mid-page): the COW copy
+    hands the fresh page the SOURCE page's scale, then the tail's chunk
+    splice re-quantizes that page once, with its own rows; the streams
+    equal the prefix-off int8 engine's."""
+    rng = np.random.default_rng(42)
+    head = rng.integers(0, reference.cfg.vocab_size, 20)  # 1 page + 4 rows
+    tail = rng.integers(0, reference.cfg.vocab_size, 6)
+    work = [(head, 5), (np.concatenate([head, tail]), 5)]
+    streams = {}
+    for prefix_cache in (None, False):
+        teng = _port_engine(reference, prefix_cache=prefix_cache,
+                            page_size=PS, s_max=S_MAX,
+                            kv_backend="paged_int8")
+        seen, splices = [], []
+        copy, chunk = teng.backend.copy_rows, teng._chunk_paged
+
+        def rec_copy(cache, src, dst, teng=teng, seen=seen, copy=copy):
+            out = copy(cache, src, dst)
+            live = dst[:, 0] < teng.num_pages * PS
+            s_pg, d_pg = src[live, 0] // PS, dst[live, 0] // PS
+            seen.append((d_pg, [torch.equal(cache[k][:, d_pg],
+                                            cache[k][:, s_pg])
+                                for k in ("k_scale", "v_scale")]))
+            return out
+
+        def rec_chunk(params, cache, batch, splices=splices, chunk=chunk):
+            splices.append(cache["k_scale"].clone())
+            return chunk(params, cache, batch)
+
+        teng.backend.copy_rows, teng._chunk_paged = rec_copy, rec_chunk
+        out = []
+        for prompt, gen in work:
+            r = teng.submit(prompt, gen)
+            teng.run()
+            out.append(r.tokens)
+            teng.assert_page_invariants()
+        streams[prefix_cache] = out
+        if prefix_cache is None:
+            assert teng.metrics.summary()["prefix"]["cow_copies"] == 1
+            (fresh, same), = seen
+            assert same == [True, True]
+            # after the tail chunk, the fresh page holds its own scale
+            assert not torch.equal(teng.cache["k_scale"][:, fresh],
+                                   splices[-1][:, fresh])
+    assert streams[None] == streams[False]
+
+
+def test_int8_seed_prefix_dequantizes_the_aliased_pages(reference):
+    """The transient path's prefix seed over int8 pages (the einsum read
+    path): the seeded rows are the int8 rows times their page scales, the
+    fp32 seed of the dequantized pool bit for bit."""
+    teng = _port_engine(reference, page_size=PS, s_max=S_MAX,
+                        kv_backend="paged_int8", paged_attn_impl="einsum")
+    rng = np.random.default_rng(43)
+    for key in ("k", "v"):
+        teng.cache[key].copy_(torch.from_numpy(rng.integers(
+            -127, 128, tuple(teng.cache[key].shape)).astype(np.int8)))
+        teng.cache[key + "_scale"].uniform_(0.01, 0.1)
+    phys = torch.from_numpy(rng.integers(0, teng.num_pages * PS,
+                                         (2, S_MAX)))
+    ok = torch.arange(S_MAX)[None, :] < torch.tensor([[20], [37]])
+    got = teng.backend.seed_prefix(teng.model, S_MAX, torch.float32)(
+        teng.cache, phys, ok, 20)
+    deq = {key: teng.cache[key].float()
+           * teng.cache[key + "_scale"][:, :, None, None, :]
+           for key in ("k", "v")}
+    want = treg.seed_prefix_cache(teng.model, deq, phys, ok, 20, S_MAX)
+    for key in ("k", "v", "pos"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_int8_on_an_unported_family_falls_back_with_a_warning(caplog):
+    """As the reference: int8 pages on a family outside INT8_KV_FAMILIES
+    give fp32 pages and a warning, not an error."""
+    assert [f.name for f in tkv.INT8_KV_FAMILIES] == \
+        [f.name for f in jkv.INT8_KV_FAMILIES]
+    jfam = jkv.Family.HYBRID
+    with caplog.at_level(logging.WARNING):
+        tbe = tkv.make_backend("paged_int8", family=Family.HYBRID,
+                               page_size=8, num_pages=8)
+        jbe = jkv.make_backend("paged_int8", family=jfam, page_size=8,
+                               num_pages=8)
+    assert type(tbe) is tkv.PagedFP32Backend
+    assert type(jbe) is jkv.PagedFP32Backend
+    warned = [r.getMessage() for r in caplog.records
+              if "falling back" in r.getMessage()]
+    assert len(warned) == 2 and warned[0].startswith("paged_int8 KV backend")
+    be = tkv.make_backend("paged_int8", family=Family.DENSE, page_size=8,
+                          num_pages=8)
+    assert type(be) is tkv.PagedInt8Backend
+
+
+# ------------------------------------------------------------------- MLA
+@pytest.fixture(scope="module")
+def mla_reference():
+    eng = JEngine.build("qwen2.5-32b-mla",
+                        config=JConfig(page_size=PS, s_max=S_MAX))
+    assert eng.paged_attn_impl == "kernel" and eng.prefix_cache
+    return eng
+
+
+MLA_PATHS = {
+    "dense": dict(page_size=None),
+    "paged-implicit": dict(),
+    "paged-latent": dict(kv_backend="paged_latent"),
+    "paged-latent-noprefix": dict(kv_backend="paged_latent",
+                                  prefix_cache=False),
+}
+
+
+@pytest.mark.parametrize("name", list(MLA_PATHS))
+def test_mla_greedy_streams_equal_reference(mla_reference, name):
+    """qwen2.5-32b-mla reduced: the dense latent cache and multi-page
+    latent pages (backend implicit or explicit, prefix cache on and off)
+    give the reference's greedy streams and prefix counters; the latent
+    cache holds one "k" leaf and no "v"."""
+    ref = mla_reference
+    fields = dict(dict(page_size=PS, s_max=S_MAX), **MLA_PATHS[name])
+    jeng = JEngine(ref.model, ref.params, **JConfig(**fields).engine_kwargs())
+    teng = _port_engine(ref, **fields)
+    assert "v" not in teng.cache and teng.cache["k"].shape[-2:] == (1, 10)
+    assert (teng.paged, teng.prefix_cache, teng.paged_attn_impl,
+            teng.incremental_splice) == (jeng.paged, jeng.prefix_cache,
+                                         jeng.paged_attn_impl,
+                                         jeng.incremental_splice)
+    assert type(teng.backend).__name__ == type(jeng.backend).__name__
+    waves = _waves(ref.cfg.vocab_size)
+    assert _serve(teng, waves) == _serve(jeng, waves)
+    jp, tp = jeng.metrics.summary()["prefix"], teng.metrics.summary()["prefix"]
+    assert {k: v for k, v in tp.items() if k != "hit_rate"} == \
+        {k: v for k, v in jp.items() if k != "hit_rate"}
+    if teng.prefix_cache:
+        assert tp["hits"] >= 3 and tp["cow_copies"] >= 1
+    teng.assert_page_invariants()
+
+
+def test_mla_one_page_latent_equals_dense_latent_bit_for_bit(mla_reference):
+    """Within the port, latent pages at page_size == s_max (the einsum
+    anchor) compute exactly what the dense latent cache computes."""
+    dense = _port_engine(mla_reference, page_size=None)
+    paged = _port_engine(mla_reference, prefix_cache=False, page_size=S_MAX,
+                         kv_backend="paged_latent")
+    assert paged.paged_attn_impl == "einsum"
+    seen = [_record_logits(e) for e in (dense, paged)]
+    waves = _waves(mla_reference.cfg.vocab_size)
+    assert _serve(dense, waves) == _serve(paged, waves)
+    assert len(seen[0]) == len(seen[1]) > 20
+    for a, b in zip(*seen):
+        assert torch.equal(a, b)
+
+
+def test_latent_pages_on_a_per_head_arch_raise_the_reference_error(
+        reference):
+    """kv_backend='paged_latent' on qwen2.5-32b (per-head K/V): the same
+    ValueError as the reference, message for message, from the engine
+    and from ServeConfig.validate."""
+    kw = dict(batch_slots=2, s_max=S_MAX, page_size=PS,
+              kv_backend="paged_latent")
+    with pytest.raises(ValueError) as jerr:
+        JEngine(reference.model, reference.params, **kw)
+    teng = _port_engine(reference)
+    with pytest.raises(ValueError) as terr:
+        TEngine(teng.model, teng.params, device="cpu", **kw)
+    assert str(terr.value) == str(jerr.value)
+    assert "kv_lora_rank" in str(terr.value)
+    with pytest.raises(ValueError) as jerr:
+        JEngine.build("qwen2.5-32b", config=JConfig(page_size=PS,
+                                                    kv_backend="paged_latent"))
+    with pytest.raises(ValueError) as terr:
+        TEngine.build("qwen2.5-32b", config=TConfig(
+            page_size=PS, kv_backend="paged_latent", device="cpu"))
+    assert str(terr.value) == str(jerr.value)

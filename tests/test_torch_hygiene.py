@@ -23,7 +23,8 @@ def _sources():
     assert {"kernels/flash_attention.py", "kernels/paged_attention.py",
             "kernels/ops.py", "kernels/ref.py", "models/layers.py",
             "models/transformer.py", "models/registry.py", "launch/steps.py",
-            "launch/serve.py", "serve/engine.py", "serve/kvcache.py"} <= names
+            "launch/serve.py", "serve/engine.py", "serve/kvcache.py",
+            "core/quantize.py"} <= names
     return files
 
 

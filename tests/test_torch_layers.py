@@ -4,10 +4,17 @@ positions, the paged row helpers and writes, both read paths (``kernel``
 and ``einsum``) of paged decode and paged prefill-chunk attention, the
 full-sequence attention in every impl, dense-cache decode (scalar and
 per-slot positions) and dense prefill-chunk attention with and without
-the flash kernel, the gated MLP, embeddings and logits.
+the flash kernel, the gated MLP, embeddings and logits. Then the int8
+page writes (re-quantize, decode append and chunk splice, with a write
+below the floor and a recycled page's stale rows) and both read paths
+over int8 pools, and every MLA function (projections, dense latent cache,
+latent pages on both read paths, the absorb path against the naive
+expansion).
 
 Tolerance rtol = 1e-5 (atol 1e-6 for entries near zero): the same fp32
-arithmetic summed in a different order by XLA and PyTorch."""
+arithmetic summed in a different order by XLA and PyTorch. Int8 payloads
+written from the same f32 inputs are compared for equality, their scales
+at 1e-6."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,7 +22,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -306,3 +315,307 @@ def test_attention_prefill_chunk_dense_matches(use_kernel, start):
     _close(got, want)
     _close(gk, wk)
     _close(gv, wv)
+
+
+# ------------------------------------------------------------ int8 pages
+SCALE_TOL = dict(rtol=1e-6, atol=0)
+
+
+def _q8_state(rng, P=10, ps=8, kv=KV):
+    """Int8 pools full of payload (every row of every page, so rows past a
+    slot's frontier are a recycled page's stale content) and their (P, 1)
+    scales."""
+    pk = rng.integers(-127, 128, (P, ps, kv, HD)).astype(np.int8)
+    pv = rng.integers(-127, 128, (P, ps, kv, HD)).astype(np.int8)
+    # dequantized entries within about +-1, as the fp32 cases' pools
+    ks = rng.uniform(0.002, 0.01, (P, 1)).astype(np.float32)
+    vs = rng.uniform(0.002, 0.01, (P, 1)).astype(np.float32)
+    return pk, pv, ks, vs
+
+
+def _eq_q8(got, want):
+    """(pool, scale) pairs: payload equal, scales allclose at 1e-6."""
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if g.dtype == np.int8:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, **SCALE_TOL)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_requant_and_dequant_page_match(groups):
+    rng = np.random.default_rng(RNG_SEED + 7)
+    blk = _rand(rng, 3, 8, 2, HD, scale=3.0)
+    content = np.arange(8)[None, :] <= np.asarray([7, 2, -1])[:, None]
+    got = TL._requant_page(torch.from_numpy(blk), torch.from_numpy(content),
+                           groups)
+    want = JL._requant_page(jnp.asarray(blk), jnp.asarray(content), groups)
+    _eq_q8(got, want)
+    assert np.all(got[1].numpy()[2] == 1.0)       # a page with no content
+    _close(TL._dequant_page_block(*got), JL._dequant_page_block(*want))
+
+
+def test_paged_append_row_q8_matches():
+    """Decode appends for a slot mid-page (a recycled page: stale rows past
+    the offset are zeroed), a slot at a page's first row, a freed slot and
+    a slot whose page is unallocated (both dropped, page and scale)."""
+    rng = np.random.default_rng(RNG_SEED + 8)
+    pk, _, ks, _ = _q8_state(rng)
+    bt = np.asarray([[3, 7, 1, -1], [4, 2, -1, -1], [-1] * 4, [5, -1, -1, -1]],
+                    np.int32)
+    rows = _rand(rng, 4, KV, HD, scale=2.0)
+    pos = np.asarray([11, 8, JL.INACTIVE_POS, 9], np.int32)
+    safe = np.clip(pos, 0, 31)
+    valid = np.asarray([True, True, False, True])
+    got = TL.paged_append_row_q8(
+        torch.from_numpy(pk.copy()), torch.from_numpy(ks.copy()),
+        torch.from_numpy(rows), torch.from_numpy(bt), torch.from_numpy(safe),
+        torch.from_numpy(valid))
+    want = JL.paged_append_row_q8(
+        jnp.asarray(pk), jnp.asarray(ks), jnp.asarray(rows), jnp.asarray(bt),
+        jnp.asarray(safe), jnp.asarray(valid))
+    _eq_q8(got, want)
+    assert not np.array_equal(got[0].numpy()[7], pk[7])      # page written
+    np.testing.assert_array_equal(got[0].numpy()[5], pk[5])  # unallocated
+
+
+@pytest.mark.parametrize("write_floor", [0, 16])
+def test_paged_splice_chunk_q8_matches(write_floor):
+    """A 12-row chunk at position 10 for two slots: pages 0-2 of each are
+    re-quantized where the chunk writes them; below ``write_floor`` the
+    shared prefix page keeps its payload and scale."""
+    rng = np.random.default_rng(RNG_SEED + 9)
+    pk, _, ks, _ = _q8_state(rng)
+    bt = np.asarray([[3, 7, 1, -1], [3, 2, 9, -1]], np.int32)
+    C, start = 12, 10
+    rows = _rand(rng, 2, C, KV, HD, scale=2.0)
+    positions = np.broadcast_to(np.arange(start, start + C, dtype=np.int32),
+                                (2, C)).copy()
+    got = TL.paged_splice_chunk_q8(
+        torch.from_numpy(pk.copy()), torch.from_numpy(ks.copy()),
+        torch.from_numpy(rows), torch.from_numpy(bt),
+        torch.from_numpy(positions), write_floor)
+    want = JL.paged_splice_chunk_q8(
+        jnp.asarray(pk), jnp.asarray(ks), jnp.asarray(rows), jnp.asarray(bt),
+        jnp.asarray(positions), jnp.asarray(write_floor, jnp.int32))
+    _eq_q8(got, want)
+    if write_floor:
+        np.testing.assert_array_equal(got[0].numpy()[7], pk[7])
+        assert got[1].numpy()[7] == ks[7]
+
+
+@pytest.mark.parametrize("impl", ["kernel", "einsum"])
+def test_attention_decode_paged_q8_matches(impl):
+    """Decode over int8 pools, both read paths: the live slot's output and
+    the pools and scales after the append."""
+    rng = np.random.default_rng(RNG_SEED + 10)
+    p = _attn_params(rng)
+    pk, pv, ks, vs = _q8_state(rng)
+    _, _, bt = _paged_state(rng)
+    x = _rand(rng, 3, 1, D)
+    cache_pos = np.asarray([19, JL.INACTIVE_POS + 3, JL.INACTIVE_POS],
+                           np.int32)
+    positions = cache_pos[:, None]
+    got = TL.attention_decode_paged(
+        _t(p), torch.from_numpy(x), TL.AttnDims(**DIMS),
+        torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy()),
+        torch.from_numpy(bt), torch.from_numpy(cache_pos),
+        torch.from_numpy(positions), impl=impl,
+        k_scale=torch.from_numpy(ks.copy()),
+        v_scale=torch.from_numpy(vs.copy()))
+    want = JL.attention_decode_paged(
+        _j(p), jnp.asarray(x), JL.AttnDims(**DIMS), jnp.asarray(pk),
+        jnp.asarray(pv), jnp.asarray(bt), jnp.asarray(cache_pos),
+        jnp.asarray(positions), impl=impl, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    _close(got[0][0], want[0][0])
+    _eq_q8(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "einsum"])
+@pytest.mark.parametrize("write_floor", [0, 16])
+def test_attention_prefill_chunk_paged_q8_matches(impl, write_floor):
+    rng = np.random.default_rng(RNG_SEED + 11)
+    p = _attn_params(rng)
+    pk, pv, ks, vs = _q8_state(rng)
+    bt = np.asarray([[3, 7, 1, -1], [3, 2, 9, -1]], np.int32)
+    C, start = 12, 10
+    x = _rand(rng, 2, C, D)
+    positions = np.broadcast_to(np.arange(start, start + C, dtype=np.int32),
+                                (2, C)).copy()
+    got = TL.attention_prefill_chunk_paged(
+        _t(p), torch.from_numpy(x), TL.AttnDims(**DIMS),
+        torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy()),
+        torch.from_numpy(bt), torch.from_numpy(positions), write_floor,
+        impl=impl, k_scale=torch.from_numpy(ks.copy()),
+        v_scale=torch.from_numpy(vs.copy()))
+    want = JL.attention_prefill_chunk_paged(
+        _j(p), jnp.asarray(x), JL.AttnDims(**DIMS), jnp.asarray(pk),
+        jnp.asarray(pv), jnp.asarray(bt), jnp.asarray(positions),
+        jnp.asarray(write_floor, jnp.int32), impl=impl,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    _close(got[0], want[0])
+    _eq_q8(got[1:], want[1:])
+
+
+def test_dequant_paged_view_matches():
+    rng = np.random.default_rng(RNG_SEED + 12)
+    pk, _, ks, _ = _q8_state(rng, kv=2)
+    bt = np.asarray([[3, 7, -1, -1], [0, -1, -1, -1]], np.int32)
+    phys, _ = JL.paged_row_indices(jnp.asarray(bt), 8, 32)
+    phys = np.array(phys)
+    view = pk.reshape(80, 2, HD)[phys]
+    for scale in (ks, np.concatenate([ks, ks * 2], 1)):
+        _close(TL.dequant_paged_view(torch.from_numpy(view),
+                                     torch.from_numpy(phys),
+                                     torch.from_numpy(scale), 8,
+                                     torch.float32),
+               JL.dequant_paged_view(jnp.asarray(view), jnp.asarray(phys),
+                                     jnp.asarray(scale), 8, jnp.float32))
+
+
+# ------------------------------------------------------------------- MLA
+MLA = dict(d_model=D, num_heads=H, kv_lora_rank=8, qk_rope_head_dim=2,
+           head_dim=HD)
+LAT = 10                                         # c + r
+
+
+def _mla_params(rng):
+    c, r = MLA["kv_lora_rank"], MLA["qk_rope_head_dim"]
+    return {"wq": _rand(rng, D, H * (HD + r), scale=D ** -0.5),
+            "wkv_a": _rand(rng, D, c + r, scale=D ** -0.5),
+            "kv_norm": _rand(rng, c, scale=0.1),
+            "wkv_b": _rand(rng, c, H * 2 * HD, scale=c ** -0.5),
+            "wo": _rand(rng, H * HD, D, scale=(H * HD) ** -0.5)}
+
+
+def test_mla_projections_match():
+    rng = np.random.default_rng(RNG_SEED + 13)
+    p = _mla_params(rng)
+    x = _rand(rng, 2, 5, D)
+    pos = np.asarray([[0, 1, 2, 3, 4], [7, 8, 9, 10, 11]], np.int32)
+    tdims, jdims = TL.MLADims(**MLA), JL.MLADims(**MLA)
+    assert (tdims.latent_dim, tdims.scale_dim) == (jdims.latent_dim,
+                                                   jdims.scale_dim)
+    _close(TL.mla_absorbed_queries(_t(p), torch.from_numpy(x), tdims,
+                                   torch.from_numpy(pos)),
+           JL.mla_absorbed_queries(_j(p), jnp.asarray(x), jdims,
+                                   jnp.asarray(pos)))
+    _close(TL.mla_latent_rows(_t(p), torch.from_numpy(x), tdims,
+                              torch.from_numpy(pos)),
+           JL.mla_latent_rows(_j(p), jnp.asarray(x), jdims, jnp.asarray(pos)))
+    for a, b in zip(TL._mla_wkv_b(_t(p), tdims, torch.float32),
+                    JL._mla_wkv_b(_j(p), jdims, jnp.float32)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    attn = _rand(rng, 2, 5, H, MLA["kv_lora_rank"])
+    _close(TL._mla_out(_t(p), torch.from_numpy(attn), tdims,
+                       torch.from_numpy(x)),
+           JL._mla_out(_j(p), jnp.asarray(attn), jdims, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("vector", [True, False])
+def test_mla_attention_decode_dense_matches(vector):
+    """Decode against a dense latent cache: per-slot positions with a freed
+    slot (its write drops), or one scalar position."""
+    rng = np.random.default_rng(RNG_SEED + 14)
+    p = _mla_params(rng)
+    cache = _rand(rng, 3, 32, 1, LAT)
+    x = _rand(rng, 3, 1, D)
+    if vector:
+        cache_pos = np.asarray([19, JL.INACTIVE_POS, 31], np.int32)
+        positions = cache_pos[:, None]
+    else:
+        cache_pos = np.asarray(7, np.int32)
+        positions = np.full((3, 1), 7, np.int32)
+    got, gc = TL.mla_attention_decode(
+        _t(p), torch.from_numpy(x), TL.MLADims(**MLA),
+        torch.from_numpy(cache.copy()), torch.from_numpy(cache_pos),
+        torch.from_numpy(positions))
+    want, wc = JL.mla_attention_decode(
+        _j(p), jnp.asarray(x), JL.MLADims(**MLA), jnp.asarray(cache),
+        jnp.asarray(cache_pos), jnp.asarray(positions))
+    _close(got, want)
+    _close(gc, wc)
+
+
+@pytest.mark.parametrize("start", [0, 10, 28])
+def test_mla_attention_prefill_chunk_dense_matches(start):
+    rng = np.random.default_rng(RNG_SEED + 15)
+    p = _mla_params(rng)
+    cache = _rand(rng, 2, 32, 1, LAT)
+    C = 12
+    x = _rand(rng, 2, C, D)
+    positions = np.broadcast_to(np.arange(start, start + C, dtype=np.int32),
+                                (2, C)).copy()
+    got, gc = TL.mla_attention_prefill_chunk(
+        _t(p), torch.from_numpy(x), TL.MLADims(**MLA),
+        torch.from_numpy(cache.copy()), start, torch.from_numpy(positions))
+    want, wc = JL.mla_attention_prefill_chunk(
+        _j(p), jnp.asarray(x), JL.MLADims(**MLA), jnp.asarray(cache),
+        start, jnp.asarray(positions))
+    _close(got, want)
+    _close(gc, wc)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "einsum"])
+def test_mla_paged_decode_and_prefill_chunk_match(impl):
+    """Latent pages, both read paths: a decode step (live, freed and
+    mid-prefill slots) and a prefill chunk with a write floor."""
+    rng = np.random.default_rng(RNG_SEED + 16)
+    p = _mla_params(rng)
+    pool = _rand(rng, 10, 8, 1, LAT)
+    tdims, jdims = TL.MLADims(**MLA), JL.MLADims(**MLA)
+    _, _, bt = _paged_state(rng)
+    x = _rand(rng, 3, 1, D)
+    cache_pos = np.asarray([19, JL.INACTIVE_POS + 3, JL.INACTIVE_POS],
+                           np.int32)
+    got, gp = TL.mla_attention_decode_paged(
+        _t(p), torch.from_numpy(x), tdims, torch.from_numpy(pool.copy()),
+        torch.from_numpy(bt), torch.from_numpy(cache_pos),
+        torch.from_numpy(cache_pos[:, None]), impl=impl)
+    want, wp = JL.mla_attention_decode_paged(
+        _j(p), jnp.asarray(x), jdims, jnp.asarray(pool), jnp.asarray(bt),
+        jnp.asarray(cache_pos), jnp.asarray(cache_pos[:, None]), impl=impl)
+    _close(got[0], want[0])
+    _close(gp, wp)
+
+    bt = np.asarray([[3, 7, 1, -1], [3, 2, 9, -1]], np.int32)
+    C, start = 12, 10
+    x = _rand(rng, 2, C, D)
+    positions = np.broadcast_to(np.arange(start, start + C, dtype=np.int32),
+                                (2, C)).copy()
+    got, gp = TL.mla_attention_prefill_chunk_paged(
+        _t(p), torch.from_numpy(x), tdims, torch.from_numpy(pool.copy()),
+        torch.from_numpy(bt), torch.from_numpy(positions), 16, impl=impl)
+    want, wp = JL.mla_attention_prefill_chunk_paged(
+        _j(p), jnp.asarray(x), jdims, jnp.asarray(pool), jnp.asarray(bt),
+        jnp.asarray(positions), jnp.asarray(16, jnp.int32), impl=impl)
+    _close(got, want)
+    _close(gp, wp)
+
+
+def test_mla_absorb_path_matches_naive_expansion():
+    """The absorbed prefill attention equals the naive per-head expansion
+    (``ref.mla_attention_naive``) through ``wo``, in the port, and the
+    port's naive oracle equals the reference's on the same inputs."""
+    rng = np.random.default_rng(RNG_SEED + 17)
+    p = _t(_mla_params(rng))
+    dims = TL.MLADims(**MLA)
+    B, S = 2, 12
+    x = torch.from_numpy(_rand(rng, B, S, D))
+    pos = torch.arange(S).expand(B, S)
+    absorbed, _ = TL.mla_attention_prefill_chunk(
+        p, x, dims, torch.zeros(B, S, 1, LAT), 0, pos)
+    r = MLA["qk_rope_head_dim"]
+    q = (x @ p["wq"]).reshape(B, S, H, HD + r)
+    q_nope, q_pe = q[..., :HD], TL.apply_rope(q[..., HD:], pos, 1e4)
+    wb_k, wb_v = TL._mla_wkv_b(p, dims, torch.float32)
+    latent = TL.mla_latent_rows(p, x, dims, pos)[:, :, 0]
+    args = (q_nope, q_pe, latent, wb_k, wb_v, pos, pos)
+    attn = tref.mla_attention_naive(*args)
+    naive = attn.reshape(B, S, H * HD) @ p["wo"]
+    np.testing.assert_allclose(absorbed.numpy(), naive.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    _close(attn, jref.mla_attention_naive(*(jnp.asarray(a.numpy())
+                                            for a in args)))

@@ -3,8 +3,12 @@ version (what CPU tensors run) against ``repro.kernels.ref.paged_attention``
 and against ``repro.kernels.ops.paged_prefill`` (the Pallas kernel in
 interpret mode), on the reference's own kernel cases plus poisoned and
 unallocated pages, freed-slot zeros, aliased prefix pages, a mid-prefill
-slot seen by decode and the degenerate one-page table. Inputs are made with
-numpy from a seed and handed to both packages.
+slot seen by decode and the degenerate one-page table. The same for int8
+pools with per-page scales (the oracle with ``k_scale``/``v_scale`` and
+``ops.paged_prefill_q8``) and for MLA latent pages
+(``ref.paged_attention_latent`` and the latent Pallas kernel, freed slots
+included), and the naive-expansion MLA oracle. Inputs are made with numpy
+from a seed and handed to both packages.
 
 Tolerance rtol = atol = 2e-5: both sides compute the same fp32 masked
 softmax, but sum in different orders (XLA's einsum against PyTorch's)."""
@@ -13,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.quantize import quantize_page  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -22,6 +28,7 @@ try:
     import jax.numpy as jnp
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
+    from repro.kernels.paged_attention import paged_attention_latent as jlat
 except ImportError:
     jnp = None
 
@@ -176,9 +183,34 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
     out = pa.paged_attention(*args, kind="decode")
     np.testing.assert_array_equal(out.numpy(),
                                   tref.paged_attention(*args).numpy())
-    assert pa.LAUNCHES == {"decode": 0, "prefill": 0}
+    (pkq, ks), (pvq, vs) = _q8(pk), _q8(pv)
+    qargs = [args[0], torch.from_numpy(pkq), torch.from_numpy(pvq)] + args[3:]
+    sc = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_array_equal(
+        tops.paged_decode_q8(qargs[0], qargs[1], qargs[2],
+                             sc["k_scale"][:, None], sc["v_scale"][:, None],
+                             *qargs[3:]).numpy(),
+        tref.paged_attention(*qargs, **sc).numpy())
+    pool_c = torch.from_numpy(pk[:, :, :1])
+    np.testing.assert_array_equal(
+        tops.paged_decode_latent(args[0], pool_c, args[3], args[4],
+                                 scale_dim=24, d_v=8).numpy(),
+        tref.paged_attention_latent(args[0], pool_c, args[3], args[4],
+                                    scale_dim=24, d_v=8).numpy())
+    assert set(pa.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError):
         pa.paged_attention(args[0], args[1], args[2], args[3][:1], args[4])
+    with pytest.raises(ValueError, match="kind"):
+        pa.paged_attention(*qargs, kind="decode", **sc)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_attention(*qargs, kind="decode_q8",
+                           k_scale=sc["k_scale"])
+    with pytest.raises(ValueError, match="kind"):
+        pa.paged_attention_latent(args[0], pool_c, args[3], args[4],
+                                  scale_dim=24, d_v=8, kind="decode")
+    with pytest.raises(ValueError, match="d_v"):
+        pa.paged_attention_latent(args[0], pool_c, args[3], args[4],
+                                  scale_dim=24, d_v=17)
 
 
 @pytest.mark.gpu
@@ -199,3 +231,156 @@ def test_kernel_matches_plain_version_on_card(cfg):
     want = tref.paged_attention(*args, window=cfg["window"])
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+# ------------------------------------------------------------ int8 (K3)
+def _q8(pool):
+    """Quantize each page of an fp32 pool to int8 with its own scale."""
+    qs, ss = zip(*(quantize_page(torch.from_numpy(p)) for p in pool))
+    return torch.stack(qs).numpy(), torch.stack(ss).numpy()
+
+
+def _q8_case(cfg, seed=3, hd=16):
+    Sq, H, KV, ps, mps = (cfg["Sq"], cfg["H"], cfg["KV"], cfg["ps"],
+                          cfg["mps"])
+    B, P = 2, 2 * mps + 3
+    fill = [ps + ps // 2 + Sq, ps // 2 + Sq]
+    q, pk, pv, bt = _setup(seed, B, Sq, H, KV, hd, P, ps, mps, fill)
+    start = np.asarray([f - Sq for f in fill], np.int32)
+    (pkq, ks), (pvq, vs) = _q8(pk), _q8(pv)
+    return q, pkq, pvq, ks, vs, bt, start
+
+
+@pytest.mark.parametrize("cfg", KERNEL_CASES)
+def test_q8_plain_matches_reference_oracle_and_pallas_kernel(cfg):
+    """K1's cases over int8 pools: the port's plain version, given the
+    per-page scales, equals repro's oracle and repro's q8 Pallas kernel
+    (interpret mode)."""
+    q, pkq, pvq, ks, vs, bt, start = _q8_case(cfg)
+    got = tref.paged_attention(
+        *map(torch.from_numpy, (q, pkq, pvq, bt, start)),
+        window=cfg["window"], k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs)).numpy()
+    jargs = list(map(jnp.asarray, (q, pkq, pvq, bt, start)))
+    want = np.asarray(jref.paged_attention(
+        *jargs, window=cfg["window"], k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(got, want, **TOL)
+    kern = np.asarray(jops.paged_prefill_q8(
+        jargs[0], jargs[1], jargs[2], jnp.asarray(ks)[:, None],
+        jnp.asarray(vs)[:, None], jargs[3], jargs[4], window=cfg["window"]))
+    np.testing.assert_allclose(got, kern, **TOL)
+
+
+def test_q8_grouped_scales_match_reference_oracle():
+    """(P, T) scale tables, one column per group of KV/T kv heads, as the
+    reference's oracle takes them."""
+    cfg = dict(Sq=8, H=8, KV=4, ps=8, mps=4, window=0)
+    q, pkq, pvq, _, _, bt, start = _q8_case(cfg, seed=10)
+    rng = np.random.default_rng(10)
+    ks = rng.uniform(0.01, 0.1, (pkq.shape[0], 2)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.1, (pkq.shape[0], 2)).astype(np.float32)
+    got = tref.paged_attention(
+        *map(torch.from_numpy, (q, pkq, pvq, bt, start)),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs)).numpy()
+    want = np.asarray(jref.paged_attention(
+        *map(jnp.asarray, (q, pkq, pvq, bt, start)),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+# ---------------------------------------------------------- latent (K4)
+def _latent_case(seed, B, Sq, H, Lw, ps, mps, start):
+    """A latent pool and tables giving slot b the pages its rows up to
+    start[b] + Sq - 1 need; a slot whose start is INACTIVE gets none."""
+    rng = np.random.default_rng(seed)
+    P = B * mps + 2
+    pool = rng.standard_normal((P, ps, 1, Lw)).astype(np.float32)
+    q = rng.standard_normal((B, Sq, H, Lw)).astype(np.float32)
+    bt = np.full((B, mps), -1, np.int32)
+    perm = rng.permutation(P)
+    nxt = 0
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            continue
+        need = -(-int(start[b] + Sq) // ps)
+        bt[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+    return q, pool, bt, np.asarray(start, np.int32)
+
+
+@pytest.mark.parametrize("Sq", [1, 4])
+@pytest.mark.parametrize("widths", [(10, 8, 16), (64, 48, 96)])
+def test_latent_plain_matches_reference_oracle_and_pallas_kernel(Sq, widths):
+    """Slots at mid-page frontiers and a freed slot (all -1 table): the
+    port's plain version equals repro's latent oracle and its latent
+    Pallas kernel (interpret mode); the freed slot is exactly 0."""
+    Lw, d_v, scale_dim = widths
+    q, pool, bt, start = _latent_case(16, 4, Sq, 4, Lw, 8, 4,
+                                      [13, 7, INACTIVE, 26 - Sq])
+    got = tref.paged_attention_latent(
+        *map(torch.from_numpy, (q, pool, bt, start)), scale_dim=scale_dim,
+        d_v=d_v).numpy()
+    jargs = list(map(jnp.asarray, (q, pool, bt, start)))
+    want = np.asarray(jref.paged_attention_latent(
+        *jargs, scale_dim=scale_dim, d_v=d_v))
+    np.testing.assert_allclose(got, want, **TOL)
+    kern = np.asarray(jlat(*jargs, scale_dim=scale_dim, d_v=d_v,
+                           interpret=True))
+    np.testing.assert_allclose(got, kern, **TOL)
+    assert got.shape == (4, Sq, 4, d_v)
+    assert np.all(got[2] == 0) and np.all(want[2] == 0)
+
+
+def test_mla_naive_oracle_matches_reference():
+    rng = np.random.default_rng(17)
+    B, Sq, Sk, H, hd, c, r = 2, 5, 9, 3, 8, 6, 2
+    arrs = (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Sq, H, r)).astype(np.float32),
+            rng.standard_normal((B, Sk, c + r)).astype(np.float32),
+            rng.standard_normal((H, hd, c)).astype(np.float32),
+            rng.standard_normal((H, c, hd)).astype(np.float32),
+            np.broadcast_to(np.arange(4, 4 + Sq), (B, Sq)).astype(np.int32),
+            np.broadcast_to(np.arange(Sk), (B, Sk)).astype(np.int32))
+    got = tref.mla_attention_naive(*map(torch.from_numpy, arrs)).numpy()
+    want = np.asarray(jref.mla_attention_naive(*map(jnp.asarray, arrs)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", KERNEL_CASES)
+def test_q8_kernel_matches_plain_version_on_card(cfg):
+    """The int8 kernel (K3) against its plain version on the card, at
+    hd = 128, on K1's cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, pkq, pvq, ks, vs, bt, start = _q8_case(cfg, hd=128)
+    args = [torch.from_numpy(a).cuda() for a in (q, pkq, pvq, bt, start)]
+    sc = dict(k_scale=torch.from_numpy(ks).cuda(),
+              v_scale=torch.from_numpy(vs).cuda())
+    got = pa.paged_attention(*args, window=cfg["window"], kind="prefill_q8",
+                             **sc)
+    want = tref.paged_attention(*args, window=cfg["window"], **sc)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [1, 4])
+@pytest.mark.parametrize("widths", [(10, 8, 16), (64, 48, 96),
+                                    (576, 512, 192)])
+def test_latent_kernel_matches_plain_version_on_card(Sq, widths):
+    """The latent kernel (K4) against its plain version on the card, with a
+    freed slot, at the reduced, a middle and the full latent width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Lw, d_v, scale_dim = widths
+    q, pool, bt, start = _latent_case(16, 4, Sq, 40, Lw, 16, 4,
+                                      [13, 7, INACTIVE, 60 - Sq])
+    args = [torch.from_numpy(a).cuda() for a in (q, pool, bt, start)]
+    got = pa.paged_attention_latent(*args, scale_dim=scale_dim, d_v=d_v,
+                                    kind="prefill_latent")
+    want = tref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=d_v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.all(got[2] == 0)
