@@ -16,7 +16,11 @@ before printing any result. Phases, each of which raises on failure:
    at latent widths 10/8, 64/48, 576/512 and 1024/512, and flash attention
    (K2); then each at the full-width shapes the serving and forward paths
    give it (qwen2.5-32b, qwen2.5-32b-mla), with the kernel's, the plain
-   version's and one library call's times and the bound.
+   version's and one library call's times and the bound. The systolic
+   GEMM (K7) in its three dataflows and the int8-weight GEMM (K8) on the
+   CPU tests' shapes, ResNet20's 21 im2col GEMMs at batch 1 and 256 (K8
+   on per-channel int8 weights), bf16 cases and (K8) qwen2.5-32b's wo at
+   M = 8; then both timed over the 21 GEMMs of a batch-256 forward.
 3. qwen2.5-32b at full width cut to 4 layers (the weights of
    ``ServeEngine.build``, built once for phases 3-5): one paged prefill
    chunk plus 8 decode steps through ``impl="kernel"`` and
@@ -41,9 +45,19 @@ before printing any result. Phases, each of which raises on failure:
    through K4 and through the latent einsum; the 16 requests on the dense
    latent cache and on latent pages, every paged attention through K4,
    streams compared.
+8. ResNet20 / CIFAR at the paper's widths (random weights and BN stats
+   from a seeded generator, a head fitted to synthetic training images),
+   folded, on synthetic CIFAR images at batch 1 and 256: ``lax`` (cuDNN),
+   im2col with the plain ``@`` and im2col through K7 in each dataflow;
+   logits against ``lax`` with top-1 equal, 21 K7 launches per forward,
+   then ms per forward, FPS, GOP/s and (power.draw sampled) GOP/s per W.
+   (8b) int8 PTQ over 10,000 synthetic images in batches of 1,000: fp32
+   against 16-bit fixed point and int8, then every conv GEMM through K8
+   on the int8 weights against the dequant-on-load forward.
 
-Each serving path (3b's forward, 4, 4b, 5, 7) runs with the kernels'
-launch counts set to 0 just before and read just after. Then one JSON line
+Each serving path (3b's forward, 4, 4b, 5, 7) and each forward of phases
+8 and 8b runs with the kernels' launch counts set to 0 just before and
+read just after. Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
 computes.
@@ -63,12 +77,21 @@ import torch.nn.functional as F
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core.quantize import page_scale  # noqa: E402
+from repro_torch.configs.resnet20_cifar import CONFIG as RESNET  # noqa: E402
+from repro_torch.core.quantize import (QuantizedTensor,  # noqa: E402
+                                       dequantize_params, fixed_point_tree,
+                                       page_scale, quantize_params,
+                                       quantize_per_channel)
+from repro_torch.data.synthetic import synthetic_cifar  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models.registry import init_paged_cache  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import (PagedInt8Backend,  # noqa: E402
@@ -92,6 +115,16 @@ SLOTS, S_MAX, PS = 8, 1024, 16
 FLASH_SHAPES = {"prefill": (SLOTS, 64), "forward": (4, 1024)}
 # phase 3b's full-sequence prefill step (B, S)
 FORWARD_BATCH = (2, 512)
+# K7 / K8: 1e-4 of the output's largest magnitude (the kernel's one FMA
+# chain per element against the library's blocked fp32 sum); a bf16 output
+# may round one bf16 step apart
+GEMM_TOL, GEMM_BF16_TOL = 1e-4, 2e-2
+# phase 8: ResNet20 at batch 1 (the paper's per-frame setting) and 256;
+# 8b: the 10,000-image synthetic test set in batches of 1,000
+RESNET_BATCHES, PTQ_IMAGES, PTQ_BATCH = (1, 256), 10_000, 1_000
+# the LM projection K8 is also held at: qwen2.5-32b's wo (M = 8 slots)
+LM_PROJ = (8, 5120, 5120)
+DATAFLOWS = mm.DATAFLOWS
 DEV = torch.device("cuda")
 
 
@@ -1063,6 +1096,418 @@ def phase7_mla(card):
     return launches
 
 
+# ------------------------------------------------ phase 2: GEMMs (K7, K8)
+def gemm_held(name, got, want, tol=GEMM_TOL):
+    """A GEMM kernel's output against its plain version's, within ``tol``
+    of the output's largest magnitude; returns max |diff|."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    atol = tol * max(1.0, want.abs().max().item() if want.numel() else 0.0)
+    if not torch.allclose(got, want, rtol=tol, atol=atol):
+        raise AssertionError(f"{name}: kernel differs from plain version, "
+                             f"max abs err {err} (atol {atol:.2e})")
+    return err
+
+
+def rand_on_card(gen, *shape):
+    return torch.randn(shape, generator=gen, device=DEV)
+
+
+def resnet_weight(gen, K, N):
+    """A He-scaled (K, N) im2col weight and its per-output-channel int8
+    form from ``quantize_per_channel``: (w, w_q, scales (N,))."""
+    w = rand_on_card(gen, K, N) * (2.0 / K) ** 0.5
+    qt = quantize_per_channel(w)
+    return w, qt.q, qt.scale.reshape(-1)
+
+
+def gemm_cases():
+    """(label, M, K, N): the CPU tests' shapes, then each of ResNet20's 21
+    im2col GEMMs at batch 1 and 256."""
+    cases = [(f"test {m}x{k}x{n}", m, k, n) for m, k, n in
+             ((256, 256, 256), (192, 320, 128), (130, 70, 200),
+              (64, 512, 96))]
+    for B in RESNET_BATCHES:
+        cases += [(f"{name} B={B}", m, k, n) for name, m, k, n in
+                  resnet.conv_layer_shapes(RESNET, B)]
+    return cases
+
+
+def phase2_gemm_cases():
+    """K7 in every dataflow and K8 against their plain versions: the test
+    shapes, the 21 ResNet20 GEMMs at batch 1 and 256 (K8 on per-channel
+    int8 weights), bf16 cases, and qwen2.5-32b's wo at M = 8 for K8. The
+    three dataflows must give the same bits, and K8 the bits of K7 on the
+    dequantized weight. Returns max |diff| per kernel row."""
+    gen = torch.Generator(DEV).manual_seed(20)
+    errs = {df: 0.0 for df in DATAFLOWS}
+    errs["quant_matmul"] = 0.0
+    worst = {}
+    for label, M, K, N in gemm_cases() + [("lm wo",) + LM_PROJ]:
+        x = rand_on_card(gen, M, K)
+        w, w_q, sc = resnet_weight(gen, K, N)
+        if label != "lm wo":
+            want = ref.matmul(x, w)
+            outs = [mm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
+            for df, got in zip(DATAFLOWS, outs):
+                errs[df] = max(errs[df], gemm_held(f"K7 {df} {label}", got,
+                                                   want))
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"K7 {label}: dataflows differ in bits")
+        got = qm.quant_matmul(x, w_q, sc)
+        err = gemm_held(f"K8 {label}", got, ref.quant_matmul(x, w_q, sc))
+        errs["quant_matmul"] = max(errs["quant_matmul"], err)
+        deq = w_q.float() * sc[None, :]
+        if not torch.equal(got, mm.matmul(x, deq)):
+            raise AssertionError(f"K8 {label}: not K7's bits on the "
+                                 f"dequantized weight")
+        worst[label] = err
+    log(f"  K7 x {len(DATAFLOWS)} dataflows and K8 on {len(worst)} shapes: "
+        f"max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; dataflows bit-equal; K8 == K7 on the dequantized weight")
+    for label, M, K, N in (("test 256x256x256", 256, 256, 256),
+                           ("s1b0c2 B=256", 65536, 288, 32)):
+        x, (w, w_q, sc) = rand_on_card(gen, M, K), resnet_weight(gen, K, N)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        for df in DATAFLOWS:
+            got = mm.matmul(xb, wb, dataflow=df)
+            if got.dtype != torch.bfloat16:
+                raise AssertionError("K7 bf16: output is not bf16")
+            gemm_held(f"K7 {df} bf16 {label}", got, ref.matmul(xb, wb),
+                      GEMM_BF16_TOL)
+        gemm_held(f"K8 bf16 {label}", qm.quant_matmul(xb, w_q, sc),
+                  ref.quant_matmul(xb, w_q, sc), GEMM_BF16_TOL)
+    log(f"  bf16 K7 (3 dataflows) and K8 held at {GEMM_BF16_TOL}")
+    return errs
+
+
+def gemm_bound(M, K, N, w_bytes=4, extra_ops=0) -> tuple:
+    """Least time for one GEMM: x, w (and K8's scales) read once and the
+    output written once at the HBM rate, against 2 M K N operations (plus
+    ``extra_ops``) at the fp32 peak."""
+    scales = 4 * N if w_bytes == 1 else 0
+    nbytes = 4 * M * K + w_bytes * K * N + scales + 4 * M * N
+    return roofline(nbytes, 2 * M * K * N + extra_ops)
+
+
+def sum_bounds(bounds) -> tuple:
+    """Sequential GEMMs: the sum of their bounds, named by what bounds
+    most of that time."""
+    total = sum(b for b, _ in bounds)
+    by_bytes = sum(b for b, by in bounds if by == "bytes")
+    return total, "bytes" if by_bytes >= total / 2 else "operations"
+
+
+def phase2_gemm_full_width():
+    """K7 and K8 timed at the 21 GEMMs of one batch-256 ResNet20 forward
+    (the largest of ``RESNET_BATCHES``),
+    summed (the kernel, its plain version, one ``torch.matmul``, each
+    launch after an L2 flush; TF32 off), and K8 at qwen2.5-32b's wo.
+    K8's library call is ``torch.matmul`` on the weight dequantized
+    beforehand; the dequantization is timed apart."""
+    gen = torch.Generator(DEV).manual_seed(21)
+    rows = {df: dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+            for df in DATAFLOWS}
+    rows["quant_matmul"] = dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                dequant_ms=0.0)
+    bounds, qbounds = [], []
+    B = max(RESNET_BATCHES)
+    for name, M, K, N in resnet.conv_layer_shapes(RESNET, B):
+        x = rand_on_card(gen, M, K)
+        w, w_q, sc = resnet_weight(gen, K, N)
+        plain = time_ms(lambda: ref.matmul(x, w), 10)
+        for df in DATAFLOWS:
+            rows[df]["ms"] += time_ms(lambda: mm.matmul(x, w, dataflow=df),
+                                      10)
+            rows[df]["plain_ms"] += plain
+            rows[df]["library_ms"] += time_ms(lambda: torch.matmul(x, w), 10)
+        deq = w_q.float() * sc[None, :]
+        q = rows["quant_matmul"]
+        q["ms"] += time_ms(lambda: qm.quant_matmul(x, w_q, sc), 10)
+        q["plain_ms"] += time_ms(lambda: ref.quant_matmul(x, w_q, sc), 10)
+        q["library_ms"] += time_ms(lambda: torch.matmul(x, deq), 10)
+        q["dequant_ms"] += time_ms(lambda: w_q.float() * sc[None, :], 10)
+        bounds.append(gemm_bound(M, K, N))
+        qbounds.append(gemm_bound(M, K, N, 1, K * N))
+        del x, w, w_q, sc, deq
+    for key, bnd in [(df, bounds) for df in DATAFLOWS] + [("quant_matmul",
+                                                           qbounds)]:
+        rows[key]["bound_ms"], rows[key]["bound_by"] = sum_bounds(bnd)
+        r = rows[key]
+        log(f"  {key}, 21 GEMMs of a batch-{B} forward: kernel "
+            f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | torch.matmul "
+            f"{r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})" + (f" | dequant alone {r['dequant_ms']:.4f}"
+                                    f" ms" if "dequant_ms" in r else ""))
+    M, K, N = LM_PROJ
+    x = rand_on_card(gen, M, K)
+    w, w_q, sc = resnet_weight(gen, K, N)
+    deq = w_q.float() * sc[None, :]
+    ms = time_ms(lambda: qm.quant_matmul(x, w_q, sc), 50)
+    plain = time_ms(lambda: ref.quant_matmul(x, w_q, sc), 50)
+    lib = time_ms(lambda: torch.matmul(x, deq), 50)
+    dq = time_ms(lambda: w_q.float() * sc[None, :], 50)
+    bms, by = gemm_bound(M, K, N, 1, K * N)
+    log(f"  quant_matmul at qwen2.5-32b wo ({M}x{K}x{N}): kernel {ms:.4f} ms "
+        f"| plain {plain:.4f} ms | torch.matmul on the dequantized weight "
+        f"{lib:.4f} ms | dequant alone {dq:.4f} ms | bound {bms:.4f} ms "
+        f"({by})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------- phase 8: ResNet20
+def fit_head(folded, n=4096):
+    """Test data only: the head replaced by a ridge regression of one-hot
+    labels on the pooled features of ``n`` synthetic training images
+    (seed 1), so that predictions vary by image (an untrained network's
+    logits are nearly the same for every image, and its top-1 agreements
+    would say nothing). The features are the forward's output under an
+    identity head."""
+    width = folded["head"]["w"].shape[0]
+    probe = dict(folded, head={"w": torch.eye(width, device=DEV),
+                               "b": torch.zeros(width, device=DEV)})
+    xs, ys = synthetic_cifar(n, seed=1)
+    feats = torch.cat([resnet.forward(
+        probe, RESNET, torch.from_numpy(xs[i:i + 1024]).to(DEV), folded=True)
+        for i in range(0, n, 1024)])
+    mu, sd = feats.mean(0), feats.std(0) + 1e-6
+    z = (feats - mu) / sd
+    y = F.one_hot(torch.from_numpy(ys).long().to(DEV),
+                  RESNET.num_classes).float()
+    w = torch.linalg.solve(z.T @ z + 1e-3 * n * torch.eye(width, device=DEV),
+                           z.T @ (y - y.mean(0)))
+    folded["head"] = {"w": w / sd[:, None], "b": -(mu / sd) @ w}
+    return folded
+
+
+def resnet_params(seed):
+    """ResNet20 from ``resnet.init`` with a seeded generator on the card,
+    BN running stats and affine terms drawn from the same generator
+    (mean != 0, var != 1, scale != 1) so that folding is not the identity,
+    and a fitted head (:func:`fit_head`); returns the folded params."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    params = resnet.init(RESNET, gen, DEV)
+    convs = [params["stem"]] + [blk[k] for blocks in params["stages"]
+                                for blk in blocks for k in blk]
+    for cb in convs:
+        c = cb["w"].shape[-1]
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+            c, generator=gen, device=DEV)
+        cb["bn"] = {"scale": u(0.5, 1.5), "var": u(0.5, 2.0),
+                    "bias": 0.1 * rand_on_card(gen, c),
+                    "mean": 0.1 * rand_on_card(gen, c)}
+    return fit_head(resnet.fold_bn(params))
+
+
+def resnet_paths():
+    """Phase 8's routes: ``lax`` (cuDNN, the oracle), im2col with the plain
+    ``@``, im2col through K7 in each dataflow."""
+    paths = {"lax": dict(impl="lax"), "im2col @": dict(impl="im2col")}
+    for df in DATAFLOWS:
+        paths[f"K7 {df}"] = dict(impl="im2col", matmul_fn=lambda a, b, d=df:
+                                 ops.matmul(a, b, dataflow=d))
+    return paths
+
+
+def logits_held(name, got, want, tol=GEMM_TOL):
+    """Logits of two routes: finite, allclose within ``tol`` of the largest
+    logit, and the same top-1 wherever ``want``'s two best logits are more
+    than that apart. Returns (max |diff|, near ties)."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite logits")
+    atol = tol * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=tol, atol=atol):
+        raise AssertionError(f"{name}: logits differ by {err}")
+    top2 = want.topk(2, dim=-1).values
+    decided = top2[:, 0] - top2[:, 1] > atol
+    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError(f"{name}: top-1 differs")
+    return err, int((~decided).sum())
+
+
+def power_rate(fn, images_per_call, seconds=1.5):
+    """Run ``fn`` back to back for ``seconds`` while ``nvidia-smi`` samples
+    power.draw every 100 ms; returns (images/s on the host clock, mean W)
+    or None for the power if no sample came back."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(4):
+                fn()
+            n += 4
+            torch.cuda.synchronize()
+        rate = n * images_per_call / (time.perf_counter() - t0)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=10)
+    watts = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    return rate, (sum(watts) / len(watts) if watts else None)
+
+
+def phase8_resnet(card):
+    """ResNet20 at the paper's widths (16 / 32 / 64, 3x3 blocks, 32x32x3,
+    10 classes), folded, on synthetic CIFAR images: lax, im2col with the
+    plain ``@`` and im2col through K7 in each dataflow, at batch 1 and
+    256. Logits against lax; K7 launched once per conv GEMM; the three
+    dataflows give the same bits. Then ms per forward, FPS and GOP/s for
+    each route (and GOP/s per W at batch 256 where the power can be read).
+    Returns K7's launches per dataflow and the timings."""
+    folded = resnet_params(30)
+    images = torch.from_numpy(synthetic_cifar(max(RESNET_BATCHES),
+                                              seed=3)[0]).to(DEV)
+    flops = sum(2 * m * k * n for _, m, k, n in
+                resnet.conv_layer_shapes(RESNET, 1))
+    paths = resnet_paths()
+    launches = {df: 0 for df in DATAFLOWS}
+    timings = {}
+    for B in RESNET_BATCHES:
+        x = images[:B]
+        fwd = {name: (lambda kw=kw: resnet.forward(
+            folded, RESNET, x, folded=True, **kw)) for name, kw in
+            paths.items()}
+        logits = {}
+        for name, fn in fwd.items():
+            mm.reset_launches()
+            qm.reset_launches()
+            logits[name] = fn()
+            torch.cuda.synchronize()
+            want = {df: int(name == f"K7 {df}") * 21 for df in DATAFLOWS}
+            if mm.LAUNCHES != want or qm.LAUNCHES["quant_matmul"]:
+                raise AssertionError(f"B={B} {name}: launches {mm.LAUNCHES},"
+                                     f" {qm.LAUNCHES}; want {want}")
+            for df in DATAFLOWS:
+                launches[df] += mm.LAUNCHES[df]
+        if tuple(logits["lax"].shape) != (B, RESNET.num_classes):
+            raise AssertionError(f"logits shape {tuple(logits['lax'].shape)}")
+        for name in list(paths)[1:]:
+            err, ties = logits_held(f"B={B} {name}", logits[name],
+                                    logits["lax"])
+            log(f"  B={B} {name} vs lax: max abs diff {err:.3e}, top-1 "
+                f"equal ({ties} near ties undecided)")
+        k7 = [logits[f"K7 {df}"] for df in DATAFLOWS]
+        if not all(torch.equal(k7[0], o) for o in k7[1:]):
+            raise AssertionError(f"B={B}: K7 dataflows differ in bits")
+        log(f"  B={B}: K7's 21 launches per forward in each dataflow; the "
+            f"three dataflows' logits bit-equal")
+        for name, fn in fwd.items():
+            ms = time_ms(fn, 20 if B == 1 else 10)
+            row = dict(ms=ms, fps=B * 1e3 / ms,
+                       gops=flops * B / (ms * 1e-3) / 1e9)
+            if B == max(RESNET_BATCHES):
+                rate, watts = power_rate(fn, B)
+                if watts:
+                    row.update(loop_gops=flops * rate / 1e9, watts=watts,
+                               gops_per_w=flops * rate / 1e9 / watts)
+            timings[(B, name)] = row
+            log(f"  B={B} {name}: {ms:.4f} ms per forward, {row['fps']:.1f} "
+                f"FPS, {row['gops']:.1f} GOP/s"
+                + (f" | back to back {row['loop_gops']:.1f} GOP/s at "
+                   f"{row['watts']:.1f} W: {row['gops_per_w']:.2f} GOP/s/W"
+                   if "watts" in row else "") + f" ({card})")
+    log(f"  {flops / 1e6:.3f} MFLOP per image (2 M K N over the 21 conv "
+        f"GEMMs)")
+    del images, folded
+    torch.cuda.empty_cache()
+    return launches, timings
+
+
+def int8_matmul_fn(qparams, deq):
+    """A ``matmul_fn`` that runs each conv GEMM through K8 on the int8
+    weights: the forward hands it the dequantized weight (a view of one
+    leaf of ``deq``), which names its int8 tensor and scales."""
+    table = {}
+
+    def walk(q, d):
+        if isinstance(q, QuantizedTensor):
+            if q.q.dim() == 4:
+                n = q.q.shape[-1]
+                table[d.data_ptr()] = (q.q.reshape(-1, n), q.scale.reshape(n))
+        elif isinstance(q, dict):
+            for k in q:
+                walk(q[k], d[k])
+        elif isinstance(q, list):
+            for a, b in zip(q, d):
+                walk(a, b)
+    walk(qparams, deq)
+
+    def fn(lhs, wm):
+        w_q, sc = table[wm.data_ptr()]
+        return ops.quant_matmul(lhs, w_q, sc)
+    return fn, len(table)
+
+
+def phase8b_ptq(card):
+    """The paper's quantization ladder on the 10,000-image synthetic test
+    set, in batches of 1,000, every conv through K7 (output-stationary):
+    fp32 against 16-bit fixed point and against int8 PTQ dequantized to
+    f32 (top-1 agreement, max |dlogit|); then the int8 forward with every
+    conv GEMM through K8 on the int8 weights, held against the
+    dequant-on-load forward, K8 launched 21 times per forward. Returns
+    K8's launches."""
+    folded = resnet_params(30)
+    xs, ys = synthetic_cifar(PTQ_IMAGES, seed=2)
+    k7 = lambda a, b: ops.matmul(a, b)  # noqa: E731
+    qparams = quantize_params(folded)
+    trees = {"fp32": folded, "fixed16": fixed_point_tree(folded),
+             "int8": dequantize_params(qparams, torch.float32)}
+    k8_fn, n_convs = int8_matmul_fn(qparams, trees["int8"])
+    if n_convs != 21:
+        raise AssertionError(f"{n_convs} int8 conv weights, not 21")
+    logits = {name: [] for name in list(trees) + ["int8 K8"]}
+    mm.reset_launches()
+    qm.reset_launches()
+    batches = range(0, PTQ_IMAGES, PTQ_BATCH)
+    for i in batches:
+        x = torch.from_numpy(xs[i:i + PTQ_BATCH]).to(DEV)
+        for name, tree in trees.items():
+            logits[name].append(resnet.forward(tree, RESNET, x, folded=True,
+                                               impl="im2col", matmul_fn=k7))
+        logits["int8 K8"].append(resnet.forward(
+            trees["int8"], RESNET, x, folded=True, impl="im2col",
+            matmul_fn=k8_fn))
+    torch.cuda.synchronize()
+    launches = qm.LAUNCHES["quant_matmul"]
+    if launches != 21 * len(batches) or mm.LAUNCHES[
+            "output_stationary"] != 3 * 21 * len(batches):
+        raise AssertionError(f"K8 launches {launches}, K7 {mm.LAUNCHES} for "
+                             f"{len(batches)} batches")
+    logits = {k: torch.cat(v) for k, v in logits.items()}
+    labels = torch.from_numpy(ys).to(DEV)
+    ref_top = logits["fp32"].argmax(-1)
+    for name in ("fp32", "fixed16", "int8"):
+        lg = logits[name]
+        log(f"  {name}: accuracy on the synthetic labels "
+            f"{(lg.argmax(-1) == labels).float().mean().item():.4f}, top-1 "
+            f"agreement with fp32 {(lg.argmax(-1) == ref_top).float().mean().item():.4f}"
+            f", max |dlogit| {(lg - logits['fp32']).abs().max().item():.4e}")
+    err, ties = logits_held("int8 K8 vs dequant-on-load K7",
+                            logits["int8 K8"], logits["int8"])
+    same = torch.equal(logits["int8 K8"], logits["int8"])
+    log(f"  int8 through K8 ({launches} launches = 21 x {len(batches)} "
+        f"batches) vs dequant-on-load K7: max abs diff {err:.3e}, "
+        f"{'bit-equal' if same else 'not bit-equal'}, top-1 equal ({ties} "
+        f"near ties undecided)")
+    x = torch.from_numpy(xs[:PTQ_BATCH]).to(DEV)
+    for name, fn in (("int8 K8", k8_fn), ("dequant-on-load K7", k7)):
+        ms = time_ms(lambda: resnet.forward(trees["int8"], RESNET, x,
+                                            folded=True, impl="im2col",
+                                            matmul_fn=fn), 5)
+        log(f"  {name}: {ms:.4f} ms per {PTQ_BATCH}-image forward, "
+            f"{PTQ_BATCH * 1e3 / ms:.1f} FPS ({card})")
+    del logits, trees, qparams, folded
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1079,7 +1524,7 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     took = _build.build(["paged_attention", "paged_attention_latent",
-                         "flash_attention"])
+                         "flash_attention", "matmul"])
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1092,6 +1537,8 @@ def main():
     full.update(phase2_latent_full_width())
     flash_errs = phase2_flash_cases()
     flash_full = phase2_flash_full_width()
+    gemm_errs = phase2_gemm_cases()
+    gemm_full = phase2_gemm_full_width()
 
     t0 = time.perf_counter()
     dense = ServeEngine.build(ARCH, config=ServeConfig(
@@ -1125,6 +1572,11 @@ def main():
     phase6_anchors()
     log("phase 7: qwen2.5-32b-mla at full width, 4 layers")
     latent_launches = phase7_mla(card)
+    log("phase 8: ResNet20 / CIFAR at the paper's widths, lax vs im2col "
+        "vs K7")
+    gemm_launches, _ = phase8_resnet(card)
+    log("phase 8b: int8 PTQ over 10,000 synthetic images, K8")
+    gemm_launches["quant_matmul"] = phase8b_ptq(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -1151,6 +1603,19 @@ def main():
             "replaces": "src/repro/kernels/flash_attention.py:26",
             "launches": flash_launches[kind],
             "max_abs_err": max(flash_errs[kind], f["err"]),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
+    for key in DATAFLOWS + ("quant_matmul",):
+        f = gemm_full[key]
+        k7 = key in DATAFLOWS
+        kernels.append({
+            "name": f"matmul[{key}]" if k7 else "quant_matmul[resnet20 int8]",
+            "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+            "replaces": ("src/repro/kernels/matmul.py:"
+                         + ("29" if key == "output_stationary" else "46"))
+            if k7 else "src/repro/kernels/quant_matmul.py:16",
+            "launches": gemm_launches[key], "max_abs_err": gemm_errs[key],
             "ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})

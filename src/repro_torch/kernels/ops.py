@@ -5,12 +5,15 @@ On the card there is no shape-based route to a plain version: the TPU
 dispatch sent only tileable shapes (and, for flash attention, only calls
 without positions) to its kernels, while the Hopper kernels take every page
 size, sequence length and window and every head_dim up to 256 that is a
-multiple of 4, and raise on anything else. A CPU tensor runs the plain
-version (see the wrappers)."""
+multiple of 4, and every GEMM shape (ragged M, K and N, no padding), and
+raise on anything else. A CPU tensor runs the plain version (see the
+wrappers)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
@@ -122,3 +125,43 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
     so no copy runs here either)."""
     return (_flash_attention(q, k, v, causal=causal, window=window,
                              kind="prefill"), k, v)
+
+
+class _Matmul(torch.autograd.Function):
+    """The systolic GEMM with its gradient: both gradient GEMMs (dX = g @
+    W^T, dW = X^T @ g) go back through the same kernel, on transposed views
+    (the kernel reads any strides), as ``repro``'s ``_matmul_vjp`` sends
+    them through the Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_m, block_n, block_k, dataflow):
+        ctx.save_for_backward(x, w)
+        ctx.blocks = dict(block_m=block_m, block_n=block_n, block_k=block_k,
+                          dataflow=dataflow)
+        return _mm.matmul(x, w, **ctx.blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm.matmul(g, w.t(), **ctx.blocks).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm.matmul(x.t(), g, **ctx.blocks).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
+           block_k: int = 128, dataflow: str = "output_stationary"):
+    """Systolic tiled matmul x (M, K) @ w (K, N) -> (M, N), fp32
+    accumulation, in the given dataflow. Differentiable: the backward runs
+    both gradient GEMMs through the same kernel."""
+    return _Matmul.apply(x, w, block_m, block_n, block_k, dataflow)
+
+
+def quant_matmul(x, w_q, scales, *, block_m: int = 128, block_n: int = 128,
+                 block_k: int = 128):
+    """x (M, K) float times int8 w_q (K, N) with per-output-channel
+    ``scales`` (N,), fp32 accumulation."""
+    return _qm.quant_matmul(x, w_q, scales, block_m=block_m,
+                            block_n=block_n, block_k=block_k)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (paged attention over fp32
-and int8 pools, latent paged attention, flash attention): the ground truth
+and int8 pools, latent paged attention, flash attention, the tiled GEMM and
+the int8-weight GEMM): the ground truth
 each kernel is held against on the card, and the path a wrapper takes for
 tensors that lie on the CPU. Also home to :func:`mask_value`, the shared
 masking sentinel, and :func:`mla_attention_naive`, the oracle of the MLA
@@ -20,6 +21,19 @@ def mask_value(dtype: torch.dtype) -> float:
     if float(fi.max) > 1e30:
         return -1e30
     return float(fi.min) / 2
+
+
+def matmul(a, b):
+    """a: (M, K), b: (K, N) -> (M, N) in a's dtype, f32 accumulation."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def quant_matmul(a, w_q, scales):
+    """a: (M, K) float; w_q: (K, N) int8; scales: (N,) per-output-channel.
+    out = a @ (w_q * scales) with f32 accumulation: the weight is
+    dequantized first, element by element, then multiplied."""
+    w = w_q.float() * scales.float()[None, :]
+    return (a.float() @ w).to(a.dtype)
 
 
 def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0,

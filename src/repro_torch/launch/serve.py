@@ -13,7 +13,9 @@ representation by the reference's names (``paged_int8``: int8 pages;
 ``paged_latent``: MLA latent pages, with an MLA arch such as
 ``qwen2.5-32b-mla``); ``--prefill-mode`` and
 ``--prefill-attn-impl`` choose the prefill path (``auto``: the
-flash-attention kernel on the card).
+flash-attention kernel on the card); ``--quantize-int8`` serves the
+weights after int8 per-channel post-training quantization (quantized, then
+dequantized to the compute dtype, as the reference CLI does).
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quantize-int8", action="store_true",
+                    help="int8 per-channel PTQ of the weights")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true", help="print full metrics")
     args = ap.parse_args(argv)
@@ -63,6 +67,7 @@ def main(argv=None):
         cfg_overrides=({"num_layers": args.num_layers} if args.num_layers
                        else None),
         batch_slots=args.batch_slots, s_max=args.s_max, seed=args.seed,
+        quantize_int8=args.quantize_int8,
         page_size=args.page_size, num_pages=args.num_pages or None,
         kv_backend=args.kv_backend,
         prefix_cache=None if args.prefix_cache else False,

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import Family
+from repro_torch.core.quantize import dequantize_params, quantize_params
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.layers import INACTIVE_POS
 from repro_torch.models.registry import Model, get_model, reduced_config
@@ -321,11 +322,12 @@ class ServeEngine:
         if config.cfg_overrides:
             cfg = dataclasses.replace(cfg, **config.cfg_overrides)
         config.validate(cfg)
-        if config.quantize_int8:
-            raise _not_ported("int8 weight quantization", "11")
         model = get_model(cfg)
         gen = torch.Generator(device=device).manual_seed(config.seed)
         params = model.init(gen, device)
+        if config.quantize_int8:
+            params = dequantize_params(quantize_params(params),
+                                       config.compute_dtype)
         return cls(model, params, **config.engine_kwargs())
 
     # ------------------------------------------------------------ sampling

@@ -13,7 +13,10 @@ and their scales; copy-on-write hands the fresh page the source's scale
 and the tail splice re-quantizes it) and for the reduced qwen2.5-32b-mla
 (the dense latent cache, latent pages with the backend implicit or
 explicit, prefix on and off; one-page latent pages bit-equal to the dense
-latent cache in the port). Also: ``chain_hash`` keys are byte-equal,
+latent cache in the port), and for int8 weight quantization
+(``quantize_int8``: the reference's quantized engine against the port's
+engine over the same weights quantized in the port, dense and paged; the
+port's own build and ``--quantize-int8``). Also: ``chain_hash`` keys are byte-equal,
 ``ServeConfig.validate()`` messages are equal, the prefix-cache rule falls
 back with a warning where unsupported, int8 on an unported family falls
 back to fp32 pages with the reference's warning, latent pages on a
@@ -35,6 +38,7 @@ from repro.serve import prefix as jprefix  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs.base import Family  # noqa: E402
+from repro_torch.core import quantize as tq  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.serve import ServeConfig as TConfig  # noqa: E402
 from repro_torch.serve import SchedPolicy as TPolicy  # noqa: E402
@@ -353,6 +357,65 @@ def test_cli_kv_backend_reaches_the_engine(monkeypatch, capsys):
     assert capsys.readouterr().out.count("served 2 requests on cpu") == 3
     with pytest.raises(SystemExit):
         cli.main(args + ["--kv-backend", "latent"])
+
+
+# ------------------------------------------------- int8 weight quantization
+@pytest.mark.parametrize("page_size", [PS, None])
+def test_quantize_int8_streams_equal_reference(page_size):
+    """The reference engine built with ``quantize_int8=True`` against the
+    port's engine over the reference's ``model.init`` weights, bridged and
+    quantized in the port (per-channel int8, then dequantized to f32):
+    the served weights are bit-equal and the greedy streams equal, on the
+    paged cache and on the dense one."""
+    fields = dict(page_size=page_size, s_max=S_MAX)
+    jeng = JEngine.build("qwen2.5-32b", config=JConfig(quantize_int8=True,
+                                                       **fields))
+    raw = jeng.model.init(jax.random.PRNGKey(JConfig().seed))
+    params = tq.dequantize_params(tq.quantize_params(
+        bridge.params_from_numpy(jax.tree.map(np.asarray, raw), "cpu")),
+        torch.float32)
+    served = jax.tree.leaves(jax.tree.map(np.asarray, jeng.params))
+    mine = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), params))
+    assert len(served) == len(mine)
+    for a, b in zip(mine, served):
+        np.testing.assert_array_equal(a, b)
+    model = treg.get_model(treg.reduced_config(
+        tconfigs.get_config("qwen2.5-32b")))
+    teng = TEngine(model, params, **TConfig(device="cpu",
+                                            **fields).engine_kwargs())
+    waves = _waves(jeng.cfg.vocab_size)
+    assert _serve(teng, waves) == _serve(jeng, waves)
+
+
+def test_quantize_int8_build_and_cli(monkeypatch, capsys):
+    """``ServeEngine.build(quantize_int8=True)`` serves the quantized-then-
+    dequantized weights of the plain build (same seed), 1-D leaves as they
+    are; ``--quantize-int8`` reaches ``ServeConfig.quantize_int8``."""
+    plain = TEngine.build("qwen2.5-32b", config=TConfig(device="cpu"))
+    quant = TEngine.build("qwen2.5-32b", config=TConfig(device="cpu",
+                                                        quantize_int8=True))
+    want = tq.dequantize_params(tq.quantize_params(plain.params),
+                                torch.float32)
+    for a, b in zip(jax.tree.leaves(quant.params), jax.tree.leaves(want)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    changed = [not torch.equal(a, b) for a, b in zip(
+        jax.tree.leaves(quant.params), jax.tree.leaves(plain.params))]
+    assert any(changed) and not all(changed)      # norms stay unquantized
+    from repro_torch.launch import serve as cli
+    built = []
+    build = TEngine.build.__func__
+
+    def spy(cls, arch, *, config):
+        built.append(config)
+        return build(cls, arch, config=config)
+
+    monkeypatch.setattr(TEngine, "build", classmethod(spy))
+    args = ["--device", "cpu", "--requests", "2", "--prompt-len", "5",
+            "--gen-len", "3"]
+    cli.main(args)
+    cli.main(args + ["--quantize-int8"])
+    assert [c.quantize_int8 for c in built] == [False, True]
+    assert capsys.readouterr().out.count("served 2 requests on cpu") == 2
 
 
 # ------------------------------------------------------------ int8 pages

@@ -24,7 +24,10 @@ def _sources():
             "kernels/ops.py", "kernels/ref.py", "models/layers.py",
             "models/transformer.py", "models/registry.py", "launch/steps.py",
             "launch/serve.py", "serve/engine.py", "serve/kvcache.py",
-            "core/quantize.py"} <= names
+            "core/quantize.py", "kernels/matmul.py",
+            "kernels/quant_matmul.py", "models/resnet.py",
+            "configs/resnet20_cifar.py", "data/cifar.py",
+            "data/synthetic.py"} <= names
     return files
 
 

@@ -1,0 +1,315 @@
+"""The port's GEMMs against the reference. ``ops.matmul`` (the systolic
+GEMM, K7) and ``ops.quant_matmul`` (the int8-weight GEMM, K8) run their
+plain versions on CPU tensors; they are held against ``repro``'s
+``ops.matmul`` / ``ops.quant_matmul`` (the Pallas kernels in interpret
+mode, padding to block multiples) on ``tests/test_kernels.py``'s shapes in
+every dataflow, fp32 and bf16, against ``repro.kernels.ref``, and, for the
+autograd Function's gradients, against ``jax.grad`` of ``repro``'s custom
+VJP. The reference's errors (unknown dataflow, K mismatch) are kept, and a
+K mismatch that the reference's padding hides is an error in the port.
+``gpu``-marked cases hold the CUDA kernels against the plain versions on
+the card and skip themselves without one.
+
+Tolerances: rtol = atol = 1e-4 for fp32 (the reference tests' own: both
+sides accumulate in f32 in different orders), 2e-2 for bf16 outputs (one
+bf16 rounding of the same f32 sum can land one ulp apart), atol 1e-3 for
+the int8-weight GEMM (the reference test's). Inputs are seeded numpy."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import matmul as tmm  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+# the card's machine has no JAX: there only the gpu-marked tests run
+# (``pytest -m gpu``) and the reference comparisons skip themselves
+try:
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:
+    jnp = None
+
+
+@pytest.fixture(autouse=True)
+def _needs_reference(request):
+    if jnp is None and request.node.get_closest_marker("gpu") is None:
+        pytest.skip("the JAX reference is not installed")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
+SHAPES = [(256, 256, 256), (192, 320, 128), (130, 70, 200), (64, 512, 96)]
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _xw(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
+
+
+def _q8(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.integers(-127, 127, (k, n)).astype(np.int8),
+            rng.uniform(0.01, 0.1, n).astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("mkn", SHAPES)
+def test_matmul_matches_reference(dataflow, mkn):
+    x, w = _xw(1, *mkn)
+    got = tops.matmul(_t(x), _t(w), dataflow=dataflow)
+    want = jops.matmul(jnp.asarray(x), jnp.asarray(w), block_m=64,
+                       block_n=64, block_k=64, dataflow=dataflow)
+    assert got.dtype == torch.float32 and tuple(got.shape) == mkn[::2]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_dtypes(dtype):
+    """The output keeps x's dtype; bf16 inputs accumulate in f32."""
+    x, w = _xw(2, 128, 128, 128)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = tops.matmul(_t(x).to(tdt), _t(w).to(tdt))
+    want = jops.matmul(jnp.asarray(x, jdt), jnp.asarray(w, jdt), block_m=64,
+                       block_n=64, block_k=64)
+    assert got.dtype == tdt
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(128, 256, 192), (256, 128, 64)])
+def test_quant_matmul_matches_reference(shape):
+    x, wq, sc = _q8(3, *shape)
+    got = tops.quant_matmul(_t(x), _t(wq), _t(sc))
+    want = jops.quant_matmul(jnp.asarray(x), jnp.asarray(wq),
+                             jnp.asarray(sc), block_m=64, block_n=64,
+                             block_k=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["matmul", "matmul_bf16", "quant_matmul"])
+def test_plain_versions_match_reference_oracles(case):
+    """``ref.matmul`` / ``ref.quant_matmul`` against ``repro.kernels.ref``
+    on a ragged shape."""
+    if case == "quant_matmul":
+        x, wq, sc = _q8(4, 37, 53, 29)
+        got = tref.quant_matmul(_t(x), _t(wq), _t(sc)).numpy()
+        want = np.asarray(jref.quant_matmul(jnp.asarray(x), jnp.asarray(wq),
+                                            jnp.asarray(sc)))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        return
+    x, w = _xw(5, 37, 53, 29)
+    if case == "matmul":
+        got = tref.matmul(_t(x), _t(w)).numpy()
+        want = np.asarray(jref.matmul(jnp.asarray(x), jnp.asarray(w)))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        got = tref.matmul(_t(x).bfloat16(), _t(w).bfloat16())
+        want = jref.matmul(jnp.asarray(x, jnp.bfloat16),
+                           jnp.asarray(w, jnp.bfloat16))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_matmul_gradients_match_jax_grad(dataflow):
+    """The autograd Function's dx = g @ w^T and dw = x^T @ g against
+    ``jax.grad`` through ``repro``'s custom VJP, for a weighted sum."""
+    x, w = _xw(6, 130, 70, 96)
+    c = np.random.default_rng(7).standard_normal((130, 96)).astype(np.float32)
+    tx = _t(x).requires_grad_()
+    tw = _t(w).requires_grad_()
+    (tops.matmul(tx, tw, dataflow=dataflow) * _t(c)).sum().backward()
+
+    def loss(a, b):
+        return jnp.sum(jops.matmul(a, b, block_m=64, block_n=64, block_k=64,
+                                   dataflow=dataflow) * jnp.asarray(c))
+    gx, gw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(gw), **TOL)
+
+
+def _raised(fn):
+    with pytest.raises(Exception) as info:
+        fn()
+    return info.value
+
+
+@pytest.mark.parametrize("case", ["dataflow", "k_mismatch", "quant_k"])
+def test_errors_equal_the_reference(case):
+    """An unknown dataflow raises the reference's ValueError message; a K
+    mismatch raises AssertionError, as the reference's ``assert K == K2``
+    does (its message holds the padded shapes, the port's the given ones)."""
+    if case == "dataflow":
+        args = (np.ones((8, 16), np.float32), np.ones((16, 8), np.float32))
+        want = _raised(lambda: jops.matmul(*map(jnp.asarray, args),
+                                           dataflow="diagonal"))
+        got = _raised(lambda: tops.matmul(*map(_t, args),
+                                          dataflow="diagonal"))
+        assert type(got) is type(want) is ValueError
+        assert str(got) == str(want) == "unknown dataflow 'diagonal'"
+        return
+    if case == "k_mismatch":
+        args = (np.ones((8, 100), np.float32), np.ones((120, 16), np.float32))
+        want = _raised(lambda: jops.matmul(*map(jnp.asarray, args)))
+        got = _raised(lambda: tops.matmul(*map(_t, args)))
+        assert str(got) == str(((8, 100), (120, 16)))
+    else:
+        args = (np.ones((8, 100), np.float32), np.ones((120, 16), np.int8),
+                np.ones(16, np.float32))
+        want = _raised(lambda: jops.quant_matmul(*map(jnp.asarray, args)))
+        got = _raised(lambda: tops.quant_matmul(*map(_t, args)))
+    assert type(got) is type(want) is AssertionError
+
+
+def test_k_mismatch_the_reference_pads_away_raises():
+    """repro pads x's K (130) and w's K (150) to the same block multiple
+    (256 at block_k 128) and multiplies the zero-padded operands without a
+    word; the port raises on every K mismatch."""
+    x, w = np.ones((8, 130), np.float32), np.ones((150, 16), np.float32)
+    want = jops.matmul(jnp.asarray(x), jnp.asarray(w))
+    assert want.shape == (8, 16) and float(want[0, 0]) == 130.0
+    with pytest.raises(AssertionError):
+        tops.matmul(_t(x), _t(w))
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(monkeypatch):
+    """On CPU tensors nothing is built or counted, for every dataflow, the
+    backward and the int8 GEMM."""
+    from repro_torch.kernels import _build
+
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_build)
+    tmm.reset_launches()
+    tqm.reset_launches()
+    x, w = _xw(8, 33, 20, 17)
+    for df in DATAFLOWS:
+        tx = _t(x).requires_grad_()
+        out = tops.matmul(tx, _t(w), dataflow=df)
+        out.sum().backward()
+        assert torch.equal(out, tref.matmul(_t(x), _t(w)))
+    xq, wq, sc = _q8(9, 33, 20, 17)
+    tops.quant_matmul(_t(xq), _t(wq), _t(sc))
+    assert sum(tmm.LAUNCHES.values()) == 0 and tqm.LAUNCHES["quant_matmul"] == 0
+
+
+# ------------------------------------------------------------- on the card
+CARD_SHAPES = SHAPES + [(1, 1, 1), (1024, 27, 16), (1000, 144, 16),
+                        (257, 576, 64), (63, 16, 32), (8, 5120, 100),
+                        (3, 0, 5)]
+
+
+def _card_tol(want, tol=1e-4):
+    """1e-4 of the output's largest magnitude (fp32 sums in another order:
+    the kernel's FMA chain against the library's blocked sum)."""
+    return dict(rtol=tol, atol=tol * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("mkn", CARD_SHAPES)
+def test_matmul_kernel_matches_plain_version_on_card(card, dataflow, mkn):
+    """K7 against its plain version on ragged shapes (ResNet20's GEMMs, a
+    zero K); the three dataflows give the same bits, and the launch is
+    counted."""
+    x, w = (a.to(card) for a in map(_t, _xw(10, *mkn)))
+    tmm.reset_launches()
+    got = tmm.matmul(x, w, dataflow=dataflow)
+    others = [tmm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
+    want = tref.matmul(x, w)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES[dataflow] == 2
+    torch.testing.assert_close(got, want, **_card_tol(want))
+    assert all(torch.equal(got, o) for o in others)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_matmul_kernel_bf16_and_strided_on_card(card, dataflow):
+    """bf16 in and out (f32 accumulation, one rounding), and transposed
+    views read through their strides with no copy."""
+    x, w = (a.to(card) for a in map(_t, _xw(11, 130, 70, 200)))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    got = tmm.matmul(xb, wb, dataflow=dataflow)
+    assert got.dtype == torch.bfloat16
+    want = tref.matmul(xb, wb)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    xt, wt = x.t().contiguous().t(), w.t().contiguous().t()
+    assert not xt.is_contiguous() and not wt.is_contiguous()
+    got = tmm.matmul(xt, wt, dataflow=dataflow)
+    assert torch.equal(got, tmm.matmul(x, w, dataflow=dataflow))
+
+
+@pytest.mark.gpu
+def test_matmul_backward_on_card(card):
+    """The gradients through the kernel against the plain version's."""
+    x, w = (a.to(card) for a in map(_t, _xw(12, 300, 144, 32)))
+    g = torch.randn(300, 32, device=card, generator=torch.Generator(
+        card).manual_seed(0))
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    tmm.reset_launches()
+    tops.matmul(tx, tw, dataflow="weight_stationary").backward(g)
+    assert tmm.LAUNCHES["weight_stationary"] == 3
+    want_dx, want_dw = tref.matmul(g, w.t()), tref.matmul(x.t(), g)
+    torch.testing.assert_close(tx.grad, want_dx, **_card_tol(want_dx))
+    torch.testing.assert_close(tw.grad, want_dw, **_card_tol(want_dw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", [(128, 256, 192), (256, 128, 64),
+                                 (1000, 144, 16), (8, 5120, 5120),
+                                 (33, 17, 70)])
+def test_quant_matmul_kernel_matches_plain_version_on_card(card, mkn):
+    """K8 against its plain version; on the same dequantized weight it
+    equals K7 bit for bit (the same per-element dequantization, the same
+    FMA chain)."""
+    x, wq, sc = (a.to(card) for a in map(_t, _q8(13, *mkn)))
+    tqm.reset_launches()
+    got = tqm.quant_matmul(x, wq, sc)
+    want = tref.quant_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quant_matmul"] == 1
+    torch.testing.assert_close(got, want, **_card_tol(want))
+    w = wq.float() * sc[None, :]
+    assert torch.equal(got, tmm.matmul(x, w))
+    xb = tqm.quant_matmul(x.bfloat16(), wq, sc)
+    assert xb.dtype == torch.bfloat16
+    torch.testing.assert_close(xb.float(), tref.quant_matmul(
+        x.bfloat16(), wq, sc).float(), rtol=2e-2, atol=2e-2 * max(
+        1.0, float(want.abs().max())))
+
+
+@pytest.mark.gpu
+def test_other_dtypes_raise_on_card(card):
+    x, w = (a.to(card) for a in map(_t, _xw(14, 16, 16, 16)))
+    with pytest.raises(TypeError):
+        tmm.matmul(x.half(), w.half())
+    with pytest.raises(TypeError):
+        tmm.matmul(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        tqm.quant_matmul(x, w, torch.ones(16, device=card))
