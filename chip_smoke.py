@@ -20,7 +20,11 @@ before printing any result. Phases, each of which raises on failure:
    GEMM (K7) in its three dataflows and the int8-weight GEMM (K8) on the
    CPU tests' shapes, ResNet20's 21 im2col GEMMs at batch 1 and 256 (K8
    on per-channel int8 weights), bf16 cases and (K8) qwen2.5-32b's wo at
-   M = 8; then both timed over the 21 GEMMs of a batch-256 forward.
+   M = 8; then both timed over the 21 GEMMs of a batch-256 forward. The
+   wkv6 scan (K5) and the selective scan (K6) on the CPU tests' cases
+   (strong decay, T = 33 with chunk 16, T = 1), then at rwkv6-7b's and
+   hymba-1.5b's widths for the forward (B=4, T=1024), a decode tick and a
+   64-token prefill chunk of 8 slots, timed beside their bounds.
 3. qwen2.5-32b at full width cut to 4 layers (the weights of
    ``ServeEngine.build``, built once for phases 3-5): one paged prefill
    chunk plus 8 decode steps through ``impl="kernel"`` and
@@ -39,7 +43,9 @@ before printing any result. Phases, each of which raises on failure:
    paged one-page einsum and paged kernel give equal greedy streams; int8
    pages read through K3 and through the q8 einsum give equal streams;
    the MLA dense latent cache, one-page latent einsum and multi-page K4
-   give equal streams.
+   give equal streams; rwkv6 (parallel and scan prefill, through K5) and
+   hymba (dense and paged ring, parallel and scan, through K6) give equal
+   streams, on perturbed weights (below).
 7. qwen2.5-32b-mla at full width cut to 4 layers (after the qwen2.5-32b
    weights are freed): paged latent prefill chunk plus 8 decode steps
    through K4 and through the latent einsum; the 16 requests on the dense
@@ -54,16 +60,32 @@ before printing any result. Phases, each of which raises on failure:
    (8b) int8 PTQ over 10,000 synthetic images in batches of 1,000: fp32
    against 16-bit fixed point and int8, then every conv GEMM through K8
    on the int8 weights against the dequant-on-load forward.
+9. rwkv6-7b at full width and depth (32 layers, 30.3 GB fp32): the
+   forward on (2, 512) tokens through K5 against the plain recurrence,
+   one prefill chunk plus 8 decode steps through K5 ('auto') against
+   'scan' (logits, state leaves, greedy tokens), then the 16 requests of
+   phases 4-5 on the dense cache (rwkv has nothing to page), K5 launched
+   once per layer per chunk and per tick.
+10. hymba-1.5b at full width and depth (32 layers, 5.3 GB): the same
+   forward and step comparisons through K6, then the 16 requests plus 4
+   of 1,100-1,500 tokens (s_max 2048, so the 1024-row ring wraps) on the
+   dense ring and on the paged ring (pages of 16 rows), every selective
+   scan through K6 and every first chunk's attention through K2; the two
+   caches' streams equal.
 
-Each serving path (3b's forward, 4, 4b, 5, 7) and each forward of phases
-8 and 8b runs with the kernels' launch counts set to 0 just before and
-read just after. Then one JSON line
+The recurrent phases perturb the leaves ``repro``'s init leaves constant
+(rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
+decay, the bonus and the per-channel A depend on the data. Each serving
+path (3b's forward, 4, 4b, 5, 7, 9, 10) and each forward of phases 8,
+8b, 9 and 10 runs with the kernels' launch counts set to 0 just before
+and read just after. Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
 computes.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -85,6 +107,7 @@ from repro_torch.core.quantize import (QuantizedTensor,  # noqa: E402
 from repro_torch.data.synthetic import synthetic_cifar  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -125,6 +148,28 @@ RESNET_BATCHES, PTQ_IMAGES, PTQ_BATCH = (1, 256), 10_000, 1_000
 # the LM projection K8 is also held at: qwen2.5-32b's wo (M = 8 slots)
 LM_PROJ = (8, 5120, 5120)
 DATAFLOWS = mm.DATAFLOWS
+# the recurrent families (phases 6, 9, 10): repro's init leaves these at
+# zero (a constant decay, no bonus, A = -1 everywhere), which would hide
+# the recurrences; seeded noise of this scale is added to them
+RWKV, HYMBA = "rwkv6-7b", "hymba-1.5b"
+RECURRENT_NOISE = {
+    RWKV: {"u": 0.1, "mu": 0.1, "mu_x": 0.1, "lora_B": 0.01, "wB": 0.01},
+    HYMBA: {"logA": 0.5},
+}
+RWKV_LAYERS = HYMBA_LAYERS = 32          # full depth: 30 GB and 5.3 GB fp32
+HYMBA_S_MAX = 2048                       # the ring (1024 rows) wraps
+# K5 / K6 at full width: (B, T) of the forward, a decode tick, a chunk
+SCAN_SHAPES = {"forward": (4, 1024), "decode": (SLOTS, 1),
+               "prefill": (SLOTS, 64)}
+# full-width recurrent outputs (logits, state), as a share of their
+# largest magnitude: fp32 layers whose scans sum in another order; top-1 is
+# held where the best two logits are further apart
+RECURRENT_TOL = 1e-3
+# depth of phases 9-10's forward and step comparisons: the random
+# rwkv6-7b with its perturbed leaves amplifies the scans' fp32 rounding
+# layer by layer, past RECURRENT_TOL by its fourth layer, so rwkv is
+# compared on its first 2 layers; hymba resolves it at full depth
+CHECK_LAYERS = {RWKV: 2, HYMBA: HYMBA_LAYERS}
 DEV = torch.device("cuda")
 
 
@@ -156,6 +201,28 @@ def time_ms(fn, iters: int) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device time of the CUDA kernel whose name holds ``kernel`` in
+    ms over ``iters`` launches of ``fn``, each after the L2 flush, read
+    from ``torch.profiler``: the kernel's own time, without the host's
+    enqueue delay that an event pair around a tick-sized launch holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    time_ms(fn, 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            _FLUSH.zero_()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if count != iters:
+        raise AssertionError(f"profiler saw {count} {kernel} launches in "
+                             f"{iters} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count
 
 
 # ------------------------------------------------------------- phase 2 data
@@ -647,6 +714,125 @@ def phase2_flash_full_width():
     return out
 
 
+# --------------------------------------------- phase 2: scans (K5, K6)
+def wkv_case(seed, B, T, H, N, decay=None):
+    """The CPU tests' distributions (tests/test_kernels.py): r, k, v ~
+    0.5 N, w = sigmoid(N) / 2 + 1/2 (or a constant strong ``decay``),
+    u ~ 0.1 N, s0 ~ 0.1 N (zeros with a constant decay), on the card."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    r, k, v = (0.5 * rand_on_card(gen, B, T, H, N) for _ in range(3))
+    if decay is None:
+        w = 0.5 * torch.sigmoid(rand_on_card(gen, B, T, H, N)) + 0.5
+        s0 = 0.1 * rand_on_card(gen, B, H, N, N)
+    else:
+        w = torch.full((B, T, H, N), decay, device=DEV)
+        s0 = torch.zeros((B, H, N, N), device=DEV)
+    return [r, k, v, w, 0.1 * rand_on_card(gen, H, N), s0]
+
+
+def sscan_case(seed, B, T, D, N):
+    """x ~ N, dt = softplus(N), b, c ~ N, a = -exp(0.5 N), h0 ~ 0.1 N."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    x, dt, b, c = (rand_on_card(gen, B, T, D), F.softplus(rand_on_card(
+        gen, B, T, D)), rand_on_card(gen, B, T, N), rand_on_card(gen, B, T, N))
+    return [x, dt, b, c, -torch.exp(0.5 * rand_on_card(gen, D, N)),
+            0.1 * rand_on_card(gen, B, D, N)]
+
+
+def scan_held(name, got, want):
+    """(y, final state) of a scan kernel against its plain version's, each
+    within KERNEL_TOL; returns the max |diff|."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: bad output {tuple(g.shape)}")
+        err = max(err, (g - w).abs().max().item())
+        if not torch.allclose(g, w, **KERNEL_TOL):
+            raise AssertionError(f"{name}: kernel differs from plain "
+                                 f"version, max abs err {err}")
+    log(f"  {name}: max abs err {err:.3e}")
+    return err
+
+
+def phase2_scan_cases():
+    """K5 and K6 on the CPU tests' cases (tests/test_kernels.py:225-264):
+    T = 64, 128 and 33 with chunks 16 / 32 / 64, the strong decay, T = 1."""
+    errs = {"wkv6": 0.0, "selective_scan": 0.0}
+    for seed, (T, chunk, decay) in enumerate(
+            [(64, 16, None), (64, 32, None), (128, 64, None), (33, 16, None),
+             (1, 32, None), (64, 16, 0.05), (1, 16, 0.05)]):
+        B, H, N = (1, 2, 8) if decay else (2, 3, 16)
+        args = wkv_case(60 + seed, B, T, H, N, decay)
+        errs["wkv6"] = max(errs["wkv6"], scan_held(
+            f"wkv6 T={T} chunk={chunk}" + (f" w={decay}" if decay else ""),
+            ls.wkv6(*args, chunk=chunk), ref.wkv6(*args)))
+    for seed, (T, chunk) in enumerate([(64, 16), (128, 64), (33, 16),
+                                       (1, 64)]):
+        args = sscan_case(70 + seed, 2, T, 32, 8)
+        errs["selective_scan"] = max(errs["selective_scan"], scan_held(
+            f"selective_scan T={T} chunk={chunk}",
+            ls.selective_scan(*args, chunk=chunk),
+            ref.selective_scan(*args)))
+    return errs
+
+
+def wkv_bound(B, T, H, N) -> tuple:
+    """Least time for K5's work: r, k, v, w and y (B*T*H*N each), u, s0
+    and sT once at the HBM rate, against the fp32 operations the function
+    needs at the fp32 peak: 5 per state element and step (k*v, the FMA
+    w*S + kv, r's FMA into y), the bonus factored out of the sum,
+    v_j * sum_i r_i u_i k_i, being 5 per step and channel (two products
+    and the sum over i, the FMA into y)."""
+    return roofline(4 * (5 * B * T * H * N + H * N + 2 * B * H * N * N),
+                    5 * B * T * H * N * N + 5 * B * T * H * N)
+
+
+def sscan_bound(B, T, D, N) -> tuple:
+    """Least time for K6's work: x, dt, y (B*T*D), b, c (B*T*N), a, h0 and
+    hT once, against 7 fp32 operations per (step, channel, state) (a*dt,
+    its exp, dt*x times b, the FMA into h, h*c's FMA into y) and dt*x once
+    per (step, channel)."""
+    return roofline(4 * (3 * B * T * D + 2 * B * T * N + D * N
+                         + 2 * B * D * N), 7 * B * T * D * N + B * T * D)
+
+
+def phase2_scan_full_width():
+    """K5 at rwkv6-7b's shapes (64 heads of 64) and K6 at hymba-1.5b's
+    (1600 channels, state 16): the forward (B=4, T=1024), a decode tick
+    (8 slots, T=1) and a 64-token prefill chunk; the kernel's device time
+    (``device_ms``), the plain version's time between events (its many
+    launches as a caller waits for them) and the bound. No single PyTorch
+    call computes either recurrence, so there is no library time."""
+    rwkv, hymba = configs.get_config(RWKV), configs.get_config(HYMBA)
+    out = {}
+    for kind, (B, T) in SCAN_SHAPES.items():
+        H, N = rwkv.num_heads, rwkv.head_dim
+        D, Ns = hymba.d_model, hymba.ssm_state
+        for name, args, bound, fn, plain in (
+                ("wkv6", wkv_case(80, B, T, H, N), wkv_bound(B, T, H, N),
+                 ls.wkv6, ref.wkv6),
+                ("selective_scan", sscan_case(81, B, T, D, Ns),
+                 sscan_bound(B, T, D, Ns), ls.selective_scan,
+                 ref.selective_scan)):
+            shape = (B, T, H, N) if name == "wkv6" else (B, T, D, Ns)
+            err = scan_held(f"full width {name}[{kind}] {shape}",
+                            fn(*args), plain(*args))
+            ms = device_ms(lambda: fn(*args),
+                           20 if kind == "forward" else 50, name + "_kernel")
+            plain_ms = time_ms(lambda: plain(*args),
+                               2 if kind == "forward" else 5)
+            bms, by = bound
+            log(f"  {name}[{kind}]: kernel {ms:.4f} ms | plain "
+                f"{plain_ms:.4f} ms | bound {bms:.4f} ms ({by}) | "
+                f"{ms / bms:.1f}x the bound")
+            out[(name, kind)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bms, bound_by=by)
+            del args
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------ phase 3
 def phase3_model(model, params, backend=None, label="fp32 pages",
                  tol=MODEL_TOL):
@@ -833,7 +1019,8 @@ def serve(engine, prompts):
 
 
 def log_serving(m, card):
-    log(f"  served {m['completed']}/16 requests, {m['total_tokens']} tokens "
+    log(f"  served {m['completed']}/{m['requests']} requests, "
+        f"{m['total_tokens']} tokens "
         f"in {m['wall_s']:.3f} s: {m['throughput_tokens_per_s']:.1f} tok/s | "
         f"TTFT p50 {m['ttft_s']['p50'] * 1e3:.1f} ms | ITL p50 "
         f"{m['itl_s']['p50'] * 1e3:.2f} ms | prefill "
@@ -1033,6 +1220,62 @@ def phase6_anchors():
             f"{pa.LAUNCHES['decode_latent'] + pa.LAUNCHES['prefill_latent']}"
             f" K4 launches, {sum(map(len, streams[name]))} tokens")
     equal_streams(streams)
+    phase6_recurrent_anchors(prompts)
+
+
+def perturb_recurrent(params, arch, seed):
+    """Test data only: seeded noise (``RECURRENT_NOISE``) added in place to
+    the layer leaves ``repro``'s init leaves constant, so that the decay,
+    rwkv's bonus and hymba's per-channel A depend on the data."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    for key, scale in RECURRENT_NOISE[arch].items():
+        leaf = params["layers"][key]
+        leaf.add_(scale * torch.randn(leaf.shape, generator=gen,
+                                      device=leaf.device))
+    return params
+
+
+def scan_kernel(arch):
+    return "wkv6" if arch == RWKV else "selective_scan"
+
+
+def phase6_recurrent_anchors(prompts):
+    """rwkv6 and hymba reduced on perturbed weights, every recurrence
+    through K5 / K6: parallel chunked prefill and the scan anchor give
+    equal greedy streams, and so do hymba's dense ring and paged ring
+    (pages of 4 rows, 2 per 8-row ring, which the prompts wrap). Each run
+    launches its kernel once per layer per chunk, per anchor token and per
+    decode tick."""
+    for arch, paths in (
+            (RWKV, (("dense parallel", {}),
+                    ("dense scan", dict(prefill_mode="scan")))),
+            (HYMBA, (("dense ring parallel", {}),
+                     ("dense ring scan", dict(prefill_mode="scan")),
+                     ("paged ring parallel", dict(page_size=4)),
+                     ("paged ring scan", dict(page_size=4,
+                                              prefill_mode="scan"))))):
+        streams = {}
+        for name, fields in paths:
+            engine = ServeEngine.build(arch, config=ServeConfig(
+                s_max=64, batch_slots=4, **fields))
+            perturb_recurrent(engine.params, arch, 6)
+            ls.reset_launches()
+            reqs = [engine.submit(p, 16) for p in prompts]
+            m = engine.run()
+            kernel = scan_kernel(arch)
+            steps_run = m["decode_steps"] + (
+                sum(len(p) for p in prompts)
+                if engine.prefill_mode == "scan" else m["prefill_chunks"])
+            want = engine.cfg.num_layers * steps_run
+            if ls.LAUNCHES[kernel] != want or sum(ls.LAUNCHES.values()) \
+                    != want:
+                raise AssertionError(f"{arch} {name}: {ls.LAUNCHES}, want "
+                                     f"{want} {kernel} launches")
+            streams[f"{arch} {name}"] = [list(r.tokens) for r in reqs]
+            log(f"  {arch} {name}: paged {engine.paged}, {want} {kernel} "
+                f"launches, {sum(map(len, streams[f'{arch} {name}']))} "
+                f"tokens")
+        equal_streams(streams)
 
 
 def equal_streams(streams):
@@ -1508,6 +1751,288 @@ def phase8b_ptq(card):
     return launches
 
 
+# ------------------------------------------------- phases 9, 10: recurrent
+def build_recurrent(arch, layers, s_max):
+    """``ServeEngine.build`` of a recurrent arch at full width on the dense
+    cache (8 slots, chunk 64), its weights perturbed
+    (``perturb_recurrent``)."""
+    t0 = time.perf_counter()
+    engine = ServeEngine.build(arch, config=ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": layers}, s_max=s_max,
+        batch_slots=SLOTS))
+    perturb_recurrent(engine.params, arch, 9)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(engine.params))
+    log(f"  {arch} x {layers} layers: {n / 1e9:.3f} B params, "
+        f"{4 * n / 1e9:.2f} GB fp32; engine built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return engine
+
+
+def cut_depth(model, layers):
+    """``model`` run on the first ``layers`` layers of its weights (the
+    layer loops and caches follow ``cfg.num_layers``)."""
+    return dataclasses.replace(model, cfg=dataclasses.replace(
+        model.cfg, num_layers=layers))
+
+
+def recurrent_forward(model, params):
+    """The full-sequence forward on (2, 512) tokens through the scan kernel
+    and K2 ('pallas' for both: one launch of each per layer; rwkv has no
+    attention) against the plain recurrence and the einsum attention;
+    logits held by ``logits_held`` at RECURRENT_TOL. Returns the (scan,
+    K2) launches."""
+    cfg = model.cfg
+    kernel = scan_kernel(cfg.name)
+    flash = cfg.num_layers if cfg.name == HYMBA else 0
+    B, S = FORWARD_BATCH
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(DEV)
+
+    def logits_of(scan_impl, attn_impl):
+        t0 = time.perf_counter()
+        lg, _ = model.forward(params, toks, scan_impl=scan_impl,
+                              attn_impl=attn_impl)
+        torch.cuda.synchronize()
+        log(f"  forward scan_impl={scan_impl} attn_impl={attn_impl} "
+            f"(B={B}, S={S}, {cfg.num_layers} layers): "
+            f"{time.perf_counter() - t0:.3f} s (host clock)")
+        return lg[..., :cfg.vocab_size].reshape(B * S, -1)
+
+    ls.reset_launches()
+    fa.reset_launches()
+    got = logits_of("pallas", "pallas")
+    if ls.LAUNCHES[kernel] != cfg.num_layers or sum(
+            ls.LAUNCHES.values()) != cfg.num_layers or fa.LAUNCHES != {
+                "prefill": 0, "forward": flash}:
+        raise AssertionError(f"forward: {ls.LAUNCHES}, {fa.LAUNCHES}; want "
+                             f"{cfg.num_layers} {kernel} and {flash} K2 "
+                             f"forward launches")
+    want = logits_of("scan", "einsum")
+    err, ties = logits_held(f"{cfg.name} forward logits", got, want,
+                            RECURRENT_TOL)
+    log(f"  forward logits kernel vs plain max |diff| {err:.3e} (largest "
+        f"{want.abs().max().item():.3e}, tol {RECURRENT_TOL} of it); top-1 "
+        f"equal ({ties} near ties); {cfg.num_layers} {kernel} and {flash} "
+        f"K2 launches")
+    del got, want
+    torch.cuda.empty_cache()
+    return cfg.num_layers, flash
+
+
+def recurrent_steps(model, params, s_max, leaves):
+    """One 64-token prefill chunk for 8 slots on a fresh cache, then 8
+    greedy decode steps, each run feeding back its own greedy tokens,
+    through ``scan_impl='auto'`` (the kernel, 9 launches per layer) and
+    'scan' (the plain recurrence): logits held by ``logits_held`` and the
+    float cache ``leaves`` within RECURRENT_TOL of their largest
+    magnitude, greedy tokens and integer leaves (ring positions) equal."""
+    cfg = model.cfg
+    kernel = scan_kernel(cfg.name)
+    rng = np.random.default_rng(10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
+                            ).to(DEV)
+
+    def run(impl):
+        cache = model.init_cache(SLOTS, s_max, torch.float32, DEV)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_chunk(params, toks, cache, first=True,
+                                            scan_impl=impl)
+        seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
+        tokens = [tok]
+        for _ in range(8):
+            logits, cache = model.decode_step(params, tok, cache,
+                                              scan_impl=impl)
+            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+            seq.append(logits)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+        log(f"  scan_impl={impl}: prefill chunk + 8 decode steps "
+            f"({cfg.num_layers} layers) in {time.perf_counter() - t0:.3f} s "
+            f"(host clock)")
+        return (torch.cat(seq, 1)[..., :cfg.vocab_size].reshape(
+            -1, cfg.vocab_size), torch.cat(tokens, 1), cache)
+
+    ls.reset_launches()
+    got = run("auto")
+    if ls.LAUNCHES[kernel] != 9 * cfg.num_layers or sum(
+            ls.LAUNCHES.values()) != 9 * cfg.num_layers:
+        raise AssertionError(f"steps: {ls.LAUNCHES}, want "
+                             f"{9 * cfg.num_layers} {kernel} launches")
+    want = run("scan")
+    err, _ = logits_held(f"{cfg.name} step logits", got[0], want[0],
+                         RECURRENT_TOL)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("kernel and plain greedy tokens differ")
+    log(f"  step logits kernel vs plain max |diff| {err:.3e}; greedy tokens "
+        f"(8 slots x 9 steps) equal")
+    for key in leaves:
+        a, b = got[2][key], want[2][key]
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"final {key} differs")
+            continue
+        scale = max(1.0, b.abs().max().item())
+        err = (a - b).abs().max().item()
+        if not (torch.isfinite(a).all() and torch.allclose(
+                a, b, rtol=RECURRENT_TOL, atol=RECURRENT_TOL * scale)):
+            raise AssertionError(f"final {key} differs by {err} of {scale}")
+        log(f"  final {key}: max |diff| {err:.3e} (largest {scale:.3e})")
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def host_and_device(fn, label, card):
+    """Where one call of ``fn`` spends its time: the host wall clock (mean
+    of 3 synchronised calls), the device's busy time in one call (the sum
+    of its kernels' times under ``torch.profiler``), the share of the wall
+    the device sat idle, and the kernel launches the call made."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    log(f"  {label}: {wall_ms:.2f} ms host wall, device busy {busy_ms:.2f} "
+        f"ms (idle {1 - busy_ms / wall_ms:.1%}), {launches} kernel launches "
+        f"({card})")
+
+
+def serve_recurrent(engine, prompts, card, label):
+    """Serve ``prompts`` (32 tokens each) with the launch counts set to 0
+    just before and read just after: the scan kernel once per layer per
+    prefill chunk and per decode tick, K2 once per layer per first chunk
+    (hymba; rwkv has no attention), no other kernel. Returns (requests,
+    first-token logits, scan launches, K2 launches)."""
+    cfg = engine.cfg
+    kernel = scan_kernel(cfg.name)
+    n_first = [0]
+    first = engine._chunk_first
+
+    def counted(*args):
+        n_first[0] += 1
+        return first(*args)
+
+    engine._chunk_first = counted
+    ls.reset_launches()
+    fa.reset_launches()
+    pa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    engine._chunk_first = first
+    layers = cfg.num_layers
+    want = layers * (m["prefill_chunks"] + m["decode_steps"])
+    flash = layers * n_first[0] if cfg.name == HYMBA else 0
+    if (ls.LAUNCHES[kernel] != want or sum(ls.LAUNCHES.values()) != want
+            or fa.LAUNCHES != {"prefill": flash, "forward": 0}
+            or sum(pa.LAUNCHES.values())):
+        raise AssertionError(f"{label}: {ls.LAUNCHES}, {fa.LAUNCHES}, "
+                             f"{pa.LAUNCHES}; want {want} {kernel} and "
+                             f"{flash} K2 prefill launches")
+    if engine.paged:
+        engine.assert_page_invariants()
+    log(f"  {label}: paged {engine.paged}, prefix cache "
+        f"{engine.prefix_cache}, resident cache "
+        f"{engine.resident_cache_bytes()} bytes")
+    log_serving(m, card)
+    log(f"  {kernel} launches {want} (({m['prefill_chunks']} chunks + "
+        f"{m['decode_steps']} ticks) x {layers} layers)" + (
+            f"; K2 prefill launches {flash} ({n_first[0]} first chunks x "
+            f"{layers} layers)" if flash else ""))
+    # the engine is idle now (every slot parked): a decode tick runs every
+    # op of a live one, and its writes drop
+    tok = torch.zeros((engine.batch_slots, 1), dtype=torch.long, device=DEV)
+    host_and_device(lambda: engine._decode(engine.params, engine.cache,
+                                           {"token": tok}),
+                    f"{label}: one decode tick ({engine.batch_slots} slots)",
+                    card)
+    chunk = torch.from_numpy(prompts[0][:64]).long()[None].to(DEV)
+    host_and_device(lambda: engine._chunk_first(engine.params,
+                                                {"tokens": chunk}),
+                    f"{label}: one 64-token first chunk", card)
+    return reqs, firsts, want, flash
+
+
+def phase9_rwkv(card):
+    """rwkv6-7b at full width: the forward and the step path through K5
+    against the plain recurrence on the first CHECK_LAYERS layers, then
+    the 16 requests at full depth on the dense cache (rwkv has nothing to
+    page), every recurrence through K5. Returns K5's launches (forward,
+    serving)."""
+    engine = build_recurrent(RWKV, RWKV_LAYERS, S_MAX)
+    model, params = engine.model, engine.params
+    check = cut_depth(model, CHECK_LAYERS[RWKV])
+    forward, _ = recurrent_forward(check, params)
+    recurrent_steps(check, params, S_MAX, ("S", "x_tm", "x_cm"))
+    prompts = serve_prompts(engine.cfg.vocab_size)
+    _, _, serving, _ = serve_recurrent(engine, prompts, card,
+                                       "rwkv6 dense serving")
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return forward, serving
+
+
+def long_prompts(vocab):
+    """4 prompts of 1,100-1,500 tokens: longer than hymba's 1024-row ring,
+    which they wrap."""
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, vocab, int(rng.integers(1100, 1501)))
+            for _ in range(4)]
+
+
+def phase10_hymba(card):
+    """hymba-1.5b at full width and depth: the forward and the step path
+    through K6 against the plain recurrence, then the 16 requests plus 4
+    ring-wrapping ones on the dense ring and on the paged ring (pages of
+    16 rows), every selective scan through K6 and every first chunk's
+    attention through K2; the two caches' streams equal. Returns K6's
+    launches (forward, serving: the two engines' sum) and K2's (forward,
+    first chunks of both engines)."""
+    engine = build_recurrent(HYMBA, HYMBA_LAYERS, HYMBA_S_MAX)
+    model, params = engine.model, engine.params
+    check = cut_depth(model, CHECK_LAYERS[HYMBA])
+    forward, flash_forward = recurrent_forward(check, params)
+    recurrent_steps(check, params, HYMBA_S_MAX,
+                    ("k", "v", "slot_pos", "h", "conv"))
+    prompts = serve_prompts(engine.cfg.vocab_size) + long_prompts(
+        engine.cfg.vocab_size)
+    d_reqs, d_firsts, dense, d_flash = serve_recurrent(
+        engine, prompts, card, "hymba dense ring")
+    del engine
+    torch.cuda.empty_cache()
+    # as many pages as the dense rings hold: 8 slots x 1024 rows
+    paged = ServeEngine(model, params, **ServeConfig(
+        reduced=False, page_size=PS, s_max=HYMBA_S_MAX, batch_slots=SLOTS,
+        num_pages=SLOTS * model.cfg.window // PS).engine_kwargs())
+    if paged.capacity != model.cfg.window:
+        raise AssertionError(f"paged ring capacity {paged.capacity}")
+    p_reqs, p_firsts, paged_n, p_flash = serve_recurrent(
+        paged, prompts, card, "hymba paged ring")
+    same = [a.tokens == b.tokens for a, b in zip(d_reqs, p_reqs)]
+    if not all(same):
+        compare_streams("dense ring", (d_reqs, d_firsts), "paged ring",
+                        (p_reqs, p_firsts))
+        raise AssertionError(f"dense and paged ring streams differ for "
+                             f"{same.count(False)} requests")
+    log(f"  dense ring vs paged ring: all {len(same)} streams equal")
+    del paged, model, params
+    torch.cuda.empty_cache()
+    return (forward, dense + paged_n), {"forward": flash_forward,
+                                        "prefill": d_flash + p_flash}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1524,7 +2049,7 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     took = _build.build(["paged_attention", "paged_attention_latent",
-                         "flash_attention", "matmul"])
+                         "flash_attention", "matmul", "linear_scan"])
     log(f"  built {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1539,6 +2064,8 @@ def main():
     flash_full = phase2_flash_full_width()
     gemm_errs = phase2_gemm_cases()
     gemm_full = phase2_gemm_full_width()
+    scan_errs = phase2_scan_cases()
+    scan_full = phase2_scan_full_width()
 
     t0 = time.perf_counter()
     dense = ServeEngine.build(ARCH, config=ServeConfig(
@@ -1577,6 +2104,13 @@ def main():
     gemm_launches, _ = phase8_resnet(card)
     log("phase 8b: int8 PTQ over 10,000 synthetic images, K8")
     gemm_launches["quant_matmul"] = phase8b_ptq(card)
+    log(f"phase 9: {RWKV} at full width, {RWKV_LAYERS} layers (compared "
+        f"on {CHECK_LAYERS[RWKV]}), K5")
+    scan_launches = {"wkv6": phase9_rwkv(card)}
+    log(f"phase 10: {HYMBA} at full width, {HYMBA_LAYERS} layers, K6")
+    scan_launches["selective_scan"], hymba_flash = phase10_hymba(card)
+    for kind, n in hymba_flash.items():
+        flash_launches[kind] += n
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -1619,6 +2153,20 @@ def main():
             "ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})
+    for name, line in (("wkv6", 30), ("selective_scan", 105)):
+        for i, kind in enumerate(("forward", "serving")):
+            # the serving row times a decode tick, the most frequent launch
+            f = scan_full[(name, "forward" if i == 0 else "decode")]
+            err = max([scan_errs[name]] + [
+                scan_full[(name, k)]["err"] for k in SCAN_SHAPES])
+            kernels.append({
+                "name": f"{name}[{kind}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+                "replaces": f"src/repro/kernels/linear_scan.py:{line}",
+                "launches": scan_launches[name][i], "max_abs_err": err,
+                "ms": f["ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

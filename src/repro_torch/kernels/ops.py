@@ -3,15 +3,19 @@
 
 On the card there is no shape-based route to a plain version: the TPU
 dispatch sent only tileable shapes (and, for flash attention, only calls
-without positions) to its kernels, while the Hopper kernels take every page
-size, sequence length and window and every head_dim up to 256 that is a
-multiple of 4, and every GEMM shape (ragged M, K and N, no padding), and
-raise on anything else. A CPU tensor runs the plain version (see the
-wrappers)."""
+without positions; for the two scans, only T a multiple of the chunk) to
+its kernels, while the Hopper kernels take every page size, sequence length
+and window and every head_dim up to 256 that is a multiple of 4, every GEMM
+shape (ragged M, K and N, no padding), and for the scans every T >= 1 (T = 1
+included), any B up to 65535, any H or D, and a state width N up to 64
+(wkv6) or 32 (selective_scan), whatever ``chunk`` is, and raise on anything
+else. ``chunk`` only sets how many steps a scan kernel stages at a time.
+A CPU tensor runs the plain version (see the wrappers)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels.flash_attention import \
@@ -165,3 +169,15 @@ def quant_matmul(x, w_q, scales, *, block_m: int = 128, block_n: int = 128,
     ``scales`` (N,), fp32 accumulation."""
     return _qm.quant_matmul(x, w_q, scales, block_m=block_m,
                             block_n=block_n, block_k=block_k)
+
+
+def wkv6(r, k, v, w, u, s0, *, chunk: int = 32):
+    """The RWKV6 wkv recurrence. r, k, v, w: (B, T, H, N); u: (H, N); s0:
+    (B, H, N, N) -> (y (B, T, H, N), final state (B, H, N, N)), fp32."""
+    return _ls.wkv6(r, k, v, w, u, s0, chunk=chunk)
+
+
+def selective_scan(x, dt, b, c, a, h0, *, chunk: int = 64):
+    """The mamba selective scan. x, dt: (B, T, D); b, c: (B, T, N); a:
+    (D, N); h0: (B, D, N) -> (y (B, T, D), final state (B, D, N)), fp32."""
+    return _ls.selective_scan(x, dt, b, c, a, h0, chunk=chunk)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (paged attention over fp32
-and int8 pools, latent paged attention, flash attention, the tiled GEMM and
-the int8-weight GEMM): the ground truth
+and int8 pools, latent paged attention, flash attention, the tiled GEMM,
+the int8-weight GEMM, the RWKV6 wkv recurrence and the mamba selective
+scan): the ground truth
 each kernel is held against on the card, and the path a wrapper takes for
 tensors that lie on the CPU. Also home to :func:`mask_value`, the shared
 masking sentinel, and :func:`mla_attention_naive`, the oracle of the MLA
@@ -190,3 +191,35 @@ def flash_attention_kv(q, k, v, *, causal=True, window=0):
     """Plain version of the K/V-exporting prefill: the attention output and
     the K/V inputs themselves, the ``(O, K, V)`` contract."""
     return flash_attention(q, k, v, causal=causal, window=window), k, v
+
+
+def wkv6(r, k, v, w, u, s0):
+    """Plain version of the RWKV6 wkv kernel, the recurrence step by step in
+    fp32. r, k, v, w: (B, T, H, N); u: (H, N); s0: (B, H, N, N). Per time
+    step, ``kv = k v^T``, ``y = r . (S + u * kv)``, ``S = w * S + kv``.
+    Returns (y (B, T, H, N), the final state (B, H, N, N)), both fp32. The
+    models' sequential scan (``ssm`` impl 'scan') is this function."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    S = s0.float()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               S + u[None, :, :, None] * kv))
+        S = w[:, t][..., None] * S + kv
+    return torch.stack(ys, 1), S
+
+
+def selective_scan(x, dt, b, c, a, h0):
+    """Plain version of the mamba selective-scan kernel. x, dt: (B, T, D);
+    b, c: (B, T, N); a: (D, N); h0: (B, D, N). Per time step,
+    ``h = exp(a * dt) * h + (dt * x) b``, ``y = h . c``. Returns (y (B, T,
+    D), the final state (B, D, N)). The hybrid's sequential scan
+    (``hybrid`` impl 'scan') is this function."""
+    h = h0
+    ys = []
+    for t in range(x.shape[1]):
+        decay = torch.exp(a[None] * dt[:, t, :, None])
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, 1), h

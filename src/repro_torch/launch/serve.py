@@ -6,6 +6,10 @@ the CPU) and prints tok/s, TTFT p50 and latency p95:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
       --no-reduced --num-layers 4 --s-max 1024 --requests 8
 
+The default arch is hymba-1.5b (reduced), as the reference CLI's is;
+``--arch rwkv6-7b`` serves the attention-free family (a page size is
+ignored there, its state being O(1)).
+
 ``--num-layers`` cuts the depth of the arch (its widths stay), which is
 how a full-width arch fits one card. As in ``ServeConfig``, the cache is
 dense unless ``--page-size`` is given; ``--kv-backend`` picks its
@@ -31,7 +35,7 @@ from repro_torch.serve.kvcache import BACKENDS
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen2.5-32b")
+    ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--num-layers", type=int, default=0,

@@ -1,6 +1,10 @@
 """Serving step builders, as in ``repro/launch/steps.py``. PyTorch runs
 eagerly, so a builder returns a plain function where ``repro`` returned one
-to be jitted, and a Python loop takes the place of ``lax.scan``."""
+to be jitted, and a Python loop takes the place of ``lax.scan``. The
+builders go through the ``Model`` facade, so they serve every ported
+family alike: for rwkv6 and hymba the scan anchor threads the recurrent
+state through ``decode_step`` token by token, and a prefill chunk carries
+it across chunks in the transient cache."""
 from __future__ import annotations
 
 from typing import Optional

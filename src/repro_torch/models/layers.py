@@ -1,10 +1,11 @@
-"""Model layers of the port: norms, RoPE, the QKV projection, full-sequence
-attention (einsum, chunked, banded, flash kernel), decode and prefill-chunk
-attention against a dense or a paged KV cache (fp32 or int8 pages), MLA
-latent attention (dense latent cache or latent pages), the gated MLP,
-embeddings and logits. Counterpart of the same-named functions in
-``repro/models/layers.py`` (same argument layouts and operation order);
-parameters are dicts of tensors.
+"""Model layers of the port: norms (rmsnorm, layernorm), RoPE, the QKV
+projection, full-sequence attention (einsum, chunked, banded, flash
+kernel), decode and prefill-chunk attention against a dense or a paged KV
+cache (fp32 or int8 pages), MLA latent attention (dense latent cache or
+latent pages), the gated MLP, embeddings and logits, and the freed-slot
+gate of the recurrent families' state. Counterpart of the same-named
+functions in ``repro/models/layers.py`` (same argument layouts and
+operation order); parameters are dicts of tensors.
 
 Where ``repro`` returns a functionally updated cache or page pool
 (``dynamic_update_slice``, ``.at[].set(mode="drop")``), the port writes it
@@ -34,9 +35,39 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.float())).to(dtype)
 
 
-def norm_init(d: int, lead=(), device=None):
-    """rmsnorm scale, stored as the offset from 1 (zeros = identity)."""
-    return {"scale": torch.zeros(tuple(lead) + (d,), device=device)}
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in fp32 with the population variance, as ``jnp.var``
+    computes it (``torch.var`` would default to the unbiased one)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    xc = x - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dtype)
+
+
+def apply_norm(x, params, kind: str):
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+def norm_init(d: int, lead=(), device=None, kind: str = "rmsnorm"):
+    """rmsnorm: the scale, stored as the offset from 1 (zeros = identity);
+    layernorm: a scale of ones and a bias of zeros."""
+    shape = tuple(lead) + (d,)
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros(shape, device=device)}
+    return {"scale": torch.ones(shape, device=device),
+            "bias": torch.zeros(shape, device=device)}
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s parameters from a tree whose leaves are stacked along a
+    leading L axis (views, not copies)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------- RoPE
@@ -213,6 +244,28 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum"):
 # slot: >= any reachable position, so every cache write from such a slot is
 # dropped and freed rows stay bit-stable.
 INACTIVE_POS = 1 << 30
+
+
+def freeze_inactive_rows(pos, new, old):
+    """Per-slot recurrent-state update gate of serving decode: rows of
+    INACTIVE slots (a vector ``pos`` at the sentinel) keep their ``old``
+    value bit for bit; a scalar (lockstep) pos changes nothing. ``new`` and
+    ``old`` are dicts of tensors that lead with the batch axis."""
+    if pos.dim() != 1:
+        return new
+    act = pos < INACTIVE_POS
+    return {key: torch.where(act.reshape((-1,) + (1,) * (n.dim() - 1)), n,
+                             old[key])
+            for key, n in new.items()}
+
+
+def resolve_scan_impl(impl: str, x, cpu_impl: str) -> str:
+    """A recurrent family's scan route: 'auto' is the kernel ('pallas') on
+    a CUDA tensor and ``repro``'s own choice ``cpu_impl`` on the CPU; any
+    other name passes through."""
+    if impl == "auto":
+        return "pallas" if x.is_cuda else cpu_impl
+    return impl
 
 
 def decode_positions(pos, batch: int):

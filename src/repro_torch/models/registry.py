@@ -1,6 +1,7 @@
 """Model facade and the serving caches, as in ``repro/models/registry.py``.
-The port serves the dense family; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+The port serves the dense family and the recurrent ones (rwkv6: SSM,
+hymba: HYBRID); every other family raises ``NotImplementedError`` naming
+its ROADMAP item.
 
 Cache conventions (shared with ``repro``). DENSE: "k"/"v" are (L, B, S,
 KV, hd) and "pos" is a scalar (a lockstep batch, a transient prefill
@@ -11,8 +12,11 @@ max_pages_per_slot) int32 (-1 = unallocated). A serving slot's "pos"
 starts at ``layers.INACTIVE_POS``; its writes are dropped until it is
 admitted. An MLA cache has a single latent leaf "k" (one (c + r)-wide
 row per token, shaped as one kv head) and no "v"; every splice below is
-generic over the pool leaves the cache holds. The splices write the
-resident cache IN PLACE.
+generic over the pool leaves the cache holds. Recurrent leaves (rwkv's
+"S" / "x_tm" / "x_cm", hymba's "h" / "conv") are per slot, (L, B, ...),
+and splice on the batch axis in both layouts; hymba's ring positions
+"slot_pos" page with its K/V. The splices write the resident cache IN
+PLACE.
 """
 from __future__ import annotations
 
@@ -21,9 +25,13 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.models import transformer
+from repro_torch.configs.base import ArchConfig, Family, MoEConfig
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.layers import INACTIVE_POS
+
+# pool leaves of a paged cache (when "block_tables" is present); everything
+# else keeps the dense (L, B, ...) per-slot layout
+PAGED_POOL_LEAVES = ("k", "v", "slot_pos")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +61,10 @@ class Model:
 
 
 def get_model(cfg: ArchConfig) -> Model:
+    if cfg.family == Family.SSM:
+        return Model(cfg=cfg, mod=ssm)
+    if cfg.family == Family.HYBRID:
+        return Model(cfg=cfg, mod=hybrid)
     transformer._check_supported(cfg)
     return Model(cfg=cfg, mod=transformer)
 
@@ -85,16 +97,17 @@ def insert_cache_rows(cache, request_cache, slots):
 def insert_cache_rows_paged(cache, request_cache, slots, phys_rows):
     """Paged twin of insert_cache_rows: splice a batch-K dense transient
     cache into the page pools, in place. ``phys_rows``: (K, C) int64 map
-    from each request's logical row to a flattened pool row (page *
-    page_size + offset); entries >= num_pages * page_size (rows past the
-    request's reservation, or below a prefix write floor) are dropped.
-    "pos" splices as in the dense path; "block_tables" belongs to the
-    engine. Returns ``cache``."""
+    from each request's logical row (C = the family's per-slot capacity,
+    s_max or the ring width) to a flattened pool row (page * page_size +
+    offset); entries >= num_pages * page_size (rows past the request's
+    reservation, or below a prefix write floor) are dropped. Per-slot
+    leaves and "pos" splice as in the dense path; "block_tables" belongs
+    to the engine and "ring_iota" is a constant. Returns ``cache``."""
     for key, leaf in cache.items():
-        if key == "block_tables":
+        if key in ("block_tables", "ring_iota"):
             continue
         req = request_cache[key]
-        if key in ("k", "v"):
+        if key in PAGED_POOL_LEAVES:
             Lr, P, ps = leaf.shape[:3]
             flat = leaf.view((Lr, P * ps) + tuple(leaf.shape[3:]))
             C = phys_rows.shape[1]
@@ -131,29 +144,48 @@ def seed_prefix_cache(model: Model, cache, phys_rows, row_ok, pos,
 
 
 def cache_capacity(cfg: ArchConfig, s_max: int) -> int:
-    """Per-slot sequence capacity of the attention cache: s_max rows for
-    the dense family (the hybrid ring's narrower width is not ported)."""
+    """Per-slot sequence capacity of the attention cache: the hybrid family
+    keeps a ring of min(window, s_max) rows, every other family s_max; the
+    rows the page allocator must cover for one slot."""
+    if cfg.family == Family.HYBRID:
+        return min(cfg.window, s_max)
     return s_max
 
 
 def init_paged_cache(model: Model, batch: int, s_max: int, *, page_size: int,
                      num_pages: int, dtype=torch.float32, device=None):
     """Paged serving cache: page pools (L, num_pages, page_size, KV, hd)
-    shaped after the dense cache, all-(-1) block tables and every slot at
-    INACTIVE_POS. s_max must be a page_size multiple."""
+    shaped after the dense cache (and, for the hybrid ring, a (L,
+    num_pages, page_size) "slot_pos" pool of -1), all-(-1) block tables and
+    every slot at INACTIVE_POS. Other leaves (the SSM state and conv carry)
+    keep the dense per-slot layout; a hybrid cache also carries a (W,)
+    "ring_iota" leaf whose length is the ring width. s_max must be a
+    page_size multiple. The SSM family has nothing to page and raises."""
+    if model.cfg.family == Family.SSM:
+        raise ValueError("rwkv/ssm caches are O(1) in s_max; use init_cache")
     if s_max % page_size:
         raise ValueError(f"s_max {s_max} must be a multiple of page_size "
                          f"{page_size} (paged view == dense view)")
     dense = model.init_cache(batch, s_max, dtype, device="meta")
     out = {}
-    for key in _pool_keys(dense):           # (L, B, S, KV, hd) -> pool
-        Lr, _, _, KV, hd = dense[key].shape
-        out[key] = torch.zeros((Lr, num_pages, page_size, KV, hd),
-                               dtype=dtype, device=device)
+    for key, leaf in dense.items():
+        if key in ("k", "v"):               # (L, B, S, KV, hd) -> pool
+            Lr, _, _, KV, hd = leaf.shape
+            out[key] = torch.zeros((Lr, num_pages, page_size, KV, hd),
+                                   dtype=dtype, device=device)
+        elif key == "slot_pos":             # hybrid ring positions -> pool
+            out[key] = torch.full((leaf.shape[0], num_pages, page_size), -1,
+                                  dtype=torch.int32, device=device)
+        elif key != "pos":
+            out[key] = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                   device=device)
     out["pos"] = torch.full((batch,), INACTIVE_POS, dtype=torch.int32,
                             device=device)
     out["block_tables"] = torch.full((batch, s_max // page_size), -1,
                                      dtype=torch.int32, device=device)
+    if model.cfg.family == Family.HYBRID:
+        out["ring_iota"] = torch.arange(cache_capacity(model.cfg, s_max),
+                                        dtype=torch.int32, device=device)
     return out
 
 

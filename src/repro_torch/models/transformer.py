@@ -26,7 +26,7 @@ def _check_supported(cfg: ArchConfig):
     if cfg.family != Family.DENSE or cfg.cross_attn_every:
         raise NotImplementedError(
             f"family {cfg.family.value!r} is not ported yet (ROADMAP queue 1 "
-            f"items 5 and 9); the port serves the dense family")
+            f"item 5); the port serves the dense, ssm and hybrid families")
     _is_mla(cfg)
     if cfg.norm != "rmsnorm" or cfg.mlp_bias:
         raise NotImplementedError(
@@ -96,7 +96,7 @@ def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
     dims = _attn_dims(cfg)
     mla = _is_mla(cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = L.layer_params(params["layers"], i)
         h = L.rmsnorm(x, lp["ln1"]["scale"])
         if mla:
             x = x + _mla_full_attention(cfg, lp["attn"], h, positions)
@@ -140,11 +140,6 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
-
-
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 def _logits(params, cfg: ArchConfig, x):
@@ -210,7 +205,7 @@ def _mla_layer_loop(params, cfg: ArchConfig, x, ck_all, layer_fn):
     layers carrying x; ``layer_fn(lp, x, ck)`` writes layer i's latent
     cache slice ``ck_all[i]`` in place."""
     for i in range(cfg.num_layers):
-        x = layer_fn(_layer(params["layers"], i), x, ck_all[i])
+        x = layer_fn(L.layer_params(params["layers"], i), x, ck_all[i])
     return x
 
 
@@ -248,9 +243,10 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, *,
                                 cfg, lp, x, ck, start, positions))
     else:
         for i in range(cfg.num_layers):
-            x = _prefill_chunk_layer(cfg, _layer(params["layers"], i), x,
-                                     cache["k"][i], cache["v"][i], start,
-                                     positions, use_kernel)
+            lp = L.layer_params(params["layers"], i)
+            x = _prefill_chunk_layer(cfg, lp, x, cache["k"][i],
+                                     cache["v"][i], start, positions,
+                                     use_kernel)
     cache["pos"] = torch.tensor(start + C, dtype=torch.int32,
                                 device=tokens.device)
     return _logits(params, cfg, x[:, -1:]), cache
@@ -284,7 +280,7 @@ def prefill_chunk_paged(params, cfg: ArchConfig, tokens, cache, *, bt_rows,
     dims = _attn_dims(cfg)
     quantized = "k_scale" in cache
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = L.layer_params(params["layers"], i)
         scales = (dict(k_scale=cache["k_scale"][i],
                        v_scale=cache["v_scale"][i]) if quantized else {})
         h = L.rmsnorm(x, lp["ln1"]["scale"])
@@ -321,8 +317,8 @@ def decode_step(params, cfg: ArchConfig, token, cache, *,
         for i in range(cfg.num_layers):
             scales = ((cache["k_scale"][i], cache["v_scale"][i])
                       if quantized else (None, None))
-            x = _decode_layer(cfg, _layer(params["layers"], i), x,
-                              cache["k"][i], cache["v"][i], pos, positions,
-                              bt, paged_attn_impl, *scales)
+            lp = L.layer_params(params["layers"], i)
+            x = _decode_layer(cfg, lp, x, cache["k"][i], cache["v"][i], pos,
+                              positions, bt, paged_attn_impl, *scales)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache

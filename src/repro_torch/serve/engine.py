@@ -6,6 +6,9 @@ port of ``repro/serve/engine.py``, greedy and FIFO:
   page_size, KV, hd) addressed through per-slot block tables — fp32, or
   int8 with per-page scales (``kv_backend="paged_int8"``); an MLA arch
   caches one latent row per token instead (dense, or latent pages). The
+  recurrent families carry their state per slot: rwkv6 (SSM) keeps only
+  that O(1) state and ignores a page size with a warning; hymba (HYBRID)
+  keeps a window-wide KV ring, dense or paged, beside it. The
   ``KVBackend`` owns the representation and the engine carries whatever
   leaves it declares. A host-side
   refcounted ``PageAllocator`` hands pages out at admission (the request's
@@ -207,11 +210,9 @@ class ServeEngine:
             raise _not_ported("sampling at temperature > 0", "6")
         if policy is not None and policy != SchedPolicy():
             raise _not_ported("a non-default SchedPolicy", "8")
-        if self.cfg.family != Family.DENSE:
+        if self.cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
             raise _not_ported(f"serving the {self.cfg.family.value} family",
-                              "5" if self.cfg.family in (
-                                  Family.MOE, Family.VLM, Family.ENCDEC)
-                              else "9")
+                              "5")
         self.prefill_mode = prefill_mode
         self.prefill_chunk_tokens = min(int(prefill_chunk_tokens), s_max)
         self.prefill_ladder = chunk_ladder(self.prefill_chunk_tokens)
@@ -223,6 +224,9 @@ class ServeEngine:
         self.metrics = MetricsRecorder() if metrics is None else metrics
         self._jobs: List[_PrefillJob] = []
 
+        if page_size is not None and self.cfg.family == Family.SSM:
+            log.warning("ssm/rwkv state is O(1) in s_max — ignoring paging")
+            page_size = None
         self.page_size = page_size
         self.paged = page_size is not None
         if self.paged:
@@ -307,7 +311,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------ factory
     @classmethod
-    def build(cls, arch: str = "qwen2.5-32b", *,
+    def build(cls, arch: str = "hymba-1.5b", *,
               config: Optional[ServeConfig] = None) -> "ServeEngine":
         """Construct model + random params (from ``config.seed``) on
         ``config.device`` and the engine over them; ``config.validate`` runs

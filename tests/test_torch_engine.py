@@ -16,7 +16,13 @@ explicit, prefix on and off; one-page latent pages bit-equal to the dense
 latent cache in the port), and for int8 weight quantization
 (``quantize_int8``: the reference's quantized engine against the port's
 engine over the same weights quantized in the port, dense and paged; the
-port's own build and ``--quantize-int8``). Also: ``chain_hash`` keys are byte-equal,
+port's own build and ``--quantize-int8``). The recurrent families on
+perturbed weights: rwkv6 (dense parallel and scan prefill, its ignored
+page size) and hymba (dense ring with parallel, flash-path and scan
+prefill; the paged ring with pages of 4 rows) give the reference's
+streams, rwkv's page size warns as the reference does, the prefix cache
+stays off for them, and the default arch is the reference's (hymba-1.5b)
+in the build and the CLI. Also: ``chain_hash`` keys are byte-equal,
 ``ServeConfig.validate()`` messages are equal, the prefix-cache rule falls
 back with a warning where unsupported, int8 on an unported family falls
 back to fp32 pages with the reference's warning, latent pages on a
@@ -29,6 +35,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.serve import ServeConfig as JConfig  # noqa: E402
@@ -341,7 +348,7 @@ def test_cli_kv_backend_reaches_the_engine(monkeypatch, capsys):
 
     monkeypatch.setattr(TEngine, "build", classmethod(spy))
     args = ["--device", "cpu", "--requests", "2", "--prompt-len", "5",
-            "--gen-len", "3", "--page-size", "16"]
+            "--gen-len", "3", "--page-size", "16", "--arch", "qwen2.5-32b"]
     cli.main(args)
     cli.main(args + ["--kv-backend", "paged_int8"])
     cli.main(args + ["--kv-backend", "paged_latent", "--arch",
@@ -650,3 +657,155 @@ def test_latent_pages_on_a_per_head_arch_raise_the_reference_error(
         TEngine.build("qwen2.5-32b", config=TConfig(
             page_size=PS, kv_backend="paged_latent", device="cpu"))
     assert str(terr.value) == str(jerr.value)
+
+
+# ------------------------------------------------- recurrent families
+# repro's init leaves these at zero (constant decay, no bonus, A = -1);
+# seeded noise, the same in both packages, makes the recurrences data-
+# dependent (see tests/test_torch_ssm.py and test_torch_hybrid.py)
+RECURRENT_NOISE = {
+    "rwkv6-7b": {"u": 0.1, "mu": 0.1, "mu_x": 0.1, "lora_B": 0.01,
+                 "wB": 0.01},
+    "hymba-1.5b": {"logA": 0.5},
+}
+REC_S_MAX, REC_PS = 32, 4
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """arch -> (reference model, its perturbed weights, the port's model,
+    the same weights bridged)."""
+    from test_torch_ssm import perturbed
+    out = {}
+    for arch, noise in RECURRENT_NOISE.items():
+        jeng = JEngine.build(arch, config=JConfig(s_max=REC_S_MAX))
+        numpy_params = perturbed(jeng.params, noise)
+        tmodel = treg.get_model(treg.reduced_config(
+            tconfigs.get_config(arch)))
+        out[arch] = (jeng.model, jax.tree.map(jnp.asarray, numpy_params),
+                     tmodel, bridge.params_from_numpy(numpy_params, "cpu"))
+    return out
+
+
+def _recurrent_prompts(vocab):
+    """Seven prompts of 1-25 tokens (most longer than hymba's 8-row
+    window, so the ring wraps in prefill and in decode) for 3 slots: slots
+    recycle mid-run."""
+    rng = np.random.default_rng(41)
+    return [rng.integers(0, vocab, n) for n in (25, 3, 12, 1, 19, 9, 16)]
+
+
+RECURRENT_PATHS = [
+    ("rwkv6-7b", "dense-parallel", dict()),
+    ("rwkv6-7b", "dense-scan", dict(prefill_mode="scan")),
+    ("rwkv6-7b", "page-size-ignored", dict(page_size=REC_PS)),
+    ("hymba-1.5b", "dense-parallel", dict()),
+    ("hymba-1.5b", "dense-parallel-flash", dict(prefill_attn_impl="pallas")),
+    ("hymba-1.5b", "dense-scan", dict(prefill_mode="scan")),
+    ("hymba-1.5b", "paged-ring", dict(page_size=REC_PS)),
+    ("hymba-1.5b", "paged-ring-scan", dict(page_size=REC_PS,
+                                           prefill_mode="scan")),
+]
+
+
+@pytest.mark.parametrize("arch,name,fields", RECURRENT_PATHS,
+                         ids=[f"{a}-{n}" for a, n, _ in RECURRENT_PATHS])
+def test_recurrent_greedy_streams_equal_reference(recurrent, arch, name,
+                                                  fields):
+    """rwkv6 and hymba reduced on perturbed weights: the dense cache with
+    parallel chunked prefill (hymba's first chunks also through the flash
+    kernel's path) and with the scan anchor, rwkv's ignored page size, and
+    hymba's paged ring (pages of 4 rows, 2 per 8-row ring) give the
+    reference's greedy streams, with the same resolved paths."""
+    jmodel, jparams, tmodel, tparams = recurrent[arch]
+    fields = dict(dict(s_max=REC_S_MAX, batch_slots=3), **fields)
+    jeng = JEngine(jmodel, jparams, **JConfig(**fields).engine_kwargs())
+    teng = TEngine(tmodel, tparams, **TConfig(device="cpu",
+                                              **fields).engine_kwargs())
+    assert (teng.paged, teng.prefix_cache, teng.prefill_attn_impl,
+            teng.paged_attn_impl, teng.prefill_mode) == \
+        (jeng.paged, jeng.prefix_cache, jeng.prefill_attn_impl,
+         jeng.paged_attn_impl, jeng.prefill_mode)
+    if teng.paged:
+        assert teng.capacity == jeng.capacity == 8
+        assert teng.cache["ring_iota"].shape == (8,)
+    prompts = _recurrent_prompts(tmodel.cfg.vocab_size)
+    want = _serve(jeng, [prompts])
+    got = _serve(teng, [prompts])
+    assert got == want and all(len(s) == GEN for s in got)
+    if teng.paged:
+        teng.assert_page_invariants()
+        assert teng.allocator.free == teng.num_pages
+
+
+def test_rwkv_page_size_warns_and_serves_dense(recurrent, caplog):
+    """As the reference: a page size on the SSM family logs that the state
+    is O(1) in s_max, and the engine serves the dense cache, prefix cache
+    off (tests/test_paged.py:145, tests/test_prefix.py:106)."""
+    jmodel, jparams, tmodel, tparams = recurrent["rwkv6-7b"]
+    kw = dict(batch_slots=2, s_max=16, page_size=8)
+    with caplog.at_level(logging.WARNING):
+        jeng = JEngine(jmodel, jparams, **kw)
+        teng = TEngine(tmodel, tparams, device="cpu", **kw)
+    warned = [r.getMessage() for r in caplog.records
+              if "ignoring paging" in r.getMessage()]
+    assert len(warned) == 2 and warned[0] == warned[1]
+    assert not teng.paged and not teng.prefix_cache and not jeng.paged
+    assert set(teng.cache) == {"S", "x_tm", "x_cm", "pos"}
+    req = teng.submit(np.array([1, 2, 3], np.int32), 4)
+    teng.run()
+    assert req.done and len(req.tokens) == 4
+
+
+@pytest.mark.parametrize("prefix_cache", [None, True])
+def test_prefix_cache_stays_off_for_recurrent_families(recurrent, caplog,
+                                                       prefix_cache):
+    """The prefix cache needs an attention-only family: on hymba's paged
+    ring it stays off by itself (None) or warns and falls back (True), as
+    the reference does, and the streams equal prefix-off streams."""
+    jmodel, jparams, tmodel, tparams = recurrent["hymba-1.5b"]
+    kw = dict(batch_slots=2, s_max=REC_S_MAX, page_size=REC_PS)
+    with caplog.at_level(logging.WARNING):
+        jeng = JEngine(jmodel, jparams, prefix_cache=prefix_cache, **kw)
+        teng = TEngine(tmodel, tparams, device="cpu",
+                       prefix_cache=prefix_cache, **kw)
+    assert not teng.prefix_cache and not jeng.prefix_cache
+    warned = [r for r in caplog.records
+              if "prefix_cache unsupported" in r.getMessage()]
+    assert len(warned) == (2 if prefix_cache else 0)
+    off = TEngine(tmodel, tparams, device="cpu", prefix_cache=False, **kw)
+    prompts = _recurrent_prompts(tmodel.cfg.vocab_size)[:4]
+    assert _serve(teng, [prompts]) == _serve(off, [prompts])
+    assert teng.metrics.summary()["prefix"]["lookups"] == 0
+
+
+def test_defaults_serve_the_reference_default_arch(monkeypatch, capsys):
+    """``ServeEngine.build()`` and the CLI serve the reference's default
+    arch, hymba-1.5b."""
+    import inspect
+
+    from repro.launch import serve as jcli
+    from repro_torch.launch import serve as cli
+    jdefault = inspect.signature(JEngine.build).parameters["arch"].default
+    assert inspect.signature(TEngine.build).parameters["arch"].default == \
+        jdefault == jcli.ServeConfig().arch == "hymba-1.5b"
+    archs = []
+    build = TEngine.build.__func__
+
+    def spy(cls, arch=jdefault, *, config=None):
+        archs.append(arch)
+        return build(cls, arch, config=config)
+
+    monkeypatch.setattr(TEngine, "build", classmethod(spy))
+    cli.main(["--device", "cpu", "--requests", "1", "--prompt-len", "3",
+              "--gen-len", "2"])
+    assert archs == [jdefault]
+    engine = TEngine.build(config=TConfig(device="cpu"))
+    assert engine.cfg.name == jdefault and "slot_pos" in engine.cache
+    assert "served 1 requests on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-large-v3"])
+def test_families_outside_the_port_name_their_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        TEngine.build(arch, config=TConfig(device="cpu"))

@@ -27,7 +27,8 @@ def _sources():
             "core/quantize.py", "kernels/matmul.py",
             "kernels/quant_matmul.py", "models/resnet.py",
             "configs/resnet20_cifar.py", "data/cifar.py",
-            "data/synthetic.py"} <= names
+            "data/synthetic.py", "kernels/linear_scan.py", "models/ssm.py",
+            "models/hybrid.py"} <= names
     return files
 
 
