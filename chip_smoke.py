@@ -18,9 +18,12 @@ before printing any result. Phases, each of which raises on failure:
    give it (qwen2.5-32b, qwen2.5-32b-mla), with the kernel's, the plain
    version's and one library call's times and the bound. The systolic
    GEMM (K7) in its three dataflows and the int8-weight GEMM (K8) on the
-   CPU tests' shapes, ResNet20's 21 im2col GEMMs at batch 1 and 256 (K8
-   on per-channel int8 weights), bf16 cases and (K8) qwen2.5-32b's wo at
-   M = 8; then both timed over the 21 GEMMs of a batch-256 forward. The
+   CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
+   im2col GEMMs at batch 1 and 256 (K8 on per-channel int8 weights),
+   qwen2.5-32b's wo at M = 8 and bf16 cases; then both timed over the 21
+   GEMMs of a batch-256 forward, and at wo. Every kernel's time and every
+   library call's is its device time under ``torch.profiler``
+   (``device_times``); the plain versions' are between CUDA events. The
    wkv6 scan (K5) and the selective scan (K6) on the CPU tests' cases
    (strong decay, T = 33 with chunk 16, T = 1), then at rwkv6-7b's and
    hymba-1.5b's widths for the forward (B=4, T=1024), a decode tick and a
@@ -56,7 +59,9 @@ before printing any result. Phases, each of which raises on failure:
    folded, on synthetic CIFAR images at batch 1 and 256: ``lax`` (cuDNN),
    im2col with the plain ``@`` and im2col through K7 in each dataflow;
    logits against ``lax`` with top-1 equal, 21 K7 launches per forward,
-   then ms per forward, FPS, GOP/s and (power.draw sampled) GOP/s per W.
+   then ms per forward, FPS, GOP/s and (power.draw sampled) GOP/s per W,
+   and at batch 256 each route's device time split into the port's GEMMs,
+   im2col and the rest.
    (8b) int8 PTQ over 10,000 synthetic images in batches of 1,000: fp32
    against 16-bit fixed point and int8, then every conv GEMM through K8
    on the int8 weights against the dequant-on-load forward.
@@ -142,6 +147,8 @@ FORWARD_BATCH = (2, 512)
 # chain per element against the library's blocked fp32 sum); a bf16 output
 # may round one bf16 step apart
 GEMM_TOL, GEMM_BF16_TOL = 1e-4, 2e-2
+# K7's and K8's CUDA kernels, as the profiler names them
+GEMM_KERNEL = "systolic_gemm"
 # phase 8: ResNet20 at batch 1 (the paper's per-frame setting) and 256;
 # 8b: the 10,000-image synthetic test set in batches of 1,000
 RESNET_BATCHES, PTQ_IMAGES, PTQ_BATCH = (1, 256), 10_000, 1_000
@@ -179,20 +186,32 @@ def log(msg):
 
 # ------------------------------------------------------------------ timing
 _FLUSH = None
+# the flush's kernel as the profiler names it (PyTorch's int32 max)
+FLUSH_KERNEL = "MaxNanFunctor<int>"
+
+
+def flush_l2():
+    """Read 64 MB, which evicts the 50 MB L2 (the serving path finds K/V
+    pages cold: the layer weights stream in between). A read and not a
+    write: a flush that writes leaves up to 50 MB of dirty lines, whose
+    write-back then falls into the timed launch. Its kernel, an int32 max
+    (``FLUSH_KERNEL``, after a memset), is one that nothing timed here
+    launches, so ``split_calls`` can tell it apart."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.zeros(16 << 20, dtype=torch.int32, device=DEV)
+    _FLUSH.max()
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` launches, each timed
-    with CUDA events after a 64 MB write that evicts the 50 MB L2 (the
-    serving path finds K/V pages cold: the layer weights stream in between)."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(16 << 20, dtype=torch.float32, device=DEV)
+    """Mean time of ``fn`` in ms over ``iters`` launches between CUDA
+    events, each after the L2 flush (``flush_l2``): what a caller waits
+    for, the host's enqueue delay included."""
     for _ in range(2):
         fn()
     total = 0.0
     for _ in range(iters):
-        _FLUSH.zero_()
+        flush_l2()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -203,26 +222,83 @@ def time_ms(fn, iters: int) -> float:
     return total / iters
 
 
-def device_ms(fn, iters: int, kernel: str) -> float:
-    """Mean device time of the CUDA kernel whose name holds ``kernel`` in
-    ms over ``iters`` launches of ``fn``, each after the L2 flush, read
-    from ``torch.profiler``: the kernel's own time, without the host's
-    enqueue delay that an event pair around a tick-sized launch holds."""
+def profiled_calls(fn, iters: int, attempts: int = 3) -> list:
+    """Run ``fn`` ``iters`` times, each call after the L2 flush, under one
+    ``torch.profiler`` session; the (name, device us) of every kernel, copy
+    and memset each call launched, in order (``split_calls``). A session
+    now and then comes back without its device events: it is run again, up
+    to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     time_ms(fn, 1)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            _FLUSH.zero_()
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in hits)
-    if count != iters:
-        raise AssertionError(f"profiler saw {count} {kernel} launches in "
-                             f"{iters} calls")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_l2()  # a lead-in: the profiler may miss a session's
+            flush_l2()  # first events
+            for _ in range(iters):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        try:
+            return split_calls([(e.name, e.time_range.elapsed_us())
+                                for e in events], iters)
+        except AssertionError as err:
+            if attempt + 1 == attempts:
+                raise
+            log(f"  (profiler session {attempt + 1} incomplete: {err}; "
+                f"again)")
+
+
+def split_calls(events, iters: int) -> list:
+    """(name, us) device events in launch order split into calls at each
+    flush (its int32 max kernel and the memset right before it): what
+    follows a flush up to the next one. The profiler sometimes misses
+    events, so only calls with the most common count of launches are
+    kept, and at least half of the ``iters`` must be."""
+    calls = None
+    for i, (name, us) in enumerate(events):
+        if FLUSH_KERNEL in name:
+            calls = (calls or []) + [[]]
+        elif calls is not None and not (
+                name.startswith("Memset") and i + 1 < len(events)
+                and FLUSH_KERNEL in events[i + 1][0]):
+            calls[-1].append((name, us))
+    calls = [c for c in calls or [] if c]
+    counts = [len(c) for c in calls]
+    n = max(set(counts), key=counts.count) if counts else 0
+    kept = [c for c in calls if len(c) == n]
+    if 2 * len(kept) < iters or len(kept) > iters:
+        raise AssertionError(f"profiler: {len(kept)} whole calls of {iters} "
+                             f"(launches per call {sorted(counts)})")
+    return kept
+
+
+def device_times(fns, iters: int, kernel: str | None = None) -> list:
+    """Per entry of ``fns``, the mean device time in ms of what one call
+    launches (``profiled_calls``; no host enqueue delay, which an event
+    pair around a tick-sized launch holds). With ``kernel``, only the CUDA
+    kernels whose name holds it count, and each call must launch exactly
+    one (a port kernel); without, everything a call launched counts (a
+    library call, which may launch several kernels)."""
+    out = []
+    for fn in fns:
+        calls = profiled_calls(fn, iters)
+        hits = [[us for name, us in c if kernel is None or kernel in name]
+                for c in calls]
+        if kernel is not None and any(len(h) != 1 for h in hits):
+            raise AssertionError(f"profiler: {kernel} launched "
+                                 f"{[len(h) for h in hits]} times per call")
+        out.append(sum(map(sum, hits)) / len(hits) / 1e3)
+    return out
+
+
+def device_ms(fn, iters: int, kernel: str | None = None) -> float:
+    """``device_times`` of one call: the kernel's own time (``kernel``) or
+    a library call's."""
+    return device_times([fn], iters, kernel)[0]
 
 
 # ------------------------------------------------------------- phase 2 data
@@ -413,9 +489,10 @@ def phase2_full_width():
         lib = sdpa_call(args)
         want = ref.paged_attention(*args)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
-        ms = time_ms(lambda: pa.paged_attention(*args, kind=kind), 50)
+        ms = device_ms(lambda: pa.paged_attention(*args, kind=kind), 50,
+                       "paged_attention_kernel")
         plain = time_ms(lambda: ref.paged_attention(*args), 10)
-        lib_ms = time_ms(lib, 10)
+        lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill)
         log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
@@ -499,9 +576,10 @@ def phase2_q8_full_width():
         lib = sdpa_call(deq)
         want = ref.paged_attention(*args, **sc)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
-        ms = time_ms(lambda: pa.paged_attention(*args, kind=kind, **sc), 50)
+        ms = device_ms(lambda: pa.paged_attention(*args, kind=kind, **sc),
+                       50, "paged_attention_kernel")
         plain = time_ms(lambda: ref.paged_attention(*args, **sc), 10)
-        lib_ms = time_ms(lib, 10)
+        lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill, kv_bytes=1)
         log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
@@ -597,11 +675,12 @@ def phase2_latent_full_width():
             enable_gqa=True)
         want = ref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=c)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
-        ms = time_ms(lambda: pa.paged_attention_latent(
-            *args, scale_dim=scale_dim, d_v=c, kind=kind), 50)
+        ms = device_ms(lambda: pa.paged_attention_latent(
+            *args, scale_dim=scale_dim, d_v=c, kind=kind), 50,
+            "latent_attention_kernel")
         plain = time_ms(lambda: ref.paged_attention_latent(
             *args, scale_dim=scale_dim, d_v=c), 10)
-        lib_ms = time_ms(lib, 10)
+        lib_ms = device_ms(lib, 10)
         # each slot's latent rows read once for all heads; q read and the
         # output written once; (Lw + c) FMAs per visible (row, head, key)
         rows = int(np.sum(fill))
@@ -700,9 +779,10 @@ def phase2_flash_full_width():
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         del want
         iters = 50 if kind == "prefill" else 10
-        ms = time_ms(lambda: fa.flash_attention(*args, kind=kind), iters)
+        ms = device_ms(lambda: fa.flash_attention(*args, kind=kind), iters,
+                       "flash_attention_kernel")
         plain = time_ms(lambda: ref.flash_attention(*args), 5)
-        lib_ms = time_ms(lib, iters)
+        lib_ms = device_ms(lib, iters)
         bms, by = flash_bound_ms(args)
         log(f"  flash {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
@@ -1366,11 +1446,11 @@ def resnet_weight(gen, K, N):
 
 
 def gemm_cases():
-    """(label, M, K, N): the CPU tests' shapes, then each of ResNet20's 21
-    im2col GEMMs at batch 1 and 256."""
+    """(label, M, K, N): the CPU tests' shapes, a K that takes several
+    K-chunks, then each of ResNet20's 21 im2col GEMMs at batch 1 and 256."""
     cases = [(f"test {m}x{k}x{n}", m, k, n) for m, k, n in
              ((256, 256, 256), (192, 320, 128), (130, 70, 200),
-              (64, 512, 96))]
+              (64, 512, 96), (4096, 5120, 64))]
     for B in RESNET_BATCHES:
         cases += [(f"{name} B={B}", m, k, n) for name, m, k, n in
                   resnet.conv_layer_shapes(RESNET, B)]
@@ -1380,7 +1460,7 @@ def gemm_cases():
 def phase2_gemm_cases():
     """K7 in every dataflow and K8 against their plain versions: the test
     shapes, the 21 ResNet20 GEMMs at batch 1 and 256 (K8 on per-channel
-    int8 weights), bf16 cases, and qwen2.5-32b's wo at M = 8 for K8. The
+    int8 weights), qwen2.5-32b's wo at M = 8, and bf16 cases. The
     three dataflows must give the same bits, and K8 the bits of K7 on the
     dequantized weight. Returns max |diff| per kernel row."""
     gen = torch.Generator(DEV).manual_seed(20)
@@ -1390,14 +1470,13 @@ def phase2_gemm_cases():
     for label, M, K, N in gemm_cases() + [("lm wo",) + LM_PROJ]:
         x = rand_on_card(gen, M, K)
         w, w_q, sc = resnet_weight(gen, K, N)
-        if label != "lm wo":
-            want = ref.matmul(x, w)
-            outs = [mm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
-            for df, got in zip(DATAFLOWS, outs):
-                errs[df] = max(errs[df], gemm_held(f"K7 {df} {label}", got,
-                                                   want))
-            if not all(torch.equal(outs[0], o) for o in outs[1:]):
-                raise AssertionError(f"K7 {label}: dataflows differ in bits")
+        want = ref.matmul(x, w)
+        outs = [mm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
+        for df, got in zip(DATAFLOWS, outs):
+            errs[df] = max(errs[df], gemm_held(f"K7 {df} {label}", got,
+                                               want))
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"K7 {label}: dataflows differ in bits")
         got = qm.quant_matmul(x, w_q, sc)
         err = gemm_held(f"K8 {label}", got, ref.quant_matmul(x, w_q, sc))
         errs["quant_matmul"] = max(errs["quant_matmul"], err)
@@ -1443,37 +1522,50 @@ def sum_bounds(bounds) -> tuple:
 
 
 def phase2_gemm_full_width():
-    """K7 and K8 timed at the 21 GEMMs of one batch-256 ResNet20 forward
-    (the largest of ``RESNET_BATCHES``),
-    summed (the kernel, its plain version, one ``torch.matmul``, each
-    launch after an L2 flush; TF32 off), and K8 at qwen2.5-32b's wo.
+    """K7 in each dataflow and K8 timed at the 21 GEMMs of one batch-256
+    ResNet20 forward (the largest of ``RESNET_BATCHES``), each summed over
+    the 21: the kernel's and one ``torch.matmul``'s device time
+    (``device_times``, TF32 off) and the plain version's between events,
+    every launch after an L2 flush; and K7 and K8 at qwen2.5-32b's wo.
     K8's library call is ``torch.matmul`` on the weight dequantized
     beforehand; the dequantization is timed apart."""
     gen = torch.Generator(DEV).manual_seed(21)
-    rows = {df: dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
-            for df in DATAFLOWS}
-    rows["quant_matmul"] = dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                dequant_ms=0.0)
-    bounds, qbounds = [], []
     B = max(RESNET_BATCHES)
-    for name, M, K, N in resnet.conv_layer_shapes(RESNET, B):
+    shapes = resnet.conv_layer_shapes(RESNET, B)
+    data = []
+    for _, M, K, N in shapes:
         x = rand_on_card(gen, M, K)
         w, w_q, sc = resnet_weight(gen, K, N)
-        plain = time_ms(lambda: ref.matmul(x, w), 10)
-        for df in DATAFLOWS:
-            rows[df]["ms"] += time_ms(lambda: mm.matmul(x, w, dataflow=df),
-                                      10)
-            rows[df]["plain_ms"] += plain
-            rows[df]["library_ms"] += time_ms(lambda: torch.matmul(x, w), 10)
-        deq = w_q.float() * sc[None, :]
-        q = rows["quant_matmul"]
-        q["ms"] += time_ms(lambda: qm.quant_matmul(x, w_q, sc), 10)
-        q["plain_ms"] += time_ms(lambda: ref.quant_matmul(x, w_q, sc), 10)
-        q["library_ms"] += time_ms(lambda: torch.matmul(x, deq), 10)
-        q["dequant_ms"] += time_ms(lambda: w_q.float() * sc[None, :], 10)
-        bounds.append(gemm_bound(M, K, N))
-        qbounds.append(gemm_bound(M, K, N, 1, K * N))
-        del x, w, w_q, sc, deq
+        data.append((x, w, w_q, sc, w_q.float() * sc[None, :]))
+    k7 = {df: device_times([lambda x=x, w=w, df=df: mm.matmul(
+        x, w, dataflow=df) for x, w, *_ in data], 10, GEMM_KERNEL)
+        for df in DATAFLOWS}
+    k8 = device_times([lambda x=x, q=q, sc=sc: qm.quant_matmul(x, q, sc)
+                       for x, _, q, sc, _ in data], 10, GEMM_KERNEL)
+    lib = device_times([lambda x=x, w=w: torch.matmul(x, w)
+                        for x, w, *_ in data], 10)
+    qlib = device_times([lambda x=x, d=d: torch.matmul(x, d)
+                         for x, _, _, _, d in data], 10)
+    dequant = device_times([lambda q=q, sc=sc: q.float() * sc[None, :]
+                            for _, _, q, sc, _ in data], 10)
+    plain = [time_ms(lambda x=x, w=w: ref.matmul(x, w), 10)
+             for x, w, *_ in data]
+    qplain = [time_ms(lambda x=x, q=q, sc=sc: ref.quant_matmul(x, q, sc), 10)
+              for x, _, q, sc, _ in data]
+    bounds = [gemm_bound(M, K, N) for _, M, K, N in shapes]
+    qbounds = [gemm_bound(M, K, N, 1, K * N) for _, M, K, N in shapes]
+    log(f"  per GEMM of a batch-{B} forward, device ms: "
+        + " / ".join(DATAFLOWS) + " / quant_matmul | torch.matmul | bound")
+    for i, (name, M, K, N) in enumerate(shapes):
+        log(f"    {name} ({M}x{K}x{N}): "
+            + " / ".join(f"{k7[df][i]:.4f}" for df in DATAFLOWS)
+            + f" / {k8[i]:.4f} | {lib[i]:.4f} | {bounds[i][0]:.4f} "
+            f"({bounds[i][1]})")
+    rows = {df: dict(ms=sum(k7[df]), plain_ms=sum(plain),
+                     library_ms=sum(lib)) for df in DATAFLOWS}
+    rows["quant_matmul"] = dict(ms=sum(k8), plain_ms=sum(qplain),
+                                library_ms=sum(qlib),
+                                dequant_ms=sum(dequant))
     for key, bnd in [(df, bounds) for df in DATAFLOWS] + [("quant_matmul",
                                                            qbounds)]:
         rows[key]["bound_ms"], rows[key]["bound_by"] = sum_bounds(bnd)
@@ -1481,21 +1573,26 @@ def phase2_gemm_full_width():
         log(f"  {key}, 21 GEMMs of a batch-{B} forward: kernel "
             f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | torch.matmul "
             f"{r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})" + (f" | dequant alone {r['dequant_ms']:.4f}"
-                                    f" ms" if "dequant_ms" in r else ""))
+            f"({r['bound_by']}) | {r['ms'] / r['library_ms']:.2f}x the "
+            f"library, {r['ms'] / r['bound_ms']:.2f}x the bound"
+            + (f" | dequant alone {r['dequant_ms']:.4f} ms"
+               if "dequant_ms" in r else ""))
+    del data
     M, K, N = LM_PROJ
     x = rand_on_card(gen, M, K)
     w, w_q, sc = resnet_weight(gen, K, N)
     deq = w_q.float() * sc[None, :]
-    ms = time_ms(lambda: qm.quant_matmul(x, w_q, sc), 50)
+    ms, k7_ms = device_times([lambda: qm.quant_matmul(x, w_q, sc),
+                              lambda: mm.matmul(x, deq)], 50, GEMM_KERNEL)
+    lib, dq = device_times([lambda: torch.matmul(x, deq),
+                            lambda: w_q.float() * sc[None, :]], 50)
     plain = time_ms(lambda: ref.quant_matmul(x, w_q, sc), 50)
-    lib = time_ms(lambda: torch.matmul(x, deq), 50)
-    dq = time_ms(lambda: w_q.float() * sc[None, :], 50)
     bms, by = gemm_bound(M, K, N, 1, K * N)
     log(f"  quant_matmul at qwen2.5-32b wo ({M}x{K}x{N}): kernel {ms:.4f} ms "
         f"| plain {plain:.4f} ms | torch.matmul on the dequantized weight "
         f"{lib:.4f} ms | dequant alone {dq:.4f} ms | bound {bms:.4f} ms "
-        f"({by})")
+        f"({by}) | K7 on the dequantized weight {k7_ms:.4f} ms (bound "
+        f"{gemm_bound(M, K, N)[0]:.4f} ms)")
     torch.cuda.empty_cache()
     return rows
 
@@ -1596,13 +1693,38 @@ def power_rate(fn, images_per_call, seconds=1.5):
     return rate, (sum(watts) / len(watts) if watts else None)
 
 
+def forward_breakdown(fn, iters: int = 5) -> dict:
+    """Device time of one ResNet20 forward by kind of work, in ms: the
+    port's GEMMs (kernels named ``GEMM_KERNEL``), im2col (the pad's fill
+    and copy, the concatenation of the shifted views) and the rest (the
+    folded BN's bias, ReLU, residual adds, pooling, the head, and cuDNN's
+    or cuBLAS's kernels on the library routes); with the port's GEMM
+    launches per forward."""
+    parts = dict(gemm=0.0, im2col=0.0, rest=0.0, gemm_launches=0)
+    calls = profiled_calls(fn, iters)
+    for name, us in (e for c in calls for e in c):
+        if GEMM_KERNEL in name:
+            part = "gemm"
+            parts["gemm_launches"] += 1
+        elif "CatArray" in name or "copy" in name.lower() or "Fill" in name:
+            part = "im2col"
+        else:
+            part = "rest"
+        parts[part] += us / len(calls) / 1e3
+    parts["gemm_launches"] //= len(calls)
+    parts["busy"] = parts["gemm"] + parts["im2col"] + parts["rest"]
+    return parts
+
+
 def phase8_resnet(card):
     """ResNet20 at the paper's widths (16 / 32 / 64, 3x3 blocks, 32x32x3,
     10 classes), folded, on synthetic CIFAR images: lax, im2col with the
     plain ``@`` and im2col through K7 in each dataflow, at batch 1 and
     256. Logits against lax; K7 launched once per conv GEMM; the three
     dataflows give the same bits. Then ms per forward, FPS and GOP/s for
-    each route (and GOP/s per W at batch 256 where the power can be read).
+    each route (and GOP/s per W at batch 256 where the power can be read),
+    and at batch 256 the device time of a forward of lax, im2col with
+    ``@`` and K7 (output-stationary) split by ``forward_breakdown``.
     Returns K7's launches per dataflow and the timings."""
     folded = resnet_params(30)
     images = torch.from_numpy(synthetic_cifar(max(RESNET_BATCHES),
@@ -1656,6 +1778,17 @@ def phase8_resnet(card):
                 + (f" | back to back {row['loop_gops']:.1f} GOP/s at "
                    f"{row['watts']:.1f} W: {row['gops_per_w']:.2f} GOP/s/W"
                    if "watts" in row else "") + f" ({card})")
+    B = max(RESNET_BATCHES)
+    x = images[:B]
+    for name in ("lax", "im2col @", "K7 output_stationary"):
+        parts = forward_breakdown(lambda kw=paths[name]: resnet.forward(
+            folded, RESNET, x, folded=True, **kw))
+        timings[(B, name)]["breakdown"] = parts
+        log(f"  B={B} {name}, device time of a forward: busy "
+            f"{parts['busy']:.4f} ms of {timings[(B, name)]['ms']:.4f} ms "
+            f"between events | port GEMMs {parts['gemm']:.4f} ms "
+            f"({parts['gemm_launches']} launches) | im2col "
+            f"{parts['im2col']:.4f} ms | rest {parts['rest']:.4f} ms")
     log(f"  {flops / 1e6:.3f} MFLOP per image (2 M K N over the 21 conv "
         f"GEMMs)")
     del images, folded

@@ -6,28 +6,150 @@ On a CUDA tensor :func:`matmul` launches the hand-written Hopper kernel in
 ``repro/kernels/matmul.py::_os_kernel`` and ``::_acc_kernel``) or raises;
 on a CPU tensor it runs the plain version ``ref.matmul``. There is no other
 route and no fallback. The kernel takes ragged M, K and N and strided
-operands, so nothing is padded or copied.
+operands, so nothing is padded or copied. :func:`tile_plan` chooses its
+tiles, K-chunks and grid from the shape, in Python, so that the CPU tests
+can check the choice; the kernel checks the plan it is given.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import ref
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
-# the kernel's output tile (csrc/matmul.cu BM = BN) and its grid limit
-TILE = 64
-MAX_N = 65535 * TILE
+
+# the card (H100 SXM): SMs and a block's dynamic shared memory; a grid of
+# FILL blocks or more fills it (ResNet20's N = 64 GEMMs at batch 256 are
+# 128 tiles of 8 x 4 micro-tiles: one wave on 128 of the 132 SMs)
+SMS = 132
+SMEM_MAX = 232_448
+FILL = 120
+# csrc/matmul.cu's tiled kernel: 256 threads, BK-deep ring stages of x
+# (row pitch LDX floats), an N-tile per BN in TILE_N, TM rows of 4 columns
+# per thread for TM in MICRO_M
+THREADS, BK, STAGES, LDX = 256, 16, 3, 20
+TILE_N = (16, 32, 64)
+MICRO_M = (8, 4, 1)
+# its skinny kernel (M <= SKINNY_M): SK_COLS columns per block, raw w
+# through SK_STAGES ring stages of SK_STAGE_BYTES
+SKINNY_M, SK_COLS, SK_STAGES, SK_STAGE_BYTES = 16, 32, 4, 8192
+# the grid's y dimension holds N-tiles
+MAX_N = 65535 * TILE_N[-1]
 
 # kernel launches per dataflow: plain integers, raised by one exactly where
 # the kernel is launched, so a run can show that its GEMMs went through it
 LAUNCHES = {df: 0 for df in DATAFLOWS}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_void_p])
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How the kernel runs one GEMM. ``skinny``: the M <= 16 schedule
+    (``bn`` columns per block, x resident). Otherwise a block of 256
+    threads owns a ``bm`` x ``bn`` output tile, ``tm`` rows of 4 columns
+    per thread, and sweeps ``group`` tiles (weight-stationary: M-tiles
+    under its resident w; input-stationary: N-tiles under its resident x).
+    ``kc``: the K-chunk the resident operand holds (``chunks`` of them
+    cover K). ``vec_x`` / ``vec_w``: x staged by 16-byte copies, w by
+    vector loads (four consecutive n; skinny: 16 bytes). ``smem``: dynamic
+    shared memory per block in bytes."""
+    skinny: bool
+    bn: int
+    tm: int
+    bm: int
+    kc: int
+    chunks: int
+    group: int
+    vec_x: bool
+    vec_w: bool
+    smem: int
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def c_args(self) -> tuple:
+        return (int(self.skinny), self.bn, self.tm, self.kc, self.group,
+                int(self.vec_x), int(self.vec_w))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_plan(M, K, N, sxm, sxk, swk, swn, *,
+              dataflow: str = "output_stationary", x_bytes: int = 4,
+              w_bytes: int = 4, x_ptr: int = 0, w_ptr: int = 0,
+              block_m: int = 128, block_n: int = 128) -> TilePlan:
+    """The plan for x (M, K) @ w (K, N) with element strides (sxm, sxk),
+    (swk, swn), element sizes ``x_bytes`` / ``w_bytes`` (w int8: K8) and
+    base addresses ``x_ptr`` / ``w_ptr``.
+
+    M <= 16 takes the skinny schedule. Otherwise BN is the smallest tile
+    of ``TILE_N`` that covers N (64 beyond), and of the ``MICRO_M`` choices
+    the plan prefers, in order: a grid that fills the card (at least
+    ``FILL`` blocks), one K-chunk (the resident operand covers K), then the
+    larger TM where the card is filled (a larger micro-tile reads shared
+    memory less per FMA) and the more blocks where it is not (bf16 x, off
+    the timed paths, takes TM = 1 only, which keeps the build short).
+    ``block_m`` / ``block_n`` (the reference's block sizes) set the
+    weight- / input-stationary sweep, capped so the grid still fills the
+    card."""
+    if dataflow not in DATAFLOWS:
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    vec_x = (x_bytes == 4 and sxk == 1 and K % 4 == 0 and sxm % 4 == 0
+             and x_ptr % 16 == 0)
+    if M <= SKINNY_M:
+        kt = SK_STAGE_BYTES // (SK_COLS * w_bytes)
+        ring = SK_STAGES * SK_STAGE_BYTES
+        kc = min(_cdiv(max(K, 1), kt) * kt,
+                 (SMEM_MAX - ring) // (4 * M) // kt * kt)
+        vec_w = (swn == 1 and N % (16 // w_bytes) == 0
+                 and (swk * w_bytes) % 16 == 0 and w_ptr % 16 == 0)
+        return TilePlan(True, SK_COLS, 0, M, kc, _cdiv(K, kc), 1, vec_x,
+                        vec_w, ring + 4 * M * kc, (_cdiv(N, SK_COLS), 1))
+    vec_w = (swn == 1 and N % 4 == 0 and swk % 4 == 0
+             and w_ptr % (4 * w_bytes) == 0)
+    bn = next((t for t in TILE_N if N <= t), TILE_N[-1])
+    xres = dataflow == "input_stationary"
+    k_all = _cdiv(max(K, 1), BK) * BK
+    best = None
+    for tm in MICRO_M if x_bytes == 4 else (1,):
+        bm = tm * THREADS // (bn // 4)
+        # resident x chunk (bm x (kc + 4)) and a ring of w tiles, or a ring
+        # of x tiles and a resident w chunk (kc x bn); a chunk of fewer
+        # tiles than STAGES takes as many ring slots as it has tiles
+        slot = 4 * (BK * bn if xres else bm * LDX)
+        per_k = 4 * bm if xres else 4 * bn
+        fit = (SMEM_MAX - STAGES * slot - (4 * 4 * bm if xres else 0)) \
+            // per_k // BK * BK
+        if fit < BK:
+            continue
+        kc = min(k_all, fit)
+        smem = (min(STAGES, kc // BK) * slot + per_k * kc
+                + (4 * 4 * bm if xres else 0))
+        mt, nt = _cdiv(M, bm), _cdiv(N, bn)
+        group = 1
+        if dataflow != "output_stationary":
+            want, swept = ((_cdiv(block_n, bn), nt) if xres
+                           else (_cdiv(block_m, bm), mt))
+            group = max(1, min(want, swept, mt * nt // SMS))
+        grid = ((mt, _cdiv(nt, group)) if xres
+                else (_cdiv(mt, group), nt))
+        plan = TilePlan(False, bn, tm, bm, kc, _cdiv(K, kc), group, vec_x,
+                        vec_w, smem, grid)
+        fills = min(plan.blocks, SMS) >= FILL
+        key = (fills, kc >= k_all, tm if fills else plan.blocks, tm)
+        if best is None or key > best[0]:
+            best = (key, plan)
+    return best[1]
 
 
 def reset_launches():
@@ -65,16 +187,26 @@ def launch_geometry(x, w):
     return (M, K, N, x.stride(0), x.stride(1), w.stride(0), w.stride(1))
 
 
+def plan_for(x, w, geometry, dataflow="output_stationary", block_m=128,
+             block_n=128) -> TilePlan:
+    """:func:`tile_plan` for these tensors."""
+    return tile_plan(*geometry, dataflow=dataflow,
+                     x_bytes=x.element_size(), w_bytes=w.element_size(),
+                     x_ptr=x.data_ptr(), w_ptr=w.data_ptr(),
+                     block_m=block_m, block_n=block_n)
+
+
 def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
            block_k: int = 128, dataflow: str = "output_stationary"):
     """x: (M, K) @ w: (K, N) -> (M, N) in x's dtype, fp32 accumulation.
 
     x and w are float32, or both bfloat16 on the card. ``dataflow`` picks
     which operand a block keeps resident across its sweep. The block sizes
-    are the reference's: on the card the kernel's tile is 64 x 64 x 16, and
-    a weight-stationary block sweeps ceil(block_m / 64) M-tiles under one
-    staged weight tile (input-stationary: ceil(block_n / 64) N-tiles under
-    one staged input tile); ``block_k`` is accepted for parity."""
+    are the reference's: on the card :func:`tile_plan` sizes the tile to
+    the shape, and ``block_m`` / ``block_n`` set how many M-tiles a
+    weight-stationary block (N-tiles an input-stationary block) sweeps
+    under its resident operand; ``block_k`` is accepted for parity. At
+    M <= 16 every dataflow takes the skinny schedule."""
     check_operands("matmul", x, w)
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}")
@@ -91,17 +223,17 @@ def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    plan = plan_for(x, w, geometry, dataflow, block_m, block_n)
     acc = out
-    if dataflow != "output_stationary" and x.dtype != torch.float32:
+    if (dataflow != "output_stationary" and x.dtype != torch.float32
+            and plan.chunks > 1):
         acc = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    group = -(-(block_m if dataflow == "weight_stationary" else block_n)
-              // TILE)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib()(x.data_ptr(), w.data_ptr(), acc.data_ptr(),
                      out.data_ptr(), *geometry,
                      int(x.dtype == torch.bfloat16),
-                     DATAFLOWS.index(dataflow), group, stream)
+                     DATAFLOWS.index(dataflow), *plan.c_args(), stream)
     if err:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
     LAUNCHES[dataflow] += 1

@@ -7,7 +7,10 @@ On a CUDA tensor :func:`quant_matmul` launches the hand-written Hopper
 kernel in ``csrc/matmul.cu`` (``repro_quant_matmul``; it replaces the
 Pallas kernel ``repro/kernels/quant_matmul.py::_kernel``) or raises; on a
 CPU tensor it runs the plain version ``ref.quant_matmul``. There is no
-other route and no fallback.
+other route and no fallback. It runs K7's output-stationary schedule
+(``matmul.tile_plan``), with the weight staged as int8 and dequantized
+into the block's resident f32 tile (the skinny schedule at M <= 16:
+dequantized as it is read).
 """
 from __future__ import annotations
 
@@ -16,14 +19,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.matmul import check_operands, launch_geometry
+from repro_torch.kernels.matmul import (check_operands, launch_geometry,
+                                        plan_for)
 
 # kernel launches: a plain integer, raised by one exactly where the kernel
 # is launched
 LAUNCHES = {"quant_matmul": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-             + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p])
 
 
 def reset_launches():
@@ -43,7 +48,8 @@ def quant_matmul(x, w_q, scales, *, block_m: int = 128, block_n: int = 128,
                  block_k: int = 128):
     """x: (M, K) float; w_q: (K, N) int8; scales: (N,) -> (M, N) in x's
     dtype. On the card x is float32 or bfloat16 and scales float32; the
-    kernel's tile is 64 x 64 x 16 whatever the (reference's) block sizes."""
+    kernel's tile is ``matmul.tile_plan``'s whatever the (reference's)
+    block sizes."""
     check_operands("quant_matmul", x, w_q)
     N = w_q.shape[1]
     if tuple(scales.shape) != (N,):
@@ -70,11 +76,12 @@ def quant_matmul(x, w_q, scales, *, block_m: int = 128, block_n: int = 128,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    plan = plan_for(x, w_q, geometry)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib()(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
                      out.data_ptr(), *geometry,
-                     int(x.dtype == torch.bfloat16), stream)
+                     int(x.dtype == torch.bfloat16), *plan.c_args(), stream)
     if err:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{err}")

@@ -217,10 +217,116 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(monkeypatch):
     assert sum(tmm.LAUNCHES.values()) == 0 and tqm.LAUNCHES["quant_matmul"] == 0
 
 
+# ------------------------------------------------------- the tile plan
+# one GEMM of each of ResNet20's shape classes at batch 256, then a K that
+# takes several K-chunks and qwen2.5-32b's wo at M = 8
+RESNET_B256 = [(262144, 27, 16), (262144, 144, 16), (65536, 144, 32),
+               (65536, 288, 32), (65536, 16, 32), (16384, 288, 64),
+               (16384, 576, 64), (16384, 32, 64)]
+BIG_K, WO = (4096, 5120, 64), (8, 5120, 5120)
+
+
+def _plan(m, k, n, dataflow="output_stationary", **kw):
+    """The plan for contiguous operands (x strides (k, 1), w (n, 1))."""
+    return tmm.tile_plan(m, k, n, k, 1, n, 1, dataflow=dataflow, **kw)
+
+
+@pytest.mark.parametrize("w_bytes", [4, 1])
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("mkn", RESNET_B256 + SHAPES + [
+    BIG_K, WO, (16, 5120, 5120), (17, 5120, 5120), (3, 0, 5),
+    (100_000, 27, 1000), (64, 100_000, 8)])
+def test_tile_plan_fits_shared_memory(mkn, dataflow, w_bytes):
+    """Every plan fits a block's 232,448 bytes of shared memory, its
+    K-chunks cover K, and its grid covers the output."""
+    m, k, n = mkn
+    p = _plan(m, k, n, dataflow, w_bytes=w_bytes)
+    assert p.smem <= tmm.SMEM_MAX == 232_448
+    assert p.kc >= 1 and p.chunks * p.kc >= k and p.chunks == -(-k // p.kc)
+    if p.skinny:
+        assert p.grid == (-(-n // tmm.SK_COLS), 1) and p.bm == m
+        return
+    assert p.kc % tmm.BK == 0 and p.bm == p.tm * 1024 // p.bn
+    if dataflow == "input_stationary":
+        assert p.grid[0] * p.bm >= m and p.grid[1] * p.group * p.bn >= n
+    else:
+        assert p.grid[0] * p.group * p.bm >= m and p.grid[1] * p.bn >= n
+
+
+@pytest.mark.parametrize("n", [1, 10, 16, 17, 32, 33, 64])
+def test_tile_plan_one_n_tile_up_to_64(n):
+    """N <= 64 is one N-tile of the smallest width that covers it."""
+    for dataflow in DATAFLOWS:
+        p = _plan(65536, 144, n, dataflow)
+        assert p.bn == next(t for t in (16, 32, 64) if n <= t)
+        assert p.grid[1] == 1
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS + ("quant",))
+def test_tile_plan_fills_the_card_at_batch_256(dataflow):
+    """Every GEMM of a batch-256 ResNet20 forward runs in one K-chunk (no
+    re-streaming of partial sums), at a 4 x 4 micro-tile or larger, on a
+    grid of at least one block per SM, or, where the shape has fewer tiles
+    than SMs (N = 64 at M = 16384: 128 tiles of 128 x 64), one block per
+    tile in a single wave; the batch-1 forward still spreads its GEMMs
+    over at least as many blocks as 64 x 64 tiles would."""
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.models import resnet
+    kw = (dict(w_bytes=1) if dataflow == "quant"
+          else dict(dataflow=dataflow))
+    for _, m, k, n in resnet.conv_layer_shapes(CONFIG, 256):
+        p = _plan(m, k, n, **kw)
+        tiles = -(-m // p.bm) * -(-n // p.bn)
+        one_wave = tmm.FILL <= p.blocks == tiles <= tmm.SMS
+        assert p.blocks >= tmm.SMS or one_wave, (m, k, n)
+        assert p.chunks == 1 and p.tm >= 4, (m, k, n)
+    for _, m, k, n in resnet.conv_layer_shapes(CONFIG, 1):
+        p = _plan(m, k, n, **kw)
+        assert p.blocks >= -(-m // 64) * -(-n // 64), (m, k, n)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "stem_k27", "misaligned",
+                                  "transposed", "bf16"])
+def test_tile_plan_takes_16_byte_copies_only_where_x_allows(case):
+    """x is staged by 16-byte copies only for fp32 rows that start on 16
+    bytes with a unit k stride; the stem's K = 27, a base 4 bytes off, a
+    transposed view (the backward's x.t()) and bf16 take the 4-byte or
+    plain path."""
+    m, k, n = 262144, 144, 16
+    kw = dict(x_ptr=256)
+    if case == "stem_k27":
+        k = 27
+    elif case == "misaligned":
+        kw = dict(x_ptr=260)
+    elif case == "transposed":
+        p = tmm.tile_plan(m, k, n, 1, m, n, 1)
+        assert not p.vec_x
+        return
+    elif case == "bf16":
+        kw.update(x_bytes=2, w_bytes=2)
+    p = _plan(m, k, n, **kw)
+    assert p.vec_x == (case == "contiguous")
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64])
+def test_tile_plan_skinny_at_m_up_to_16(m):
+    """M <= 16 takes the skinny schedule in every dataflow and for K8;
+    qwen2.5-32b's wo (M = 8, K = 5120) keeps x resident in one K-chunk and
+    streams int8 w by 16-byte copies."""
+    for kw in [dict(dataflow=df) for df in DATAFLOWS] + [dict(w_bytes=1)]:
+        p = _plan(m, 5120, 5120, **kw)
+        assert p.skinny == (m <= 16)
+    if m == 8:
+        p = _plan(*WO, w_bytes=1)
+        assert p.chunks == 1 and p.vec_w and p.blocks == 5120 // 32
+
+
 # ------------------------------------------------------------- on the card
 CARD_SHAPES = SHAPES + [(1, 1, 1), (1024, 27, 16), (1000, 144, 16),
                         (257, 576, 64), (63, 16, 32), (8, 5120, 100),
-                        (3, 0, 5)]
+                        (3, 0, 5)] + [(262144, 27, 16), (262144, 144, 16),
+                                      (65536, 288, 32), (65536, 16, 32),
+                                      (16384, 576, 64), BIG_K, WO]
 
 
 def _card_tol(want, tol=1e-4):
@@ -266,6 +372,24 @@ def test_matmul_kernel_bf16_and_strided_on_card(card, dataflow):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("mkn", [BIG_K, WO])
+def test_matmul_kernel_bf16_strided_large_k_on_card(card, dataflow, mkn):
+    """bf16 where the running sum crosses K-chunks (weight- and
+    input-stationary re-stream it through an f32 buffer) and on the
+    skinny schedule; transposed views on both."""
+    x, w = (a.to(card) for a in map(_t, _xw(15, *mkn)))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    got = tmm.matmul(xb, wb, dataflow=dataflow)
+    want = tref.matmul(xb, wb).float()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2,
+                               atol=2e-2 * max(1.0, float(want.abs().max())))
+    xt, wt = x.t().contiguous().t(), w.t().contiguous().t()
+    got = tmm.matmul(xt, wt, dataflow=dataflow)
+    assert torch.equal(got, tmm.matmul(x, w, dataflow=dataflow))
+
+
+@pytest.mark.gpu
 def test_matmul_backward_on_card(card):
     """The gradients through the kernel against the plain version's."""
     x, w = (a.to(card) for a in map(_t, _xw(12, 300, 144, 32)))
@@ -283,7 +407,10 @@ def test_matmul_backward_on_card(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mkn", [(128, 256, 192), (256, 128, 64),
                                  (1000, 144, 16), (8, 5120, 5120),
-                                 (33, 17, 70)])
+                                 (33, 17, 70), (262144, 27, 16),
+                                 (262144, 144, 16), (65536, 288, 32),
+                                 (65536, 16, 32), (16384, 576, 64), BIG_K,
+                                 (8, 5120, 100)])
 def test_quant_matmul_kernel_matches_plain_version_on_card(card, mkn):
     """K8 against its plain version; on the same dequantized weight it
     equals K7 bit for bit (the same per-element dequantization, the same
