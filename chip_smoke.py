@@ -15,8 +15,10 @@ before printing any result. Phases, each of which raises on failure:
    cases at head_dim 128 (and 16 / 64 / 256), latent paged attention (K4)
    at latent widths 10/8, 64/48, 576/512 and 1024/512, and flash attention
    (K2); then each at the full-width shapes the serving and forward paths
-   give it (qwen2.5-32b, qwen2.5-32b-mla), with the kernel's, the plain
-   version's and one library call's times and the bound. The systolic
+   give it (qwen2.5-32b, qwen2.5-32b-mla; K2 also at hymba-1.5b's first
+   chunk and forward), with the kernel's, the plain version's and one
+   library call's times and the bound (K4's decode time is its two
+   launches, the split over keys and the merge, summed). The systolic
    GEMM (K7) in its three dataflows and the int8-weight GEMM (K8) on the
    CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
    im2col GEMMs at batch 1 and 256 (K8 on per-channel int8 weights),
@@ -137,12 +139,19 @@ Q8_MODEL_TOL = 1e-2
 INACTIVE = 1 << 30
 ARCH = "qwen2.5-32b"
 MLA_ARCH = "qwen2.5-32b-mla"
+RWKV, HYMBA = "rwkv6-7b", "hymba-1.5b"
 LAYERS = 4
 SLOTS, S_MAX, PS = 8, 1024, 16
-# K2 at full width: a serving first chunk (B slots x C) and the forward
-FLASH_SHAPES = {"prefill": (SLOTS, 64), "forward": (4, 1024)}
-# phase 3b's full-sequence prefill step (B, S)
+# phase 3b's full-sequence prefill step (B, S), also hymba's in phase 10
 FORWARD_BATCH = (2, 512)
+# K2 at full width, by row of the kernels line: (arch, B, S) of a serving
+# first chunk (B slots x C) and of a forward
+FLASH_SHAPES = {"prefill": (ARCH, SLOTS, 64), "forward": (ARCH, 4, 1024),
+                "prefill_hymba": (HYMBA, SLOTS, 64),
+                "forward_hymba": (HYMBA, *FORWARD_BATCH)}
+# K4's launches as the profiler names them: the kernel, and at decode the
+# merge of its splits over keys
+LATENT_KERNELS = ("latent_attention_kernel", "latent_merge_kernel")
 # K7 / K8: 1e-4 of the output's largest magnitude (the kernel's one FMA
 # chain per element against the library's blocked fp32 sum); a bf16 output
 # may round one bf16 step apart
@@ -158,7 +167,6 @@ DATAFLOWS = mm.DATAFLOWS
 # the recurrent families (phases 6, 9, 10): repro's init leaves these at
 # zero (a constant decay, no bonus, A = -1 everywhere), which would hide
 # the recurrences; seeded noise of this scale is added to them
-RWKV, HYMBA = "rwkv6-7b", "hymba-1.5b"
 RECURRENT_NOISE = {
     RWKV: {"u": 0.1, "mu": 0.1, "mu_x": 0.1, "lora_B": 0.01, "wB": 0.01},
     HYMBA: {"logA": 0.5},
@@ -182,6 +190,14 @@ DEV = torch.device("cuda")
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ timing
@@ -276,26 +292,40 @@ def split_calls(events, iters: int) -> list:
     return kept
 
 
-def device_times(fns, iters: int, kernel: str | None = None) -> list:
+def device_times(fns, iters: int, kernel=None) -> list:
     """Per entry of ``fns``, the mean device time in ms of what one call
     launches (``profiled_calls``; no host enqueue delay, which an event
-    pair around a tick-sized launch holds). With ``kernel``, only the CUDA
-    kernels whose name holds it count, and each call must launch exactly
-    one (a port kernel); without, everything a call launched counts (a
-    library call, which may launch several kernels)."""
+    pair around a tick-sized launch holds). With ``kernel`` (a name, or a
+    tuple of names for a port kernel that may be a set of launches, such
+    as K4's split over keys and its merge), only the CUDA kernels whose
+    name holds one of them count, and their times are summed; every call
+    must launch the same named kernels in the same order, at least one (a
+    set of more than one logs each launch's time); without, everything a
+    call launched counts (a library call, which may launch several
+    kernels)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     out = []
     for fn in fns:
         calls = profiled_calls(fn, iters)
-        hits = [[us for name, us in c if kernel is None or kernel in name]
-                for c in calls]
-        if kernel is not None and any(len(h) != 1 for h in hits):
-            raise AssertionError(f"profiler: {kernel} launched "
-                                 f"{[len(h) for h in hits]} times per call")
-        out.append(sum(map(sum, hits)) / len(hits) / 1e3)
+        if names is not None:
+            calls = [[(next(k for k in names if k in name), us)
+                      for name, us in c if any(k in name for k in names)]
+                     for c in calls]
+            seen = {tuple(name for name, _ in c) for c in calls}
+            if len(seen) != 1 or not calls[0]:
+                raise AssertionError(f"profiler: {names} launched as "
+                                     f"{sorted(seen)} per call")
+            if len(calls[0]) > 1:
+                each = [sum(c[i][1] for c in calls) / len(calls) / 1e3
+                        for i in range(len(calls[0]))]
+                log("    (" + " + ".join(
+                    f"{name} {t:.4f}" for (name, _), t in
+                    zip(calls[0], each)) + " ms)")
+        out.append(sum(us for c in calls for _, us in c) / len(calls) / 1e3)
     return out
 
 
-def device_ms(fn, iters: int, kernel: str | None = None) -> float:
+def device_ms(fn, iters: int, kernel=None) -> float:
     """``device_times`` of one call: the kernel's own time (``kernel``) or
     a library call's."""
     return device_times([fn], iters, kernel)[0]
@@ -677,7 +707,7 @@ def phase2_latent_full_width():
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention_latent(
             *args, scale_dim=scale_dim, d_v=c, kind=kind), 50,
-            "latent_attention_kernel")
+            LATENT_KERNELS)
         plain = time_ms(lambda: ref.paged_attention_latent(
             *args, scale_dim=scale_dim, d_v=c), 10)
         lib_ms = device_ms(lib, 10)
@@ -763,27 +793,38 @@ def flash_bound_ms(args, causal=True, window=0) -> tuple:
 
 
 def phase2_flash_full_width():
-    """K2 at the shapes qwen2.5-32b gives it: 40 query heads over 8 kv
-    heads, head_dim 128, causal; a serving first chunk and the forward."""
-    cfg = configs.get_config(ARCH)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    """K2 at the shapes the models give it (``FLASH_SHAPES``), a serving
+    first chunk and a forward each: qwen2.5-32b's 40 query heads over 8 kv
+    heads at head_dim 128, causal, and hymba-1.5b's 25 over 5 at head_dim
+    64 with its 1024-row window, which phase 10 runs. The library call is
+    SDPA, causal (the window is wider than the sequence, so it masks
+    nothing more)."""
     out = {}
-    for kind, (B, S) in FLASH_SHAPES.items():
+    for kind, (arch, B, S) in FLASH_SHAPES.items():
+        cfg = configs.get_config(arch)
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        window = cfg.window or 0
+        if window and window < S:
+            raise AssertionError(f"{arch}: the SDPA yardstick is causal, but "
+                                 f"the window {window} < S = {S}")
         args = flash_case(40, B, S, S, H, KV, hd)
-        err = check_flash(f"full width flash {kind} (B={B}, S={S}, H={H}, "
-                          f"KV={KV}, hd={hd})", args, kind=kind)
+        count = kind.split("_")[0]
+        err = check_flash(f"full width flash {kind} ({arch}: B={B}, S={S}, "
+                          f"H={H}, KV={KV}, hd={hd}, window={window})", args,
+                          window=window, kind=count)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
-        want = ref.flash_attention(*args)
+        want = ref.flash_attention(*args, window=window)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         del want
-        iters = 50 if kind == "prefill" else 10
-        ms = device_ms(lambda: fa.flash_attention(*args, kind=kind), iters,
-                       "flash_attention_kernel")
-        plain = time_ms(lambda: ref.flash_attention(*args), 5)
+        iters = 50 if count == "prefill" else 10
+        ms = device_ms(lambda: fa.flash_attention(
+            *args, window=window, kind=count), iters,
+            "flash_attention_kernel")
+        plain = time_ms(lambda: ref.flash_attention(*args, window=window), 5)
         lib_ms = device_ms(lib, iters)
-        bms, by = flash_bound_ms(args)
+        bms, by = flash_bound_ms(args, window=window)
         log(f"  flash {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by})")
@@ -1372,7 +1413,8 @@ def phase7_mla(card):
     """qwen2.5-32b-mla at full width cut to 4 layers: the model step on
     latent pages through K4 against the latent einsum, then the 16
     requests on the dense latent cache (einsum only, no kernel) and on
-    latent pages (every paged attention through K4); streams compared."""
+    latent pages (every paged attention through K4); streams compared.
+    Returns K4's launches and each cache's serving metrics."""
     t0 = time.perf_counter()
     dense = ServeEngine.build(MLA_ARCH, config=ServeConfig(
         reduced=False, cfg_overrides={"num_layers": LAYERS}, s_max=S_MAX,
@@ -1384,6 +1426,7 @@ def phase7_mla(card):
     mps = S_MAX // PS
     phase3_model(model, params, PagedLatentBackend(PS, SLOTS * mps),
                  "latent pages")
+    served = {}
     prompts = serve_prompts(model.cfg.vocab_size)
 
     pa.reset_launches()
@@ -1394,6 +1437,7 @@ def phase7_mla(card):
                              f"{pa.LAUNCHES}, {fa.LAUNCHES}")
     log("  dense latent cache (no kernel):")
     log_serving(m, card)
+    served["dense_latent"] = m
     del dense
     torch.cuda.empty_cache()
 
@@ -1410,13 +1454,14 @@ def phase7_mla(card):
                                     "latent paged-attention (K4)")
     paged.assert_page_invariants()
     log_serving(m, card)
+    served["latent_pages"] = m
     log(f"  prefix: {m['prefix']['hits']} hits of {m['prefix']['lookups']} "
         f"lookups, {m['prefix']['cow_copies']} COW copies")
     compare_streams("dense latent", (d_reqs, d_firsts), "latent pages",
                     (p_reqs, p_firsts))
     del paged, model, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, served
 
 
 # ------------------------------------------------ phase 2: GEMMs (K7, K8)
@@ -2173,10 +2218,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("phase 1: card and build")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -2231,7 +2273,7 @@ def main():
     log("phase 6: prefill anchors at reduced width")
     phase6_anchors()
     log("phase 7: qwen2.5-32b-mla at full width, 4 layers")
-    latent_launches = phase7_mla(card)
+    latent_launches, _ = phase7_mla(card)
     log("phase 8: ResNet20 / CIFAR at the paper's widths, lax vs im2col "
         "vs K7")
     gemm_launches, _ = phase8_resnet(card)
@@ -2242,8 +2284,8 @@ def main():
     scan_launches = {"wkv6": phase9_rwkv(card)}
     log(f"phase 10: {HYMBA} at full width, {HYMBA_LAYERS} layers, K6")
     scan_launches["selective_scan"], hymba_flash = phase10_hymba(card)
-    for kind, n in hymba_flash.items():
-        flash_launches[kind] += n
+    flash_launches["prefill_hymba"] = hymba_flash["prefill"]
+    flash_launches["forward_hymba"] = hymba_flash["forward"]
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -2262,14 +2304,14 @@ def main():
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": f["library_ms"]})
-    for kind in ("prefill", "forward"):
+    for kind in FLASH_SHAPES:
         f = flash_full[kind]
         kernels.append({
             "name": f"flash_attention[{kind}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:26",
             "launches": flash_launches[kind],
-            "max_abs_err": max(flash_errs[kind], f["err"]),
+            "max_abs_err": max(flash_errs[kind.split("_")[0]], f["err"]),
             "ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})

@@ -21,6 +21,10 @@ import tempfile
 import time
 from typing import Dict, Iterable
 
+# the card the kernels are built for (H100 SXM): its SMs and a block's
+# largest dynamic shared memory; the wrappers size their grids by these
+SMS, SMEM_MAX = 132, 232_448
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -58,7 +58,14 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_commit;
+using repro::cp_wait;
 
 constexpr int THREADS = 256;
 constexpr int BK = 16;                // k-depth of one ring stage
@@ -130,36 +137,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   v[0] = __low2float(a); v[1] = __high2float(a);
   v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// cp.async of 16 or 4 bytes; `in` false fills the destination with zeros.
-// With PREFETCH the 16-byte copy asks L2 for the whole 128-byte line, so
-// a row of x read 64 bytes per ring stage comes from device memory in
-// 128-byte stretches (the next stage's 64 bytes then hit in L2).
-template <bool PREFETCH = false>
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  if constexpr (PREFETCH)
-    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
-                 ::"r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-  else
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows x cols of x at (m0, k0) as f32 into dst (row pitch `pitch`), zeros

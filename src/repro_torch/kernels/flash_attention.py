@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
 # kernel launches per caller ("prefill": ops.flash_prefill, "forward":
 # ops.flash_attention): plain integers, raised by one exactly where the
@@ -31,11 +31,10 @@ def reset_launches():
 
 
 def _lib():
-    from repro_torch.kernels import _build
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -91,7 +90,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
-                     int(window), 1.0 / math.sqrt(hd), stream)
+                     int(window), _build.SMS, 1.0 / math.sqrt(hd), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -18,14 +18,13 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import SMEM_MAX, SMS
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
 
-# the card (H100 SXM): SMs and a block's dynamic shared memory; a grid of
-# FILL blocks or more fills it (ResNet20's N = 64 GEMMs at batch 256 are
-# 128 tiles of 8 x 4 micro-tiles: one wave on 128 of the 132 SMs)
-SMS = 132
-SMEM_MAX = 232_448
+# a grid of FILL blocks or more fills the card (ResNet20's N = 64 GEMMs at
+# batch 256 are 128 tiles of 8 x 4 micro-tiles: one wave on 128 of the 132
+# SMs)
 FILL = 120
 # csrc/matmul.cu's tiled kernel: 256 threads, BK-deep ring stages of x
 # (row pitch LDX floats), an N-tile per BN in TILE_N, TM rows of 4 columns

@@ -10,15 +10,20 @@ kernel in ``csrc/paged_attention.cu`` (it replaces the Pallas kernels
 ``csrc/paged_attention_latent.cu`` (replacing ``::_kernel_latent``), or
 they raise; on a CPU tensor each runs its plain version in
 ``kernels.ref``. There is no other route and no fallback.
+:func:`latent_plan` chooses the latent kernel's row tile, ring depth and
+split over keys from the shapes, in Python, so that the CPU tests can check
+the choice; the kernel checks the plan it is given.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import SMEM_MAX, SMS
 
 # kernel launches per caller: plain integers, raised by one exactly where a
 # kernel is launched, so a run can show that its attention went through the
@@ -30,6 +35,12 @@ LAUNCHES = {"decode": 0, "prefill": 0, "decode_q8": 0, "prefill_q8": 0,
 MAX_HEAD_DIM = 256
 MAX_LATENT_WIDTH = 1024
 
+# csrc/paged_attention_latent.cu: 512 threads, key tiles of 16 rows, row
+# tiles of 32 or 16 query rows, a ring of 2 or 3 key tiles
+LATENT_THREADS, LATENT_KEY_TILE = 512, 16
+LATENT_ROWS = (32, 16)
+LATENT_MAX_SPLITS = 1024
+
 _FN = {"f32": ("paged_attention", "repro_paged_attention_f32",
                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                + [ctypes.c_float, ctypes.c_void_p]),
@@ -38,8 +49,76 @@ _FN = {"f32": ("paged_attention", "repro_paged_attention_f32",
               + [ctypes.c_float, ctypes.c_void_p]),
        "latent": ("paged_attention_latent",
                   "repro_paged_attention_latent_f32",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                   + [ctypes.c_float, ctypes.c_void_p])}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _latent_smem(rows: int, Lw: int, stages: int) -> int:
+    """Bytes of the latent kernel's shared memory (its ``layout``): Q and
+    ``stages`` key tiles of rows padded to a multiple of the L slices (plus
+    4 floats of pitch), the slices' partial scores, P and the row stats."""
+    slices = LATENT_THREADS // rows
+    lp = slices * _cdiv(_cdiv(Lw, 4), slices) * 4 + 4
+    kt = LATENT_KEY_TILE
+    return 4 * (rows * lp + stages * kt * lp + slices * rows * kt
+                + kt * (rows + 4) + 3 * rows)
+
+
+@dataclass(frozen=True)
+class LatentPlan:
+    """How the latent kernel runs one call: ``rows`` flattened query rows
+    per block, ``stages`` key tiles in its ring, ``splits`` blocks sharing each
+    (slot, row tile)'s keys (more than 1: a merge kernel follows), ``vec``
+    16-byte staging; ``smem`` bytes of shared memory per block."""
+    rows: int
+    stages: int
+    splits: int
+    vec: bool
+    smem: int
+
+    def c_args(self) -> tuple:
+        return (self.rows, self.stages, self.splits, int(self.vec))
+
+
+def latent_plan(B: int, n_rows: int, Lw: int, d_v: int, n_keys: int, *,
+                q_ptr: int = 0, pool_ptr: int = 0) -> LatentPlan:
+    """The plan for B slots of ``n_rows`` = H * Sq flattened query rows
+    over latent rows of ``Lw`` floats (values: the first ``d_v``) and at
+    most ``n_keys`` = mps * page_size keys a slot.
+
+    Of the row tiles whose value columns cover d_v (a row group of 8 rows
+    spans 512 / (rows / 8) threads of a float4 column each) and whose
+    shared memory fits with a 2-stage ring, the one that pads the rows
+    least, 32 on a tie (a staged key row serves more query rows); then 3
+    stages where they fit. The split over keys: one where the (slot, row
+    tile) pairs fill the SMs (a prefill chunk), else as many as give about
+    two blocks per SM (a decode tick), at most one per key tile; the kernel
+    divides each slot's live key tiles among them on the device."""
+    if not 1 <= d_v <= Lw <= MAX_LATENT_WIDTH:
+        raise ValueError(f"latent_plan: need 1 <= d_v <= Lw <= "
+                         f"{MAX_LATENT_WIDTH}, got d_v={d_v}, Lw={Lw}")
+    best = None
+    for rows in LATENT_ROWS:
+        if (LATENT_THREADS // (rows // 8) * 4 < d_v
+                or _latent_smem(rows, Lw, 2) > SMEM_MAX):
+            continue
+        padded = _cdiv(n_rows, rows) * rows
+        if best is None or padded < best[0]:
+            best = (padded, rows)
+    _, rows = best
+    stages = 3 if _latent_smem(rows, Lw, 3) <= SMEM_MAX else 2
+    pairs = B * _cdiv(n_rows, rows)
+    splits = 1
+    if pairs < SMS:
+        splits = max(1, min(_cdiv(n_keys, LATENT_KEY_TILE),
+                            _cdiv(2 * SMS, pairs), LATENT_MAX_SPLITS))
+    vec = Lw % 4 == 0 and q_ptr % 16 == 0 and pool_ptr % 16 == 0
+    return LatentPlan(rows, stages, splits, vec,
+                      _latent_smem(rows, Lw, stages))
 
 
 def reset_launches():
@@ -197,13 +276,25 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim: int,
         raise ValueError(f"paged_attention_latent kernel takes latent rows "
                          f"of at most {MAX_LATENT_WIDTH} floats, got {Lw}")
     P, ps = pool_c.shape[:2]
+    mps = block_tables.shape[1]
+    plan = latent_plan(B, H * Sq, Lw, d_v, mps * ps, q_ptr=q.data_ptr(),
+                       pool_ptr=pool_c.data_ptr())
     out = torch.empty((B, Sq, H, d_v), dtype=q.dtype, device=q.device)
+    part_o = part_ml = None
+    if plan.splits > 1:
+        part_o = torch.empty((B, plan.splits, H * Sq, d_v),
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, plan.splits, H * Sq, 2),
+                              dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib("latent")(
             q.data_ptr(), pool_c.data_ptr(), block_tables.data_ptr(),
-            start.data_ptr(), out.data_ptr(), B, Sq, H, Lw, d_v, P, ps,
-            block_tables.shape[1], 1.0 / math.sqrt(scale_dim), stream)
+            start.data_ptr(), out.data_ptr(),
+            part_o.data_ptr() if part_o is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None,
+            B, Sq, H, Lw, d_v, P, ps, mps, *plan.c_args(),
+            1.0 / math.sqrt(scale_dim), stream)
     if err:
         raise RuntimeError(f"paged_attention_latent kernel launch failed: "
                            f"CUDA error {err}")

@@ -15,8 +15,10 @@ and the tail splice re-quantizes it) and for the reduced qwen2.5-32b-mla
 explicit, prefix on and off; one-page latent pages bit-equal to the dense
 latent cache in the port), and for int8 weight quantization
 (``quantize_int8``: the reference's quantized engine against the port's
-engine over the same weights quantized in the port, dense and paged; the
-port's own build and ``--quantize-int8``). The recurrent families on
+engine over the same weights quantized in the port, dense and paged, for
+qwen, rwkv6 and hymba's dense and paged ring; the port's own build and
+``--quantize-int8``). codeqwen1.5-7b and minicpm-2b (tied embeddings)
+give the reference's streams on pages of 16 and on the dense cache. The recurrent families on
 perturbed weights: rwkv6 (dense parallel and scan prefill, its ignored
 page size) and hymba (dense ring with parallel, flash-path and scan
 prefill; the paged ring with pages of 4 rows) give the reference's
@@ -102,21 +104,52 @@ def _port_engine(ref, prefix_cache=None, **fields):
         prefix_cache=prefix_cache, device="cpu", **fields).engine_kwargs())
 
 
-@pytest.mark.parametrize("prefix_cache", [None, False])
-def test_greedy_streams_equal_reference(reference, prefix_cache):
-    """Same weights, same requests: identical greedy streams and identical
-    prefix-cache counters (lookups, hits, hit tokens, shared pages, COW
-    copies, evictions), with the prefix cache on by itself and off."""
-    ref = reference
+@pytest.fixture(scope="module")
+def references(reference):
+    """arch -> the reference engine as a user builds it (pages of 16),
+    built once."""
+    built = {reference.cfg.name: reference}
+
+    def get(arch):
+        if arch not in built:
+            built[arch] = JEngine.build(
+                arch, config=JConfig(page_size=PS, s_max=S_MAX))
+        return built[arch]
+    return get
+
+
+# (arch, page_size, prefix_cache): qwen with the prefix cache on by itself
+# and off; the other dense archs (codeqwen, and minicpm's tied embeddings)
+# on pages of 16 and on the dense cache
+GREEDY_CASES = [
+    pytest.param("qwen2.5-32b", PS, None, id="None"),
+    pytest.param("qwen2.5-32b", PS, False, id="False"),
+] + [pytest.param(arch, ps, None, id=f"{arch}-{name}")
+     for arch in ("codeqwen1.5-7b", "minicpm-2b")
+     for name, ps in (("paged", PS), ("dense", None))]
+
+
+@pytest.mark.parametrize("arch,page_size,prefix_cache", GREEDY_CASES)
+def test_greedy_streams_equal_reference(references, arch, page_size,
+                                        prefix_cache):
+    """Same weights, same requests: identical greedy streams and, on
+    pages, identical prefix-cache counters (lookups, hits, hit tokens,
+    shared pages, COW copies, evictions), with the prefix cache on by
+    itself and off."""
+    ref = references(arch)
     jeng = JEngine(ref.model, ref.params, **JConfig(
-        page_size=PS, s_max=S_MAX, prefix_cache=prefix_cache).engine_kwargs())
-    teng = _port_engine(ref, prefix_cache=prefix_cache)
-    assert teng.prefix_cache == jeng.prefix_cache
+        page_size=page_size, s_max=S_MAX,
+        prefix_cache=prefix_cache).engine_kwargs())
+    teng = _port_engine(ref, prefix_cache=prefix_cache, page_size=page_size)
+    assert (teng.paged, teng.prefix_cache) == (jeng.paged, jeng.prefix_cache)
+    assert teng.paged == (page_size is not None)
     waves = _waves(ref.cfg.vocab_size)
     want = _serve(jeng, waves)
     got = _serve(teng, waves)
     assert got == want
     assert all(len(s) == GEN for s in got)
+    if not teng.paged:
+        return
     jp, tp = jeng.metrics.summary()["prefix"], teng.metrics.summary()["prefix"]
     assert {k: v for k, v in tp.items() if k != "hit_rate"} == \
         {k: v for k, v in jp.items() if k != "hit_rate"}
@@ -367,16 +400,25 @@ def test_cli_kv_backend_reaches_the_engine(monkeypatch, capsys):
 
 
 # ------------------------------------------------- int8 weight quantization
-@pytest.mark.parametrize("page_size", [PS, None])
-def test_quantize_int8_streams_equal_reference(page_size):
+# (arch, page_size): qwen paged and dense; rwkv6 dense (it has nothing to
+# page); hymba's dense ring and its paged ring (pages of 4 rows)
+QUANT_CASES = [pytest.param("qwen2.5-32b", PS, id=str(PS)),
+               pytest.param("qwen2.5-32b", None, id="None"),
+               pytest.param("rwkv6-7b", None, id="rwkv6-7b-None"),
+               pytest.param("hymba-1.5b", None, id="hymba-1.5b-None"),
+               pytest.param("hymba-1.5b", 4, id="hymba-1.5b-4")]
+
+
+@pytest.mark.parametrize("arch,page_size", QUANT_CASES)
+def test_quantize_int8_streams_equal_reference(arch, page_size):
     """The reference engine built with ``quantize_int8=True`` against the
     port's engine over the reference's ``model.init`` weights, bridged and
     quantized in the port (per-channel int8, then dequantized to f32):
     the served weights are bit-equal and the greedy streams equal, on the
-    paged cache and on the dense one."""
+    paged cache and on the dense one, for the dense, SSM and hybrid
+    families."""
     fields = dict(page_size=page_size, s_max=S_MAX)
-    jeng = JEngine.build("qwen2.5-32b", config=JConfig(quantize_int8=True,
-                                                       **fields))
+    jeng = JEngine.build(arch, config=JConfig(quantize_int8=True, **fields))
     raw = jeng.model.init(jax.random.PRNGKey(JConfig().seed))
     params = tq.dequantize_params(tq.quantize_params(
         bridge.params_from_numpy(jax.tree.map(np.asarray, raw), "cpu")),
@@ -386,10 +428,10 @@ def test_quantize_int8_streams_equal_reference(page_size):
     assert len(served) == len(mine)
     for a, b in zip(mine, served):
         np.testing.assert_array_equal(a, b)
-    model = treg.get_model(treg.reduced_config(
-        tconfigs.get_config("qwen2.5-32b")))
+    model = treg.get_model(treg.reduced_config(tconfigs.get_config(arch)))
     teng = TEngine(model, params, **TConfig(device="cpu",
                                             **fields).engine_kwargs())
+    assert teng.paged == jeng.paged
     waves = _waves(jeng.cfg.vocab_size)
     assert _serve(teng, waves) == _serve(jeng, waves)
 

@@ -140,7 +140,22 @@ CARD_CASES = [dict(B=2, Sq=c["Sq"], Sk=c["Sk"], H=c["H"], KV=c["KV"],
               for hd in (16, 64, 128, 256) for c in CASES] + \
     [dict(B=3, Sq=c, Sk=c, H=H, KV=KV, causal=True, window=w, hd=128)
      for c in (1, 2, 37, 64, 100) for H, KV in ((8, 8), (40, 8), (8, 1))
-     for w in (0, 64)]
+     for w in (0, 64)] + \
+    [  # lengths off the 64-row and 64-key tiles, Sq != Sk both ways
+     dict(B=2, Sq=300, Sk=1000, H=40, KV=8, causal=True, window=0, hd=128),
+     dict(B=2, Sq=1000, Sk=300, H=40, KV=8, causal=False, window=0, hd=128),
+     # a window of 64 over 1,000 rows: whole K/V tiles skipped per block
+     dict(B=1, Sq=1000, Sk=1000, H=10, KV=2, causal=True, window=64, hd=64),
+     dict(B=1, Sq=1000, Sk=1000, H=8, KV=1, causal=False, window=64,
+          hd=128),
+     # grids that fill the card (head_dim 128 takes 128 x 128 tiles)
+     dict(B=2, Sq=1000, Sk=1000, H=40, KV=8, causal=True, window=0, hd=128),
+     dict(B=2, Sq=700, Sk=700, H=40, KV=8, causal=True, window=100,
+          hd=128),
+     # G = 8 at head_dim 256; head_dims off the buckets
+     dict(B=2, Sq=300, Sk=300, H=8, KV=1, causal=True, window=0, hd=256),
+     dict(B=2, Sq=100, Sk=130, H=6, KV=2, causal=True, window=0, hd=4),
+     dict(B=1, Sq=70, Sk=70, H=5, KV=1, causal=False, window=16, hd=196)]
 
 
 @pytest.mark.gpu

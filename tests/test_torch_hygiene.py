@@ -1,7 +1,7 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax`` or any ``repro`` module (an AST scan of
-every import), and importing every module of the port in a fresh
-interpreter loads no ``jax``."""
+"""The port stands alone: nothing under ``src/repro_torch/``, nor
+``chip_smoke.py`` or ``chip_ab.py``, imports ``jax`` or any ``repro``
+module (an AST scan of every import), and importing every module of the
+port in a fresh interpreter loads no ``jax``."""
 import ast
 import os
 import pathlib
@@ -17,7 +17,8 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "chip_ab.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"kernels/flash_attention.py", "kernels/paged_attention.py",

@@ -365,22 +365,114 @@ def test_q8_kernel_matches_plain_version_on_card(cfg):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
+def _latent_edges(seed, B, Sq, H, Lw, ps, mps, start, holes=None,
+                  spare=None):
+    """``_latent_case`` plus edges of the kernel's key split: ``holes``
+    {slot: page indices} unallocated inside a live slot's range, ``spare``
+    {slot: n} pages allocated past its last row. Returns the inputs and
+    the pool with every row no query can see set to NaN (the kernel never
+    reads those rows; the plain version runs on the clean pool)."""
+    q, pool, bt, start = _latent_case(seed, B, Sq, H, Lw, ps, mps, start)
+    free = sorted(set(range(pool.shape[0])) - set(bt[bt >= 0].tolist()))
+    for b, n in (spare or {}).items():
+        need = -(-int(start[b] + Sq) // ps)
+        bt[b, need:need + n] = free[:n]
+        free = free[n:]
+    for b, idx in (holes or {}).items():
+        bt[b, list(idx)] = -1
+    seen = np.zeros(pool.shape[:2], bool)
+    for b in range(B):
+        if start[b] < INACTIVE:
+            for r in range(int(start[b]) + Sq):
+                if bt[b, r // ps] >= 0:
+                    seen[bt[b, r // ps], r % ps] = True
+    poisoned = np.where(seen[:, :, None, None], pool, np.nan)
+    return q, pool, poisoned.astype(np.float32), bt, start
+
+
+# (Sq, (Lw, d_v, scale_dim), B, page_size, mps, starts, holes, spare)
+LATENT_CARD_CASES = [
+    (Sq, w, 4, 16, 4, [13, 7, INACTIVE, 60 - Sq], None, None)
+    for w in ((10, 8, 16), (64, 48, 96), (576, 512, 192)) for Sq in (1, 4)
+] + [
+    # decode of 40 heads over 700+ live rows at the full width (many
+    # splits): a fill ending mid-page (732), a freed slot beside a full
+    # one (1024 rows), and a slot of 100 rows with 4 unallocated pages
+    # (splits whose range holds only -1 pages) and 8 pages allocated past
+    # its frontier
+    (1, (576, 512, 192), 4, 16, 64, [731, INACTIVE, 1023, 99],
+     {3: range(2, 6)}, {3: 8}),
+    # a 37-row chunk: a freed slot beside a full one, a fill ending
+    # mid-page, pages of 8 rows (two per key tile)
+    (37, (576, 512, 192), 3, 8, 32, [INACTIVE, 256 - 37, 45], None,
+     {2: 3}),
+    # the widest rows (a 2-stage ring), values as wide as the rows
+    (1, (1024, 1024, 192), 2, 16, 32, [200, 511], {1: [5]}, {0: 2}),
+    (4, (1024, 512, 192), 2, 16, 32, [300, 40], None, None),
+    # rows that are not a multiple of 4 floats (4-byte staging), many
+    # splits, pages of 4 rows
+    (1, (10, 8, 16), 3, 4, 64, [250, INACTIVE, 17], {0: range(10, 30)},
+     {2: 5}),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("Sq", [1, 4])
-@pytest.mark.parametrize("widths", [(10, 8, 16), (64, 48, 96),
-                                    (576, 512, 192)])
-def test_latent_kernel_matches_plain_version_on_card(Sq, widths):
-    """The latent kernel (K4) against its plain version on the card, with a
-    freed slot, at the reduced, a middle and the full latent width."""
+@pytest.mark.parametrize("case", LATENT_CARD_CASES)
+def test_latent_kernel_matches_plain_version_on_card(case):
+    """The latent kernel (K4) against its plain version on the card: the
+    reduced, a middle and the full latent width with a freed slot; decode
+    split over many blocks at 700+ live rows; split ranges of only -1
+    pages or wholly past the frontier; a freed slot beside a full one
+    (exact zeros); fills ending mid-page; the widest rows. Rows no query
+    can see are NaN in the kernel's pool and never reach its output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    Lw, d_v, scale_dim = widths
-    q, pool, bt, start = _latent_case(16, 4, Sq, 40, Lw, 16, 4,
-                                      [13, 7, INACTIVE, 60 - Sq])
-    args = [torch.from_numpy(a).cuda() for a in (q, pool, bt, start)]
-    got = pa.paged_attention_latent(*args, scale_dim=scale_dim, d_v=d_v,
-                                    kind="prefill_latent")
-    want = tref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=d_v)
+    Sq, (Lw, d_v, scale_dim), B, ps, mps, start, holes, spare = case
+    q, clean, poisoned, bt, start = _latent_edges(
+        16, B, Sq, 40, Lw, ps, mps, start, holes, spare)
+    q, clean, poisoned, bt, start = (torch.from_numpy(a).cuda() for a in (
+        q, clean, poisoned, bt, start))
+    kind = "decode_latent" if Sq == 1 else "prefill_latent"
+    got = pa.paged_attention_latent(q, poisoned, bt, start,
+                                    scale_dim=scale_dim, d_v=d_v, kind=kind)
+    want = tref.paged_attention_latent(q, clean, bt, start,
+                                       scale_dim=scale_dim, d_v=d_v)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
-    assert torch.all(got[2] == 0)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            assert torch.all(got[b] == 0)
+
+
+# (B, H * Sq, Lw, d_v, mps * page_size) -> (rows, stages, splits)
+LATENT_PLANS = [
+    ((8, 2560, 576, 512, 1024), (32, 3, 1)),    # full-width prefill chunk
+    ((8, 40, 576, 512, 1024), (16, 3, 11)),     # full-width decode tick
+    ((3, 40, 1024, 512, 64), (16, 2, 4)),       # widest rows, 4 key tiles
+    ((2, 40, 1024, 1024, 512), (16, 2, 32)),    # values as wide as rows
+    ((4, 160, 64, 48, 64), (32, 3, 4)),         # a tie pads least at 32
+    ((4, 1480, 10, 8, 1024), (16, 3, 1)),       # 16 pads less; fills
+]
+
+
+@pytest.mark.parametrize("shape,want", LATENT_PLANS)
+def test_latent_plan(shape, want):
+    """latent_plan: the row tile that pads least (32 on a tie) whose value
+    columns and 2-stage ring fit, 3 stages where they fit, no split where
+    the (slot, row tile) pairs fill the SMs, else about two blocks per SM
+    capped at one per key tile; its shared memory fits the card."""
+    plan = pa.latent_plan(*shape, q_ptr=256, pool_ptr=512)
+    assert (plan.rows, plan.stages, plan.splits) == want
+    assert plan.smem <= pa.SMEM_MAX and plan.vec == (shape[2] % 4 == 0)
+    assert pa.LATENT_THREADS // (plan.rows // 8) * 4 >= shape[3]
+    if plan.stages == 2:
+        assert pa._latent_smem(plan.rows, shape[2], 3) > pa.SMEM_MAX
+    assert plan.c_args() == want + (int(plan.vec),)
+
+
+def test_latent_plan_rejects_and_unaligned():
+    assert not pa.latent_plan(2, 40, 576, 512, 64, q_ptr=8).vec
+    with pytest.raises(ValueError, match="d_v"):
+        pa.latent_plan(2, 40, 576, 600, 64)
+    with pytest.raises(ValueError, match="d_v"):
+        pa.latent_plan(2, 40, 2048, 512, 64)
