@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Two trees of the port on one NVIDIA card, timed in turns: the
-full-width attention rows of ``chip_smoke.py`` phase 2 (K4, latent paged
-attention, and K2, flash attention) and phase 7's serving of
-qwen2.5-32b-mla (4 layers) on the dense latent cache and on latent pages.
+full-width attention rows of ``chip_smoke.py`` phase 2 (K1 and K3, paged
+attention over fp32 and int8 pages; K4, latent paged attention; K2, flash
+attention), phases 4 and 4b's serving of qwen2.5-32b (4 layers) on fp32
+and int8 pages, and phase 7's serving of qwen2.5-32b-mla (4 layers) on
+the dense latent cache and on latent pages.
 
     python3 chip_ab.py OTHER_TREE
 
@@ -12,11 +14,12 @@ OTHER_TREE is another checkout of the repository, unpacked with
 the order other, this, this, other. A worker imports the ``repro_torch``
 package of its tree first, so this tree's ``chip_smoke`` then builds and
 launches that tree's kernels (into that tree's own build directory), and
-runs ``phase2_latent_full_width``, ``phase2_flash_full_width`` and
-``phase7_mla`` as they are. Prints each worker's lines, then one JSON
-object ``{"ab": [{"tree": ..., "card": ..., "kernels": {...}, "serving":
-{...}}, ...]}`` with the turns in order. Needs CUDA; exits nonzero if any
-worker fails.
+runs ``phase2_full_width``, ``phase2_q8_full_width``,
+``phase2_latent_full_width``, ``phase2_flash_full_width``,
+``phase4_serve``, ``phase4b_serve_int8`` and ``phase7_mla`` as they are.
+Prints each worker's lines, then one JSON object ``{"ab": [{"tree": ...,
+"card": ..., "kernels": {...}, "serving": {...}}, ...]}`` with the turns
+in order. Needs CUDA; exits nonzero if any worker fails.
 """
 from __future__ import annotations
 
@@ -39,11 +42,32 @@ def worker(tree: pathlib.Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_name()
     cs.log(f"worker: {pathlib.Path(repro_torch.__file__).parent} on {card}")
-    rows = {f"paged_attention_latent[{kind.split('_')[0]}]": f
-            for kind, f in cs.phase2_latent_full_width().items()}
+    rows = {}
+    for name, phase in (("paged_attention", cs.phase2_full_width),
+                        ("paged_attention_q8", cs.phase2_q8_full_width),
+                        ("paged_attention_latent",
+                         cs.phase2_latent_full_width)):
+        rows.update({f"{name}[{kind.split('_')[0]}]": f
+                     for kind, f in phase().items()})
     rows.update({f"flash_attention[{kind}]": f
                  for kind, f in cs.phase2_flash_full_width().items()})
-    _, served = cs.phase7_mla(card)
+
+    # phases 4 and 4b: qwen2.5-32b (4 layers) on fp32 and int8 pages
+    dense = cs.ServeEngine.build(cs.ARCH, config=cs.ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": cs.LAYERS},
+        s_max=cs.S_MAX, batch_slots=cs.SLOTS))
+    model, params = dense.model, dense.params
+    prompts = cs.serve_prompts(dense.cfg.vocab_size)
+    _, reqs, firsts, nbytes, m_fp32 = cs.phase4_serve(model, params,
+                                                      prompts, card)
+    _, m_int8 = cs.phase4b_serve_int8(model, params, prompts, card,
+                                      (reqs, firsts, nbytes))
+    served = {"fp32 pages": m_fp32, "int8 pages": m_int8}
+    del dense, model, params
+    torch.cuda.empty_cache()
+
+    _, mla = cs.phase7_mla(card)
+    served.update({f"mla {cache}": m for cache, m in mla.items()})
     serving = {cache: {"ttft_p50_ms": m["ttft_s"]["p50"] * 1e3,
                        "itl_p50_ms": m["itl_s"]["p50"] * 1e3,
                        "tok_per_s": m["throughput_tokens_per_s"]}

@@ -12,15 +12,16 @@ before printing any result. Phases, each of which raises on failure:
    started together) and time the build.
 2. every kernel against its plain PyTorch version on the card: paged
    attention over fp32 pools (K1) and over int8 pools (K3) on the test
-   cases at head_dim 128 (and 16 / 64 / 256), latent paged attention (K4)
+   cases at head_dim 128 (and 16 / 64 / 256) and at the edges of their
+   split over keys (``SPLIT_EDGES``), latent paged attention (K4)
    at latent widths 10/8, 64/48, 576/512 and 1024/512, and flash attention
    (K2); then each at the full-width shapes the serving and forward paths
    give it (qwen2.5-32b, qwen2.5-32b-mla; K2 also at hymba-1.5b's first
    chunk and forward), with the kernel's, the plain version's and one
-   library call's times and the bound (K4's decode time is its two
-   launches, the split over keys and the merge, summed). The systolic
-   GEMM (K7) in its three dataflows and the int8-weight GEMM (K8) on the
-   CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
+   library call's times and the bound (K1's, K3's and K4's decode time
+   is their two launches, the split over keys and the merge, summed). The
+   systolic GEMM (K7) in its three dataflows and the int8-weight GEMM (K8)
+   on the CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
    im2col GEMMs at batch 1 and 256 (K8 on per-channel int8 weights),
    qwen2.5-32b's wo at M = 8 and bf16 cases; then both timed over the 21
    GEMMs of a batch-256 forward, and at wo. Every kernel's time and every
@@ -149,9 +150,12 @@ FORWARD_BATCH = (2, 512)
 FLASH_SHAPES = {"prefill": (ARCH, SLOTS, 64), "forward": (ARCH, 4, 1024),
                 "prefill_hymba": (HYMBA, SLOTS, 64),
                 "forward_hymba": (HYMBA, *FORWARD_BATCH)}
-# K4's launches as the profiler names them: the kernel, and at decode the
-# merge of its splits over keys
-LATENT_KERNELS = ("latent_attention_kernel", "latent_merge_kernel")
+# K1 / K3's and K4's launches as the profiler names them: the kernel, and
+# where it splits a call over keys (a decode tick) the merge of its splits
+# (``split_merge_kernel``; "merge_kernel" also names an older tree's
+# ``latent_merge_kernel``, so chip_ab.py times a parent the same way)
+PAGED_KERNELS = ("paged_attention_kernel", "merge_kernel")
+LATENT_KERNELS = ("latent_attention_kernel", "merge_kernel")
 # K7 / K8: 1e-4 of the output's largest magnitude (the kernel's one FMA
 # chain per element against the library's blocked fp32 sum); a bf16 output
 # may round one bf16 step apart
@@ -349,6 +353,61 @@ def paged_case(seed, B, Sq, H, KV, hd, P, ps, mps, fill):
     return q, pk, pv, bt
 
 
+# K1 / K3 at the edges of their split over keys (the card tests' cases):
+# (Sq, hd, B, page_size, mps, starts, holes, spare, window). Decode over
+# 700+ rows with a freed slot beside a full one and a slot whose splits
+# hold only -1 pages and whose spare pages lie past its frontier; a window
+# starting inside a key tile; a split 37-row chunk with a window; pages of
+# 8, 32, 64 rows and page_size == s_max; fills ending mid-page.
+SPLIT_EDGES = [
+    (1, 128, 4, 16, 64, [731, INACTIVE, 1023, 99], {3: range(2, 6)},
+     {3: 8}, 0),
+    (1, 128, 2, 16, 64, [700, 400], None, {1: 2}, 300),
+    (37, 128, 3, 8, 32, [INACTIVE, 256 - 37, 45], None, {2: 3}, 50),
+    (1, 128, 3, 8, 128, [900, 13, 333], {0: [7, 40]}, {1: 1}, 0),
+    (16, 128, 3, 32, 32, [600, 17, 100], None, {2: 2}, 0),
+    (64, 128, 2, 64, 16, [300, 0], None, None, 0),
+    (1, 128, 3, 256, 1, [255, 100, INACTIVE], None, None, 0),
+]
+
+
+def split_edge(seed, case):
+    """One SPLIT_EDGES case at 40 heads over 8 kv heads: slot b holds the
+    pages its rows up to start[b] + Sq - 1 need (none when INACTIVE),
+    ``holes`` unallocated inside, ``spare`` pages past its frontier.
+    Returns (q, pool_k, pool_v, bt, start) on the card and ``seen``, the
+    pool rows some query can see (causal and window), as a numpy mask."""
+    Sq, hd, B, ps, mps, start, holes, spare, window = case
+    rng = np.random.default_rng(seed)
+    P = B * mps + 4
+    q = rng.standard_normal((B, Sq, 40, hd)).astype(np.float32)
+    pk = rng.standard_normal((P, ps, 8, hd)).astype(np.float32)
+    pv = rng.standard_normal((P, ps, 8, hd)).astype(np.float32)
+    bt = np.full((B, mps), -1, np.int32)
+    free = list(rng.permutation(P))
+    for b in range(B):
+        if start[b] < INACTIVE:
+            need = -(-(start[b] + Sq) // ps) + (spare or {}).get(b, 0)
+            bt[b, :need] = free[:need]
+            free = free[need:]
+    for b, idx in (holes or {}).items():
+        bt[b, list(idx)] = -1
+    seen = np.zeros((P, ps), bool)
+    for b in range(B):
+        if start[b] < INACTIVE:
+            first = start[b] - window + 1 if window else 0
+            for r in range(max(first, 0), start[b] + Sq):
+                if bt[b, r // ps] >= 0:
+                    seen[bt[b, r // ps], r % ps] = True
+    return on_card(q, pk, pv, bt, np.asarray(start, np.int32)), seen
+
+
+def zero_where_freed(name, got, start):
+    for b, st in enumerate(start.tolist()):
+        if st >= INACTIVE and not torch.all(got[b] == 0):
+            raise AssertionError(f"{name}: freed slot {b} not exactly 0")
+
+
 def on_card(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in arrays]
 
@@ -448,6 +507,23 @@ def phase2_cases():
     _, err = check_case("one page spans s_max",
                         on_card(q, pk, pv, bt, np.zeros(2, np.int32)))
     errs["prefill"] = max(errs["prefill"], err)
+
+    # the split's edges: rows no query can see are NaN in the kernel's
+    # pools (never read), the plain version runs on the clean ones
+    for n, case in enumerate(SPLIT_EDGES):
+        args, seen = split_edge(30 + n, case)
+        mask = torch.from_numpy(seen).to(DEV)[:, :, None, None]
+        bad = [torch.where(mask, a, float("nan")) for a in args[1:3]]
+        kind = "decode" if case[0] == 1 else "prefill"
+        plan = pa.paged_plan(*args[0].shape[:3], 8, case[1],
+                             case[3] * case[4])
+        name = (f"split edge {n} (Sq={case[0]}, ps={case[3]}, window="
+                f"{case[8]}, {plan.splits} splits)")
+        got, err = held(name, pa.paged_attention(
+            args[0], *bad, *args[3:], window=case[8], kind=kind),
+            ref.paged_attention(*args, window=case[8]))
+        zero_where_freed(name, got, args[4])
+        errs[kind] = max(errs[kind], err)
     return errs
 
 
@@ -520,7 +596,7 @@ def phase2_full_width():
         want = ref.paged_attention(*args)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention(*args, kind=kind), 50,
-                       "paged_attention_kernel")
+                       PAGED_KERNELS)
         plain = time_ms(lambda: ref.paged_attention(*args), 10)
         lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill)
@@ -587,6 +663,23 @@ def phase2_q8_cases():
         raise AssertionError("q8: a scale of an unvisited page was read")
     log("  q8 NaN scales on unvisited pages: output unchanged")
     errs["decode_q8"] = max(errs["decode_q8"], err)
+
+    # the split's edges, with NaN scales on every page no query can see
+    for n, case in enumerate(SPLIT_EDGES):
+        f32_args, seen = split_edge(30 + n, case)
+        args, sc = q8_args(f32_args)
+        unseen = torch.from_numpy(~seen.any(axis=1)).to(DEV)
+        nan_sc = {k: torch.where(unseen, float("nan"), v)
+                  for k, v in sc.items()}
+        kind = "decode_q8" if case[0] == 1 else "prefill_q8"
+        name = f"q8 split edge {n} (Sq={case[0]}, ps={case[3]})"
+        got, err = check_case(name, args, case[8], kind, **sc)
+        if not torch.equal(pa.paged_attention(*args, window=case[8],
+                                              kind=kind, **nan_sc), got):
+            raise AssertionError(f"{name}: a scale of an unvisited page "
+                                 f"was read")
+        zero_where_freed(name, got, args[4])
+        errs[kind] = max(errs[kind], err)
     return errs
 
 
@@ -607,7 +700,7 @@ def phase2_q8_full_width():
         want = ref.paged_attention(*args, **sc)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention(*args, kind=kind, **sc),
-                       50, "paged_attention_kernel")
+                       50, PAGED_KERNELS)
         plain = time_ms(lambda: ref.paged_attention(*args, **sc), 10)
         lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill, kv_bytes=1)
@@ -1150,7 +1243,8 @@ def log_serving(m, card):
 
 def phase4_serve(model, params, prompts, card):
     """Paged serving (the first slice's path) over the main path's
-    weights."""
+    weights. Returns the launch counts, the requests, their first-token
+    logits, the resident cache bytes and the serving metrics."""
     engine = ServeEngine(model, params, **ServeConfig(
         reduced=False, page_size=PS, s_max=S_MAX,
         batch_slots=SLOTS).engine_kwargs())
@@ -1169,7 +1263,7 @@ def phase4_serve(model, params, prompts, card):
     nbytes = engine.resident_cache_bytes()
     del engine
     torch.cuda.empty_cache()
-    return launches, reqs, firsts, nbytes
+    return launches, reqs, firsts, nbytes, m
 
 
 def check_paged_launches(kinds, m, what):
@@ -1198,7 +1292,8 @@ def check_paged_launches(kinds, m, what):
 def phase4b_serve_int8(model, params, prompts, card, fp32):
     """The same 16 requests on int8 pages (``kv_backend="paged_int8"``,
     page_size 16), every attention through K3. Int8 tokens differ from
-    fp32 tokens by design: the match against phase 4 is reported."""
+    fp32 tokens by design: the match against phase 4 is reported. Returns
+    the launch counts and the serving metrics."""
     engine = ServeEngine(model, params, **ServeConfig(
         reduced=False, page_size=PS, s_max=S_MAX, batch_slots=SLOTS,
         kv_backend="paged_int8").engine_kwargs())
@@ -1219,7 +1314,7 @@ def phase4b_serve_int8(model, params, prompts, card, fp32):
                     strict=False)
     del engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, m
 
 
 def compare_streams(a_name, a, b_name, b, strict=True):
@@ -2259,11 +2354,11 @@ def main():
                  "int8 pages", Q8_MODEL_TOL)
     prompts = serve_prompts(dense.cfg.vocab_size)
     log("phase 4: paged serving")
-    launches, p_reqs, p_firsts, p_bytes = phase4_serve(model, params,
-                                                       prompts, card)
+    launches, p_reqs, p_firsts, p_bytes, _ = phase4_serve(
+        model, params, prompts, card)
     log("phase 4b: int8 pages serving")
-    q8_launches = phase4b_serve_int8(model, params, prompts, card,
-                                     (p_reqs, p_firsts, p_bytes))
+    q8_launches, _ = phase4b_serve_int8(model, params, prompts, card,
+                                        (p_reqs, p_firsts, p_bytes))
     log("phase 5: ServeEngine main path (dense cache)")
     flash_launches = phase5_serve_dense(dense, prompts, card,
                                         (p_reqs, p_firsts))

@@ -9,70 +9,158 @@
 // attention over the slot's logical key rows, which live in the pages named
 // by block_tables[b, :] (-1 = none).
 //
-// Bound: the bytes of the live K/V pages it reads (decode) and the fp32
-// FMAs of the score and value products (long prefill chunks). Scores,
-// online softmax and the accumulator stay in fp32 registers with plain FMA,
-// no tensor cores and no TF32, because fp32 is what the reference holds.
-// The int8 variant moves a quarter of the page bytes: pages are staged in
-// shared memory as int8 and dequantized on the way into registers, in the
-// TPU kernel's order (int8 -> f32, times the page's scale, then the dot,
-// then times 1/sqrt(hd); V the same before the p.V product).
+// Bound. A decode tick (qwen2.5-32b: 8 slots, 40 heads over 8 kv heads,
+// hd 128, 100-732 live rows a slot) reads each slot's live K/V rows once
+// and does 10 FMAs per byte of fp32 pages: it is bound by bytes (7.4 us at
+// 3.35 TB/s), but its 64 (slot, kv head) pairs cannot keep 132 SMs reading.
+// A prefill chunk (64 rows a slot) does 640 FMAs per byte: it is bound by
+// the fp32 FMAs of the score and value products (53 us at 67 TFLOP/s), and
+// its slots' lengths differ up to 7x, so the longest slot's blocks can set
+// the tail. fp32 FMA throughout, no tensor cores and no TF32, because fp32
+// is what the reference holds.
 //
-// Design. The TPU grid (B, H, mps) runs its page axis in order on one core
-// and carries (m, l, acc) in VMEM scratch between grid steps. Blocks on a
-// GPU run in parallel and in no order, so one block owns one (slot b,
-// kv head, tile of ROWS flattened query rows) and a loop inside the block
-// walks the slot's pages. The block reads block_tables[b, j] itself and
-// skips a page under the TPU kernel's predicate (paged_attention.py:99-101)
-// applied to the block's own rows: unallocated, wholly beyond the causal
-// frontier of the block's last row, or wholly behind the window of its
-// first row; a skipped page's scale is never read. A visited page is staged
-// in shared memory in tiles of at most 32 rows, K and V each, so that all G
-// query heads of the kv group read one copy. In this first design each
-// block stages every page it visits once; row tiles of the same kv group
-// therefore re-read a page from L2, and a decode launch runs only B * KV
-// blocks. Pipelining the page loads (cp.async or TMA) and wgmma for the
-// prefill shape are later work.
+// Design. One block of 8 warps owns (slot b, kv head, a tile of BR of the
+// kv group's G * Sq query rows flattened as row = i * G + g, a range of the
+// slot's key tiles), so a staged K/V row serves all G query heads of its
+// group. BR is 64 (8 rows a warp) or 16 (2 rows a warp: decode, where G is
+// 5); warps whose rows are all past the group's skip the products.
+//   - Key tiles of BC = 64 (with BR 64) or 32 logical key rows are gathered
+//     row by row through the block table (any page size works) into a 2- or
+//     3-stage cp.async ring, 16-byte copies where the rows and pointers
+//     allow, else 4-byte ones; the next tiles are in flight while one is
+//     multiplied. Per staged row the ring also keeps whether it was read
+//     and, for int8 pools, the page's two scales (cp.async too). Where some
+//     warps have no rows (decode), those warps alone stage the tiles, so
+//     the copies run beside the products instead of before them. Q comes
+//     with the first tile, by cp.async too.
+//   - Both products are register-tiled as in flash_attention.cu: lane
+//     (lr, lk) = (lane / 16, lane % 16) owns rows lr + 2 i of its warp, in
+//     S = Q K^T the keys lk + 16 j (a 4 x 4 micro-tile at BR 64 and BC 64)
+//     and in O += P V the head-dim columns lk * 4 + 64 c. The 16 lanes that
+//     share a row are a half-warp, so the online softmax's row max and sum
+//     are 4 shuffles each; P goes through shared memory 32 keys at a time,
+//     each warp writing and reading only its own rows (no block barrier).
+//   - Int8 pools (K3) are staged as int8, a quarter of the bytes, and each
+//     staged element is dequantized once, float(x) * its page's scale, into
+//     an f32 K/V tile that the same product code reads. That is the
+//     reference's one rounding, so the values equal dequantizing at every
+//     use bit for bit. The pass costs a barrier a tile; 32-key tiles leave
+//     room for a second block on the SM to run beside it.
+//   - A call whose (slot, kv head, row tile) blocks do not fill the card (a
+//     decode tick) divides each slot's live key tiles among `splits` blocks
+//     on the device. Each split leaves (m, l, unnormalised O) per row in
+//     scratch the wrapper allocates, and split_merge_kernel
+//     (split_merge.cuh, shared with paged_attention_latent.cu) combines
+//     them by log-sum-exp in a second launch. A split that sees no key
+//     leaves l = 0 and the merge skips it, so a freed slot is exactly 0.
+//   - Blocks start in grid order, and each block maps its grid slot index
+//     to the slots ranked by start, longest first (up to 1024 slots), so
+//     the longest slot's blocks start first and the short ones fill the
+//     tail.
+//   - kernels/paged_attention.py paged_plan picks BR, BC, the ring depth,
+//     the splits and the staging width from the shapes; this file checks
+//     the plan and refuses one it cannot run.
+// A key row is read only if it lies in the block's live range and its page
+// id is in [0, P): at or before the causal frontier of the block's last
+// row, and (with a window) after the window's start of its first row; a
+// key tile with no row to read is skipped, and a split divides only the
+// live tiles. That is the TPU kernel's whole-page skip
+// (paged_attention.py:99-101) applied row by row; every row not read is
+// zero-filled and masked, and a skipped page's scale is never read.
 //
-// Inside a warp, lane d holds head-dim entries d, d + 32, ... of its query
-// rows and accumulators. A score is a warp-wide dot product; lane j then
-// keeps the score of key j of the tile, so the tile's max, exp and sum are
-// warp reductions. The operation order follows the reference: dot, then
-// scale; masked probabilities set to 0 explicitly; NEG_INF = -1e30; window
-// predicate k_pos > q_pos - window; output acc / max(l, 1e-30), so a row
-// with no valid key (a freed slot) is exactly 0.
+// Numerics as the reference: dot, then scale by 1/sqrt(hd); masked
+// probabilities set to 0 explicitly; NEG_INF = -1e30; window predicate
+// k_pos > q_pos - window; output acc / max(l, 1e-30). The sums run in
+// another order than the plain version's (micro-tiles, splits).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "cp_async.cuh"
+#include "split_merge.cuh"
 #include "warp.cuh"
 
 namespace {
 
-using repro::FULL;
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_commit;
+using repro::cp_wait;
+using repro::MAX_SPLITS;
 using repro::NEG_INF;
 using repro::warp_max;
 using repro::warp_sum;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = 4;
-constexpr int ROWS = WARPS * ROWS_PER_WARP;  // query rows per block
-constexpr int TILE_BYTES = 32768;            // K + V tile in shared memory
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int SMEM_MAX = 232448;
+constexpr int PC = 32;  // keys of P staged at a time
+constexpr int MAX_KEYS = 1 << 30;  // keys a slot, rows a call, window
 
-// One staged pool element as f32: fp32 pools as they are, int8 pools
-// converted and multiplied by the page's scale (the reference's order).
-__device__ __forceinline__ float dequant(float x, float) { return x; }
-__device__ __forceinline__ float dequant(int8_t x, float s) {
-  return static_cast<float>(x) * s;
+// A block's shared memory in bytes (kernels/paged_attention.py
+// _paged_smem mirrors it): Q (BR rows of HDP + 4 floats), P (PC x BR + 4),
+// the ring's per-row read flags; then the ring of K/V tiles, in f32 rows of
+// HDP + 4 floats, or for int8 pools int8 rows of HDP bytes, the f32 K/V
+// tiles they are dequantized into and the ring's per-row scales. 16 bytes
+// after the flags hold the block's slot.
+struct Layout {
+  size_t p, flags, slot, ring, tile, scales, total;
+};
+
+__host__ __device__ inline Layout layout(int rows, int kt, int hdp,
+                                         int stages, bool q8) {
+  const size_t qp = hdp + 4;
+  Layout o;
+  o.p = 4 * rows * qp;
+  o.flags = o.p + 4 * (size_t)PC * (rows + 4);
+  o.slot = o.flags + 4 * (size_t)stages * kt;
+  o.ring = o.slot + 16;
+  if (q8) {
+    o.tile = o.ring + (size_t)stages * 2 * kt * hdp;
+    o.scales = o.tile + 4 * 2 * kt * qp;
+    o.total = o.scales + 4 * (size_t)stages * 2 * kt;
+  } else {
+    o.tile = o.scales = o.ring;
+    o.total = o.ring + 4 * (size_t)stages * 2 * kt * qp;
+  }
+  return o;
 }
 
-// HC = ceil(hd / 32): the head-dim entries each lane holds per query row.
-// T: the pool element, float (K1) or int8_t (K3, k_scale / v_scale given).
-template <int HC, typename T>
-__global__ void __launch_bounds__(THREADS)
+// s[i][j] += Q[rows lr + 2 i] . K[keys lk + 16 j] over d < hd, for the
+// first NJA of the thread's NJ keys: per 4 d, MI + NJA float4 reads of
+// shared memory feed 4 MI NJA FMAs.
+template <int MI, int NJ, int NJA, int QP>
+__device__ __forceinline__ void scores(float (&s)[MI][NJ], const float* qr,
+                                       const float* kr, int hd) {
+#pragma unroll 2
+  for (int d = 0; d < hd; d += 4) {
+    float4 a[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qr + 2 * i * QP + d);
+#pragma unroll
+    for (int j = 0; j < NJA; ++j) {
+      const float4 k = *reinterpret_cast<const float4*>(kr + 16 * j * QP + d);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        s[i][j] = fmaf(a[i].x, k.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, k.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, k.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, k.w, s[i][j]);
+      }
+    }
+  }
+}
+
+// HDP: head_dim padded to 64, 128 or 256. RW: query rows a warp (BR = 8
+// RW). BC: keys a tile. T: the pool element, float (K1) or int8_t (K3).
+// Two blocks an SM where the plan sizes shared memory for it (128
+// registers a thread), else one.
+template <int HDP, int RW, int BC, typename T>
+__global__ void __launch_bounds__(THREADS,
+                                  RW == 8 && (BC == 64 || HDP == 256) ? 1 : 2)
 paged_attention_kernel(const float* __restrict__ q,
                        const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v,
@@ -81,181 +169,482 @@ paged_attention_kernel(const float* __restrict__ q,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ start,
                        float* __restrict__ out,
+                       float* __restrict__ part_o,
+                       float* __restrict__ part_ml,
                        int Sq, int H, int KV, int hd, int P, int ps, int mps,
-                       int kt, int window, float scale) {
+                       int window, int stages, int splits, int vec,
+                       float scale) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  // 16-byte (4 floats) or 4-byte (4 int8) units of a staged row
-  using Vec = typename std::conditional<Q8, char4, float4>::type;
+  constexpr int BR = WARPS * RW;  // query rows per block
+  constexpr int MI = RW / 2;      // rows per thread
+  constexpr int NJ = BC / 16;     // keys per thread
+  constexpr int NC = HDP / 64;    // float4 value columns per thread
+  constexpr int QP = HDP + 4;     // row pitch of Q and the f32 K/V tiles
+  constexpr int PP = BR + 4;      // row pitch of P
+  static_assert(MI == 1 || MI % 4 == 0, "P is stored by 1 or 4 rows");
   extern __shared__ float4 smem4[];
-  T* ks = reinterpret_cast<T*>(smem4);  // [kt][hd]
-  T* vs = ks + kt * hd;                 // [kt][hd]
+  char* sm = reinterpret_cast<char*>(smem4);
+  const Layout lay = layout(BR, BC, HDP, stages, Q8);
+  float* qs = reinterpret_cast<float*>(sm);                 // [BR][QP]
+  float* pbuf = reinterpret_cast<float*>(sm + lay.p);       // [PC][PP]
+  int* read_s = reinterpret_cast<int*>(sm + lay.flags);     // [stages][BC]
+  char* ring = sm + lay.ring;  // [stages][K, V][BC][QP f32 | HDP int8]
+  float* tile = reinterpret_cast<float*>(sm + lay.tile);    // [K, V][BC][QP]
+  float* scl = reinterpret_cast<float*>(sm + lay.scales);   // [stages][2][BC]
+  int* slot_s = reinterpret_cast<int*>(sm + lay.slot);      // the slot
+  constexpr int RB = Q8 ? HDP : QP * 4;  // bytes a staged row takes
 
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int G = H / KV;
-  const int n_q = G * Sq;  // flattened rows of this kv group: row = i * G + g
-  const int row0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int st = start[b];
-  const int pos_first = st + row0 / G;
-  const int pos_last = st + (min(row0 + ROWS, n_q) - 1) / G;
-
-  float qr[ROWS_PER_WARP][HC];
-  float acc[ROWS_PER_WARP][HC];
-  float m[ROWS_PER_WARP];
-  float l[ROWS_PER_WARP];
-  int qpos[ROWS_PER_WARP];
-  bool live[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = row0 + warp + WARPS * r;
-    live[r] = row < n_q;
-    const int i = live[r] ? row / G : 0;
-    const int h = kh * G + (live[r] ? row % G : 0);
-    qpos[r] = st + i;
-    const float* qp = q + ((size_t)(b * Sq + i) * H + h) * hd;
-#pragma unroll
-    for (int t = 0; t < HC; ++t) {
-      const int d = lane + 32 * t;
-      qr[r][t] = (live[r] && d < hd) ? qp[d] : 0.f;
-      acc[r][t] = 0.f;
+  const int tid = threadIdx.x;
+  // blocks start in grid order, so the slots are taken longest first (by
+  // start, descending; ties by index): the longest slot's blocks then do
+  // not set the tail (up to 1024 slots, else in order)
+  const int B = gridDim.z;
+  int b = blockIdx.z;
+  if (B > 1 && B <= 1024) {
+    for (int c = tid; c < B; c += THREADS) {
+      const int sc = start[c];
+      int rank = 0;
+      for (int o = 0; o < B; ++o) {
+        const int so = start[o];
+        rank += so > sc || (so == sc && o < c);
+      }
+      if (rank == blockIdx.z) *slot_s = c;  // the ranks are distinct
     }
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+    __syncthreads();
+    b = *slot_s;
+  }
+  const int kh = blockIdx.y % KV, split = blockIdx.y / KV;
+  const int G = H / KV;
+  const int n_q = G * Sq;  // rows of this kv group: row = i * G + g
+  const int row0 = blockIdx.x * BR;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int lr = lane >> 4, lk = lane & 15;
+  const int wrow = warp * RW;  // the warp's first row in the block
+  const int n_keys = mps * ps;  // at most MAX_KEYS: the entry point checks
+  const long long st = start[b];
+  const long long pos_first = st + row0 / G;
+  const long long pos_last = st + (min(row0 + BR, n_q) - 1) / G;
+  // the block's live keys: [key_lo, key_end); before key_lo every row's
+  // window has passed, from key_end on every row's causal frontier
+  const int key_end = (int)max(0LL, min((long long)n_keys, pos_last + 1));
+  const int key_lo =
+      window > 0
+          ? (int)max(0LL, min((long long)n_keys, pos_first - window + 1))
+          : 0;
+  const int* bt = block_tables + (size_t)b * mps;
+
+  // this split's share of the live key tiles
+  const int t_lo = key_lo / BC;
+  const int n_live = key_end > key_lo ? (key_end - 1) / BC - t_lo + 1 : 0;
+  const int t_end = t_lo + (int)((long long)(split + 1) * n_live / splits);
+
+  // the page holding key row `key`, or -1 when the row is not read
+  auto page_of = [&](int key) -> int {
+    if (key < key_lo || key >= key_end) return -1;
+    const int pg = bt[key / ps];
+    return pg >= 0 && pg < P ? pg : -1;
+  };
+  auto tile_live = [&](int t) {
+    const int k0 = max(t * BC, key_lo), k1 = min((t + 1) * BC, key_end);
+    for (int j = k0 / ps; j * ps < k1; ++j) {
+      const int pg = bt[j];
+      if (pg >= 0 && pg < P) return true;
+    }
+    return false;
+  };
+  auto next_live = [&](int t) {
+    while (t < t_end && !tile_live(t)) ++t;
+    return t;
+  };
+  // The warps that stage the K/V tiles: every warp where all have rows to
+  // multiply, else only those that have none (a decode's 5 rows leave 5
+  // of 8 warps idle), so that the copies of the next tiles do not delay
+  // the products of this one.
+  const int live_warps = (min(BR, n_q - row0) + RW - 1) / RW;
+  const int prod0 = live_warps < WARPS ? live_warps * 32 : 0;
+  const int ptid = tid - prod0, pthreads = THREADS - prod0;
+
+  // key tile t into ring slot `slot`: copies of CW bytes, zeros where a row
+  // is not read and past hd; the row's read flag and (int8) its scales. The
+  // pool rows of a group of copies are looked up before any is issued, so
+  // their block-table reads overlap.
+  auto stage = [&](auto cw_tag, int t, int slot) {
+    constexpr int CW = decltype(cw_tag)::value;
+    constexpr int CPR = HDP * (int)sizeof(T) / CW;  // copies a row
+    constexpr int EW = CW / (int)sizeof(T);        // elements a copy
+    // copies a thread issues where all warps stage, looked up 8 at most
+    constexpr int NCP = (BC * CPR + THREADS - 1) / THREADS;
+    constexpr int GRP = NCP < 8 ? NCP : 8;
+    if (ptid < 0) return;
+    char* kd = ring + (size_t)slot * 2 * BC * RB;
+    char* vd = kd + BC * RB;
+    for (int e0 = ptid; e0 < BC * CPR; e0 += GRP * pthreads) {
+      int prow[GRP];  // the pool row (page * ps + offset), -1: not read
+#pragma unroll
+      for (int k = 0; k < GRP; ++k) {
+        const int e = e0 + k * pthreads;
+        const int key = t * BC + e / CPR;
+        const int pg = e < BC * CPR ? page_of(key) : -1;
+        prow[k] = pg >= 0 ? pg * ps + key % ps : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < GRP; ++k) {
+        const int e = e0 + k * pthreads;
+        if (e >= BC * CPR) break;
+        const int r = e / CPR, c = (e - r * CPR) * EW;
+        const bool in = prow[k] >= 0 && c < hd;
+        const size_t at = in ? ((size_t)prow[k] * KV + kh) * hd + c : 0;
+        if constexpr (CW == 16) {
+          cp_async16(kd + r * RB + c * sizeof(T), pool_k + at, in);
+          cp_async16(vd + r * RB + c * sizeof(T), pool_v + at, in);
+        } else {
+          cp_async4(kd + r * RB + c * sizeof(T), pool_k + at, in);
+          cp_async4(vd + r * RB + c * sizeof(T), pool_v + at, in);
+        }
+        if (c == 0) {
+          const bool rd = prow[k] >= 0;
+          read_s[slot * BC + r] = rd;
+          if constexpr (Q8) {
+            const int pg = rd ? prow[k] / ps : 0;
+            float* ss = scl + slot * 2 * BC;
+            cp_async4(ss + r, k_scale + pg, rd);
+            cp_async4(ss + BC + r, v_scale + pg, rd);
+          }
+        }
+      }
+    }
+  };
+  auto issue = [&](int t, int slot) {
+    if (vec)
+      stage(std::integral_constant<int, 16>(), t, slot);
+    else
+      stage(std::integral_constant<int, 4>(), t, slot);
+  };
+
+  // Q rows, zeros past hd and past the group's rows, copied with the first
+  // live tile (cp.async group 0)
+  for (int e = tid; e < BR * (HDP / 4); e += THREADS) {
+    const int r = e / (HDP / 4), c = (e % (HDP / 4)) * 4;
+    const int row = row0 + r;
+    const bool in = row < n_q && c < hd;
+    const float* src =
+        in ? q + (((size_t)b * Sq + row / G) * H + kh * G + row % G) * hd + c
+           : q;
+    float* dst = qs + r * QP + c;
+    if (vec) {
+      cp_async16(dst, src, in);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cp_async4(dst + u, in ? src + u : q, in);
+    }
   }
 
-  const int* bt = block_tables + (size_t)b * mps;
-  const int hd4 = hd >> 2;
-  for (int j = 0; j < mps; ++j) {
-    const int k_start = j * ps;
-    if (k_start > pos_last) break;  // pages come in order: all later ones too
-    const int page = bt[j];
-    if (page < 0 || page >= P) continue;  // unallocated (or outside the pool)
-    if (window > 0 && k_start + ps - 1 <= pos_first - window) continue;
-    // the page's scales, read only for a page that is visited
-    const float ksc = Q8 ? k_scale[page] : 1.f;
-    const float vsc = Q8 ? v_scale[page] : 1.f;
-    for (int o0 = 0; o0 < ps; o0 += kt) {
-      const int n = min(kt, ps - o0);
-      __syncthreads();  // the previous tile is no longer read
-      for (int e = threadIdx.x; e < n * hd4; e += THREADS) {
-        const int rr = e / hd4;
-        const int c = e - rr * hd4;
-        const size_t src = (((size_t)page * ps + o0 + rr) * KV + kh) * hd + 4 * c;
-        reinterpret_cast<Vec*>(ks)[e] = *reinterpret_cast<const Vec*>(pool_k + src);
-        reinterpret_cast<Vec*>(vs)[e] = *reinterpret_cast<const Vec*>(pool_v + src);
+  // prologue: the first stages - 1 live tiles in flight
+  int t_cur =
+      next_live(t_lo + (int)((long long)split * n_live / splits));
+  int t_next = t_cur;
+  for (int s = 0; s < stages - 1; ++s) {
+    if (t_next < t_end) {
+      issue(t_next, s);
+      t_next = next_live(t_next + 1);
+    }
+    cp_commit();
+  }
+
+  // this thread's rows wrow + lr + 2 i (a row past the group's has qpos
+  // -1 and sees no key; a position far past the keys is clamped where it
+  // changes no predicate), keys lk + 16 j, value columns lk * 4 + 64 c; P
+  // keeps its MI rows together at wrow + lr * MI
+  int qpos[MI];
+  float m[MI], l[MI], acc[MI][NC * 4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int row = row0 + wrow + lr + 2 * i;
+    qpos[i] = row < n_q ? (int)min(st + row / G, (long long)n_keys + window)
+                        : -1;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.f;
+  }
+  bool on[NC];  // this thread's value columns lie inside hd
+#pragma unroll
+  for (int c = 0; c < NC; ++c) on[c] = lk * 4 + 64 * c < hd;
+  const bool warp_live = row0 + wrow < n_q;
+  const float* my_q = qs + (wrow + lr) * QP;
+  float* my_p = pbuf + wrow + lr * MI;
+
+  for (int n = 0; t_cur < t_end; ++n) {
+    if (stages == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();   // this thread's copies of tile t_cur have landed
+    __syncthreads();  // everyone's (Q too); every warp is done with n - 1
+    if (t_next < t_end) {
+      issue(t_next, (n + stages - 1) % stages);
+      t_next = next_live(t_next + 1);
+    }
+    cp_commit();
+    const int slot = n % stages;
+    const float* kt;
+    if constexpr (Q8) {
+      // dequantize the staged tile once: float(x) * the row's page scale
+      const int8_t* kb = reinterpret_cast<const int8_t*>(
+          ring + (size_t)slot * 2 * BC * RB);
+      const float* ss = scl + slot * 2 * BC;
+      for (int e = tid; e < 2 * BC * (HDP / 4); e += THREADS) {
+        const int r = e / (HDP / 4), c = (e % (HDP / 4)) * 4;  // r < 2 BC
+        const char4 x = *reinterpret_cast<const char4*>(kb + r * HDP + c);
+        const float sc = ss[r];
+        *reinterpret_cast<float4*>(tile + r * QP + c) =
+            make_float4((float)x.x * sc, (float)x.y * sc, (float)x.z * sc,
+                        (float)x.w * sc);
       }
       __syncthreads();
-      const int kpos = k_start + o0 + lane;  // the key whose score lane holds
+      kt = tile;
+    } else {
+      kt = reinterpret_cast<const float*>(ring + (size_t)slot * 2 * BC * RB);
+    }
+    const float* vt = kt + BC * QP;
+    const int* rd = read_s + slot * BC;
+    const int k0 = t_cur * BC;
+    const int n_tile = min(BC, key_end - k0);  // keys past it: never read
+
+    if (warp_live) {
+      // S = Q K^T, an MI x NJ micro-tile per thread
+      float s[MI][NJ];
 #pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) {
-        if (!live[r]) continue;  // warp-uniform
-        float my_s = NEG_INF;
-        for (int jj = 0; jj < n; ++jj) {
-          float part = 0.f;
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int t = 0; t < HC; ++t) {
-            const int d = lane + 32 * t;
-            if (d < hd) part = fmaf(qr[r][t], dequant(ks[jj * hd + d], ksc), part);
-          }
-          const float dot = warp_sum(part);
-          if (lane == jj) my_s = dot * scale;
+        for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+      if (n_tile > BC / 2)
+        scores<MI, NJ, NJ, QP>(s, my_q, kt + lk * QP, hd);
+      else
+        scores<MI, NJ, NJ / 2, QP>(s, my_q, kt + lk * QP, hd);
+
+      // online softmax, one row per half-warp: dot, then scale; masked
+      // probabilities exactly 0
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        bool ok[NJ];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int kpos = k0 + lk + 16 * j;
+          ok[j] = rd[lk + 16 * j] && kpos <= qpos[i] &&
+                  (window == 0 || kpos > qpos[i] - window);
+          s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
+          mx = fmaxf(mx, s[i][j]);
         }
-        bool ok = lane < n && kpos <= qpos[r];
-        if (window > 0) ok = ok && kpos > qpos[r] - window;
-        const float s = ok ? my_s : NEG_INF;
-        const float m_new = fmaxf(m[r], warp_max(s));
-        const float p = ok ? expf(s - m_new) : 0.f;
-        const float corr = expf(m[r] - m_new);
-        l[r] = l[r] * corr + warp_sum(p);
+        const float m_new = fmaxf(m[i], warp_max<16>(mx));
+        const float corr = expf(m[i] - m_new);
+        float sum = 0.f;
 #pragma unroll
-        for (int t = 0; t < HC; ++t) acc[r][t] *= corr;
-        for (int jj = 0; jj < n; ++jj) {
-          const float pj = __shfl_sync(FULL, p, jj);
+        for (int j = 0; j < NJ; ++j) {
+          s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+          sum += s[i][j];
+        }
+        l[i] = l[i] * corr + warp_sum<16>(sum);
+        m[i] = m_new;
 #pragma unroll
-          for (int t = 0; t < HC; ++t) {
-            const int d = lane + 32 * t;
-            if (d < hd) acc[r][t] = fmaf(pj, dequant(vs[jj * hd + d], vsc), acc[r][t]);
+        for (int c = 0; c < NC * 4; ++c) acc[i][c] *= corr;
+      }
+
+      // O += P V, an MI x (4 NC) micro-tile, PC keys at a time: each warp
+      // writes and reads only its own rows of P
+#pragma unroll
+      for (int c0 = 0; c0 < BC; c0 += PC) {
+        if (c0 >= n_tile) break;
+#pragma unroll
+        for (int j = c0 / 16; j < (c0 + PC) / 16; ++j) {
+          float* dst = my_p + (lk + 16 * j - c0) * PP;
+          if constexpr (MI == 1) {
+            dst[0] = s[0][j];
+          } else {
+#pragma unroll
+            for (int i = 0; i < MI; i += 4)
+              *reinterpret_cast<float4*>(dst + i) =
+                  make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
           }
         }
-        m[r] = m_new;
+        __syncwarp();
+        const int c1 = min(PC, n_tile - c0);
+#pragma unroll 4
+        for (int c = 0; c < c1; ++c) {
+          float pr[MI];
+          if constexpr (MI == 1) {
+            pr[0] = my_p[c * PP];
+          } else {
+#pragma unroll
+            for (int i = 0; i < MI; i += 4) {
+              const float4 p =
+                  *reinterpret_cast<const float4*>(my_p + c * PP + i);
+              pr[i] = p.x; pr[i + 1] = p.y; pr[i + 2] = p.z; pr[i + 3] = p.w;
+            }
+          }
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            if (!on[cc]) continue;
+            const float4 w = *reinterpret_cast<const float4*>(
+                vt + (c0 + c) * QP + lk * 4 + 64 * cc);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+              acc[i][cc * 4 + 0] = fmaf(pr[i], w.x, acc[i][cc * 4 + 0]);
+              acc[i][cc * 4 + 1] = fmaf(pr[i], w.y, acc[i][cc * 4 + 1]);
+              acc[i][cc * 4 + 2] = fmaf(pr[i], w.z, acc[i][cc * 4 + 2]);
+              acc[i][cc * 4 + 3] = fmaf(pr[i], w.w, acc[i][cc * 4 + 3]);
+            }
+          }
+        }
+        __syncwarp();  // this chunk of P is read
       }
     }
+    t_cur = next_live(t_cur + 1);
   }
+  cp_wait<0>();
 
+  // one split: out = acc / max(l, 1e-30); several: the split's
+  // unnormalised O and (m, l), rows in the output's order, for the merge
+  const int n_out = Sq * H;
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    if (!live[r]) continue;
-    const int row = row0 + warp + WARPS * r;
-    const int i = row / G;
-    const int h = kh * G + row % G;
-    float* op = out + ((size_t)(b * Sq + i) * H + h) * hd;
-    const float denom = fmaxf(l[r], 1e-30f);
+  for (int i = 0; i < MI; ++i) {
+    const int row = row0 + wrow + lr + 2 * i;
+    if (row >= n_q) continue;
+    const int orow = row / G * H + kh * G + row % G;
+    const size_t at = splits == 1
+        ? (size_t)b * n_out + orow
+        : ((size_t)b * splits + split) * n_out + orow;
+    float* dst = (splits == 1 ? out : part_o) + at * hd;
+    const float denom = splits == 1 ? fmaxf(l[i], 1e-30f) : 1.f;
 #pragma unroll
-    for (int t = 0; t < HC; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) op[d] = acc[r][t] / denom;
+    for (int cc = 0; cc < NC; ++cc) {
+      if (!on[cc]) continue;
+      const float4 o = make_float4(
+          acc[i][cc * 4 + 0] / denom, acc[i][cc * 4 + 1] / denom,
+          acc[i][cc * 4 + 2] / denom, acc[i][cc * 4 + 3] / denom);
+      float* d4 = dst + lk * 4 + 64 * cc;
+      if (vec || splits > 1) {
+        *reinterpret_cast<float4*>(d4) = o;
+      } else {
+        d4[0] = o.x; d4[1] = o.y; d4[2] = o.z; d4[3] = o.w;
+      }
+    }
+    if (splits > 1 && lk == 0) {
+      part_ml[at * 2] = m[i];
+      part_ml[at * 2 + 1] = l[i];
     }
   }
 }
 
+template <int HDP, int RW, int BC, typename T>
+cudaError_t launch(const float* q, const T* pool_k, const T* pool_v,
+                   const float* k_scale, const float* v_scale, const int* bt,
+                   const int* start, float* out, float* part_o,
+                   float* part_ml, int B, int Sq, int H, int KV, int hd,
+                   int P, int ps, int mps, int window, int stages,
+                   int splits, int vec, float scale, size_t smem,
+                   cudaStream_t s) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      paged_attention_kernel<HDP, RW, BC, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (ready != cudaSuccess) return ready;
+  constexpr int BR = WARPS * RW;
+  const dim3 grid((H / KV * Sq + BR - 1) / BR, KV * splits, B);
+  paged_attention_kernel<HDP, RW, BC, T><<<grid, THREADS, smem, s>>>(
+      q, pool_k, pool_v, k_scale, v_scale, bt, start, out, part_o, part_ml,
+      Sq, H, KV, hd, P, ps, mps, window, stages, splits, vec, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return repro::launch_split_merge(part_o, part_ml, out, B, Sq * H, hd,
+                                   splits, s);
+}
+
 template <typename T>
-int launch(const float* q, const T* pool_k, const T* pool_v,
-           const float* k_scale, const float* v_scale, const int* block_tables,
-           const int* start, float* out, int B, int Sq, int H, int KV, int hd,
-           int P, int ps, int mps, int window, float scale, void* stream) {
-  if (B < 1 || B > 65535 || Sq < 1 || KV < 1 || KV > 65535 || H % KV != 0 ||
-      hd < 4 || hd > 256 || hd % 4 != 0 || P < 1 || ps < 1 || mps < 1)
-    return (int)cudaErrorInvalidValue;
-  const int kt = min(32, min(ps, TILE_BYTES / (2 * hd * (int)sizeof(T))));
-  const size_t smem = 2 * (size_t)kt * hd * sizeof(T);
-  const dim3 grid((H / KV * Sq + ROWS - 1) / ROWS, KV, B);
+int run(const float* q, const T* pool_k, const T* pool_v,
+        const float* k_scale, const float* v_scale, const int* bt,
+        const int* start, float* out, float* part_o, float* part_ml, int B,
+        int Sq, int H, int KV, int hd, int P, int ps, int mps, int window,
+        int rows, int key_tile, int stages, int splits, int vec, float scale,
+        void* stream) {
+  constexpr bool Q8 = std::is_same<T, int8_t>::value;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || Sq < 1 || KV < 1 || H < KV || H % KV != 0 ||
+      hd < 4 || hd > 256 || hd % 4 != 0 || P < 1 || ps < 1 || mps < 1 ||
+      window < 0 || window >= MAX_KEYS || (long long)mps * ps >= MAX_KEYS ||
+      (long long)P * ps > 0x7fffffffLL ||
+      (long long)H * Sq >= MAX_KEYS)
+    return bad;
+  if ((rows != 16 && rows != 64) || (key_tile != 32 && key_tile != 64) ||
+      (rows == 16 && key_tile != 32) ||
+      (stages != 2 && stages != 3) || splits < 1 || splits > MAX_SPLITS ||
+      (long long)KV * splits > 65535)
+    return bad;
+  const int hdp = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+  const size_t smem = layout(rows, key_tile, hdp, stages, Q8).total;
+  if (smem > SMEM_MAX) return bad;
+  if (splits > 1 && (part_o == nullptr || part_ml == nullptr)) return bad;
+  if (Q8 && (k_scale == nullptr || v_scale == nullptr)) return bad;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (vec && !(aligned(q) && aligned(pool_k) && aligned(pool_v) &&
+               aligned(out) && (!Q8 || hd % 16 == 0)))
+    return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(HC)                                                        \
-  paged_attention_kernel<HC, T><<<grid, THREADS, smem, s>>>(              \
-      q, pool_k, pool_v, k_scale, v_scale, block_tables, start, out, Sq,  \
-      H, KV, hd, P, ps, mps, kt, window, scale)
-  switch ((hd + 31) / 32) {
-    case 1: LAUNCH(1); break;
-    case 2: LAUNCH(2); break;
-    case 3: LAUNCH(3); break;
-    case 4: LAUNCH(4); break;
-    case 5: LAUNCH(5); break;
-    case 6: LAUNCH(6); break;
-    case 7: LAUNCH(7); break;
-    default: LAUNCH(8); break;
+#define LAUNCH(HDP, RW, BC)                                                  \
+  return (int)launch<HDP, RW, BC, T>(q, pool_k, pool_v, k_scale, v_scale,    \
+                                     bt, start, out, part_o, part_ml, B, Sq, \
+                                     H, KV, hd, P, ps, mps, window, stages,  \
+                                     splits, vec, scale, smem, s)
+#define BY_TILES(HDP)                       \
+  if (key_tile == 64) LAUNCH(HDP, 8, 64);    \
+  if (rows == 64) LAUNCH(HDP, 8, 32);        \
+  LAUNCH(HDP, 2, 32)
+  if (hdp == 64) {
+    BY_TILES(64);
   }
+  if (hdp == 128) {
+    BY_TILES(128);
+  }
+  BY_TILES(256);
+#undef BY_TILES
 #undef LAUNCH
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, hd), pools (P, ps, KV, hd), out (B, Sq, H, hd): fp32,
-// contiguous, 16-byte aligned. block_tables (B, mps) and start (B,): int32.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// contiguous. block_tables (B, mps) and start (B,): int32. The plan (rows,
+// key_tile, stages, splits, vec) is kernels/paged_attention.py
+// paged_plan's; with splits > 1, part_o (B, splits, Sq * H, hd) and part_ml
+// (B, splits, Sq * H, 2) f32 are the splits' scratch and a merge kernel
+// follows. vec: q, the pools and out 16-byte aligned. Launches on `stream`
+// and returns 0, cudaErrorInvalidValue for shapes or a plan the kernel
+// cannot run, or cudaGetLastError().
 extern "C" int repro_paged_attention_f32(
     const float* q, const float* pool_k, const float* pool_v,
-    const int* block_tables, const int* start, float* out, int B, int Sq,
-    int H, int KV, int hd, int P, int ps, int mps, int window, float scale,
-    void* stream) {
-  return launch<float>(q, pool_k, pool_v, nullptr, nullptr, block_tables,
-                       start, out, B, Sq, H, KV, hd, P, ps, mps, window, scale,
-                       stream);
+    const int* block_tables, const int* start, float* out, float* part_o,
+    float* part_ml, int B, int Sq, int H, int KV, int hd, int P, int ps,
+    int mps, int window, int rows, int key_tile, int stages, int splits,
+    int vec, float scale, void* stream) {
+  return run<float>(q, pool_k, pool_v, nullptr, nullptr, block_tables, start,
+                    out, part_o, part_ml, B, Sq, H, KV, hd, P, ps, mps,
+                    window, rows, key_tile, stages, splits, vec, scale,
+                    stream);
 }
 
-// The int8 pools of K3: pools (P, ps, KV, hd) int8, 4-byte aligned;
-// k_scale / v_scale (P,) f32, the per-page symmetric scales; everything
-// else as repro_paged_attention_f32.
+// The int8 pools of K3: pools (P, ps, KV, hd) int8; k_scale / v_scale (P,)
+// f32, the per-page symmetric scales; vec also needs hd % 16 == 0;
+// everything else as repro_paged_attention_f32.
 extern "C" int repro_paged_attention_i8(
     const float* q, const int8_t* pool_k, const int8_t* pool_v,
     const float* k_scale, const float* v_scale, const int* block_tables,
-    const int* start, float* out, int B, int Sq, int H, int KV, int hd,
-    int P, int ps, int mps, int window, float scale, void* stream) {
-  if (k_scale == nullptr || v_scale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return launch<int8_t>(q, pool_k, pool_v, k_scale, v_scale, block_tables,
-                        start, out, B, Sq, H, KV, hd, P, ps, mps, window,
-                        scale, stream);
+    const int* start, float* out, float* part_o, float* part_ml, int B,
+    int Sq, int H, int KV, int hd, int P, int ps, int mps, int window,
+    int rows, int key_tile, int stages, int splits, int vec, float scale,
+    void* stream) {
+  return run<int8_t>(q, pool_k, pool_v, k_scale, v_scale, block_tables,
+                     start, out, part_o, part_ml, B, Sq, H, KV, hd, P, ps,
+                     mps, window, rows, key_tile, stages, splits, vec, scale,
+                     stream);
 }

@@ -44,8 +44,9 @@
 //     pairs for 132 SMs, so the slot's live key tiles are divided among
 //     `splits` blocks on the device (each block reads the slot's start).
 //     Each split leaves (m, l, unnormalised O) per row in scratch the
-//     wrapper allocates, and latent_merge_kernel combines the splits by
-//     log-sum-exp. A split with no live key leaves l = 0 and the merge
+//     wrapper allocates, and split_merge_kernel (split_merge.cuh, shared
+//     with paged_attention.cu) combines the splits by log-sum-exp. A
+//     split with no live key leaves l = 0 and the merge
 //     skips it, so an empty split adds exactly nothing and a slot whose
 //     splits are all empty gets exact zeros. One split writes the output
 //     itself. kernels/paged_attention.py latent_plan picks BR, the ring
@@ -68,6 +69,7 @@
 #include <cstdint>
 
 #include "cp_async.cuh"
+#include "split_merge.cuh"
 #include "warp.cuh"
 
 namespace {
@@ -76,6 +78,7 @@ using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_commit;
 using repro::cp_wait;
+using repro::MAX_SPLITS;
 using repro::NEG_INF;
 using repro::warp_max;
 using repro::warp_sum;
@@ -84,8 +87,6 @@ constexpr int THREADS = 512;
 constexpr int KT = 16;  // key rows per tile
 constexpr int SMEM_MAX = 232448;
 constexpr int MAX_WIDTH = 1024;
-constexpr int MERGE_THREADS = 512;  // a thread per value column at d_v 512
-constexpr int MAX_SPLITS = 1024;
 
 // A block's shared memory, in floats (kernels/paged_attention.py
 // _latent_smem mirrors it): Q (BR rows), the ring (stages x KT rows), the
@@ -395,42 +396,6 @@ latent_attention_kernel(const float* __restrict__ q,
   }
 }
 
-// out[b, row] = sum_s w_s O_s / max(sum_s w_s l_s, 1e-30) with
-// w_s = exp(m_s - max m) over the splits s that saw a key (l_s > 0); a
-// split that saw none has w_s = 0 and its O_s is never read.
-__global__ void __launch_bounds__(MERGE_THREADS)
-latent_merge_kernel(const float* __restrict__ part_o,
-                    const float* __restrict__ part_ml,
-                    float* __restrict__ out, int n_q, int d_v, int splits) {
-  __shared__ float m_s[MAX_SPLITS], l_s[MAX_SPLITS], w_s[MAX_SPLITS];
-  const int row = blockIdx.x, b = blockIdx.y;
-  const size_t base = (size_t)b * splits * n_q + row;  // split 0's row
-  for (int s = threadIdx.x; s < splits; s += MERGE_THREADS) {
-    const float* ml = part_ml + (base + (size_t)s * n_q) * 2;
-    m_s[s] = ml[0];
-    l_s[s] = ml[1];
-  }
-  __syncthreads();
-  float m_max = NEG_INF;
-  for (int s = 0; s < splits; ++s)
-    if (l_s[s] > 0.f) m_max = fmaxf(m_max, m_s[s]);
-  for (int s = threadIdx.x; s < splits; s += MERGE_THREADS)
-    w_s[s] = l_s[s] > 0.f ? expf(m_s[s] - m_max) : 0.f;
-  __syncthreads();
-  float l = 0.f;
-  for (int s = 0; s < splits; ++s)
-    if (w_s[s] > 0.f) l = fmaf(w_s[s], l_s[s], l);
-  const float denom = fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < d_v; d += MERGE_THREADS) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < splits; ++s)
-      if (w_s[s] > 0.f)
-        acc = fmaf(w_s[s], part_o[(base + (size_t)s * n_q) * d_v + d], acc);
-    out[((size_t)b * n_q + row) * d_v + d] = acc / denom;
-  }
-}
-
 template <int BR>
 cudaError_t launch(const float* q, const float* pool, const int* bt,
                    const int* start, float* out, float* part_o,
@@ -448,9 +413,8 @@ cudaError_t launch(const float* q, const float* pool, const int* bt,
       stages, splits, vec, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  latent_merge_kernel<<<dim3(n_q, B), MERGE_THREADS, 0, s>>>(
-      part_o, part_ml, out, n_q, d_v, splits);
-  return cudaGetLastError();
+  return repro::launch_split_merge(part_o, part_ml, out, B, n_q, d_v, splits,
+                                   s);
 }
 
 }  // namespace

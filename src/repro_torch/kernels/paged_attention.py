@@ -10,9 +10,13 @@ kernel in ``csrc/paged_attention.cu`` (it replaces the Pallas kernels
 ``csrc/paged_attention_latent.cu`` (replacing ``::_kernel_latent``), or
 they raise; on a CPU tensor each runs its plain version in
 ``kernels.ref``. There is no other route and no fallback.
-:func:`latent_plan` chooses the latent kernel's row tile, ring depth and
-split over keys from the shapes, in Python, so that the CPU tests can check
-the choice; the kernel checks the plan it is given.
+:func:`paged_plan` and :func:`latent_plan` choose each kernel's tiles, ring
+depth, staging width and split over keys from the shapes, in Python, so
+that the CPU tests can check the choice; the kernel checks the plan it is
+given. A call that does not fill the card (a decode tick) divides each
+slot's keys among several blocks, which leave partial results in scratch
+this module allocates, and a second launch (``csrc/split_merge.cuh``,
+shared by both kernels) merges them; the pair counts as one launch.
 """
 from __future__ import annotations
 
@@ -39,13 +43,20 @@ MAX_LATENT_WIDTH = 1024
 # tiles of 32 or 16 query rows, a ring of 2 or 3 key tiles
 LATENT_THREADS, LATENT_KEY_TILE = 512, 16
 LATENT_ROWS = (32, 16)
-LATENT_MAX_SPLITS = 1024
+
+# csrc/paged_attention.cu: 8 warps; row tiles of 64 or 16 flattened query
+# rows (8 or 2 a warp), key tiles of 64 keys (with 64-row tiles only) or
+# 32, a ring of 2 or 3 key tiles; P staged 32 keys at a time
+PAGED_PC = 32
+PAGED_ROWS = (64, 16)
+PAGED_KEY_TILES = (64, 32)
+MAX_SPLITS = 1024    # csrc/split_merge.cuh, for K1 / K3 and K4
 
 _FN = {"f32": ("paged_attention", "repro_paged_attention_f32",
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                + [ctypes.c_float, ctypes.c_void_p]),
        "i8": ("paged_attention", "repro_paged_attention_i8",
-              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+              [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
               + [ctypes.c_float, ctypes.c_void_p]),
        "latent": ("paged_attention_latent",
                   "repro_paged_attention_latent_f32",
@@ -55,6 +66,87 @@ _FN = {"f32": ("paged_attention", "repro_paged_attention_f32",
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _head_pad(hd: int) -> int:
+    """head_dim padded to the paged kernel's 64, 128 or 256."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
+def _paged_smem(rows: int, kt: int, hdp: int, stages: int,
+                quantized: bool) -> int:
+    """Bytes of the paged kernel's shared memory (its ``layout``): Q
+    (``rows`` of hdp + 4 floats), P, a read flag per ring row, the block's
+    slot (16 bytes), then the ring of K/V tiles (f32 rows of hdp + 4
+    floats; int8 rows of hdp bytes, the f32 tiles they are dequantized into
+    and two scales per ring row)."""
+    qp = hdp + 4
+    n = 4 * rows * qp + 4 * PAGED_PC * (rows + 4) + 4 * stages * kt + 16
+    if quantized:
+        return n + stages * 2 * kt * hdp + 4 * 2 * kt * qp + 4 * stages * 2 * kt
+    return n + 4 * stages * 2 * kt * qp
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """How the paged kernel (K1 / K3) runs one call: ``rows`` flattened
+    query rows of a kv group per block, ``key_tile`` key rows per staged
+    tile, ``stages`` tiles in its ring, ``splits`` blocks sharing each
+    (slot, kv head, row tile)'s keys (more than 1: a merge kernel follows),
+    ``vec`` 16-byte staging; ``smem`` bytes of shared memory per block."""
+    rows: int
+    key_tile: int
+    stages: int
+    splits: int
+    vec: bool
+    smem: int
+
+    def c_args(self) -> tuple:
+        return (self.rows, self.key_tile, self.stages, self.splits,
+                int(self.vec))
+
+
+def paged_plan(B: int, Sq: int, H: int, KV: int, hd: int, n_keys: int, *,
+               quantized: bool = False, ptrs: tuple = ()) -> PagedPlan:
+    """The plan for B slots of Sq query rows of H heads over KV kv heads of
+    width ``hd``, with at most ``n_keys`` = mps * page_size keys a slot,
+    over fp32 pools or (``quantized``) int8 ones; ``ptrs`` are the data
+    pointers of q, the pools and the output.
+
+    The row tile that pads the group's G * Sq rows least, 64 on a tie (a
+    staged key row then serves more query rows). Key tiles of 32 keys, but
+    64 for 64 rows of an fp32 pool where a 2-stage ring of them fits (int8
+    pools keep 32: their three stages then leave room for a second block
+    on the SM, which hides the dequantizing pass; a decode's split gets
+    finer ranges); then 3 stages where they fit. The split over keys: one
+    where the (slot, kv head, row tile) blocks fill the SMs (a prefill
+    chunk), else as many as give about two blocks per SM (a decode tick),
+    at most one per key tile; the kernel divides each slot's live key
+    tiles among them on the device. 16-byte staging where every pointer
+    is 16-byte aligned and (int8) rows are a multiple of 16 bytes. Raises
+    ``ValueError`` for shapes the kernel cannot take."""
+    if not (1 <= KV <= H and H % KV == 0 and 4 <= hd <= MAX_HEAD_DIM
+            and hd % 4 == 0 and B >= 1 and Sq >= 1 and n_keys >= 1):
+        raise ValueError(f"paged_plan: need H a multiple of KV and head_dim "
+                         f"<= {MAX_HEAD_DIM} a multiple of 4, got B={B}, "
+                         f"Sq={Sq}, H={H}, KV={KV}, hd={hd}, "
+                         f"n_keys={n_keys}")
+    n_q, hdp = H // KV * Sq, _head_pad(hd)
+    rows = min(PAGED_ROWS, key=lambda r: (_cdiv(n_q, r) * r, -r))
+    kt = PAGED_KEY_TILES[1]
+    if (rows == PAGED_ROWS[0] and not quantized and _paged_smem(
+            rows, PAGED_KEY_TILES[0], hdp, 2, quantized) <= SMEM_MAX):
+        kt = PAGED_KEY_TILES[0]
+    stages = 3 if _paged_smem(rows, kt, hdp, 3, quantized) <= SMEM_MAX else 2
+    pairs = B * KV * _cdiv(n_q, rows)
+    splits = 1
+    if pairs < SMS:
+        splits = max(1, min(_cdiv(n_keys, kt), 2 * SMS // pairs, MAX_SPLITS,
+                            65535 // KV))
+    vec = (all(p % 16 == 0 for p in ptrs)
+           and (not quantized or hd % 16 == 0))
+    return PagedPlan(rows, kt, stages, splits, vec,
+                     _paged_smem(rows, kt, hdp, stages, quantized))
 
 
 def _latent_smem(rows: int, Lw: int, stages: int) -> int:
@@ -115,7 +207,7 @@ def latent_plan(B: int, n_rows: int, Lw: int, d_v: int, n_keys: int, *,
     splits = 1
     if pairs < SMS:
         splits = max(1, min(_cdiv(n_keys, LATENT_KEY_TILE),
-                            _cdiv(2 * SMS, pairs), LATENT_MAX_SPLITS))
+                            _cdiv(2 * SMS, pairs), MAX_SPLITS))
     vec = Lw % 4 == 0 and q_ptr % 16 == 0 and pool_ptr % 16 == 0
     return LatentPlan(rows, stages, splits, vec,
                       _latent_smem(rows, Lw, stages))
@@ -221,23 +313,27 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *,
     _check_on_card("paged_attention", q, named)
     B, Sq, H, hd = q.shape
     P, ps, KV, _ = pool_k.shape
-    if hd > MAX_HEAD_DIM or hd % 4:
-        raise ValueError(f"paged_attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM} and a multiple of 4, got {hd}")
-    align = 4 if quantized else 16      # one 4-element unit of a row
-    if q.data_ptr() % 16 or any(t.data_ptr() % align
-                                for t in (pool_k, pool_v)):
-        raise ValueError(f"paged_attention: q must be 16-byte and the pools "
-                         f"{align}-byte aligned")
+    mps = block_tables.shape[1]
     out = torch.empty_like(q)
+    plan = paged_plan(B, Sq, H, KV, hd, mps * ps, quantized=quantized,
+                      ptrs=(q.data_ptr(), pool_k.data_ptr(),
+                            pool_v.data_ptr(), out.data_ptr()))
+    part_o = part_ml = None
+    if plan.splits > 1:
+        part_o = torch.empty((B, plan.splits, Sq * H, hd),
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, plan.splits, Sq * H, 2),
+                              dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quantized else ())
-    dims = (B, Sq, H, KV, hd, P, ps, block_tables.shape[1], int(window),
-            1.0 / math.sqrt(hd), stream)
     with torch.cuda.device(q.device):
         err = _lib("i8" if quantized else "f32")(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
-            block_tables.data_ptr(), start.data_ptr(), out.data_ptr(), *dims)
+            block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
+            part_o.data_ptr() if part_o is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None,
+            B, Sq, H, KV, hd, P, ps, mps, int(window), *plan.c_args(),
+            1.0 / math.sqrt(hd), stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -476,3 +476,197 @@ def test_latent_plan_rejects_and_unaligned():
         pa.latent_plan(2, 40, 576, 600, 64)
     with pytest.raises(ValueError, match="d_v"):
         pa.latent_plan(2, 40, 2048, 512, 64)
+
+
+# --------------------------------------------- K1 / K3: plan and splits
+# (B, Sq, H, KV, hd, mps * page_size, quantized, pointers)
+#   -> (rows, key_tile, stages, splits, vec)
+PAGED_PLANS = [
+    # qwen2.5-32b at full width: a decode tick (64 pairs for 132 SMs:
+    # split 4 ways) and a prefill chunk (320 pairs: no split)
+    ((8, 1, 40, 8, 128, 1024, False, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 128, 1024, False, (256, 512)), (64, 64, 2, 1, True)),
+    # int8 pools: a quarter of the ring's bytes; 32-key tiles at prefill,
+    # whose 3 stages leave room for two blocks on an SM
+    ((8, 1, 40, 8, 128, 1024, True, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 128, 1024, True, (256, 512)), (64, 32, 3, 1, True)),
+    # head_dim 16 (int8 rows of 16 bytes), 64 and 256 (64-key tiles no
+    # longer fit a ring beside 64 rows of Q)
+    ((8, 1, 40, 8, 16, 1024, True, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 64, 1024, False, (256, 512)), (64, 64, 3, 1, True)),
+    ((8, 1, 40, 8, 256, 1024, False, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 256, 1024, False, (256, 512)), (64, 32, 2, 1, True)),
+    # one page a slot (page_size == s_max = 64): few pairs, but no more
+    # splits than key tiles
+    ((2, 1, 8, 2, 128, 64, False, (256, 512)), (16, 32, 3, 2, True)),
+    ((2, 64, 8, 2, 128, 64, True, (256, 512)), (64, 32, 3, 2, True)),
+    # an unaligned pointer, int8 rows not a multiple of 16 bytes: 4-byte
+    # staging
+    ((2, 4, 4, 2, 128, 256, False, (256, 8)), (16, 32, 3, 8, False)),
+    ((2, 1, 4, 2, 20, 256, True, (256, 512)), (16, 32, 3, 8, False)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PAGED_PLANS)
+def test_paged_plan(shape, want):
+    """paged_plan: the row tile that pads the group's rows least (64 on a
+    tie), its key tile (64 keys for 64 rows of fp32 where two stages fit,
+    else 32), 3 stages where they fit, no split where the (slot,
+    kv head, row tile) blocks fill the SMs, else about two blocks per SM
+    capped at one split per key tile; its shared memory fits the card."""
+    B, Sq, H, KV, hd, n_keys, quantized, ptrs = shape
+    plan = pa.paged_plan(B, Sq, H, KV, hd, n_keys, quantized=quantized,
+                         ptrs=ptrs)
+    assert (plan.rows, plan.key_tile, plan.stages, plan.splits,
+            plan.vec) == want
+    assert plan.c_args() == want[:4] + (int(want[4]),)
+    hdp = pa._head_pad(hd)
+    assert plan.smem == pa._paged_smem(plan.rows, plan.key_tile, hdp,
+                                       plan.stages, quantized)
+    assert plan.smem <= pa.SMEM_MAX
+    if plan.stages == 2:
+        assert pa._paged_smem(plan.rows, plan.key_tile, hdp, 3,
+                              quantized) > pa.SMEM_MAX
+    pairs = B * KV * -(-(H // KV * Sq) // plan.rows)
+    if pairs >= pa.SMS:
+        assert plan.splits == 1
+    else:
+        assert plan.splits <= -(-n_keys // plan.key_tile)
+        assert (plan.splits == -(-n_keys // plan.key_tile)
+                or plan.splits == 2 * pa.SMS // pairs)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 1, 4, 2, 260, 64),     # head_dim past 256
+    (2, 1, 4, 2, 18, 64),      # head_dim not a multiple of 4
+    (2, 1, 6, 4, 128, 64),     # H not a multiple of KV
+    (2, 1, 4, 2, 128, 0),      # no key
+])
+def test_paged_plan_rejects_what_the_kernel_cannot_take(shape):
+    with pytest.raises(ValueError, match="paged_plan"):
+        pa.paged_plan(*shape)
+
+
+def _paged_edges(seed, B, Sq, hd, ps, mps, start, holes=None, spare=None,
+                 window=0, H=40, KV=8):
+    """Inputs for K1 / K3 at the edges of the kernel's key split: slot b
+    holds the pages its rows up to start[b] + Sq - 1 need (none when its
+    start is INACTIVE); ``holes`` {slot: page indices} unallocated inside a
+    live slot's range, ``spare`` {slot: n} pages allocated past its last
+    row. Returns (q, pool_k, pool_v, bt, start, seen): ``seen`` marks the
+    pool rows some query can see (causal and window); the kernel reads no
+    other row."""
+    rng = np.random.default_rng(seed)
+    P = B * mps + 4
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    pk = rng.standard_normal((P, ps, KV, hd)).astype(np.float32)
+    pv = rng.standard_normal((P, ps, KV, hd)).astype(np.float32)
+    bt = np.full((B, mps), -1, np.int32)
+    free = list(rng.permutation(P))
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            continue
+        need = -(-int(start[b] + Sq) // ps) + (spare or {}).get(b, 0)
+        bt[b, :need] = free[:need]
+        free = free[need:]
+    for b, idx in (holes or {}).items():
+        bt[b, list(idx)] = -1
+    seen = np.zeros((P, ps), bool)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            continue
+        last = int(start[b]) + Sq - 1
+        first = int(start[b]) - window + 1 if window else 0
+        for r in range(max(first, 0), last + 1):
+            if bt[b, r // ps] >= 0:
+                seen[bt[b, r // ps], r % ps] = True
+    return q, pk, pv, bt, np.asarray(start, np.int32), seen
+
+
+# (Sq, hd, B, page_size, mps, starts, holes, spare, window)
+PAGED_CARD_CASES = [
+    # decode over 700+ live rows (splits): a fill ending mid-page (732),
+    # a freed slot beside a full one (1024 rows), a slot of 100 rows with
+    # 4 unallocated pages (splits whose range holds only -1 pages) and 8
+    # pages allocated past its frontier
+    (1, 128, 4, 16, 64, [731, INACTIVE, 1023, 99], {3: range(2, 6)},
+     {3: 8}, 0),
+    # a window whose start falls inside a key tile, ranges split 16 ways
+    (1, 128, 2, 16, 64, [700, 400], None, {1: 2}, 300),
+    # a 37-row chunk with a window, pages of 8 rows: a freed slot, a fill
+    # ending mid-page, pages past the frontier
+    (37, 128, 3, 8, 32, [INACTIVE, 256 - 37, 45], None, {2: 3}, 50),
+    # page sizes 8, 32 and 64, decode and chunk, fills ending mid-page
+    (1, 128, 3, 8, 128, [900, 13, 333], {0: [7, 40]}, {1: 1}, 0),
+    (16, 128, 3, 32, 32, [600, 17, 100], None, {2: 2}, 0),
+    (1, 128, 2, 64, 16, [1000, 70], None, {1: 3}, 0),
+    (64, 128, 2, 64, 16, [300, 0], None, None, 0),
+    # page_size == s_max: one page a slot, split over its key tiles
+    (1, 128, 3, 256, 1, [255, 100, INACTIVE], None, None, 0),
+    (8, 128, 2, 256, 1, [200, 0], None, None, 0),
+    # head_dim 16, 64 and 256 (16-byte int8 rows at 16)
+    (1, 16, 3, 16, 64, [500, INACTIVE, 31], {0: [3]}, {2: 4}, 0),
+    (4, 64, 3, 16, 64, [120, 800, 7], None, {0: 2}, 100),
+    (1, 256, 2, 16, 64, [640, 90], {1: [1]}, None, 0),
+]
+
+
+def _on_card(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_CARD_CASES)
+def test_kernel_split_edges_on_card(case):
+    """K1 against its plain version on the card at the edges of its split
+    over keys: splits of only -1 pages, split ranges past the frontier, a
+    window crossing a split boundary, fills ending mid-page, page sizes 8
+    to 64 and page_size == s_max, head_dim 16 to 256. Rows no query can
+    see are NaN in the kernel's pools and never reach its output; a freed
+    slot is exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Sq, hd, B, ps, mps, start, holes, spare, window = case
+    q, pk, pv, bt, start, seen = _paged_edges(21, B, Sq, hd, ps, mps, start,
+                                              holes, spare, window)
+    poison = lambda a: np.where(seen[:, :, None, None], a,  # noqa: E731
+                                np.nan).astype(np.float32)
+    args = _on_card(q, pk, pv, bt, start)
+    bad_k, bad_v = _on_card(poison(pk), poison(pv))
+    kind = "decode" if Sq == 1 else "prefill"
+    got = pa.paged_attention(args[0], bad_k, bad_v, *args[3:],
+                             window=window, kind=kind)
+    want = tref.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            assert torch.all(got[b] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_CARD_CASES)
+def test_q8_kernel_split_edges_on_card(case):
+    """K3 at the same edges: against its plain version, and with NaN
+    scales on every page whose rows no query can see (never read: the
+    output is unchanged bit for bit); a freed slot is exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Sq, hd, B, ps, mps, start, holes, spare, window = case
+    q, pk, pv, bt, start, seen = _paged_edges(22, B, Sq, hd, ps, mps, start,
+                                              holes, spare, window)
+    (pkq, ks), (pvq, vs) = _q8(pk), _q8(pv)
+    args = _on_card(q, pkq, pvq, bt, start)
+    sc = dict(zip(("k_scale", "v_scale"), _on_card(ks, vs)))
+    unseen = torch.from_numpy(~seen.any(axis=1)).cuda()
+    nan_sc = {k: torch.where(unseen, float("nan"), v) for k, v in sc.items()}
+    kind = "decode_q8" if Sq == 1 else "prefill_q8"
+    got = pa.paged_attention(*args, window=window, kind=kind, **sc)
+    got_nan = pa.paged_attention(*args, window=window, kind=kind, **nan_sc)
+    want = tref.paged_attention(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, got_nan)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            assert torch.all(got[b] == 0)
