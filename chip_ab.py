@@ -2,9 +2,12 @@
 """Two trees of the port on one NVIDIA card, timed in turns: the
 full-width attention rows of ``chip_smoke.py`` phase 2 (K1 and K3, paged
 attention over fp32 and int8 pages; K4, latent paged attention; K2, flash
-attention), phases 4 and 4b's serving of qwen2.5-32b (4 layers) on fp32
-and int8 pages, and phase 7's serving of qwen2.5-32b-mla (4 layers) on
-the dense latent cache and on latent pages.
+attention) and its scan rows (K5, the wkv6 scan; K6, the selective scan),
+phases 4 and 4b's serving of qwen2.5-32b (4 layers) on fp32 and int8
+pages, phase 7's serving of qwen2.5-32b-mla (4 layers) on the dense latent
+cache and on latent pages, and hymba-1.5b's (32 layers, phase 10's
+weights) host wall and device busy time of one decode tick and one
+64-token first chunk.
 
     python3 chip_ab.py OTHER_TREE
 
@@ -16,10 +19,11 @@ package of its tree first, so this tree's ``chip_smoke`` then builds and
 launches that tree's kernels (into that tree's own build directory), and
 runs ``phase2_full_width``, ``phase2_q8_full_width``,
 ``phase2_latent_full_width``, ``phase2_flash_full_width``,
-``phase4_serve``, ``phase4b_serve_int8`` and ``phase7_mla`` as they are.
-Prints each worker's lines, then one JSON object ``{"ab": [{"tree": ...,
-"card": ..., "kernels": {...}, "serving": {...}}, ...]}`` with the turns
-in order. Needs CUDA; exits nonzero if any worker fails.
+``phase2_scan_full_width``, ``phase4_serve``, ``phase4b_serve_int8``,
+``phase7_mla`` and ``tick_and_chunk`` as they are. Prints each worker's
+lines, then one JSON object ``{"ab": [{"tree": ..., "card": ...,
+"kernels": {...}, "serving": {...}, "recurrent": {...}}, ...]}`` with the
+turns in order. Needs CUDA; exits nonzero if any worker fails.
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ def worker(tree: pathlib.Path) -> dict:
                      for kind, f in phase().items()})
     rows.update({f"flash_attention[{kind}]": f
                  for kind, f in cs.phase2_flash_full_width().items()})
+    rows.update({f"{name}[{kind}]": f for (name, kind), f in
+                 cs.phase2_scan_full_width().items()})
 
     # phases 4 and 4b: qwen2.5-32b (4 layers) on fp32 and int8 pages
     dense = cs.ServeEngine.build(cs.ARCH, config=cs.ServeConfig(
@@ -68,12 +74,20 @@ def worker(tree: pathlib.Path) -> dict:
 
     _, mla = cs.phase7_mla(card)
     served.update({f"mla {cache}": m for cache, m in mla.items()})
+
+    # phase 10's hymba-1.5b: a tick of 8 idle slots, a chunk of one request
+    engine = cs.build_recurrent(cs.HYMBA, cs.HYMBA_LAYERS, cs.HYMBA_S_MAX)
+    prompt = cs.serve_prompts(engine.cfg.vocab_size)[0]
+    recurrent = {f"hymba {kind}": m for kind, m in cs.tick_and_chunk(
+        engine, prompt, card, "hymba dense ring").items()}
+    del engine
+    torch.cuda.empty_cache()
     serving = {cache: {"ttft_p50_ms": m["ttft_s"]["p50"] * 1e3,
                        "itl_p50_ms": m["itl_s"]["p50"] * 1e3,
                        "tok_per_s": m["throughput_tokens_per_s"]}
                for cache, m in served.items()}
     return {"tree": str(tree), "card": card, "kernels": rows,
-            "serving": serving}
+            "serving": serving, "recurrent": recurrent}
 
 
 def main() -> int:

@@ -30,7 +30,9 @@ before printing any result. Phases, each of which raises on failure:
    wkv6 scan (K5) and the selective scan (K6) on the CPU tests' cases
    (strong decay, T = 33 with chunk 16, T = 1), then at rwkv6-7b's and
    hymba-1.5b's widths for the forward (B=4, T=1024), a decode tick and a
-   64-token prefill chunk of 8 slots, timed beside their bounds.
+   64-token prefill chunk of 8 slots and of one request (the shape of most
+   serving chunks; there other staging depths must give equal bits) and a
+   tick of one request, timed beside their bounds.
 3. qwen2.5-32b at full width cut to 4 layers (the weights of
    ``ServeEngine.build``, built once for phases 3-5): one paged prefill
    chunk plus 8 decode steps through ``impl="kernel"`` and
@@ -73,13 +75,14 @@ before printing any result. Phases, each of which raises on failure:
    one prefill chunk plus 8 decode steps through K5 ('auto') against
    'scan' (logits, state leaves, greedy tokens), then the 16 requests of
    phases 4-5 on the dense cache (rwkv has nothing to page), K5 launched
-   once per layer per chunk and per tick.
+   once per layer per chunk and per tick (the (B, T) of every launch
+   counted and printed).
 10. hymba-1.5b at full width and depth (32 layers, 5.3 GB): the same
    forward and step comparisons through K6, then the 16 requests plus 4
    of 1,100-1,500 tokens (s_max 2048, so the 1024-row ring wraps) on the
    dense ring and on the paged ring (pages of 16 rows), every selective
-   scan through K6 and every first chunk's attention through K2; the two
-   caches' streams equal.
+   scan through K6 (its launches by (B, T) printed) and every first
+   chunk's attention through K2; the two caches' streams equal.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
@@ -177,9 +180,18 @@ RECURRENT_NOISE = {
 }
 RWKV_LAYERS = HYMBA_LAYERS = 32          # full depth: 30 GB and 5.3 GB fp32
 HYMBA_S_MAX = 2048                       # the ring (1024 rows) wraps
-# K5 / K6 at full width: (B, T) of the forward, a decode tick, a chunk
+# K5 / K6 at full width: (B, T) of the forward, a decode tick and a
+# 64-token chunk of 8 slots, and a chunk and a tick of one request (the
+# engine prefills each group of equal prompts as one job, so most serving
+# chunks are B = 1)
 SCAN_SHAPES = {"forward": (4, 1024), "decode": (SLOTS, 1),
-               "prefill": (SLOTS, 64)}
+               "prefill": (SLOTS, 64), "prefill_b1": (1, 64),
+               "decode_b1": (1, 1)}
+# each scan's kernels as the profiler names them (K6 runs T = 1 in a kernel
+# of its own)
+SCAN_KERNELS = {"wkv6": ("wkv6_kernel",),
+                "selective_scan": ("selective_scan_kernel",
+                                   "selective_scan_tick_kernel")}
 # full-width recurrent outputs (logits, state), as a share of their
 # largest magnitude: fp32 layers whose scans sum in another order; top-1 is
 # held where the best two logits are further apart
@@ -1013,11 +1025,13 @@ def sscan_bound(B, T, D, N) -> tuple:
 
 def phase2_scan_full_width():
     """K5 at rwkv6-7b's shapes (64 heads of 64) and K6 at hymba-1.5b's
-    (1600 channels, state 16): the forward (B=4, T=1024), a decode tick
-    (8 slots, T=1) and a 64-token prefill chunk; the kernel's device time
-    (``device_ms``), the plain version's time between events (its many
-    launches as a caller waits for them) and the bound. No single PyTorch
-    call computes either recurrence, so there is no library time."""
+    (1600 channels, state 16), at each of ``SCAN_SHAPES``: the kernel's
+    device time (``device_ms``), the plain version's time between events
+    (its many launches as a caller waits for them) and the bound; at the
+    one-request chunk the outputs of other staging depths must equal the
+    default's bit for bit. No single PyTorch call computes either
+    recurrence, so there is no library time. Returns {(kernel, shape
+    name): {err, ms, plain_ms, bound_ms, bound_by}}."""
     rwkv, hymba = configs.get_config(RWKV), configs.get_config(HYMBA)
     out = {}
     for kind, (B, T) in SCAN_SHAPES.items():
@@ -1030,10 +1044,18 @@ def phase2_scan_full_width():
                  sscan_bound(B, T, D, Ns), ls.selective_scan,
                  ref.selective_scan)):
             shape = (B, T, H, N) if name == "wkv6" else (B, T, D, Ns)
-            err = scan_held(f"full width {name}[{kind}] {shape}",
-                            fn(*args), plain(*args))
+            got = fn(*args)
+            err = scan_held(f"full width {name}[{kind}] {shape}", got,
+                            plain(*args))
+            if kind == "prefill_b1":
+                for chunk in (1, 16, 64):
+                    again = fn(*args, chunk=chunk)
+                    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                        raise AssertionError(f"{name}[{kind}]: chunk={chunk} "
+                                             f"changes the result")
             ms = device_ms(lambda: fn(*args),
-                           20 if kind == "forward" else 50, name + "_kernel")
+                           20 if kind == "forward" else 50,
+                           SCAN_KERNELS[name])
             plain_ms = time_ms(lambda: plain(*args),
                                2 if kind == "forward" else 5)
             bms, by = bound
@@ -2155,11 +2177,12 @@ def recurrent_steps(model, params, s_max, leaves):
     torch.cuda.empty_cache()
 
 
-def host_and_device(fn, label, card):
+def host_and_device(fn, label, card) -> dict:
     """Where one call of ``fn`` spends its time: the host wall clock (mean
     of 3 synchronised calls), the device's busy time in one call (the sum
     of its kernels' times under ``torch.profiler``), the share of the wall
-    the device sat idle, and the kernel launches the call made."""
+    the device sat idle, and the kernel launches the call made; returned
+    as {wall_ms, busy_ms, idle, launches}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2179,17 +2202,46 @@ def host_and_device(fn, label, card):
                   and not e.is_user_annotation) / 1e3
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    log(f"  {label}: {wall_ms:.2f} ms host wall, device busy {busy_ms:.2f} "
+    log(f"  {label}: {wall_ms:.2f} ms host wall, device busy {busy_ms:.4f} "
         f"ms (idle {1 - busy_ms / wall_ms:.1%}), {launches} kernel launches "
         f"({card})")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle=1 - busy_ms / wall_ms, launches=launches)
+
+
+def tick_and_chunk(engine, prompt, card, label) -> dict:
+    """``host_and_device`` of one decode tick of an idle engine (every slot
+    parked: a tick runs every op of a live one, and its writes drop) and of
+    one 64-token first chunk of ``prompt`` (one request, B = 1)."""
+    tok = torch.zeros((engine.batch_slots, 1), dtype=torch.long, device=DEV)
+    tick = host_and_device(
+        lambda: engine._decode(engine.params, engine.cache, {"token": tok}),
+        f"{label}: one decode tick ({engine.batch_slots} slots)", card)
+    chunk = torch.from_numpy(prompt[:64]).long()[None].to(DEV)
+    first = host_and_device(
+        lambda: engine._chunk_first(engine.params, {"tokens": chunk}),
+        f"{label}: one 64-token first chunk", card)
+    return {"tick": tick, "chunk": first}
+
+
+def scan_shapes_of(fn, hist):
+    """``fn`` (``ls.wkv6`` or ``ls.selective_scan``) that also counts the
+    (B, T) of each call in ``hist``."""
+    def counted(*args, **kwargs):
+        key = tuple(args[0].shape[:2])
+        hist[key] = hist.get(key, 0) + 1
+        return fn(*args, **kwargs)
+    return counted
 
 
 def serve_recurrent(engine, prompts, card, label):
     """Serve ``prompts`` (32 tokens each) with the launch counts set to 0
     just before and read just after: the scan kernel once per layer per
     prefill chunk and per decode tick, K2 once per layer per first chunk
-    (hymba; rwkv has no attention), no other kernel. Returns (requests,
-    first-token logits, scan launches, K2 launches)."""
+    (hymba; rwkv has no attention), no other kernel; the (B, T) of every
+    scan launch is counted and printed. Returns (requests, first-token
+    logits, scan launches {"chunk": prefill chunks', "tick": decode
+    ticks'}, K2 launches)."""
     cfg = engine.cfg
     kernel = scan_kernel(cfg.name)
     n_first = [0]
@@ -2199,12 +2251,18 @@ def serve_recurrent(engine, prompts, card, label):
         n_first[0] += 1
         return first(*args)
 
+    hist = {}
+    scan = getattr(ls, kernel)
     engine._chunk_first = counted
+    setattr(ls, kernel, scan_shapes_of(scan, hist))
     ls.reset_launches()
     fa.reset_launches()
     pa.reset_launches()
-    reqs, m, firsts = serve(engine, prompts)
-    engine._chunk_first = first
+    try:
+        reqs, m, firsts = serve(engine, prompts)
+    finally:
+        engine._chunk_first = first
+        setattr(ls, kernel, scan)
     layers = cfg.num_layers
     want = layers * (m["prefill_chunks"] + m["decode_steps"])
     flash = layers * n_first[0] if cfg.name == HYMBA else 0
@@ -2224,26 +2282,23 @@ def serve_recurrent(engine, prompts, card, label):
         f"{m['decode_steps']} ticks) x {layers} layers)" + (
             f"; K2 prefill launches {flash} ({n_first[0]} first chunks x "
             f"{layers} layers)" if flash else ""))
-    # the engine is idle now (every slot parked): a decode tick runs every
-    # op of a live one, and its writes drop
-    tok = torch.zeros((engine.batch_slots, 1), dtype=torch.long, device=DEV)
-    host_and_device(lambda: engine._decode(engine.params, engine.cache,
-                                           {"token": tok}),
-                    f"{label}: one decode tick ({engine.batch_slots} slots)",
-                    card)
-    chunk = torch.from_numpy(prompts[0][:64]).long()[None].to(DEV)
-    host_and_device(lambda: engine._chunk_first(engine.params,
-                                                {"tokens": chunk}),
-                    f"{label}: one 64-token first chunk", card)
-    return reqs, firsts, want, flash
+    if sum(hist.values()) != want:
+        raise AssertionError(f"{label}: {sum(hist.values())} {kernel} calls "
+                             f"counted by shape, {want} launches")
+    log(f"  {kernel} launches by (B, T): " + ", ".join(
+        f"{key}: {n}" for key, n in sorted(hist.items(),
+                                           key=lambda kv: -kv[1])))
+    tick_and_chunk(engine, prompts[0], card, label)
+    return reqs, firsts, {"chunk": layers * m["prefill_chunks"],
+                          "tick": layers * m["decode_steps"]}, flash
 
 
 def phase9_rwkv(card):
     """rwkv6-7b at full width: the forward and the step path through K5
     against the plain recurrence on the first CHECK_LAYERS layers, then
     the 16 requests at full depth on the dense cache (rwkv has nothing to
-    page), every recurrence through K5. Returns K5's launches (forward,
-    serving)."""
+    page), every recurrence through K5. Returns K5's launches by path
+    (forward, chunk, tick)."""
     engine = build_recurrent(RWKV, RWKV_LAYERS, S_MAX)
     model, params = engine.model, engine.params
     check = cut_depth(model, CHECK_LAYERS[RWKV])
@@ -2254,7 +2309,7 @@ def phase9_rwkv(card):
                                        "rwkv6 dense serving")
     del engine, model, params
     torch.cuda.empty_cache()
-    return forward, serving
+    return dict(serving, forward=forward)
 
 
 def long_prompts(vocab):
@@ -2271,8 +2326,8 @@ def phase10_hymba(card):
     ring-wrapping ones on the dense ring and on the paged ring (pages of
     16 rows), every selective scan through K6 and every first chunk's
     attention through K2; the two caches' streams equal. Returns K6's
-    launches (forward, serving: the two engines' sum) and K2's (forward,
-    first chunks of both engines)."""
+    launches by path (forward, chunk, tick: the two engines' sum) and K2's
+    (forward, first chunks of both engines)."""
     engine = build_recurrent(HYMBA, HYMBA_LAYERS, HYMBA_S_MAX)
     model, params = engine.model, engine.params
     check = cut_depth(model, CHECK_LAYERS[HYMBA])
@@ -2302,8 +2357,9 @@ def phase10_hymba(card):
     log(f"  dense ring vs paged ring: all {len(same)} streams equal")
     del paged, model, params
     torch.cuda.empty_cache()
-    return (forward, dense + paged_n), {"forward": flash_forward,
-                                        "prefill": d_flash + p_flash}
+    return ({"forward": forward, "chunk": dense["chunk"] + paged_n["chunk"],
+             "tick": dense["tick"] + paged_n["tick"]},
+            {"forward": flash_forward, "prefill": d_flash + p_flash})
 
 
 def main():
@@ -2424,16 +2480,21 @@ def main():
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})
     for name, line in (("wkv6", 30), ("selective_scan", 105)):
-        for i, kind in enumerate(("forward", "serving")):
-            # the serving row times a decode tick, the most frequent launch
-            f = scan_full[(name, "forward" if i == 0 else "decode")]
-            err = max([scan_errs[name]] + [
-                scan_full[(name, k)]["err"] for k in SCAN_SHAPES])
+        counts = scan_launches[name]
+        # serving's launches by path: decode ticks, timed at 8 slots, and
+        # prefill chunks, timed at one request's 64 tokens (the most
+        # frequent chunk, phases 9 and 10's histograms)
+        timed = {"forward": "forward", "tick": "decode",
+                 "chunk": "prefill_b1"}
+        err = max([scan_errs[name]] + [
+            scan_full[(name, k)]["err"] for k in SCAN_SHAPES])
+        for kind, shape in timed.items():
+            f = scan_full[(name, shape)]
             kernels.append({
                 "name": f"{name}[{kind}]", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
                 "replaces": f"src/repro/kernels/linear_scan.py:{line}",
-                "launches": scan_launches[name][i], "max_abs_err": err,
+                "launches": counts[kind], "max_abs_err": err,
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": None})

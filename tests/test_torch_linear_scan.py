@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import linear_scan as tls  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -142,6 +143,83 @@ def test_scan_wrappers_reject_bad_arguments():
     assert tls.LAUNCHES == {"wkv6": 0, "selective_scan": 0}
 
 
+# ------------------------------------------------------------ the plan
+# (kernel, B, T, H or D, N): rwkv6-7b's and hymba-1.5b's serving chunk of
+# one request (most of the main path's chunks), a chunk of 8 slots, a
+# decode tick and the forward, then the card cases below
+PLAN_SHAPES = [("wkv6", 1, 64, 64, 64), ("wkv6", 8, 64, 64, 64),
+               ("wkv6", 8, 1, 64, 64), ("wkv6", 4, 1024, 64, 64),
+               ("wkv6", 3, 19, 2, 24), ("wkv6", 1, 5, 1, 1),
+               ("selective_scan", 1, 64, 1600, 16),
+               ("selective_scan", 8, 64, 1600, 16),
+               ("selective_scan", 8, 1, 1600, 16),
+               ("selective_scan", 4, 1024, 1600, 16),
+               ("selective_scan", 2, 9, 33, 3),
+               ("selective_scan", 1, 3, 300, 1),
+               ("selective_scan", 1, 7, 5, 32)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "-".join(
+    map(str, s)))
+def test_scan_plan(shape):
+    """Full-width serving shapes launch at least a block per SM (a chunk
+    of one request included); every plan fits the card's shared memory,
+    stages at most T steps and at most ``chunk``, and sizes its blocks as
+    the kernel does."""
+    kernel, B, T, W, N = shape
+    for chunk in (1, 16, 32, 64, 200):
+        plan = tls.scan_plan(kernel, B, T, W, N, chunk=chunk,
+                             ptrs=(0, 16, 32, 48))
+        assert plan.kernel == kernel
+        assert 0 <= plan.smem <= _build.SMEM_MAX
+        assert 1 <= plan.steps <= min(chunk, T)
+        assert plan.cols & (plan.cols - 1) == 0
+        if W in (64, 1600):
+            assert plan.blocks >= _build.SMS
+        if kernel == "wkv6":
+            assert plan.thread_cols in (1, 2)
+            assert plan.threads == (tls.WKV_GROUPS * plan.cols
+                                    // plan.thread_cols) >= 32
+            assert plan.vec == (N % 4 == 0)
+            assert 2 * plan.smem <= _build.SMEM_MAX or plan.steps == 1
+        else:
+            assert 32 <= plan.threads <= tls.SS_MAX_THREADS
+            assert (plan.smem == 0) == (T == 1) and not plan.vec
+    # the main path's chunk of one request: rwkv6 splits each head's
+    # value columns 4 ways, hymba uses blocks of 8 channels
+    if shape[:3] == ("wkv6", 1, 64):
+        assert (plan.cols, plan.blocks) == (16, 256)
+    if shape[:3] == ("selective_scan", 1, 64):
+        assert (plan.cols, plan.blocks) == (8, 200)
+
+
+def test_scan_plan_rejects_what_the_kernels_cannot_take():
+    """B past 65535, N past the kernel's widest state, T, H, D or chunk
+    below 1 and an unknown kernel raise; so do plans the kernel would
+    refuse (column blocks not a power of two, 16-byte copies of rows that
+    are not a multiple of 16 bytes, blocks past 256 threads)."""
+    bad = [("wkv6", 65536, 1, 1, 1), ("wkv6", 1, 1, 1, 65),
+           ("wkv6", 1, 0, 1, 1), ("wkv6", 1, 1, 0, 1),
+           ("selective_scan", 65536, 1, 1, 1),
+           ("selective_scan", 1, 1, 1, 33), ("selective_scan", 1, 1, 0, 4),
+           ("linear_attention", 1, 1, 1, 1)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tls.scan_plan(*args, chunk=32)
+    with pytest.raises(ValueError):
+        tls.scan_plan("wkv6", 1, 4, 2, 16, chunk=0)
+    with pytest.raises(ValueError):
+        tls._plan("wkv6", 1, 4, 2, 16, cols=12, steps=4)
+    with pytest.raises(ValueError):
+        tls._plan("wkv6", 1, 4, 2, 16, cols=2, steps=4)
+    with pytest.raises(ValueError):
+        tls._plan("wkv6", 1, 4, 2, 18, cols=4, steps=4, vec=True)
+    with pytest.raises(ValueError):
+        tls._plan("selective_scan", 1, 4, 64, 16, cols=32, steps=4)
+    with pytest.raises(ValueError):
+        tls._plan("selective_scan", 1, 4, 64, 4, cols=4, steps=4)
+
+
 # ------------------------------------------------------------ on the card
 WKV_CASES = [dict(B=2, T=64, H=3, N=16, chunk=16),
              dict(B=2, T=33, H=3, N=16, chunk=16),
@@ -149,7 +227,14 @@ WKV_CASES = [dict(B=2, T=64, H=3, N=16, chunk=16),
              dict(B=1, T=64, H=2, N=8, chunk=16, decay=0.05),
              dict(B=2, T=40, H=5, N=64, chunk=32),
              dict(B=3, T=19, H=2, N=24, chunk=7),
-             dict(B=1, T=5, H=1, N=1, chunk=32)]
+             dict(B=1, T=5, H=1, N=1, chunk=32),
+             # full width: the main path's chunk of one request and its
+             # tick, then steps across the staging boundaries
+             dict(B=1, T=64, H=64, N=64, chunk=32),
+             dict(B=1, T=1, H=64, N=64, chunk=32),
+             dict(B=2, T=65, H=64, N=64, chunk=32),
+             dict(B=1, T=129, H=64, N=64, chunk=32),
+             dict(B=2, T=65, H=5, N=24, chunk=16)]
 
 
 @pytest.mark.gpu
@@ -179,7 +264,13 @@ SSCAN_CASES = [dict(B=2, T=64, D=32, N=8, chunk=16),
                dict(B=2, T=20, D=70, N=4, chunk=64),
                dict(B=2, T=9, D=33, N=3, chunk=5),
                dict(B=1, T=7, D=5, N=32, chunk=64),
-               dict(B=1, T=3, D=300, N=1, chunk=64)]
+               dict(B=1, T=3, D=300, N=1, chunk=64),
+               dict(B=1, T=64, D=1600, N=16, chunk=64),
+               dict(B=1, T=1, D=1600, N=16, chunk=64),
+               dict(B=2, T=65, D=1600, N=16, chunk=64),
+               dict(B=1, T=129, D=1600, N=16, chunk=64),
+               dict(B=2, T=129, D=70, N=5, chunk=64),
+               dict(B=1, T=65, D=40, N=1, chunk=64)]
 
 
 @pytest.mark.gpu
@@ -223,3 +314,67 @@ def test_scan_kernels_raise_on_what_they_cannot_take(card):
     ss = _t(sscan_inputs(6, 1, 4, 8, 4), card)
     with pytest.raises(TypeError, match="float32"):
         tops.selective_scan(ss[0].half(), *ss[1:])
+
+
+def _plans(kernel, B, T, W, N):
+    """Every column split or channel block the plan can choose at this
+    shape (K5 with 1 or 2 columns a thread), at staging depths across
+    the SS_U groups and stage boundaries, with 4- and 16-byte copies
+    (K5)."""
+    widths = [1 << i for i in range(9)]
+    if kernel == "wkv6":
+        vecs = (False, True) if N % 4 == 0 else (False,)
+        per_thread = (1, 2)
+    else:
+        vecs, per_thread = (False,), (1,)
+    out = []
+    for cols in widths:
+        for tc in per_thread:
+            for steps in (1, 3, 16, 17, 64, T):
+                for vec in vecs:
+                    try:
+                        out.append(tls._plan(kernel, B, T, W, N, cols,
+                                             min(steps, T), vec, tc))
+                    except ValueError:
+                        pass
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [("wkv6", 1, 64, 64, 64),
+                                   ("wkv6", 2, 33, 3, 24),
+                                   ("wkv6", 1, 1, 8, 16),
+                                   ("selective_scan", 1, 64, 1600, 16),
+                                   ("selective_scan", 2, 40, 70, 5),
+                                   ("selective_scan", 8, 1, 1600, 16),
+                                   ("selective_scan", 1, 20, 40, 1)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_every_plan_gives_equal_bits(card, shape):
+    """No column split, channel block, staging depth or copy width the
+    kernels take changes a bit of y or of the final state."""
+    kernel, B, T, W, N = shape
+    if kernel == "wkv6":
+        args = _t(wkv_inputs(7, B, T, W, N), card)
+        want = tops.wkv6(*args)
+    else:
+        args = _t(sscan_inputs(8, B, T, W, N), card)
+        want = tops.selective_scan(*args)
+    plans = _plans(kernel, B, T, W, N)
+    assert len(plans) >= 6
+    for plan in plans:
+        got = tls.run_plan(plan, args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), plan
+
+
+@pytest.mark.gpu
+def test_scan_kernels_raise_past_their_batch(card):
+    """B = 65536 is past the kernels' grid: both raise, and neither runs
+    the plain version or counts a launch."""
+    tls.reset_launches()
+    with pytest.raises(ValueError, match="B <= 65535"):
+        tops.wkv6(*_t(wkv_inputs(9, 65536, 1, 1, 1), card))
+    with pytest.raises(ValueError, match="B <= 65535"):
+        tops.selective_scan(*_t(sscan_inputs(9, 65536, 1, 1, 1), card))
+    assert tls.LAUNCHES == {"wkv6": 0, "selective_scan": 0}
