@@ -83,13 +83,37 @@ before printing any result. Phases, each of which raises on failure:
    dense ring and on the paged ring (pages of 16 rows), every selective
    scan through K6 (its launches by (B, T) printed) and every first
    chunk's attention through K2; the two caches' streams equal.
+11. run right after phase 5, on its qwen2.5-32b weights, every engine
+   on fp32 pages of 16, so K1 carries every decode tick and chunk (its
+   launches counted in each run): (11a) the 16 requests sampled at
+   temperature 0.8 with top_k=1 (streams equal to phase 4's greedy
+   ones), with top-k 50 / top-p 0.9 at seed 7 twice (equal streams, every
+   token in its filtered row's kept set) and at seed 8 (other streams),
+   tok/s and ITL p50 against phase 4's, and the time a tick takes to
+   choose its 8 tokens from the logits each way; (11b) the reference bench's burst
+   cell (``GOODPUT_POLICY_KW``, 4 slots, s_max 96, 8 pages): capacity and
+   the SLO calibrated on the card, then one bursty three-priority
+   schedule at 2x the sustainable rate replayed to warm up, under FIFO
+   and under the policy, goodput, attainment and TTFT p95 by priority
+   printed; the policy must preempt and shed, and each preempted request
+   that completed gives its uninterrupted greedy stream; (11c) two
+   replicas over the same weight tensors behind ``ReplicaRouter``: the
+   header-sharing prompts on one replica, phase 4's streams; (11d)
+   cancels from RUNNING, PREFILLING, QUEUED and one member of a grouped
+   prefill, every page back, the survivors' streams against phase 4's;
+   (11e) ``python -m repro_torch.serve.workload`` and ``python -m
+   repro_torch.launch.serve --temperature 0.7 --top-p 0.9`` in their own
+   processes exit 0, and their summaries show no failed prefill chunk and
+   no request aborted but by a shed.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
-path (3b's forward, 4, 4b, 5, 7, 9, 10) and each forward of phases 8,
+path (3b's forward, 4, 4b, 5, 7, 9, 10, 11) and each forward of phases 8,
 8b, 9 and 10 runs with the kernels' launch counts set to 0 just before
-and read just after. Then one JSON line
+and read just after, and every serving run requires that no prefill
+chunk failed (the engine catches a chunk that raises and fails its job).
+Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
 computes.
@@ -98,6 +122,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -127,7 +152,12 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models.registry import init_paged_cache  # noqa: E402
-from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve import (SLO, ReplicaRouter, SchedPolicy,  # noqa: E402
+                               ServeConfig, ServeEngine, WorkloadSpec,
+                               merged_summary)
+from repro_torch.serve import workload  # noqa: E402
+from repro_torch.serve.metrics import percentile  # noqa: E402
+from repro_torch.serve.scheduler import RequestState  # noqa: E402
 from repro_torch.serve.kvcache import (PagedInt8Backend,  # noqa: E402
                                        PagedLatentBackend)
 
@@ -1230,27 +1260,48 @@ def serve_prompts(vocab):
     return prompts
 
 
-def serve(engine, prompts):
-    """Submit, run; every request served in full with in-vocab tokens.
-    Also returns each request's first-token logits (rid -> row)."""
-    firsts = {}
+def keep_firsts(engine, firsts):
+    """Keep each request's first-token logits (rid -> row) as its group's
+    splice samples them; returns a function that removes the hook."""
     splice = engine._splice_and_start
 
     def keep_first(slot_ids, reqs, rcache, logits, **kw):
         for r, row in zip(reqs, logits[:, 0, :engine.cfg.vocab_size]):
-            firsts[r.rid] = row.clone()
+            firsts.setdefault(r.rid, row.clone())
         return splice(slot_ids, reqs, rcache, logits, **kw)
 
     engine._splice_and_start = keep_first
-    reqs = [engine.submit(p, 32) for p in prompts]
-    m = engine.run()
-    engine._splice_and_start = splice
-    vocab = engine.cfg.vocab_size
+    return lambda: setattr(engine, "_splice_and_start", splice)
+
+
+def no_failures(engine, what):
+    """The engine catches a prefill chunk that raises and fails its job;
+    every serving run here requires that no chunk failed, so a kernel that
+    does not build or launch cannot hide behind that catch."""
+    if engine.prefill_failures:
+        raise AssertionError(f"{what}: {engine.prefill_failures} prefill "
+                             f"chunk(s) failed")
+
+
+def served_in_full(reqs, vocab, gen=32):
     bad = [r.rid for r in reqs if r.state.value != "done"
-           or len(r.tokens) != 32
+           or len(r.tokens) != gen
            or not all(0 <= t < vocab for t in r.tokens)]
     if bad:
         raise AssertionError(f"requests not served in full: {bad}")
+
+
+def serve(engine, prompts):
+    """Submit, run; every request served in full with in-vocab tokens and
+    no prefill chunk failed. Also returns each request's first-token
+    logits (rid -> row)."""
+    firsts = {}
+    unhook = keep_firsts(engine, firsts)
+    reqs = [engine.submit(p, 32) for p in prompts]
+    m = engine.run()
+    unhook()
+    no_failures(engine, "serving")
+    served_in_full(reqs, engine.cfg.vocab_size)
     return reqs, m, [firsts[r.rid] for r in reqs]
 
 
@@ -1397,6 +1448,399 @@ def phase5_serve_dense(engine, prompts, card, paged):
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+# 11a: the nucleus setting of the sampled runs
+SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.9)
+# 11b: the reference bench's burst cell (benchmarks/serve_bench.py:563-575
+# and :620-662): its policy, its pool and its traffic, on the full-width
+# model; the base rate is a multiple of the rate the card sustains
+GOODPUT_POLICY_KW = dict(drr=True, max_consecutive_prefill_ticks=2,
+                         preemption=True, admission_low_water=0.15,
+                         admission_shed_priority=2)
+BURST_POOL = dict(batch_slots=4, s_max=96, page_size=PS, num_pages=8)
+BURST_LENGTHS = dict(prompt_len_median=24, prompt_len_sigma=0.5,
+                     prompt_len_max=48, gen_len_median=10, gen_len_sigma=0.5,
+                     gen_len_max=24,
+                     priority_weights=((0, 0.2), (1, 0.2), (2, 0.6)))
+BURST_CAL, BURST_REQUESTS = 12, 32     # calibration and burst schedules
+# base rate x sustainable: 2x as the bench; raised only if the policy run
+# neither preempts nor sheds there (the policy itself never changes)
+BURST_OVER = (2.0, 4.0, 8.0)
+SLO_TTFT_MULT, SLO_ITL_MULT = 2.5, 8.0   # x the unloaded p95s, as the bench
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def paged_engine(model, params, **fields):
+    """An engine on fp32 pages of 16 over the main path's weights, with
+    phase 4's slots and s_max unless ``fields`` say otherwise."""
+    fields = dict(dict(page_size=PS, s_max=S_MAX, batch_slots=SLOTS),
+                  **fields)
+    return ServeEngine(model, params, **ServeConfig(
+        reduced=False, **fields).engine_kwargs())
+
+
+def check_kept(engine, counts):
+    """Wrap the engine's filter and sampler: every token a sampling event
+    draws lies in its filtered row's kept set and below vocab_size."""
+    kept = []
+    filt, sample = engine._filter_logits, engine._sample_rows
+
+    def keep(scaled):
+        out = filt(scaled)
+        kept.append(torch.isfinite(out))
+        return out
+
+    def checked(logits):
+        toks = sample(logits)
+        ok = kept.pop()
+        t = torch.as_tensor(toks, device=ok.device)
+        if (t >= engine.cfg.vocab_size).any() or not bool(
+                ok[torch.arange(len(toks), device=ok.device), t].all()):
+            raise AssertionError(f"a sampled token left the kept set: "
+                                 f"{toks}")
+        counts["events"] += 1
+        counts["tokens"] += len(toks)
+        counts["kept"] += int(ok.sum())
+        return toks
+
+    engine._filter_logits, engine._sample_rows = keep, checked
+
+
+def phase11a_sampling(model, params, prompts, card, greedy):
+    """The 16 requests on fp32 pages, sampled: at temperature 0.8 with
+    top_k=1 the streams equal phase 4's greedy ones; with top-k 50 and
+    top-p 0.9 seed 7 gives one stream twice (every token of the first run
+    checked against its filtered row's kept set) and seed 8 another.
+    Every run's attention goes through K1. Returns the sampled run's
+    metrics."""
+    engine = paged_engine(model, params, temperature=0.8, top_k=1, seed=7)
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    check_paged_launches(("decode", "prefill"), m, "top_k=1 (K1)")
+    engine.assert_page_invariants()
+    _, same, total = compare_streams("top_k=1", (reqs, firsts),
+                                     "greedy", greedy[:2])
+    if same != total:
+        raise AssertionError(f"top_k=1 streams differ from greedy in "
+                             f"{total - same} tokens")
+    top1 = m
+    del engine
+    streams, runs = {}, {}
+    for label, seed in (("seed 7", 7), ("seed 7 again", 7),
+                        ("seed 8", 8)):
+        engine = paged_engine(model, params, seed=seed, **SAMPLE)
+        counts = {"events": 0, "tokens": 0, "kept": 0}
+        if label == "seed 7":
+            check_kept(engine, counts)
+        pa.reset_launches()
+        fa.reset_launches()
+        reqs, m, _ = serve(engine, prompts)
+        check_paged_launches(("decode", "prefill"), m, f"{label} (K1)")
+        engine.assert_page_invariants()
+        streams[label] = [list(r.tokens) for r in reqs]
+        runs[label] = m
+        if counts["events"]:
+            log(f"  {label}: {counts['tokens']} sampled tokens of "
+                f"{counts['events']} events all in their kept sets (mean "
+                f"{counts['kept'] / counts['tokens']:.1f} kept of "
+                f"{engine.cfg.vocab_size})")
+        del engine
+    if streams["seed 7"] != streams["seed 7 again"]:
+        raise AssertionError("seed 7 gave two different streams")
+    differ = sum(a != b for a, b in zip(streams["seed 7"],
+                                        streams["seed 8"]))
+    if not differ:
+        raise AssertionError("seeds 7 and 8 gave the same streams")
+    log(f"  seed 7 twice: equal streams; seed 8: {differ}/16 streams "
+        f"differ")
+    m, g = runs["seed 7 again"], greedy[2]
+    log(f"  sampled (T 0.8, top-k 50, top-p 0.9): "
+        f"{m['throughput_tokens_per_s']:.1f} tok/s, ITL p50 "
+        f"{m['itl_s']['p50'] * 1e3:.2f} ms; top_k=1 "
+        f"{top1['throughput_tokens_per_s']:.1f} tok/s, "
+        f"{top1['itl_s']['p50'] * 1e3:.2f} ms; greedy (phase 4) "
+        f"{g['throughput_tokens_per_s']:.1f} tok/s, "
+        f"{g['itl_s']['p50'] * 1e3:.2f} ms ({card})")
+    # what one decode tick pays to pick its tokens from (8, V) logits,
+    # the copy of the tokens to the host included
+    logits = 4 * torch.randn(SLOTS, 1, model.cfg.vocab_size, device=DEV,
+                             generator=torch.Generator(DEV).manual_seed(4))
+    cost = {}
+    for label, fields in (("greedy", {}),
+                          ("top_k=1", dict(temperature=0.8, top_k=1)),
+                          ("top-k 50, top-p 0.9", SAMPLE)):
+        engine = paged_engine(model, params, s_max=2 * PS, **fields)
+        cost[label] = time_ms(lambda: engine._sample_rows(logits), 50)
+        del engine
+    log("  token choice per tick (8 rows): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in cost.items()) + f" ({card})")
+    torch.cuda.empty_cache()
+    return m
+
+
+def burst_replay(model, params, policy, events, slo, label):
+    """Replay ``events`` open loop on a fresh engine of the burst pool:
+    every request completed or aborted, the pages sound, no chunk failed,
+    every attention through K1. Returns (engine, summary)."""
+    engine = ServeEngine(model, params, **ServeConfig(
+        reduced=False, **BURST_POOL,
+        policy=None if policy is None else SchedPolicy(**policy)
+    ).engine_kwargs())
+    pa.reset_launches()
+    fa.reset_launches()
+    s = workload.replay(engine, events, slo)
+    n = len(events)
+    if s["requests"] != n or s["completed"] + s["aborted"] != n:
+        raise AssertionError(f"{label}: {s['completed']} completed + "
+                             f"{s['aborted']} aborted of {n}")
+    engine.assert_page_invariants()
+    no_failures(engine, label)
+    check_paged_launches(("decode", "prefill"), s.metrics, f"{label} (K1)")
+    return engine, s
+
+
+def ttft_p95_by_priority(engine) -> dict:
+    recs = [r for r in engine.metrics.requests.values()
+            if r.ttft_s is not None and not r.aborted]
+    return {p: percentile([r.ttft_s for r in recs if r.priority == p], 95)
+            for p in sorted({r.priority for r in recs})}
+
+
+def log_goodput(label, engine, s, card):
+    g = s["goodput"]
+    att = ", ".join(f"p{p} {c['slo_attainment']:.2f} (TTFT "
+                    f"{c['ttft_attainment']:.2f})"
+                    for p, c in g["by_priority"].items())
+    ttft = ", ".join(f"p{p} {t * 1e3:.1f} ms"
+                     for p, t in ttft_p95_by_priority(engine).items())
+    log(f"  {label}: goodput {g['goodput_tokens_per_s']:.1f} tok/s of "
+        f"{s['throughput_tokens_per_s']:.1f}, SLO met {g['slo_met']}/"
+        f"{g['submitted']}; attainment {att}; TTFT p95 {ttft}; "
+        f"{s['preemptions']} preemptions, {s['shed_requests']} shed, "
+        f"{engine.deferrals} deferrals, {s['starvation_guard_skips']} "
+        f"guard skips ({card})")
+
+
+def phase11b_burst(model, params, card):
+    """The bench's burst cell on the card: calibrate capacity (closed
+    loop) and the SLO (an unloaded 2-request replay), then one bursty
+    schedule at 2x the sustainable rate replayed to warm up, under FIFO
+    and under the policy, goodput and attainment by priority printed.
+    The policy run must preempt and shed (the rate is raised, never the
+    policy changed, until it does), and every preempted request that
+    completed must give its uninterrupted greedy stream."""
+    vocab = model.cfg.vocab_size
+    cal = workload.generate(WorkloadSpec(n_requests=BURST_CAL, rate_rps=1e9,
+                                         seed=0, **BURST_LENGTHS), vocab)
+    burst_replay(model, params, GOODPUT_POLICY_KW, cal, None, "warm-up")
+    _, cap = burst_replay(model, params, None, cal, None, "capacity")
+    capacity = cap["throughput_tokens_per_s"]
+    un_events = workload.generate(WorkloadSpec(
+        n_requests=2, rate_rps=1e9, seed=1, **BURST_LENGTHS), vocab)
+    _, un = burst_replay(model, params, None, un_events, None, "unloaded")
+    mean_gen = float(np.mean([e.gen_len for e in cal]))
+    sustainable = capacity / max(mean_gen, 1.0)
+    slo = SLO(ttft_s=max(SLO_TTFT_MULT * un["ttft_s"]["p95"], 0.02),
+              itl_p95_s=max(SLO_ITL_MULT * un["itl_s"]["p95"], 0.005))
+    log(f"  capacity {capacity:.1f} tok/s (closed loop, {BURST_CAL} "
+        f"requests), sustainable {sustainable:.2f} req/s; SLO TTFT <= "
+        f"{slo.ttft_s * 1e3:.1f} ms, ITL p95 <= {slo.itl_p95_s * 1e3:.2f} "
+        f"ms ({card})")
+    for over in BURST_OVER:
+        events = workload.generate(WorkloadSpec(
+            n_requests=BURST_REQUESTS, rate_rps=over * sustainable, seed=3,
+            burst_start_frac=0.1, burst_len_frac=0.5, burst_mult=2.5,
+            **BURST_LENGTHS), vocab)
+        burst_replay(model, params, GOODPUT_POLICY_KW, events, slo,
+                     "burst warm-up")
+        fifo_eng, fifo = burst_replay(model, params, None, events, slo,
+                                      "FIFO")
+        pol_eng, pol = burst_replay(model, params, GOODPUT_POLICY_KW,
+                                    events, slo, "policy")
+        log(f"  burst at {over:g} x sustainable ({BURST_REQUESTS} "
+            f"requests, 2.5x over 0.1-0.6 of the horizon):")
+        log_goodput("FIFO", fifo_eng, fifo, card)
+        log_goodput("policy", pol_eng, pol, card)
+        if pol["preemptions"] and pol["shed_requests"]:
+            break
+        log(f"  the policy neither preempted and shed at {over:g} x: "
+            f"raising the rate")
+    else:
+        raise AssertionError("the policy run never both preempted and shed")
+    resumed = [r for r in pol_eng.requests.values()
+               if r.folded and r.state is RequestState.DONE]
+    closed = ServeEngine(model, params, **ServeConfig(
+        reduced=False, **BURST_POOL).engine_kwargs())
+    alone = [closed.submit(events[r.rid].prompt, events[r.rid].gen_len)
+             for r in resumed]
+    closed.run()
+    no_failures(closed, "closed loop")
+    for r, a in zip(resumed, alone):
+        if list(r.tokens) != list(a.tokens):
+            raise AssertionError(f"preempted request {r.rid} resumed to "
+                                 f"{r.tokens}, uninterrupted {a.tokens}")
+    paused = sum(r.folded > 0 for r in pol_eng.requests.values())
+    log(f"  {len(resumed)} preempted requests completed with their "
+        f"uninterrupted greedy streams ({paused} preempted in all)")
+    torch.cuda.empty_cache()
+    return fifo, pol
+
+
+def phase11c_router(model, params, prompts, card, greedy):
+    """Two replicas over the same weight tensors behind a prefix-affinity
+    router: the 16 requests complete, the header-sharing ones on one
+    replica, with phase 4's streams. Returns the tier's pooled summary."""
+    engines = [paged_engine(model, params) for _ in range(2)]
+    if engines[0].params is not engines[1].params:
+        raise AssertionError("the replicas hold copies of the weights")
+    router = ReplicaRouter(engines, affinity=True)
+    firsts = [{}, {}]
+    unhook = [keep_firsts(e, f) for e, f in zip(engines, firsts)]
+    pa.reset_launches()
+    fa.reset_launches()
+    for e in engines:
+        e.metrics.on_start()
+    routed = [router.submit(p, 32) for p in prompts]
+    router.drain()
+    torch.cuda.synchronize()
+    for e in engines:
+        e.metrics.on_stop()
+    for u in unhook:
+        u()
+    m = merged_summary([e.metrics for e in engines])
+    reqs = [r for r, _ in routed]
+    served_in_full(reqs, model.cfg.vocab_size)
+    for i, e in enumerate(engines):
+        no_failures(e, f"replica {i}")
+        e.assert_page_invariants()
+    header = {t for i, (_, t) in enumerate(routed) if i % 2}
+    if len(header) != 1:
+        raise AssertionError(f"header-sharing prompts spread over replicas "
+                             f"{header}")
+    check_paged_launches(("decode", "prefill"), m, "router tier (K1)")
+    log(f"  router: {router.stats()}; header prompts on replica "
+        f"{header.pop()}; prefix hits {m['prefix']['hits']} of "
+        f"{m['prefix']['lookups']}")
+    log_serving(m, card)
+    compare_streams("router", (reqs, [firsts[t][r.rid] for r, t in routed]),
+                    "paged", greedy[:2])
+    del engines, router
+    torch.cuda.empty_cache()
+    return m
+
+
+def phase11d_cancel(model, params, prompts, greedy):
+    """One engine (4 slots, prefix cache off) cancels a RUNNING, a
+    PREFILLING, a QUEUED request and one member of a grouped prefill; the
+    survivors' streams against phase 4's, every page back, invariants."""
+    engine = paged_engine(model, params, batch_slots=4, prefix_cache=False)
+    firsts = {}
+    unhook = keep_firsts(engine, firsts)
+    pa.reset_launches()
+    fa.reset_launches()
+    rng = np.random.default_rng(11)
+    running = engine.submit(prompts[0], 32)
+    while running.state is not RequestState.RUNNING:
+        engine.step()
+    member = engine.submit(prompts[2], 32)
+    mate = engine.submit(rng.integers(0, model.cfg.vocab_size,
+                                      len(prompts[2])), 32)
+    prefilling = engine.submit(prompts[4], 32)
+    queued = engine.submit(prompts[6], 32)
+    survivor = engine.submit(prompts[8], 32)
+    engine.step()
+    jobs = [[r.rid for r in j.reqs] for j in engine._jobs]
+    if ([member.rid, mate.rid] not in jobs or [prefilling.rid] not in jobs
+            or queued.state is not RequestState.QUEUED):
+        raise AssertionError(f"unexpected admission: jobs {jobs}")
+    for r in (running, prefilling, mate, queued):
+        if not engine.cancel(r.rid):
+            raise AssertionError(f"cancel of {r.rid} returned False")
+    if mate.state is not RequestState.PREFILLING:
+        raise AssertionError("a grouped member's cancel landed before the "
+                             "splice")
+    m = engine.run()
+    unhook()
+    no_failures(engine, "cancel")
+    engine.assert_page_invariants()
+    states = [r.state for r in (running, prefilling, mate, queued)]
+    if (states != [RequestState.CANCELLED] * 4 or mate.tokens
+            or queued.tokens):
+        raise AssertionError(f"cancelled requests ended {states}")
+    served_in_full([member, survivor], model.cfg.vocab_size)
+    if engine.free_pages != engine.num_pages:
+        raise AssertionError(f"{engine.free_pages} of {engine.num_pages} "
+                             f"pages free after the cancels")
+    check_paged_launches(("decode", "prefill"), m, "cancel run (K1)")
+    log(f"  cancelled RUNNING, PREFILLING, QUEUED and a grouped member; "
+        f"{m['aborted']} aborted, {m['completed']} completed, "
+        f"{engine.free_pages}/{engine.num_pages} pages free")
+    compare_streams("survivors", ([member, survivor],
+                                  [firsts[member.rid], firsts[survivor.rid]]),
+                    "paged", ([greedy[0][2], greedy[0][8]],
+                              [greedy[1][2], greedy[1][8]]))
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase11e_cli(card):
+    """The traffic harness and the serving CLI as a user runs them, each
+    in its own process on the card. Both exit 0, and their summaries show
+    no failed prefill chunk and no request aborted but by a shed: the
+    engines there catch a chunk that raises, so the exit code alone could
+    hide a kernel that does not build or launch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for cmd in (["-m", "repro_torch.serve.workload"],
+                ["-m", "repro_torch.launch.serve", "--temperature", "0.7",
+                 "--top-p", "0.9", "--json"]):
+        what = " ".join(cmd[1:])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                              text=True, timeout=600, env=env, cwd=ROOT)
+        took = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        # the summary JSON comes first (the CLI prints its line after it)
+        s, end = json.JSONDecoder().raw_decode(proc.stdout.lstrip())
+        shed = s["shed_requests"]
+        if (s["prefill_failures"] or s["aborted"] != shed
+                or s["completed"] + s["aborted"] != s["requests"]):
+            raise AssertionError(
+                f"{what}: {s['prefill_failures']} prefill chunk(s) failed, "
+                f"{s['completed']} completed and {s['aborted']} aborted "
+                f"({shed} shed) of {s['requests']}:\n{proc.stderr[-3000:]}")
+        if cmd[1].endswith("workload"):
+            g = s["goodput"]
+            log(f"  {what}: {s['completed']} completed + {s['aborted']} "
+                f"shed of {s['requests']}, 0 prefill failures, goodput "
+                f"{g['goodput_tokens_per_s']:.1f} tok/s, {took:.1f} s "
+                f"({card})")
+        else:
+            log(f"  {what}: {proc.stdout.lstrip()[end:].strip()}, "
+                f"{s['completed']}/{s['requests']} completed, 0 prefill "
+                f"failures ({took:.1f} s, {card})")
+
+
+def phase11(model, params, prompts, card, greedy):
+    """Phase 11 on phase 4's weights and prompts; ``greedy`` = phase 4's
+    (requests, first-token logits, metrics)."""
+    t0 = time.perf_counter()
+    log("phase 11a: sampling on fp32 pages")
+    phase11a_sampling(model, params, prompts, card, greedy)
+    log("phase 11b: scheduling policy under the bench's burst")
+    phase11b_burst(model, params, card)
+    log("phase 11c: two replicas behind the prefix-affinity router")
+    phase11c_router(model, params, prompts, card, greedy)
+    log("phase 11d: cancellation in every state")
+    phase11d_cancel(model, params, prompts, greedy)
+    log("phase 11e: the workload harness and the serving CLI")
+    phase11e_cli(card)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------ phase 6
 def phase6_anchors():
     """Reduced qwen2.5-32b on the card: the dense cache (parallel prefill,
@@ -1414,6 +1858,7 @@ def phase6_anchors():
             s_max=64, batch_slots=4, **fields))
         reqs = [engine.submit(p, 16) for p in prompts]
         engine.run()
+        no_failures(engine, name)
         streams[name] = [list(r.tokens) for r in reqs]
         log(f"  {name}: paged attn {engine.paged_attn_impl}, prefill attn "
             f"{engine.prefill_attn_impl}, {sum(map(len, streams[name]))} "
@@ -1434,6 +1879,7 @@ def phase6_anchors():
         pa.reset_launches()
         reqs = [engine.submit(p, 16) for p in prompts]
         engine.run()
+        no_failures(engine, f"int8 {impl}")
         q8 = pa.LAUNCHES["decode_q8"] + pa.LAUNCHES["prefill_q8"]
         if (q8 > 0) != (impl == "kernel"):
             raise AssertionError(f"int8 {impl}: {pa.LAUNCHES}")
@@ -1453,6 +1899,7 @@ def phase6_anchors():
         pa.reset_launches()
         reqs = [engine.submit(p, 16) for p in prompts]
         engine.run()
+        no_failures(engine, name)
         streams[name] = [list(r.tokens) for r in reqs]
         log(f"  {name}: paged attn {engine.paged_attn_impl}, "
             f"{pa.LAUNCHES['decode_latent'] + pa.LAUNCHES['prefill_latent']}"
@@ -1500,6 +1947,7 @@ def phase6_recurrent_anchors(prompts):
             ls.reset_launches()
             reqs = [engine.submit(p, 16) for p in prompts]
             m = engine.run()
+            no_failures(engine, f"{arch} {name}")
             kernel = scan_kernel(arch)
             steps_run = m["decode_steps"] + (
                 sum(len(p) for p in prompts)
@@ -2410,7 +2858,7 @@ def main():
                  "int8 pages", Q8_MODEL_TOL)
     prompts = serve_prompts(dense.cfg.vocab_size)
     log("phase 4: paged serving")
-    launches, p_reqs, p_firsts, p_bytes, _ = phase4_serve(
+    launches, p_reqs, p_firsts, p_bytes, p_m = phase4_serve(
         model, params, prompts, card)
     log("phase 4b: int8 pages serving")
     q8_launches, _ = phase4b_serve_int8(model, params, prompts, card,
@@ -2419,6 +2867,9 @@ def main():
     flash_launches = phase5_serve_dense(dense, prompts, card,
                                         (p_reqs, p_firsts))
     flash_launches["forward"] = forward_launches
+    log("phase 11: sampling, scheduling policy, router, cancellation and "
+        "the CLIs on fp32 pages (full width, 4 layers)")
+    phase11(model, params, prompts, card, (p_reqs, p_firsts, p_m))
     del dense, model, params
     torch.cuda.empty_cache()
     log("phase 6: prefill anchors at reduced width")

@@ -139,4 +139,4 @@ class ServeConfig:
             prefill_chunk_tokens=self.prefill_chunk_tokens,
             prefill_attn_impl=self.prefill_attn_impl,
             paged_attn_impl=self.paged_attn_impl, policy=self.policy,
-            device=self.device)
+            seed=self.seed, device=self.device)

@@ -1,5 +1,5 @@
 """Continuous-batching serve engine over a dense or a paged KV cache — the
-port of ``repro/serve/engine.py``, greedy and FIFO:
+port of ``repro/serve/engine.py``:
 
 * **The cache.** ``page_size=None`` (the default) keeps per-slot (B, s_max)
   rows. With a page size, K/V live in a shared page pool (L, num_pages,
@@ -13,7 +13,7 @@ port of ``repro/serve/engine.py``, greedy and FIFO:
   leaves it declares. A host-side
   refcounted ``PageAllocator`` hands pages out at admission (the request's
   worst case, all or nothing) and takes them back on completion. Admission
-  peeks and defers in strict FIFO order when the free list is short.
+  peeks and defers in strict priority/FIFO order when the free list is short.
 * **Parallel chunked prefill.** Prompts are ingested in bucketed chunks
   (the chunk size and the powers of two below it), at most
   ``prefill_chunk_tokens`` positions between two decode ticks. With the
@@ -35,19 +35,36 @@ port of ``repro/serve/engine.py``, greedy and FIFO:
   and by the completion splice on the transient one (whose cache is seeded
   from the pages); LRU index-only pages are evicted before admission
   defers.
-* **Greedy decode.** One decode tick per step for every running slot, then
-  ``argmax`` (the first index on ties, like ``jnp.argmax``). Freed slots
-  are parked at ``layers.INACTIVE_POS`` (and, paged, an all--1 block
-  table), so their writes drop.
+* **Decode and sampling.** One decode tick per step for every running
+  slot. ``temperature == 0`` takes ``argmax`` (the first index on ties,
+  like ``jnp.argmax``); ``temperature > 0`` filters the scaled logits to
+  the top-k and the top-p nucleus (``_filter_logits``, ``repro``'s kept
+  sets exactly) and draws by Gumbel-max from a ``torch.Generator`` on the
+  engine's device, seeded from ``seed`` and advanced once per sampling
+  event. Freed slots are parked at ``layers.INACTIVE_POS`` (and, paged, an
+  all--1 block table), so their writes drop.
+* **Scheduling policy** (``SchedPolicy``, every knob off by default):
+  deficit round-robin over prefill jobs, the decode-starvation guard,
+  recompute preemption under pool pressure, shed or defer at the head
+  below a low-water mark, and EDF order within a priority level — the
+  reference's decisions, step for step.
+* **Cancellation and failure release.** ``cancel`` works from every state
+  and ``release_job`` frees a job's slots, pages and aliased prefix
+  references through ``_finish``, the path completion takes. A chunk
+  dispatch that raises is logged and its job FAILED; on the card the
+  device is synchronised first, and a CUDA error there (the context is
+  lost) leaves ``step``. The port donates no buffer: a chunk writes only
+  its own job's pages above ``write_floor``, so a failed chunk cannot
+  touch a bystander's K/V and no pool reset exists.
 
-Everything else ``repro``'s engine does raises ``NotImplementedError``
-naming its ROADMAP item. A failing kernel build or launch raises out of
-``step``; nothing is caught.
+Tensor parallelism and the MoE, VLM and encdec families raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -113,6 +130,7 @@ class _PrefillJob:
     write_floor: int = 0
     prefix_plans: Optional[List[PrefixPlan]] = None
     cache: Optional[dict] = None
+    deficit: int = 0               # DRR chunk-token credit (policy.drr only)
 
 
 class PageAllocator:
@@ -169,14 +187,20 @@ def _not_ported(what: str, item: str):
 
 class ServeEngine:
     """Slot-based continuous-batching engine over a dense or paged cache,
-    greedy sampling, on ``device`` (``"cuda"`` unless ``"cpu"`` is
-    passed). ``prefill_attn_impl='auto'`` resolves to the flash-attention
-    kernel ('pallas') on the card and to the einsum reference on the CPU,
-    as ``repro`` resolves it on and off the TPU."""
+    on ``device`` (``"cuda"`` unless ``"cpu"`` is passed).
+
+    sampling: ``temperature == 0`` is greedy argmax; ``temperature > 0``
+    samples from softmax(logits / temperature), optionally restricted to
+    the ``top_k`` highest logits and/or the smallest ``top_p`` nucleus,
+    reproducibly for a fixed ``seed``. ``prefill_attn_impl='auto'``
+    resolves to the flash-attention kernel ('pallas') on the card and to
+    the einsum reference on the CPU, as ``repro`` resolves it on and off
+    the TPU."""
 
     def __init__(self, model: Model, params, *, batch_slots: int, s_max: int,
                  compute_dtype=torch.float32,
-                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 temperature: float = 0.0, seed: int = 0,
+                 top_k: int = 0, top_p: float = 1.0,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  kv_backend=None,
@@ -196,20 +220,19 @@ class ServeEngine:
         self.batch_slots = batch_slots
         self.s_max = s_max
         self.compute_dtype = compute_dtype
+        self.temperature = float(temperature)
         if int(top_k) < 0:
             raise ValueError(f"top_k must be >= 0 (0 = off), got {top_k}")
         if not 0.0 < float(top_p) <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         if prefill_mode not in ("parallel", "scan"):
             raise ValueError(f"prefill_mode must be 'parallel' or 'scan', "
                              f"got {prefill_mode!r}")
         if paged_attn_impl not in ("auto", "kernel", "einsum"):
             raise ValueError(f"paged_attn_impl must be 'auto', 'kernel' or "
                              f"'einsum', got {paged_attn_impl!r}")
-        if float(temperature) > 0.0:
-            raise _not_ported("sampling at temperature > 0", "6")
-        if policy is not None and policy != SchedPolicy():
-            raise _not_ported("a non-default SchedPolicy", "8")
         if self.cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
             raise _not_ported(f"serving the {self.cfg.family.value} family",
                               "5")
@@ -220,9 +243,18 @@ class ServeEngine:
             prefill_attn_impl = ("pallas" if self.device.type == "cuda"
                                  else "einsum")
         self.prefill_attn_impl = prefill_attn_impl
-        self.scheduler = Scheduler() if scheduler is None else scheduler
-        self.metrics = MetricsRecorder() if metrics is None else metrics
         self._jobs: List[_PrefillJob] = []
+        self.max_prefill_tokens_per_tick = 0   # head-of-line bound witness
+        # every SchedPolicy default is off: policy=None keeps today's greedy
+        # FIFO path. Resolved before the scheduler, so a default-built
+        # Scheduler inherits policy.edf (an empty Scheduler is falsy, hence
+        # the explicit None checks)
+        self.policy = SchedPolicy() if policy is None else policy
+        self.scheduler = (Scheduler(edf=self.policy.edf)
+                          if scheduler is None else scheduler)
+        self.metrics = MetricsRecorder() if metrics is None else metrics
+        self._drr_cursor = 0          # rotates the DRR starting job per tick
+        self._consec_prefill_ticks = 0  # starvation-guard state
 
         if page_size is not None and self.cfg.family == Family.SSM:
             log.warning("ssm/rwkv state is O(1) in s_max — ignoring paging")
@@ -285,7 +317,9 @@ class ServeEngine:
         # attend them through the block table; no transient request cache
         self.incremental_splice = (self.paged and prefill_mode == "parallel"
                                    and paged_attn_impl == "kernel")
+        self.prefill_failures = 0
         self.max_transient_cache_bytes = 0
+        self._cancel_at_splice: set = set()
         self._decode = steps_mod.make_decode_step(
             model, compute_dtype=compute_dtype,
             paged_attn_impl=paged_attn_impl if self.paged else None)
@@ -307,18 +341,48 @@ class ServeEngine:
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.cur_token = np.zeros((batch_slots, 1), np.int64)
         self.requests: Dict[int, Request] = {}
+        self.deferrals = 0    # admissions postponed for lack of free pages
         self._next_rid = 0
+        # sampling draws: one generator on the engine's device, advanced by
+        # one draw per sampling event (repro folds its key per event)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(seed))
 
     # ------------------------------------------------------------ factory
     @classmethod
     def build(cls, arch: str = "hymba-1.5b", *,
-              config: Optional[ServeConfig] = None) -> "ServeEngine":
+              config: Optional[ServeConfig] = None,
+              **legacy) -> "ServeEngine":
         """Construct model + random params (from ``config.seed``) on
         ``config.device`` and the engine over them; ``config.validate`` runs
         before any weights are built. ``cfg_overrides`` are applied after
         reduction (``reduced=False, cfg_overrides={"num_layers": 4}`` keeps
-        every width of the arch and cuts its depth)."""
-        config = ServeConfig() if config is None else config
+        every width of the arch and cuts its depth).
+
+        DEPRECATED spelling, kept because ``repro``'s callers use it:
+        ``build(arch, page_size=..., s_max=...)``. Each keyword maps onto
+        the ``ServeConfig`` field of the same name, with a
+        ``DeprecationWarning``; passing both ``config`` and keywords, or an
+        unknown keyword, raises as ``repro`` does."""
+        if legacy:
+            if config is not None:
+                raise ValueError(
+                    "pass either config=ServeConfig(...) or the legacy "
+                    "keyword arguments, not both; the legacy kwargs are "
+                    f"deprecated (got {sorted(legacy)})")
+            known = {f.name for f in dataclasses.fields(ServeConfig)}
+            unknown = sorted(set(legacy) - known)
+            if unknown:
+                raise TypeError(f"unknown ServeEngine.build arguments "
+                                f"{unknown}; ServeConfig fields: "
+                                f"{sorted(known)}")
+            warnings.warn(
+                "ServeEngine.build(**kwargs) is deprecated; pass "
+                "config=ServeConfig(...) instead (same field names)",
+                DeprecationWarning, stacklevel=2)
+            config = ServeConfig(**legacy)
+        elif config is None:
+            config = ServeConfig()
         device = resolve_device(config.device)
         cfg = configs.get_config(arch)
         if config.reduced:
@@ -335,10 +399,47 @@ class ServeEngine:
         return cls(model, params, **config.engine_kwargs())
 
     # ------------------------------------------------------------ sampling
+    def _filter_logits(self, scaled):
+        """Restrict temperature-scaled logits (B, V) to the top-k highest
+        and then the nucleus (the smallest prefix of the remaining sorted
+        distribution whose cumulative probability reaches top_p); masked
+        entries go to -inf. Top-k alone is one ``topk`` threshold (ties at
+        the k-th value are kept); with top_p one descending sort serves
+        both filters, and the kept set, a prefix of the sorted order, masks
+        the unsorted row through one scalar threshold per row — the
+        reference's sets exactly."""
+        V = scaled.shape[-1]
+        neg = torch.tensor(-torch.inf, dtype=scaled.dtype,
+                           device=scaled.device)
+        use_k = 0 < self.top_k < V
+        if self.top_p >= 1.0:
+            if not use_k:
+                return scaled
+            kth = torch.topk(scaled, self.top_k, dim=-1).values[:, -1:]
+            return torch.where(scaled < kth, neg, scaled)
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+        if use_k:
+            keep_k = torch.arange(V, device=scaled.device) < self.top_k
+            srt = torch.where(keep_k, srt, neg)
+        probs = torch.softmax(srt, dim=-1)      # -inf entries carry no mass
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < self.top_p         # minimal prefix reaching p
+        thresh = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
+        return torch.where(scaled < thresh, neg, scaled)
+
     def _sample_rows(self, logits) -> np.ndarray:
-        """logits: (B, 1, V_padded) -> (B,) greedy token per row."""
+        """logits: (B, 1, V_padded) -> (B,) sampled token per row: argmax at
+        temperature 0, else the argmax of the filtered row plus Gumbel
+        noise (one categorical draw per row, as ``jax.random.categorical``
+        draws)."""
         row = logits[:, 0, : self.cfg.vocab_size]
-        return torch.argmax(row, dim=-1).cpu().numpy()
+        if self.temperature <= 0.0:
+            return torch.argmax(row, dim=-1).cpu().numpy()
+        u = torch.rand(row.shape, generator=self._gen, device=row.device,
+                       dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(u))      # u == 0 gives -inf: no draw
+        filtered = self._filter_logits(row / self.temperature)
+        return torch.argmax(filtered + gumbel, dim=-1).cpu().numpy()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -398,12 +499,19 @@ class ServeEngine:
             ok[i, :cached_len] = True
         return phys, ok
 
+    @property
+    def free_pages(self) -> int:
+        return self.allocator.free if self.paged else 0
+
     # ------------------------------------------------------------ lifecycle
-    def submit(self, prompt, gen_len: int, priority: int = 0) -> Request:
+    def submit(self, prompt, gen_len: int, priority: int = 0,
+               deadline: Optional[float] = None) -> Request:
         """Enqueue a request; admission happens on the next step()/run().
         Rejects up front what can never be served (empty prompt, negative
         gen_len, rows beyond s_max or beyond the whole pool), so admission
-        is infallible."""
+        is infallible. ``deadline``: an absolute completion deadline on the
+        caller's clock, which an EDF scheduler (``SchedPolicy.edf``) orders
+        by within a priority level; inert otherwise."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be a 1-D token vector, got shape "
@@ -427,6 +535,8 @@ class ServeEngine:
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, gen_len=int(gen_len),
                       priority=priority)
+        if deadline is not None:
+            req.deadline = float(deadline)
         if (self.prefix_index is not None
                 and getattr(self.scheduler, "prefix_aware", False)):
             req.prefix_hint = self.prefix_index.probe_len(prompt)
@@ -451,11 +561,14 @@ class ServeEngine:
     def admit(self) -> int:
         """Admit waiting requests into free slots; returns #admitted.
 
-        Paged admission PEEKS before popping: when the free list cannot
-        cover the head request's worst case (after LRU eviction of
-        index-only prefix pages), it stops and the head stays queued. With
-        the prefix cache, the longest cached page-aligned prefix aliases
-        into the block table and only the rest is freshly allocated.
+        A head the policy sheds is FAILED and the next one peeked; a head
+        it defers stops admission. Paged admission PEEKS before popping:
+        when the free list cannot cover the head request's worst case
+        (after LRU eviction of index-only prefix pages, and with
+        ``policy.preemption`` after pausing lower-priority RUNNING slots),
+        it stops and the head stays queued. With the prefix cache, the
+        longest cached page-aligned prefix aliases into the block table and
+        only the rest is freshly allocated.
         Admitted requests are grouped by (prompt_len, cached_len): in
         ``parallel`` mode each group becomes a chunked prefill job, in
         ``scan`` mode it is prefilled here in one teacher-forced pass."""
@@ -463,7 +576,11 @@ class ServeEngine:
         plans: Dict[int, Optional[PrefixPlan]] = {}
         for slot in self.free_slots:
             req = self.scheduler.peek()
+            while req is not None and self._shed_head(req):
+                req = self.scheduler.peek()
             if req is None:
+                break
+            if self._defer_head(req):
                 break
             plan = None
             if self.paged:
@@ -493,9 +610,23 @@ class ServeEngine:
                     if evicted:
                         self.metrics.on_prefix_evict(evicted)
                     fresh = self.allocator.alloc(need)
+                if fresh is None and self.policy.preemption:
+                    # pause strictly-lower-priority RUNNING slots until the
+                    # head fits; each pause demotes the victim's registered
+                    # prompt pages to index-only, so eviction runs again
+                    while fresh is None and \
+                            self._preempt_lowest(below=req.priority):
+                        if (self.prefix_index is not None
+                                and need > self.allocator.free):
+                            evicted = self.prefix_index.evict(
+                                need - self.allocator.free)
+                            if evicted:
+                                self.metrics.on_prefix_evict(evicted)
+                        fresh = self.allocator.alloc(need)
                 if fresh is None:
                     if refs:
                         self.allocator.release(refs)
+                    self.deferrals += 1
                     self._defer_state = (req.rid, self.allocator.free,
                                          self.prefix_index.version
                                          if self.prefix_index is not None
@@ -550,6 +681,87 @@ class ServeEngine:
                     self._seed_prefix_job(job, cached)
             self._jobs.append(job)
         return len(pairs)
+
+    # ------------------------------------------- admission control / preempt
+    def _admission_pressure(self) -> bool:
+        """True when the available-page fraction (the free list plus the
+        prefix index's reclaimable pages) is below the policy's low-water
+        mark. Always False for dense caches and with the default policy."""
+        pol = self.policy
+        if not (self.paged and pol.admission_low_water > 0.0):
+            return False
+        avail = self.allocator.free
+        if self.prefix_index is not None:
+            avail += self.prefix_index.reclaimable
+        return avail < pol.admission_low_water * self.num_pages
+
+    def _gated(self, req: Request) -> bool:
+        pol = self.policy
+        return (pol.admission_shed_priority is not None
+                and req.priority >= pol.admission_shed_priority
+                and self._admission_pressure())
+
+    def _shed_head(self, req: Request) -> bool:
+        """Under pool pressure a queued head at or below the shed priority
+        is popped and FAILED. Returns True when the head was shed."""
+        if not (self.policy.admission_shed and self._gated(req)):
+            return False
+        self.scheduler.next_request()
+        req.state = RequestState.FAILED
+        req.error = "shed: free pages below admission low water"
+        self.metrics.on_shed(req.rid)
+        self.metrics.on_aborted(req.rid)
+        return True
+
+    def _defer_head(self, req: Request) -> bool:
+        """``admission_shed=False``: the gated head stays queued (strict
+        order) until completions lift the pool over the low-water mark."""
+        return (not self.policy.admission_shed) and self._gated(req)
+
+    def _preempt_lowest(self, below: int) -> bool:
+        """Preempt the worst-priority RUNNING slot whose priority is
+        strictly worse than ``below``; among equals the most recently
+        submitted. Returns False when no victim exists."""
+        victim_slot, victim = None, None
+        for slot, r in enumerate(self.slot_req):
+            if r is None or r.state is not RequestState.RUNNING:
+                continue
+            if r.priority <= below:
+                continue
+            if victim is None or (r.priority, r.rid) > (victim.priority,
+                                                        victim.rid):
+                victim_slot, victim = slot, r
+        if victim is None:
+            return False
+        self._preempt(victim_slot)
+        return True
+
+    def _preempt(self, slot: int):
+        """Pause a RUNNING request recompute-style: release its slot and
+        pages, fold the tokens generated since the last fold into the
+        prompt (``Request.folded`` watermark) and re-queue it under its
+        original arrival seq. Re-admission re-prefills the folded prompt
+        and the splice samples the token the uninterrupted decode would
+        have, so greedy streams are unchanged by a pause."""
+        req = self.slot_req[slot]
+        fresh = req.tokens[req.folded:]
+        if fresh:
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray(fresh, np.int32)])
+            req.folded = len(req.tokens)
+        req.state = RequestState.QUEUED
+        req.slot = None
+        self.slot_req[slot] = None
+        self.cur_token[slot, 0] = 0
+        self.cache["pos"][slot] = INACTIVE_POS
+        if self.paged:
+            self.allocator.release(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self._bt_host[slot, :] = -1
+            self._upload_block_tables()
+        self.metrics.on_preempt(req.rid)
+        self._defer_state = None      # freed pages can change the outcome
+        self.scheduler.submit(req)
 
     def _seed_prefix_job(self, job: _PrefillJob, cached_len: int):
         """Transient-path half of a prefix hit: gather the cached rows (full
@@ -618,42 +830,101 @@ class ServeEngine:
     # ------------------------------------------------- chunked prefill
     def _prefill_tick(self) -> int:
         """Ingest at most ``prefill_chunk_tokens`` prompt positions of
-        queued prefill work, in strict job-FIFO order: ladder chunks that
-        fit the remaining budget run back to back. Returns positions
-        ingested."""
+        queued prefill work: ladder chunks that fit the remaining budget
+        run back to back, in strict job-FIFO order, or by deficit
+        round-robin across jobs with ``policy.drr``. A chunk whose dispatch
+        raised has had its job released; the tick moves on. Returns
+        positions ingested."""
         budget = self.prefill_chunk_tokens
-        while self._jobs and budget > 0:
-            job = self._jobs[0]
-            if job.plan[job.idx] > budget:
-                break
-            budget -= self._run_chunk(job)
-        return self.prefill_chunk_tokens - budget
+        if self.policy.drr and len(self._jobs) > 1:
+            ingested = self._prefill_tick_drr(budget)
+        else:
+            ingested = 0
+            while self._jobs and budget > 0:
+                job = self._jobs[0]
+                if job.plan[job.idx] > budget:
+                    break
+                got = self._run_chunk(job)
+                if got is None:     # dispatch raised; the job was released
+                    continue
+                budget -= got
+                ingested += got
+        self.max_prefill_tokens_per_tick = max(
+            self.max_prefill_tokens_per_tick, ingested)
+        return ingested
 
-    def _run_chunk(self, job: _PrefillJob) -> int:
+    def _prefill_tick_drr(self, budget: int) -> int:
+        """Deficit round-robin across pending prefill jobs: each earns a
+        quantum of chunk-token credit per tick (carry capped at twice the
+        tick budget) and spends it in a rotation whose start advances every
+        tick. The per-tick budget is unchanged; DRR only shares it."""
+        ingested = 0
+        q = self.policy.drr_quantum or max(1, budget // len(self._jobs))
+        for job in self._jobs:
+            job.deficit = min(job.deficit + q, 2 * self.prefill_chunk_tokens)
+        self._drr_cursor += 1
+        while budget > 0 and self._jobs:
+            n = len(self._jobs)
+            order = [self._jobs[(self._drr_cursor + k) % n] for k in range(n)]
+            ran = False
+            for job in order:
+                if budget <= 0 or job not in self._jobs:
+                    continue        # completed or released by an earlier chunk
+                C = job.plan[job.idx]
+                if C > budget or C > job.deficit:
+                    continue
+                got = self._run_chunk(job)
+                ran = True
+                if got is None:     # the job list changed: rebuild the order
+                    break
+                job.deficit -= got
+                budget -= got
+                ingested += got
+            if not ran:
+                break               # nobody could spend: credit accrues
+        return ingested
+
+    def _run_chunk(self, job: _PrefillJob) -> Optional[int]:
         """Run ``job``'s next chunk: on the incremental path its K/V go
         straight into the group's pages; otherwise into the job's transient
         cache (created by the first chunk). On the final chunk, splice and
-        start the group. Returns the chunk length."""
+        start the group. Returns the chunk length, or None when the
+        dispatch raised: the error is logged, counted in
+        ``prefill_failures`` and the job released as FAILED. On the card
+        the device is synchronised first; if that raises, the CUDA context
+        is lost and the error leaves ``step``."""
         C = job.plan[job.idx]
         K = len(job.slots)
         dev = self.device
         toks = torch.from_numpy(
             job.prompts[:, job.filled:job.filled + C].astype(np.int64)).to(dev)
         t0 = self.metrics.now()
-        if self.incremental_splice:
-            batch = {"tokens": toks,
-                     "bt": torch.from_numpy(self._bt_host[job.slots]).to(dev),
-                     "start": job.tail_start + job.filled,
-                     "floor": job.write_floor}
-            logits, self.cache = self._chunk_paged(self.params, self.cache,
-                                                   batch)
-        elif job.cache is None:
-            logits, job.cache = self._chunk_first(self.params,
-                                                  {"tokens": toks})
-        else:
-            logits, job.cache = self._chunk_cont(self.params, job.cache,
-                                                 {"tokens": toks})
-        self._sync()
+        try:
+            if self.incremental_splice:
+                batch = {"tokens": toks,
+                         "bt": torch.from_numpy(
+                             self._bt_host[job.slots]).to(dev),
+                         "start": job.tail_start + job.filled,
+                         "floor": job.write_floor}
+                logits, self.cache = self._chunk_paged(self.params,
+                                                       self.cache, batch)
+            elif job.cache is None:
+                logits, job.cache = self._chunk_first(self.params,
+                                                      {"tokens": toks})
+            else:
+                logits, job.cache = self._chunk_cont(self.params, job.cache,
+                                                     {"tokens": toks})
+            self._sync()
+        except Exception as err:  # noqa: BLE001 — released, not resumed
+            log.exception("prefill chunk failed for rids %s; releasing "
+                          "the job", [r.rid for r in job.reqs])
+            self.prefill_failures += 1
+            # a chunk writes only its own pages above write_floor (nothing
+            # is donated), so bystanders' K/V are intact; only a lost CUDA
+            # context could take them, and that raises here
+            self._sync()
+            self.release_job(job, error=err)
+            return None
         self.metrics.on_prefill_chunk(K * C, self.metrics.now() - t0)
         self.max_transient_cache_bytes = max(
             self.max_transient_cache_bytes, self.transient_cache_bytes())
@@ -698,23 +969,38 @@ class ServeEngine:
         toks = self._sample_rows(logits)
         for i, (slot, req) in enumerate(zip(slot_ids, reqs)):
             req.state = RequestState.RUNNING
+            if req.rid in self._cancel_at_splice:   # a grouped member's
+                self._cancel_at_splice.discard(req.rid)   # cancel lands here
+                self._finish(slot, RequestState.CANCELLED)
+                continue
             if req.gen_len <= 0:
                 self._finish(slot)
                 continue
+            # a request resumed after preemption already streamed tokens:
+            # this sample is its next token, not its first
+            resumed = bool(req.tokens)
             req.tokens.append(int(toks[i]))
             self.cur_token[slot, 0] = int(toks[i])
-            self.metrics.on_first_token(req.rid)
+            if resumed:
+                self.metrics.on_token(req.rid)
+            else:
+                self.metrics.on_first_token(req.rid)
             if req.done:
                 self._finish(slot)
 
-    def _finish(self, slot: int):
+    def _finish(self, slot: int, state: RequestState = RequestState.DONE):
         """Retire a slot: park its position at INACTIVE_POS (its writes drop
-        from now on), zero its feedback token and return its pages."""
+        from now on), zero its feedback token and return its pages, aliased
+        prefix pages included. ``state`` records why (DONE, FAILED or
+        CANCELLED); the release is the same. A second call is a no-op."""
         req = self.slot_req[slot]
         if req is None:
             return
-        req.state = RequestState.DONE
-        self.metrics.on_done(req.rid)
+        req.state = state
+        if state is RequestState.DONE:
+            self.metrics.on_done(req.rid)
+        else:
+            self.metrics.on_aborted(req.rid)
         self.slot_req[slot] = None
         self.cur_token[slot, 0] = 0
         self.cache["pos"][slot] = INACTIVE_POS
@@ -724,8 +1010,64 @@ class ServeEngine:
             self._bt_host[slot, :] = -1
             self._upload_block_tables()
 
+    def release_job(self, job: _PrefillJob, error=None,
+                    state: RequestState = RequestState.FAILED):
+        """Abort an in-flight prefill job and reclaim everything it holds:
+        the group's slots, reserved pages and aliased prefix references
+        (through ``_finish``), and the transient request cache. Called when
+        a chunk dispatch raises and by :meth:`cancel`."""
+        if job in self._jobs:
+            self._jobs.remove(job)
+        job.cache = None
+        msg = "cancelled" if state is RequestState.CANCELLED else repr(error)
+        for slot, req in zip(job.slots, job.reqs):
+            req.error = msg
+            self._cancel_at_splice.discard(req.rid)
+            self._finish(slot, state)
+
     def cancel(self, rid: int) -> bool:
-        raise _not_ported("cancel", "8")
+        """Cancel a request; returns True if it was still live. A QUEUED
+        request is marked and skipped at admission; a PREFILLING one aborts
+        at once when it is its job's only member and at the group's splice
+        otherwise (the group's batch cannot change mid-stream); a RUNNING
+        one retires its slot on the spot. Every reserved page and aliased
+        prefix reference is released."""
+        req = self.requests.get(rid)
+        if req is None or req.state in (RequestState.DONE,
+                                        RequestState.FAILED,
+                                        RequestState.CANCELLED):
+            return False
+        if req.state is RequestState.QUEUED:
+            req.state = RequestState.CANCELLED
+            req.error = "cancelled"
+            self.metrics.on_aborted(rid)
+            return True
+        if req.state is RequestState.PREFILLING:
+            job = next((j for j in self._jobs if req in j.reqs), None)
+            if job is None:                  # no chunk job (scan mode)
+                self._finish(req.slot, RequestState.CANCELLED)
+                req.error = "cancelled"
+                return True
+            if len(job.reqs) == 1:
+                self.release_job(job, state=RequestState.CANCELLED)
+            else:
+                req.error = "cancelled"
+                self._cancel_at_splice.add(rid)
+            return True
+        self._finish(req.slot, RequestState.CANCELLED)   # RUNNING
+        req.error = "cancelled"
+        return True
+
+    def drain_completed(self) -> List[Request]:
+        """Remove and return finished requests (DONE, FAILED, CANCELLED);
+        the engine otherwise keeps every request for its lifetime. Metric
+        records stay, so summary() percentiles stay complete."""
+        done = [r for r in self.requests.values()
+                if r.state in (RequestState.DONE, RequestState.FAILED,
+                               RequestState.CANCELLED)]
+        for r in done:
+            del self.requests[r.rid]
+        return done
 
     def resident_cache_bytes(self) -> int:
         """Device bytes of the resident serving cache: every leaf the
@@ -766,9 +1108,24 @@ class ServeEngine:
     def step(self) -> int:
         """One engine tick: admit, ingest at most one prefill-chunk budget,
         one decode tick for every RUNNING slot, admit again into slots freed
-        on this tick. Returns #active after the tick."""
+        on this tick. Returns #active after the tick. With
+        ``policy.max_consecutive_prefill_ticks`` set, the starvation guard
+        skips the prefill interleave for one tick after that many
+        consecutive ticks in which prefill ran while slots were decoding."""
         self.admit()
-        self._prefill_tick()
+        pol = self.policy
+        if (pol.max_consecutive_prefill_ticks > 0 and self._jobs
+                and self.running > 0
+                and self._consec_prefill_ticks
+                >= pol.max_consecutive_prefill_ticks):
+            self._consec_prefill_ticks = 0
+            self.metrics.on_starvation_skip()
+        else:
+            ingested = self._prefill_tick()
+            if ingested > 0 and self.running > 0:
+                self._consec_prefill_ticks += 1
+            else:
+                self._consec_prefill_ticks = 0
         if self.running:
             batch = {"token": torch.from_numpy(self.cur_token).to(self.device)}
             logits, self.cache = self._decode(self.params, self.cache, batch)

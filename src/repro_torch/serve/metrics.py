@@ -4,10 +4,12 @@ latency, plus engine-level p50/p95 and throughput. Pure host-side bookkeeping
 
 The clock is injectable so tests can drive deterministic timelines.
 
-A copy of ``MetricsRecorder`` from ``repro/serve/metrics.py`` (the SLO /
-goodput accounting of the traffic harness is not ported yet, ROADMAP queue
-1 item 8). The engine synchronises the device before it reads the clock
-around device work, so host timestamps cover the work itself.
+A copy of ``repro/serve/metrics.py``: ``MetricsRecorder``, the SLO /
+goodput accounting of the open-loop traffic harness (``SLO``,
+``summary(slo)``'s ``goodput`` section), ``ReplaySummary`` and
+``merged_summary`` for a replica tier. The engine synchronises the device
+before it reads the clock around device work, so host timestamps cover
+the work itself.
 """
 from __future__ import annotations
 
@@ -87,6 +89,143 @@ def percentile(xs: List[float], q: float) -> float:
 # granularity noise (or an injected test clock that never advanced): dividing
 # by them reports absurd token rates, so summary() clamps the denominator.
 MIN_WALL_S = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class SLO:
+    """Service-level objective for the open-loop harness. A request MEETS
+    the SLO iff it completed (not aborted), its time-to-first-token is at
+    most ``ttft_s``, and the p95 of its inter-token gaps is at most
+    ``itl_p95_s`` (single-token requests have no gaps and meet the ITL leg
+    trivially). Goodput is tokens/s summed over SLO-meeting requests only;
+    attainment denominators count EVERY submitted request — shed and
+    aborted load is a miss, not a statistical no-show."""
+    ttft_s: float
+    itl_p95_s: float
+
+    def met_by(self, rec: RequestRecord) -> bool:
+        if rec.aborted or rec.t_done is None:
+            return False
+        ttft = rec.ttft_s
+        if ttft is None or ttft > self.ttft_s:
+            return False
+        itl = rec.itl_p95_s
+        return itl is None or itl <= self.itl_p95_s
+
+
+@dataclasses.dataclass
+class ReplaySummary:
+    """Unified result of a traffic replay — the one shape BOTH replays
+    return: ``workload.replay`` (single engine) and ``router.replay``
+    (replica tier, with the per-replica breakdown attached).
+
+    ``metrics`` is the engine-level summary dict
+    (:meth:`MetricsRecorder.summary`) — for a tier it is the POOLED
+    summary over every replica's request records (real pooled percentiles,
+    not averages of averages; see :func:`merged_summary`). Dict-style
+    access (``summary["goodput"]``, ``summary["replicas"][0]["prefix"]``)
+    forwards into ``metrics`` and, on tier results, the
+    replicas/router/shed_at_router fields — every pre-ReplaySummary
+    consumer keeps indexing exactly as before."""
+
+    metrics: dict
+    replicas: Optional[List["ReplaySummary"]] = None   # tier results only
+    router: Optional[dict] = None                      # routing/shed counters
+    shed_at_router: int = 0
+
+    _TIER_KEYS = ("replicas", "router", "shed_at_router")
+
+    # ------------------------------------------------- dict compatibility
+    def __getitem__(self, key):
+        if self.replicas is not None and key in self._TIER_KEYS:
+            return getattr(self, key)
+        return self.metrics[key]
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def keys(self):
+        ks = list(self.metrics.keys())
+        if self.replicas is not None:
+            ks.extend(self._TIER_KEYS)
+        return ks
+
+    def __contains__(self, key) -> bool:
+        return key in self.keys()
+
+    def to_dict(self) -> dict:
+        """Plain-dict view (JSON-dumpable; replicas recurse)."""
+        out = dict(self.metrics)
+        if self.replicas is not None:
+            out["replicas"] = [r.to_dict() if isinstance(r, ReplaySummary)
+                               else r for r in self.replicas]
+            out["router"] = self.router
+            out["shed_at_router"] = self.shed_at_router
+        return out
+
+    # ------------------------------------------------- named conveniences
+    @property
+    def goodput(self) -> Optional[dict]:
+        """The goodput/attainment section (None when replayed without an
+        SLO)."""
+        return self.metrics.get("goodput")
+
+    @property
+    def attainment_by_priority(self) -> dict:
+        """priority (str) -> attainment section; empty without an SLO."""
+        g = self.goodput or {}
+        return g.get("by_priority", {})
+
+    @property
+    def ttft_p95_s(self) -> float:
+        return self.metrics["ttft_s"]["p95"]
+
+    @property
+    def itl_p95_s(self) -> float:
+        return self.metrics["itl_s"]["p95"]
+
+    @property
+    def throughput_tokens_per_s(self) -> float:
+        return self.metrics["throughput_tokens_per_s"]
+
+
+# engine counters pooled by merged_summary: every scalar counter a recorder
+# accumulates, except prefill_chunk_max_tokens which merges by max
+_SUMMED_COUNTERS = (
+    "decode_steps", "prefills", "prefill_tokens", "prefill_chunks",
+    "prefill_chunk_tokens", "prefill_wall_s", "prefix_lookups",
+    "prefix_hits", "prefix_hit_tokens", "prefix_pages_shared",
+    "prefix_cow_copies", "prefix_evictions", "preemptions",
+    "shed_requests", "starvation_guard_skips")
+
+
+def merged_summary(recorders: List["MetricsRecorder"],
+                   slo: Optional[SLO] = None) -> dict:
+    """Pool several recorders (one per replica) into ONE summary dict: all
+    request records land in a single scratch recorder so the percentile /
+    goodput / attainment math runs over the pooled population (replica
+    averages of percentiles are not percentiles), counters sum, and the
+    wall clock spans the earliest start to the latest stop. Recorders
+    share the default monotonic clock, so cross-replica timestamps are
+    directly comparable."""
+    agg = MetricsRecorder()
+    i = 0
+    for m in recorders:
+        for rec in m.requests.values():
+            agg.requests[i] = rec
+            i += 1
+        for name in _SUMMED_COUNTERS:
+            setattr(agg, name, getattr(agg, name) + getattr(m, name))
+        agg.prefill_chunk_max_tokens = max(agg.prefill_chunk_max_tokens,
+                                           m.prefill_chunk_max_tokens)
+    starts = [m._t_start for m in recorders if m._t_start is not None]
+    stops = [m._t_stop for m in recorders if m._t_stop is not None]
+    agg._t_start = min(starts) if starts else None
+    agg._t_stop = max(stops) if stops else None
+    return agg.summary(slo)
 
 
 class MetricsRecorder:
@@ -231,7 +370,7 @@ class MetricsRecorder:
         self.decode_steps += 1
 
     # ------------------------------------------------------------ summary
-    def summary(self) -> dict:
+    def summary(self, slo: Optional[SLO] = None) -> dict:
         recs = list(self.requests.values())
         done = [r for r in recs if r.t_done is not None and not r.aborted]
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
@@ -304,4 +443,41 @@ class MetricsRecorder:
             "request_tokens_per_s": {"p50": percentile(tps, 50),
                                      "p95": percentile(tps, 95)},
         }
+        if slo is not None:
+            out["goodput"] = self._goodput(recs, slo, wall)
         return out
+
+    def _goodput(self, recs: List[RequestRecord], slo: SLO,
+                 wall: float) -> dict:
+        """Goodput and SLO attainment, overall and per priority class.
+        Attainment denominators are ALL submitted requests of the class —
+        a shed or failed request counts as a miss (the alternative, only
+        grading survivors, would let admission control buy attainment by
+        refusing the very load it is graded on)."""
+        def _cls(rs: List[RequestRecord]) -> dict:
+            met = [r for r in rs if slo.met_by(r)]
+            ttft_ok = [r for r in rs
+                       if not r.aborted and r.ttft_s is not None
+                       and r.ttft_s <= slo.ttft_s]
+            n = len(rs)
+            return {
+                "submitted": n,
+                "completed": sum(1 for r in rs
+                                 if r.t_done is not None and not r.aborted),
+                "slo_met": len(met),
+                "slo_attainment": (len(met) / n) if n else float("nan"),
+                "ttft_attainment": (len(ttft_ok) / n) if n else float("nan"),
+                "good_tokens": sum(r.n_tokens for r in met),
+            }
+        overall = _cls(recs)
+        by_prio = {}
+        for p in sorted({r.priority for r in recs}):
+            by_prio[str(p)] = _cls([r for r in recs if r.priority == p])
+        return {
+            "slo": {"ttft_s": slo.ttft_s, "itl_p95_s": slo.itl_p95_s},
+            "goodput_tokens_per_s": (
+                overall["good_tokens"] / max(wall, MIN_WALL_S)
+                if wall > 0 else float("nan")),
+            **overall,
+            "by_priority": by_prio,
+        }

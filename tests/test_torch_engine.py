@@ -50,7 +50,6 @@ from repro_torch.configs.base import Family  # noqa: E402
 from repro_torch.core import quantize as tq  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.serve import ServeConfig as TConfig  # noqa: E402
-from repro_torch.serve import SchedPolicy as TPolicy  # noqa: E402
 from repro_torch.serve import ServeEngine as TEngine  # noqa: E402
 from repro_torch.serve import kvcache as tkv  # noqa: E402
 from repro_torch.serve import prefix as tprefix  # noqa: E402
@@ -326,16 +325,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch,
     assert tuple(cpu.cache["k"].shape) == (2, 4, 64, 1, 16)
 
 
-@pytest.mark.parametrize("kw", [dict(temperature=0.5),
-                                dict(policy=TPolicy(drr=True)),
-                                dict(policy=TPolicy(
-                                    max_consecutive_prefill_ticks=2))])
-def test_configs_outside_the_slice_name_their_roadmap_item(reference, kw):
-    teng = _port_engine(reference)
-    args = dict(batch_slots=2, s_max=S_MAX, page_size=PS, device="cpu")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        TEngine(teng.model, teng.params, **args)
+def test_configs_outside_the_slice_name_their_roadmap_item():
+    """Tensor-parallel serving is not ported: it raises naming its item
+    before any weights are built (sampling and every SchedPolicy knob
+    serve, held in test_torch_sampling.py and test_torch_scheduling.py)."""
+    for tp in (1, 2):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 12"):
+            TEngine.build("qwen2.5-32b", config=TConfig(
+                page_size=PS, tp=tp, device="cpu"))
 
 
 def test_cli_defaults_to_the_dense_cache(monkeypatch, capsys):
@@ -847,7 +845,290 @@ def test_defaults_serve_the_reference_default_arch(monkeypatch, capsys):
     assert "served 1 requests on cpu" in capsys.readouterr().out
 
 
+def test_cli_fails_when_a_prefill_chunk_fails(monkeypatch, capsys):
+    """The engine catches a chunk that raises and aborts its request; the
+    CLI exits 1 on that and counts the failures in its ``--json``
+    summary, so a kernel that does not launch cannot pass as a run."""
+    import json
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve as cli
+    args = ["--device", "cpu", "--arch", "qwen2.5-32b", "--page-size", "16",
+            "--requests", "2", "--prompt-len", "20", "--gen-len", "2",
+            "--json"]
+    assert cli.main(args) == 0
+    s, _ = json.JSONDecoder().raw_decode(capsys.readouterr().out)
+    assert (s["prefill_failures"], s["completed"]) == (0, 2)
+
+    def fails(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(kops, "paged_prefill", fails)
+    assert cli.main(args) == 1
+    out = capsys.readouterr().out
+    s, _ = json.JSONDecoder().raw_decode(out)
+    # both prompts have one length, so they share one grouped job
+    assert (s["prefill_failures"], s["completed"], s["aborted"]) == (1, 0, 2)
+    assert "2 of 2 requests not completed, 1 prefill chunk(s) failed" in out
+
+
 @pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-large-v3"])
 def test_families_outside_the_port_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         TEngine.build(arch, config=TConfig(device="cpu"))
+
+
+# ---------------------------------------- cancellation and failure release
+def _lockstep_pair(reference, **kw):
+    """The reference engine and the port's over the same weights."""
+    jeng = JEngine(reference.model, reference.params, **kw)
+    teng = _port_engine(reference, **dict(dict(page_size=None), **kw))
+    return jeng, teng
+
+
+def _same(jeng, teng, pairs):
+    """Request states, slots, tokens and errors, free pages, the aborted /
+    completed counts and the page invariants agree."""
+    for a, b in pairs:
+        assert (a.state.value, a.slot, list(a.tokens), a.error) == \
+            (b.state.value, b.slot, list(b.tokens), b.error), a.rid
+    assert (jeng.free_pages, jeng.active, jeng.scheduler.waiting,
+            len(jeng._jobs), jeng.prefill_failures) == \
+        (teng.free_pages, teng.active, teng.scheduler.waiting,
+         len(teng._jobs), teng.prefill_failures)
+    js, ts = jeng.metrics.summary(), teng.metrics.summary()
+    assert (js["aborted"], js["completed"], js["aborted_tokens"]) == \
+        (ts["aborted"], ts["completed"], ts["aborted_tokens"])
+    jeng.assert_page_invariants()
+    teng.assert_page_invariants()
+
+
+def _until(jeng, teng, pairs, done, ticks=200):
+    for _ in range(ticks):
+        if done():
+            return
+        jeng.step()
+        teng.step()
+        _same(jeng, teng, pairs)
+    raise AssertionError("condition not reached")
+
+
+def _both(jeng, teng, pairs, prompt, gen):
+    prompt = np.asarray(prompt, np.int32)
+    pairs.append((jeng.submit(prompt, gen), teng.submit(prompt, gen)))
+    return pairs[-1][1]
+
+
+def test_cancel_in_every_state_equals_reference(reference):
+    """cancel() from RUNNING, PREFILLING (a job's only member) and QUEUED,
+    then double cancels and a cancel after completion, step for step with
+    the reference: slots, pages and counts are released alike and the
+    survivor's stream is unchanged."""
+    jeng, teng = _lockstep_pair(reference, batch_slots=1, s_max=32,
+                                page_size=8, prefill_chunk_tokens=2,
+                                prefix_cache=False)
+    pairs = []
+    rng = np.random.default_rng(4)
+    running = _both(jeng, teng, pairs, rng.integers(0, 512, 5), 8)
+    _until(jeng, teng, pairs, lambda: running.state is RequestState.RUNNING)
+    prefilling = _both(jeng, teng, pairs, np.arange(1, 13), 4)
+    queued = _both(jeng, teng, pairs, rng.integers(0, 512, 7), 4)
+    survivor = _both(jeng, teng, pairs, rng.integers(0, 512, 5), 3)
+    assert jeng.cancel(pairs[0][0].rid) and teng.cancel(running.rid)
+    _same(jeng, teng, pairs)
+    jeng.step()
+    teng.step()
+    _same(jeng, teng, pairs)
+    assert prefilling.state is RequestState.PREFILLING
+    for i in (1, 2, 2):
+        assert jeng.cancel(pairs[i][0].rid) == teng.cancel(pairs[i][1].rid)
+        _same(jeng, teng, pairs)
+    assert teng.free_pages == teng.num_pages
+    _until(jeng, teng, pairs, lambda: survivor.state is RequestState.DONE)
+    assert (running.state, prefilling.state, queued.state) == \
+        (RequestState.CANCELLED,) * 3
+    assert not queued.tokens and queued.error == "cancelled"
+    assert not teng.cancel(survivor.rid) and not teng.cancel(10_000)
+    assert teng.free_pages == teng.num_pages
+    assert sorted(r.rid for r in teng.drain_completed()) == \
+        sorted(r.rid for r in jeng.drain_completed()) == [0, 1, 2, 3]
+    assert not teng.requests and len(teng.metrics.requests) == 4
+
+
+@pytest.mark.parametrize("page_size", [8, None], ids=["paged", "dense"])
+def test_cancel_grouped_prefill_member_lands_at_splice(reference, page_size):
+    """Cancelling one member of a batch-2 prefill job retires it at the
+    group's splice without a token; its group-mate runs on."""
+    jeng, teng = _lockstep_pair(reference, batch_slots=2, s_max=32,
+                                page_size=page_size, prefill_chunk_tokens=2,
+                                prefix_cache=False)
+    pairs = []
+    a = _both(jeng, teng, pairs, np.arange(1, 13), 4)
+    b = _both(jeng, teng, pairs, np.arange(21, 33), 4)
+    jeng.step()
+    teng.step()
+    _same(jeng, teng, pairs)
+    assert a.state is b.state is RequestState.PREFILLING
+    assert jeng.cancel(pairs[1][0].rid) and teng.cancel(b.rid)
+    _same(jeng, teng, pairs)
+    assert b.state is RequestState.PREFILLING       # lands at the splice
+    _until(jeng, teng, pairs, lambda: a.state is RequestState.DONE)
+    assert b.state is RequestState.CANCELLED and not b.tokens
+    assert len(a.tokens) == 4
+    assert teng.free_pages == (teng.num_pages if page_size else 0)
+
+
+def test_prefill_failure_releases_the_job_as_the_reference_does(
+        reference, monkeypatch):
+    """A chunk dispatch that raises mid-prefill FAILS its job through
+    release_job on both engines: the same error, pages and slot back, one
+    prefill failure counted, the engine serving on."""
+    jeng, teng = _lockstep_pair(reference, batch_slots=2, s_max=32,
+                                page_size=8, prefill_chunk_tokens=4,
+                                prefix_cache=False)
+    assert jeng.incremental_splice and teng.incremental_splice
+    calls = {"j": 0, "t": 0}
+    jreal = jeng._chunk_paged_fn
+    treal = teng._chunk_paged
+
+    def jflaky():
+        fn = jreal()
+
+        def wrapped(params, cache, batch):
+            calls["j"] += 1
+            if calls["j"] == 2:
+                raise RuntimeError("injected chunk failure")
+            return fn(params, cache, batch)
+        return wrapped
+
+    def tflaky(params, cache, batch):
+        calls["t"] += 1
+        if calls["t"] == 2:
+            raise RuntimeError("injected chunk failure")
+        return treal(params, cache, batch)
+
+    monkeypatch.setattr(jeng, "_chunk_paged_fn", jflaky)
+    teng._chunk_paged = tflaky
+    pairs = []
+    doomed = _both(jeng, teng, pairs, np.arange(1, 14), 4)
+    for _ in range(2):
+        jeng.step()
+        teng.step()
+        _same(jeng, teng, pairs)
+    assert doomed.state is RequestState.FAILED
+    assert "injected chunk failure" in doomed.error
+    assert teng.prefill_failures == 1 and not teng._jobs
+    assert teng.free_pages == teng.num_pages
+    ok = _both(jeng, teng, pairs, np.arange(40, 47), 4)
+    _until(jeng, teng, pairs, lambda: ok.state is RequestState.DONE)
+    assert len(ok.tokens) == 4
+
+
+def test_failed_chunk_leaves_a_running_bystander_serving(reference,
+                                                        monkeypatch):
+    """The held difference from the reference's poisoned-cache failover:
+    the port donates no buffer, and a chunk writes only its own job's
+    pages above ``write_floor``. A chunk that raises inside its second
+    layer (after both layers wrote K/V into the doomed job's pages) fails
+    only its job; the RUNNING bystander serves on with the stream of an
+    undisturbed run, and the pool is whole afterwards."""
+    from repro_torch.kernels import ops as kops
+    kw = dict(batch_slots=2, s_max=32, page_size=8, prefill_chunk_tokens=4)
+    rng = np.random.default_rng(9)
+    by_prompt = rng.integers(0, 512, 6)
+    alone = _port_engine(reference, **kw)
+    want = alone.submit(by_prompt, 12)
+    alone.run()
+
+    teng = _port_engine(reference, **kw)
+    assert teng.incremental_splice and teng.prefix_cache
+    bystander = teng.submit(by_prompt, 12)
+    while bystander.state is not RequestState.RUNNING:
+        teng.step()
+    real = kops.paged_prefill
+    calls = {"n": 0}
+
+    def fails_in_layer_1(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("kernel launch failed")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(kops, "paged_prefill", fails_in_layer_1)
+    doomed = teng.submit(rng.integers(0, 512, 13), 4)
+    teng.step()
+    assert calls["n"] == 2 and doomed.state is RequestState.FAILED
+    assert "kernel launch failed" in doomed.error
+    assert bystander.state is RequestState.RUNNING
+    assert teng.prefill_failures == 1
+    teng.assert_page_invariants()
+    monkeypatch.undo()
+    after = teng.submit(rng.integers(0, 512, 9), 3)
+    teng.run()
+    assert list(bystander.tokens) == list(want.tokens)
+    assert after.state is RequestState.DONE and len(after.tokens) == 3
+    assert teng.free_pages + len(set(teng.prefix_index.pages)) == \
+        teng.num_pages
+    s = teng.metrics.summary()
+    assert (s["aborted"], s["completed"]) == (1, 2)
+
+
+def test_transient_path_failure_releases_a_grouped_job(references,
+                                                      monkeypatch):
+    """The transient (first-chunk) path, hymba's paged ring: a batch-2 job
+    whose first chunk raises FAILS both members and frees every page."""
+    teng = _port_engine(references("hymba-1.5b"), page_size=8)
+    assert not teng.incremental_splice
+
+    def boom(*a, **k):
+        raise RuntimeError("boom")
+
+    teng._chunk_first = boom
+    a = teng.submit(np.arange(1, 9), 4)
+    b = teng.submit(np.arange(1, 9), 4)
+    teng.step()
+    assert a.state is b.state is RequestState.FAILED
+    assert teng.prefill_failures == 1
+    assert teng.free_pages == teng.num_pages
+    assert teng.transient_cache_bytes() == 0
+    teng.assert_page_invariants()
+
+
+def test_a_lost_device_after_a_failed_chunk_leaves_step(reference):
+    """After a caught chunk failure the engine synchronises the device; if
+    that raises too (on the card: a sticky CUDA error, the context is
+    lost), the error leaves step() instead of being failed over."""
+    teng = _port_engine(reference, batch_slots=2, s_max=32, page_size=8)
+
+    def chunk(*a, **k):
+        raise RuntimeError("an illegal memory access was encountered")
+
+    def lost_sync():
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    teng._chunk_paged = chunk
+    teng._sync = lost_sync
+    teng.submit(np.arange(1, 9), 4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        teng.step()
+    assert teng.prefill_failures == 1
+
+
+def test_build_keyword_spelling_is_deprecated_as_in_reference():
+    """``ServeEngine.build(arch, **fields)``: a DeprecationWarning and the
+    same engine as ``config=``; both spellings at once, or an unknown
+    keyword, raise the reference's errors."""
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        eng = TEngine.build("qwen2.5-32b", page_size=PS, s_max=S_MAX,
+                            batch_slots=2, device="cpu")
+    assert (eng.page_size, eng.s_max, eng.batch_slots) == (PS, S_MAX, 2)
+    for kwargs in (dict(config=TConfig(device="cpu"), page_size=PS),
+                   dict(bogus=1)):
+        jkw = {k: (JConfig() if k == "config" else v)
+               for k, v in kwargs.items()}
+        with pytest.raises((ValueError, TypeError)) as want:
+            JEngine.build("qwen2.5-32b", **jkw)
+        with pytest.raises(type(want.value)) as got:
+            TEngine.build("qwen2.5-32b", **kwargs)
+        assert str(got.value).split(";")[0] == str(want.value).split(";")[0]

@@ -29,7 +29,9 @@ def _sources():
             "kernels/quant_matmul.py", "models/resnet.py",
             "configs/resnet20_cifar.py", "data/cifar.py",
             "data/synthetic.py", "kernels/linear_scan.py", "models/ssm.py",
-            "models/hybrid.py"} <= names
+            "models/hybrid.py", "serve/metrics.py", "serve/workload.py",
+            "serve/router.py", "serve/scheduler.py",
+            "examples/serve_lm.py"} <= names
     return files
 
 
