@@ -16,9 +16,13 @@ before printing any result. Phases, each of which raises on failure:
    split over keys (``SPLIT_EDGES``), latent paged attention (K4)
    at latent widths 10/8, 64/48, 576/512 and 1024/512, and flash attention
    (K2); then each at the full-width shapes the serving and forward paths
-   give it (qwen2.5-32b, qwen2.5-32b-mla; K2 also at hymba-1.5b's first
-   chunk and forward), with the kernel's, the plain version's and one
-   library call's times and the bound (K1's, K3's and K4's decode time
+   give it (qwen2.5-32b, qwen2.5-32b-mla; K1 also at dbrx-132b's decode
+   and prefill shapes, 48 heads over 8, and at whisper-large-v3's, 20 over
+   20 at head_dim 64; K2 also at hymba-1.5b's first chunk and forward, at
+   the first chunks of dbrx's dense cache and whisper's decoder, causal,
+   and at whisper's encoder, B 2 x 1500 frames, not causal), with the
+   kernel's, the plain version's and one library call's times and the
+   bound (K1's, K3's and K4's decode time
    is their two launches, the split over keys and the merge, summed). The
    systolic GEMM (K7) in its three dataflows and the int8-weight GEMM (K8)
    on the CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
@@ -106,13 +110,45 @@ before printing any result. Phases, each of which raises on failure:
    processes exit 0, and their summaries show no failed prefill chunk and
    no request aborted but by a shed.
 
+12-15. the other families at full width, each after the earlier weights
+   are freed, with every cut of depth in its log line: (12) command-r-35b
+   (LayerNorm), 4 of 40 layers (28.1 GB); (13) dbrx-132b (16 experts,
+   top 4, GShard capacity), 2 of 40 layers (31.0 GB); (14)
+   llama-3.2-vision-11b, 10 of 40 layers (2 super-layers of 5 blocks and a
+   gated cross block over 1601 image tokens; 13.3 GB); (15)
+   whisper-large-v3 whole (32 encoder and 32 decoder layers, 6.2 GB).
+   Each: a model step (a paged 64-token chunk for 8 slots and 8 decode
+   steps) through K1 and through the einsum, logits within MODEL_TOL and
+   greedy tokens equal; for whisper the transient first chunk (one encoder
+   pass) runs through K2 and through the einsum, its logits and cache
+   leaves within MODEL_TOL, and each run's cache, spliced into pages,
+   decodes through K1 and through the einsum; dbrx also on int8 pages (K3
+   against the q8 einsum, Q8_MODEL_TOL), with its routing traced
+   (dropped (token, k) choices per call, choices that differ between the
+   two runs, and at a stream mismatch the router's top-k / top-(k+1)
+   gap). Then the 16 requests on fp32 pages of 16, K1 launched layers x
+   ticks and (but for
+   whisper, which prefills through the transient path with its first
+   chunks through K2) layers x chunks; dbrx also on int8 pages (K3) and on
+   the dense cache (first chunks through K2), with its serving drops by
+   call (the routings of the fp32 pages run alone, each tagged with the
+   tick or chunk that made it) and the MoE's share of a tick. Each run
+   prints ITL p50, TTFT p50, tok/s and an idle tick's host wall and
+   device idle share beside the tick's floor (``tick_floor``: the weights
+   and whisper's cross K/V it reads, the VLM's image re-projection). The
+   VLM's cross gates carry seeded noise (``repro`` starts them at 0) and
+   its forward and model step take seeded image embeddings; it serves on
+   zero ones, as ``repro`` does. Whisper's encoder runs through K2, not
+   causal, against the einsum.
+
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
 path (3b's forward, 4, 4b, 5, 7, 9, 10, 11) and each forward of phases 8,
 8b, 9 and 10 runs with the kernels' launch counts set to 0 just before
 and read just after, and every serving run requires that no prefill
-chunk failed (the engine catches a chunk that raises and fails its job).
+chunk failed (the engine catches a chunk that raises and fails its job);
+so do phases 12-15.
 Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
@@ -150,8 +186,11 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
-from repro_torch.models.registry import init_paged_cache  # noqa: E402
+from repro_torch.models.registry import (init_paged_cache,  # noqa: E402
+                                         insert_cache_rows_paged)
 from repro_torch.serve import (SLO, ReplicaRouter, SchedPolicy,  # noqa: E402
                                ServeConfig, ServeEngine, WorkloadSpec,
                                merged_summary)
@@ -174,6 +213,8 @@ INACTIVE = 1 << 30
 ARCH = "qwen2.5-32b"
 MLA_ARCH = "qwen2.5-32b-mla"
 RWKV, HYMBA = "rwkv6-7b", "hymba-1.5b"
+CMDR, DBRX = "command-r-35b", "dbrx-132b"
+VISION, WHISPER = "llama-3.2-vision-11b", "whisper-large-v3"
 LAYERS = 4
 SLOTS, S_MAX, PS = 8, 1024, 16
 # phase 3b's full-sequence prefill step (B, S), also hymba's in phase 10
@@ -182,7 +223,13 @@ FORWARD_BATCH = (2, 512)
 # first chunk (B slots x C) and of a forward
 FLASH_SHAPES = {"prefill": (ARCH, SLOTS, 64), "forward": (ARCH, 4, 1024),
                 "prefill_hymba": (HYMBA, SLOTS, 64),
-                "forward_hymba": (HYMBA, *FORWARD_BATCH)}
+                "forward_hymba": (HYMBA, *FORWARD_BATCH),
+                "prefill_dbrx": (DBRX, SLOTS, 64),
+                "prefill_whisper": (WHISPER, SLOTS, 64),
+                "forward_whisper": (WHISPER, 2, 1500)}
+# the shapes whose attention is not causal: whisper's encoder over its 1500
+# frames (not a multiple of the key tile)
+FLASH_NOT_CAUSAL = ("forward_whisper",)
 # K1 / K3's and K4's launches as the profiler names them: the kernel, and
 # where it splits a call over keys (a decode tick) the merge of its splits
 # (``split_merge_kernel``; "merge_kernel" also names an older tree's
@@ -569,11 +616,12 @@ def phase2_cases():
     return errs
 
 
-def full_width_case(Sq, seed):
-    """The serving shapes of qwen2.5-32b: 8 slots, 40 query heads over 8 kv
-    heads, head_dim 128, page_size 16, s_max 1024; each slot holds 100-732
-    rows (a 100-700 token prompt plus up to 32 generated tokens)."""
-    cfg = configs.get_config(ARCH)
+def full_width_case(Sq, seed, arch=ARCH):
+    """The serving shapes of ``arch`` (qwen2.5-32b: 40 query heads over 8
+    kv heads, head_dim 128): 8 slots, page_size 16, s_max 1024; each slot
+    holds 100-732 rows (a 100-700 token prompt plus up to 32 generated
+    tokens)."""
+    cfg = configs.get_config(arch)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mps = S_MAX // PS
     rng = np.random.default_rng(seed)
@@ -628,12 +676,17 @@ def sdpa_call(args):
                                                   enable_gqa=True)
 
 
-def phase2_full_width():
+def phase2_full_width(arch=ARCH):
+    """K1 at ``arch``'s decode and prefill shapes (8 slots; a 64-row
+    chunk): against the plain version, then the kernel's, the plain
+    version's and SDPA's times beside the bound."""
     out = {}
+    cfg = configs.get_config(arch)
     for kind, Sq, seed in (("decode", 1, 11), ("prefill", 64, 12)):
-        args, fill = full_width_case(Sq, seed)
-        _, err = check_case(f"full width {kind} (B={SLOTS}, Sq={Sq}, H=40, "
-                            f"KV=8, hd=128, ps={PS})", args, kind=kind)
+        args, fill = full_width_case(Sq, seed, arch)
+        _, err = check_case(f"full width {kind} {arch} (B={SLOTS}, Sq={Sq}, "
+                            f"H={cfg.num_heads}, KV={cfg.num_kv_heads}, "
+                            f"hd={cfg.head_dim}, ps={PS})", args, kind=kind)
         lib = sdpa_call(args)
         want = ref.paged_attention(*args)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
@@ -642,7 +695,7 @@ def phase2_full_width():
         plain = time_ms(lambda: ref.paged_attention(*args), 10)
         lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill)
-        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+        log(f"  {kind} {arch}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
         out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
@@ -930,36 +983,43 @@ def flash_bound_ms(args, causal=True, window=0) -> tuple:
 def phase2_flash_full_width():
     """K2 at the shapes the models give it (``FLASH_SHAPES``), a serving
     first chunk and a forward each: qwen2.5-32b's 40 query heads over 8 kv
-    heads at head_dim 128, causal, and hymba-1.5b's 25 over 5 at head_dim
-    64 with its 1024-row window, which phase 10 runs. The library call is
-    SDPA, causal (the window is wider than the sequence, so it masks
-    nothing more)."""
+    heads at head_dim 128, causal, hymba-1.5b's 25 over 5 at head_dim 64
+    with its 1024-row window, which phase 10 runs; the first chunks of
+    dbrx-132b's dense cache (48 over 8 at head_dim 128, phase 13) and of
+    whisper-large-v3's decoder (20 over 20 at head_dim 64, phase 15),
+    causal; and whisper's encoder, 20 over 20 at head_dim 64 over 1500
+    frames, not causal, which phase 15 runs. The library call is SDPA,
+    causal where the kernel is (the window is wider than the sequence, so
+    it masks nothing more)."""
     out = {}
     for kind, (arch, B, S) in FLASH_SHAPES.items():
         cfg = configs.get_config(arch)
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         window = cfg.window or 0
+        causal = kind not in FLASH_NOT_CAUSAL
         if window and window < S:
             raise AssertionError(f"{arch}: the SDPA yardstick is causal, but "
                                  f"the window {window} < S = {S}")
         args = flash_case(40, B, S, S, H, KV, hd)
         count = kind.split("_")[0]
         err = check_flash(f"full width flash {kind} ({arch}: B={B}, S={S}, "
-                          f"H={H}, KV={KV}, hd={hd}, window={window})", args,
+                          f"H={H}, KV={KV}, hd={hd}, window={window}, "
+                          f"causal={causal})", args, causal=causal,
                           window=window, kind=count)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        want = ref.flash_attention(*args, window=window)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        want = ref.flash_attention(*args, causal=causal, window=window)
         lib_err = (lib().transpose(1, 2) - want).abs().max().item()
         del want
         iters = 50 if count == "prefill" else 10
         ms = device_ms(lambda: fa.flash_attention(
-            *args, window=window, kind=count), iters,
+            *args, causal=causal, window=window, kind=count), iters,
             "flash_attention_kernel")
-        plain = time_ms(lambda: ref.flash_attention(*args, window=window), 5)
+        plain = time_ms(lambda: ref.flash_attention(
+            *args, causal=causal, window=window), 5)
         lib_ms = device_ms(lib, iters)
-        bms, by = flash_bound_ms(args, window=window)
+        bms, by = flash_bound_ms(args, causal=causal, window=window)
         log(f"  flash {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by})")
@@ -1101,15 +1161,21 @@ def phase2_scan_full_width():
 
 # ------------------------------------------------------------ phase 3
 def phase3_model(model, params, backend=None, label="fp32 pages",
-                 tol=MODEL_TOL):
-    """Full-width model, 4 layers: one 64-token prefill chunk for 8 slots
-    on a fresh paged cache (fp32 pages, or the cache ``backend`` builds),
-    then 8 greedy decode steps, through the kernel and through the
+                 tol=MODEL_TOL, extras=None):
+    """Full-width model at its cut depth: one 64-token prefill chunk for 8
+    slots on a fresh paged cache (fp32 pages, or the cache ``backend``
+    builds), then 8 greedy decode steps, through the kernel and through the
     masked-einsum reference read; logits (within ``tol``) and tokens
-    compared, and how far the two final caches' pools differ reported."""
+    compared, and how far the two final caches' pools differ reported.
+    ``extras``: the stub inputs every call takes (a VLM's image
+    embeddings, 8 rows). An MoE model's routing is traced in both runs:
+    the (token, k) choices its capacity dropped, call by call, and the
+    choices on which the two runs differ."""
     cfg = model.cfg
+    layers = cfg.num_layers
+    extras = extras or {}
     n = sum(t.numel() for t in _leaves(params))
-    log(f"  {cfg.name} x {LAYERS} layers: {n / 1e9:.3f} B params fp32, "
+    log(f"  {cfg.name} x {layers} layers: {n / 1e9:.3f} B params fp32, "
         f"{label}")
     mps = S_MAX // PS
     bt = torch.arange(SLOTS * mps, dtype=torch.int32,
@@ -1117,7 +1183,7 @@ def phase3_model(model, params, backend=None, label="fp32 pages",
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
                             ).to(DEV)
-    runs, caches = {}, {}
+    runs, caches, traces = {}, {}, {}
     for impl in ("kernel", "einsum"):
         if backend is None:
             cache = init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
@@ -1127,25 +1193,30 @@ def phase3_model(model, params, backend=None, label="fp32 pages",
                                        DEV)
         cache["block_tables"].copy_(bt)
         pa.reset_launches()
+        traces[impl] = layers_mod.MOE_TRACE = [] if cfg.moe else None
         t0 = time.perf_counter()
-        logits, cache = model.prefill_chunk_paged(
-            params, toks, cache, bt_rows=bt, start=0, write_floor=0,
-            attn_impl=impl)
-        cache["pos"].fill_(64)
-        seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
-        tokens = [tok]
-        for _ in range(8):
-            logits, cache = model.decode_step(params, tok, cache,
-                                              paged_attn_impl=impl)
-            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
-            seq.append(logits)
-            tokens.append(tok)
-        torch.cuda.synchronize()
+        try:
+            logits, cache = model.prefill_chunk_paged(
+                params, toks, cache, bt_rows=bt, start=0, write_floor=0,
+                attn_impl=impl, **extras)
+            cache["pos"].fill_(64)
+            seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
+            tokens = [tok]
+            for _ in range(8):
+                logits, cache = model.decode_step(params, tok, cache,
+                                                  paged_attn_impl=impl,
+                                                  **extras)
+                tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+                seq.append(logits)
+                tokens.append(tok)
+            torch.cuda.synchronize()
+        finally:
+            layers_mod.MOE_TRACE = None
         launched = sum(pa.LAUNCHES.values())
-        if launched != (9 * LAYERS if impl == "kernel" else 0):
+        if launched != (9 * layers if impl == "kernel" else 0):
             raise AssertionError(f"impl={impl}: {pa.LAUNCHES} paged "
                                  f"attention launches for 1 chunk + 8 steps "
-                                 f"x {LAYERS} layers")
+                                 f"x {layers} layers")
         log(f"  impl={impl}: prefill + 8 decode steps in "
             f"{time.perf_counter() - t0:.3f} s (host clock), "
             f"{launched} kernel launches")
@@ -1158,9 +1229,77 @@ def phase3_model(model, params, backend=None, label="fp32 pages",
             log(f"  final {key} pool: {(diff == 0).float().mean().item():.6f}"
                 f" of entries equal, max |diff| {diff.max().item():.3e}")
     del caches
+    if cfg.moe:
+        moe_report(traces, layers, runs)
     compare_runs(runs, cfg, "kernel", "einsum", tol)
     del runs
     torch.cuda.empty_cache()
+
+
+def moe_report(traces, layers, runs):
+    """The routing of the two runs of ``phase3_model`` (a chunk, then 8
+    decode steps; one trace entry per layer per call): dropped (token, k)
+    choices per call and of how many, and the choices on which the kernel
+    run and the einsum run differ. Where the greedy tokens differ, the
+    smallest gap between a token's k-th and (k+1)-th router probability
+    up to the first call whose routing differs: a near-tie there is what
+    lets last-bit attention differences reroute a token."""
+    a, b = traces["kernel"], traces["einsum"]
+    drops, differ, first = [], 0, None
+    for c in range(len(a) // layers):
+        calls = a[c * layers:(c + 1) * layers]
+        drops.append((sum(int((~t["kept"]).sum()) for t in calls),
+                      sum(t["kept"].numel() for t in calls)))
+        for ta, tb in zip(calls, b[c * layers:(c + 1) * layers]):
+            d = int((ta["expert"] != tb["expert"]).sum())
+            differ += d
+            if d and first is None:
+                first = c
+    log(f"  MoE drops per call (dropped of routed (token, k) choices, "
+        f"{layers} layers): chunk {drops[0][0]}/{drops[0][1]}, decode "
+        + ", ".join(f"{x}/{n}" for x, n in drops[1:]))
+    log(f"  routing choices differing between kernel and einsum runs: "
+        f"{differ} of {sum(t['expert'].numel() for t in a)}")
+    if not torch.equal(runs["kernel"][1], runs["einsum"][1]):
+        upto = a[:((first if first is not None else len(a) // layers) + 1)
+                 * layers]
+        k = a[0]["expert"].shape[1]
+        gaps = []
+        for t in upto:
+            srt = t["probs"].sort(dim=-1, descending=True).values
+            gaps.append((srt[:, k - 1] - srt[:, k]).min().item())
+        log(f"  greedy streams differ; first call whose routing differs: "
+            f"{first}; smallest top-{k} / top-{k + 1} router probability "
+            f"gap up to it: {min(gaps):.3e}")
+
+
+def routing_divergence(a_name, a, b_name, b):
+    """Two serving runs' MoE traces (``serve_family``'s, one entry per
+    layer per call), walked in step: the first entry whose call or shape
+    differs (from there on the two engines batch differently, so capacity
+    differs by construction), or else the first whose routing differs,
+    with the smallest top-k / top-(k+1) router probability gap (in run
+    ``a``) among the tokens it reroutes: a near-tie there is what lets a
+    last-bit difference upstream reroute a token."""
+    for i, (ta, tb) in enumerate(zip(a, b)):
+        if ta["call"] != tb["call"] or ta["expert"].shape != tb[
+                "expert"].shape:
+            log(f"  routing {a_name} vs {b_name}: equal for {i} MoE calls, "
+                f"then a {ta['call']} of {ta['expert'].shape[0]} tokens "
+                f"against a {tb['call']} of {tb['expert'].shape[0]}")
+            return
+        moved = (ta["expert"] != tb["expert"]).any(-1)
+        if moved.any():
+            k = ta["expert"].shape[1]
+            srt = ta["probs"][moved].sort(dim=-1, descending=True).values
+            gap = (srt[:, k - 1] - srt[:, k]).min().item()
+            log(f"  routing {a_name} vs {b_name}: equal for {i} MoE calls, "
+                f"then a {ta['call']} reroutes {int(moved.sum())} of "
+                f"{moved.numel()} tokens; smallest top-{k} / top-{k + 1} "
+                f"router probability gap among them {gap:.3e}")
+            return
+    log(f"  routing {a_name} vs {b_name}: equal over all "
+        f"{min(len(a), len(b))} MoE calls ({len(a)} and {len(b)} traced)")
 
 
 def compare_runs(runs, cfg, a_name, b_name, tol=MODEL_TOL):
@@ -1339,26 +1478,26 @@ def phase4_serve(model, params, prompts, card):
     return launches, reqs, firsts, nbytes, m
 
 
-def check_paged_launches(kinds, m, what):
+def check_paged_launches(kinds, m, what, layers=LAYERS):
     """Every multi-page attention of a paged serving run went through the
     kernel: ``kinds`` = (decode key, prefill key) of ``pa.LAUNCHES`` equal
-    layers x decode steps and layers x prefill chunks, and no other kernel
-    was launched. Returns the counts."""
+    ``layers`` x decode steps and ``layers`` x prefill chunks, and no other
+    kernel was launched. Returns the counts."""
     launches = dict(pa.LAUNCHES)
     others = {k: v for k, v in launches.items() if k not in kinds}
     if sum(others.values()) or sum(fa.LAUNCHES.values()):
         raise AssertionError(f"{what} launched other kernels: {others}, "
                              f"{fa.LAUNCHES}")
     dec, pre = kinds
-    if (launches[dec] != m["decode_steps"] * LAYERS
-            or launches[pre] != m["prefill_chunks"] * LAYERS
+    if (launches[dec] != m["decode_steps"] * layers
+            or launches[pre] != m["prefill_chunks"] * layers
             or not launches[dec] or not launches[pre]):
         raise AssertionError(f"{what}: launches {launches} != one per layer "
                              f"per decode step ({m['decode_steps']}) / "
                              f"prefill chunk ({m['prefill_chunks']})")
     log(f"  {what} launches: {dec} {launches[dec]} ({m['decode_steps']} "
-        f"steps x {LAYERS} layers), {pre} {launches[pre]} "
-        f"({m['prefill_chunks']} chunks x {LAYERS} layers)")
+        f"steps x {layers} layers), {pre} {launches[pre]} "
+        f"({m['prefill_chunks']} chunks x {layers} layers)")
     return {"decode": launches[dec], "prefill": launches[pre]}
 
 
@@ -2662,12 +2801,14 @@ def tick_and_chunk(engine, prompt, card, label) -> dict:
     parked: a tick runs every op of a live one, and its writes drop) and of
     one 64-token first chunk of ``prompt`` (one request, B = 1)."""
     tok = torch.zeros((engine.batch_slots, 1), dtype=torch.long, device=DEV)
+    batch = {"token": tok, **engine._prefill_extras(engine.batch_slots)}
     tick = host_and_device(
-        lambda: engine._decode(engine.params, engine.cache, {"token": tok}),
+        lambda: engine._decode(engine.params, engine.cache, batch),
         f"{label}: one decode tick ({engine.batch_slots} slots)", card)
-    chunk = torch.from_numpy(prompt[:64]).long()[None].to(DEV)
+    chunk = {"tokens": torch.from_numpy(prompt[:64]).long()[None].to(DEV),
+             **engine._prefill_extras(1)}
     first = host_and_device(
-        lambda: engine._chunk_first(engine.params, {"tokens": chunk}),
+        lambda: engine._chunk_first(engine.params, chunk),
         f"{label}: one 64-token first chunk", card)
     return {"tick": tick, "chunk": first}
 
@@ -2810,6 +2951,453 @@ def phase10_hymba(card):
             {"forward": flash_forward, "prefill": d_flash + p_flash})
 
 
+# ------------------------------------------------------- phases 12-15
+# the depth each is served at: memory cuts dbrx (13.0 GB a layer) and
+# command-r (2.8 GB a layer beside two 8.4 GB vocab tables); the VLM keeps
+# 2 of its 8 super-layers (depth a multiple of cross_attn_every = 5);
+# whisper runs whole (32 encoder and 32 decoder layers)
+FAMILY_LAYERS = {CMDR: 4, DBRX: 2, VISION: 10, WHISPER: 32}
+
+
+def build_family(arch):
+    """``ServeEngine.build`` of ``arch`` at full width, cut to
+    FAMILY_LAYERS (the dense-cache engine is dropped; the phases build
+    their own over its weights). Returns (model, params)."""
+    layers = FAMILY_LAYERS[arch]
+    t0 = time.perf_counter()
+    engine = ServeEngine.build(arch, config=ServeConfig(
+        reduced=False, cfg_overrides={"num_layers": layers}, s_max=S_MAX,
+        batch_slots=SLOTS))
+    torch.cuda.synchronize()
+    model, params = engine.model, engine.params
+    del engine
+    torch.cuda.empty_cache()
+    n = sum(t.numel() for t in _leaves(params))
+    full = configs.get_config(arch).num_layers
+    log(f"  {arch} at full width, {layers} of {full} layers"
+        + (f" (+ {model.cfg.encoder_layers} encoder layers)"
+           if model.cfg.encoder_layers else "")
+        + f": {n / 1e9:.3f} B params, {4 * n / 1e9:.2f} GB fp32; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def tick_floor(model, params, batch=SLOTS) -> dict:
+    """The least time of one decode tick of ``batch`` slots: the bytes it
+    must read once (every weight but the encoder's; of an untied embedding
+    table and of whisper's position table only the batch's rows; every
+    expert, since the dense GShard dispatch reads them all; whisper's
+    cross K/V of every slot; the VLM's image embeddings) at the HBM rate,
+    against the VLM's image re-projection (each cross block projects every
+    slot's image tokens through wk and wv) at the fp32 peak. The K/V of an
+    idle engine's tick are not counted."""
+    cfg = model.cfg
+    nbytes = 0
+    for key, tree in params.items():
+        leaves = list(_leaves(tree)) if isinstance(tree, dict) else [tree]
+        if key in ("enc_layers", "enc_norm"):
+            continue
+        if key == "pos_dec" or (key == "embed" and "unembed" in params):
+            nbytes += batch * leaves[0].shape[-1] * leaves[0].element_size()
+        else:
+            nbytes += sum(t.numel() * t.element_size() for t in leaves)
+    kvw = cfg.num_kv_heads * cfg.head_dim
+    flops = 0
+    if cfg.encoder_layers:
+        nbytes += 2 * cfg.num_layers * batch * encdec.ENC_LEN * kvw * 4
+    if cfg.cross_attn_every:
+        t_img = cfg.num_image_tokens
+        nbytes += batch * t_img * cfg.d_model * 4
+        flops = (cfg.num_layers // cfg.cross_attn_every) * 2 * (
+            2 * batch * t_img * cfg.d_model * kvw)
+    ms, by = roofline(nbytes, flops)
+    log(f"  {cfg.name}: a decode tick of {batch} slots reads at least "
+        f"{nbytes / 1e9:.2f} GB ({nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+        + (f" and computes {flops / 1e9:.0f} GFLOP of image re-projection "
+           f"({flops / FP32_FLOPS * 1e3:.2f} ms at "
+           f"{FP32_FLOPS / 1e12:.0f} TFLOP/s)" if flops else "")
+        + f": floor {ms:.2f} ms ({by})")
+    return dict(ms=ms, by=by, bytes=nbytes, flops=flops)
+
+
+def launches_held(label, want_paged, want_flash):
+    """The launch counts of a run against the wanted ones: every key of
+    ``pa.LAUNCHES`` / ``fa.LAUNCHES`` not named is 0, every named one
+    equals its count, which is > 0 (the dense cache's and whisper's runs,
+    where K2 takes the first chunks)."""
+    got_p, got_f = dict(pa.LAUNCHES), dict(fa.LAUNCHES)
+    want_p = {k: want_paged.get(k, 0) for k in got_p}
+    want_f = {k: want_flash.get(k, 0) for k in got_f}
+    if (got_p != want_p or got_f != want_f or not all(
+            list(want_paged.values()) + list(want_flash.values()))):
+        raise AssertionError(f"{label}: launches {got_p}, {got_f}; want "
+                             f"{want_p}, {want_f}")
+    log(f"  {label} launches: " + ", ".join(
+        f"{k} {v}" for k, v in list(want_paged.items())
+        + [(f"flash {k}", v) for k, v in want_flash.items()]))
+
+
+# the engine's step functions, by the kind of call that makes them: the
+# decode tick and the prefill chunks
+ENGINE_STEPS = {"_decode": "tick", "_chunk_paged": "chunk",
+                "_chunk_first": "chunk", "_chunk_cont": "chunk",
+                "_prefill_scan": "chunk"}
+
+
+def tag_moe_calls(engine, trace):
+    """Wraps the engine's step functions so that the ``moe`` routings each
+    appends to ``trace`` carry the call that made them ("tick" or
+    "chunk"). Returns the unhook."""
+    saved = {attr: getattr(engine, attr) for attr in ENGINE_STEPS}
+
+    def tagged(fn, call):
+        def step(*args):
+            n = len(trace)
+            out = fn(*args)
+            for t in trace[n:]:
+                t["call"] = call
+            return out
+        return step
+
+    for attr, call in ENGINE_STEPS.items():
+        setattr(engine, attr, tagged(saved[attr], call))
+
+    def unhook():
+        for attr, fn in saved.items():
+            setattr(engine, attr, fn)
+    return unhook
+
+
+def serve_family(model, params, prompts, card, label, floor, moe_trace=None,
+                 **fields):
+    """The 16 requests on an engine of ``fields`` (8 slots, s_max 1024)
+    over the family's weights, the launch counts set to 0 just before and
+    read just after, the MoE routings of that run alone appended to
+    ``moe_trace`` (a list, or None for no trace) tagged by call; then one
+    tick and one first chunk profiled (``tick_and_chunk``) and ITL p50 set
+    beside the tick's ``floor``. Returns (requests, first-token logits,
+    metrics, first chunks run, the profile)."""
+    engine = ServeEngine(model, params, **ServeConfig(
+        reduced=False, s_max=S_MAX, batch_slots=SLOTS,
+        **fields).engine_kwargs())
+    n_first = [0]
+    first = engine._chunk_first
+
+    def counted(*args):
+        n_first[0] += 1
+        return first(*args)
+
+    engine._chunk_first = counted
+    unhook = (tag_moe_calls(engine, moe_trace) if moe_trace is not None
+              else lambda: None)
+    pa.reset_launches()
+    fa.reset_launches()
+    layers_mod.MOE_TRACE = moe_trace
+    try:
+        reqs, m, firsts = serve(engine, prompts)
+    finally:
+        layers_mod.MOE_TRACE = None
+        unhook()
+        engine._chunk_first = first
+    if engine.paged:
+        engine.assert_page_invariants()
+    log(f"  {label}: {type(engine.backend).__name__}, attn "
+        f"{engine.paged_attn_impl}, incremental splice "
+        f"{engine.incremental_splice}, prefix cache {engine.prefix_cache}, "
+        f"resident cache {engine.resident_cache_bytes()} bytes")
+    log_serving(m, card)
+    if engine.prefix_cache:
+        log(f"  prefix: {m['prefix']['hits']} hits of "
+            f"{m['prefix']['lookups']} lookups, {m['prefix']['cow_copies']} "
+            f"COW copies")
+    saved = dict(pa.LAUNCHES), dict(fa.LAUNCHES)
+    prof = tick_and_chunk(engine, prompts[0], card, label)
+    pa.LAUNCHES.update(saved[0])
+    fa.LAUNCHES.update(saved[1])
+    log(f"  {label}: ITL p50 {m['itl_s']['p50'] * 1e3:.2f} ms, one idle "
+        f"tick {prof['tick']['wall_ms']:.2f} ms host wall (device idle "
+        f"{prof['tick']['idle']:.1%}), against the tick's floor "
+        f"{floor['ms']:.2f} ms ({floor['by']}) ({card})")
+    del engine
+    torch.cuda.empty_cache()
+    return reqs, firsts, m, n_first[0], prof
+
+
+def paged_family(model, params, prompts, card, label, floor, **fields):
+    """``serve_family`` on pages of 16 through the incremental splice:
+    the paged kernel (K1; K3 on int8 pages) launched layers x decode steps
+    and layers x prefill chunks, nothing else. Returns (requests,
+    first-token logits, metrics, the kernel's launches {"decode",
+    "prefill"}, the profile)."""
+    reqs, firsts, m, _, prof = serve_family(
+        model, params, prompts, card, label, floor, page_size=PS, **fields)
+    q8 = "_q8" if fields.get("kv_backend") == "paged_int8" else ""
+    launches = check_paged_launches(("decode" + q8, "prefill" + q8), m,
+                                    label, model.cfg.num_layers)
+    return reqs, firsts, m, launches, prof
+
+
+def phase12_command_r(card):
+    """command-r-35b (LayerNorm, 64 query heads over 8 kv heads) at full
+    width, 4 layers: the model step through K1 against the einsum, then
+    the 16 requests on fp32 pages. Returns K1's launches and the serving
+    metrics."""
+    model, params = build_family(CMDR)
+    phase3_model(model, params)
+    prompts = serve_prompts(model.cfg.vocab_size)
+    floor = tick_floor(model, params)
+    _, _, m, launches, _ = paged_family(model, params, prompts, card,
+                                        "command-r fp32 pages", floor)
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, m
+
+
+def moe_share(model, params, tick_ms, card):
+    """The MoE layers' device time at a decode tick's shape (8 slots, one
+    token each; CUDA events around each layer's ``moe``) and their share
+    of the tick's host wall."""
+    cfg = model.cfg
+    x = torch.randn((SLOTS, 1, cfg.d_model), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(4))
+    dims = layers_mod.MoEDims(cfg.d_model, cfg.d_ff, cfg.moe.num_experts,
+                              cfg.moe.top_k, cfg.moe.capacity_factor)
+    ms = sum(time_ms(lambda: layers_mod.moe(
+        layers_mod.layer_params(params["layers"], i)["moe"], x, dims), 10)
+        for i in range(cfg.num_layers))
+    log(f"  MoE dispatch and experts at a tick ({SLOTS} tokens, "
+        f"{cfg.num_layers} layers): {ms:.3f} ms, {ms / tick_ms:.1%} of the "
+        f"tick's {tick_ms:.2f} ms host wall ({card})")
+    return ms
+
+
+def phase13_dbrx(card):
+    """dbrx-132b (16 experts, top 4, GShard capacity) at full width, 2
+    layers: the model step through K1 and on int8 pages through K3, each
+    against its einsum, with the routing traced; then the 16 requests on
+    fp32 pages (K1), on int8 pages (K3) and on the dense cache (first
+    chunks through K2), the capacity drops of the fp32 run counted by
+    call. Returns K1's launches, K2's on the dense cache's first chunks
+    and each run's metrics."""
+    model, params = build_family(DBRX)
+    layers = model.cfg.num_layers
+    phase3_model(model, params)
+    phase3_model(model, params, PagedInt8Backend(PS, SLOTS * S_MAX // PS),
+                 "int8 pages", Q8_MODEL_TOL)
+    prompts = serve_prompts(model.cfg.vocab_size)
+    floor = tick_floor(model, params)
+    trace = []
+    p_reqs, p_firsts, m, launches, prof = paged_family(
+        model, params, prompts, card, "dbrx fp32 pages", floor,
+        moe_trace=trace)
+    served = {"fp32_pages": m}
+    ticks = [t for t in trace if t["call"] == "tick"]
+    chunks = [t for t in trace if t["call"] == "chunk"]
+    for name, ts in (("decode ticks", ticks), ("prefill chunks", chunks)):
+        drops = sum(int((~t["kept"]).sum()) for t in ts)
+        choices = sum(t["kept"].numel() for t in ts)
+        log(f"  dbrx serving, {name}: {drops} of {choices} routed (token, "
+            f"k) choices dropped ({drops / max(choices, 1):.2%}) over "
+            f"{len(ts) // layers} calls x {layers} layers")
+    del ticks, chunks
+    moe_share(model, params, prof["tick"]["wall_ms"], card)
+    q_trace, d_trace = [], []
+    q_reqs, q_firsts, m, _, _ = paged_family(
+        model, params, prompts, card, "dbrx int8 pages", floor,
+        kv_backend="paged_int8", moe_trace=q_trace)
+    served["int8_pages"] = m
+    d_reqs, d_firsts, m, n_first, _ = serve_family(
+        model, params, prompts, card, "dbrx dense cache", floor,
+        moe_trace=d_trace)
+    flash = layers * n_first
+    launches_held("dbrx dense cache", {}, {"prefill": flash})
+    served["dense"] = m
+    # MoE streams across caches agree only as far as their routing does:
+    # the streams are reported, not held, and where the routing parts the
+    # trace says why (a near-tie, or calls batched otherwise)
+    compare_streams("fp32 pages", (p_reqs, p_firsts), "int8 pages",
+                    (q_reqs, q_firsts), strict=False)
+    routing_divergence("fp32 pages", trace, "int8 pages", q_trace)
+    compare_streams("fp32 pages", (p_reqs, p_firsts), "dense cache",
+                    (d_reqs, d_firsts), strict=False)
+    routing_divergence("fp32 pages", trace, "dense cache", d_trace)
+    del trace, q_trace, d_trace
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, flash, served
+
+
+def phase14_vision(card):
+    """llama-3.2-vision-11b at full width, 10 layers (2 super-layers of 5
+    blocks and a cross block), its cross gates perturbed (``repro`` starts
+    them at 0): the forward on seeded image embeddings through K2 against
+    the einsum, the model step through K1 against the einsum on seeded
+    image embeddings, then the 16 requests on fp32 pages, served on zero
+    image embeddings as ``repro`` serves them. Returns K1's launches and
+    the serving metrics."""
+    model, params = build_family(VISION)
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    gate = params["super"]["cross"]["gate"]
+    gate.copy_(torch.randn(gate.shape, device=DEV, generator=gen))
+
+    def images(batch):
+        return {"image_embeds": torch.randn(
+            (batch, cfg.num_image_tokens, cfg.d_model), device=DEV,
+            generator=gen)}
+
+    B, S = FORWARD_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEV,
+                         generator=gen)
+    img = images(B)
+    runs = {}
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        logits, _ = model.forward(params, toks, attn_impl=impl, **img)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["forward"] != (cfg.num_layers if impl == "pallas"
+                                      else 0):
+            raise AssertionError(f"VLM forward ({impl}) launched K2 "
+                                 f"{fa.LAUNCHES} times")
+        runs[impl] = ([logits], logits[..., :cfg.vocab_size].argmax(-1))
+    log(f"  VLM forward (B={B}, S={S}, {cfg.num_image_tokens} image "
+        f"tokens, seeded gates): K2 launched {cfg.num_layers} times")
+    compare_runs(runs, cfg, "pallas", "einsum")
+    del runs, img
+    phase3_model(model, params, label="fp32 pages, seeded image embeddings",
+                 extras=images(SLOTS))
+    prompts = serve_prompts(cfg.vocab_size)
+    floor = tick_floor(model, params)
+    _, _, m, launches, _ = paged_family(model, params, prompts, card,
+                                        "vision fp32 pages", floor)
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, m
+
+
+def whisper_step(model, params):
+    """Whisper's serving step at full width, twice: the transient first
+    chunk of 8 slots x 64 tokens (one encoder pass over seeded frames, the
+    cross K/V, the decoder's self-attention through K2, then through the
+    einsum), its logits and cache leaves within MODEL_TOL of each other;
+    each run's cache spliced into fp32 pages, then 8 greedy decode steps
+    from it, through K1 after the K2 chunk and through the einsum after
+    the einsum chunk; logits within MODEL_TOL and tokens equal."""
+    cfg = model.cfg
+    layers = cfg.num_layers
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, 64))
+                            ).to(DEV)
+    frames = torch.from_numpy(rng.standard_normal(
+        (SLOTS, encdec.ENC_LEN, cfg.d_model)).astype(np.float32)).to(DEV)
+    firsts = {}
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        first = steps.make_prefill_chunk(model, s_max=S_MAX, first=True,
+                                         attn_impl=impl)
+        firsts[impl] = first(params, {"tokens": toks, "frames": frames})
+        torch.cuda.synchronize()
+        want = layers if impl == "pallas" else 0
+        if fa.LAUNCHES != {"prefill": want, "forward": 0}:
+            raise AssertionError(f"whisper first chunk ({impl}) launched K2 "
+                                 f"{fa.LAUNCHES}")
+    del frames
+    (_, a), (_, b) = firsts["pallas"], firsts["einsum"]
+    for leaf in ("k", "v", "xk", "xv"):
+        err = (a[leaf] - b[leaf]).abs().max().item()
+        log(f"  whisper first chunk cache {leaf!r}: max abs diff K2 vs "
+            f"einsum {err:.3e} (tol {MODEL_TOL})")
+        if not (torch.isfinite(a[leaf]).all() and torch.allclose(
+                a[leaf], b[leaf], rtol=MODEL_TOL, atol=MODEL_TOL)):
+            raise AssertionError(f"whisper first chunk cache {leaf}: {err}")
+    del a, b
+    mps = S_MAX // PS
+    bt = torch.arange(SLOTS * mps, dtype=torch.int32,
+                      device=DEV).reshape(SLOTS, mps)
+    slots = torch.arange(SLOTS, device=DEV)
+    phys = (bt.long()[:, :, None] * PS
+            + torch.arange(PS, device=DEV)).reshape(SLOTS, S_MAX)
+    runs = {}
+    for chunk_impl, impl in (("pallas", "kernel"), ("einsum", "einsum")):
+        logits0, rcache = firsts.pop(chunk_impl)
+        cache = init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
+                                 num_pages=SLOTS * mps, device=DEV)
+        cache["block_tables"].copy_(bt)
+        insert_cache_rows_paged(cache, rcache, slots, phys)
+        del rcache
+        cache["pos"].fill_(64)
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        seq, tok = [logits0], logits0[:, :, :cfg.vocab_size].argmax(-1)
+        tokens = [tok]
+        for _ in range(8):
+            logits, cache = model.decode_step(params, tok, cache,
+                                              paged_attn_impl=impl)
+            tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+            seq.append(logits)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+        if pa.LAUNCHES["decode"] != (8 * layers if impl == "kernel" else 0):
+            raise AssertionError(f"whisper decode ({impl}): {pa.LAUNCHES}")
+        log(f"  whisper first chunk {chunk_impl}, decode impl={impl}: 8 "
+            f"paged decode steps in {time.perf_counter() - t0:.3f} s (host "
+            f"clock), {pa.LAUNCHES['decode']} K1 launches")
+        runs[impl] = (seq, torch.cat(tokens, 1))
+        del cache
+    compare_runs(runs, cfg, "kernel", "einsum")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def phase15_whisper(card):
+    """whisper-large-v3 whole (32 encoder, 32 decoder layers): the encoder
+    on seeded frames (2 x 1500) through K2, not causal, against the
+    einsum; the serving step (``whisper_step``); then the 16 requests on
+    fp32 pages: prefill through the transient path (an encoder pass per
+    request group, the first chunks' self-attention through K2), decode
+    through K1, as ``repro`` serves whisper. Returns K1's decode launches,
+    K2's ({"prefill": serving's first chunks, "forward": the encoder
+    forward}) and the serving metrics."""
+    model, params = build_family(WHISPER)
+    cfg = model.cfg
+    B, S = FLASH_SHAPES["forward_whisper"][1:]
+    frames = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)).to(DEV)
+    outs = {}
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        outs[impl] = encdec.encode(params, cfg, frames, attn_impl=impl)
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            enc_launches = fa.LAUNCHES["forward"]
+            if enc_launches != cfg.encoder_layers or fa.LAUNCHES["prefill"]:
+                raise AssertionError(f"whisper encoder launched K2 "
+                                     f"{fa.LAUNCHES}")
+    err = (outs["pallas"] - outs["einsum"]).abs().max().item()
+    log(f"  whisper encoder (B={B}, {S} frames, not causal): K2 launched "
+        f"{enc_launches} times; features max abs diff K2 vs einsum "
+        f"{err:.3e} (tol {MODEL_TOL})")
+    if not (torch.isfinite(outs["pallas"]).all() and torch.allclose(
+            outs["pallas"], outs["einsum"], rtol=MODEL_TOL, atol=MODEL_TOL)):
+        raise AssertionError(f"whisper encoder: K2 vs einsum {err}")
+    del outs, frames
+    whisper_step(model, params)
+    prompts = serve_prompts(cfg.vocab_size)
+    floor = tick_floor(model, params)
+    _, _, m, n_first, _ = serve_family(model, params, prompts, card,
+                                       "whisper fp32 pages", floor,
+                                       page_size=PS)
+    layers = cfg.num_layers
+    launches = {"decode": layers * m["decode_steps"]}
+    flash = {"prefill": layers * n_first, "forward": enc_launches}
+    launches_held("whisper fp32 pages", launches,
+                  {"prefill": flash["prefill"]})
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, flash, m
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2830,6 +3418,7 @@ def main():
     log("phase 2: kernels against their plain versions")
     errs = phase2_cases()
     full = phase2_full_width()
+    family_full = {arch: phase2_full_width(arch) for arch in (DBRX, WHISPER)}
     errs.update(phase2_q8_cases())
     full.update(phase2_q8_full_width())
     errs.update(phase2_latent_cases())
@@ -2888,6 +3477,20 @@ def main():
     scan_launches["selective_scan"], hymba_flash = phase10_hymba(card)
     flash_launches["prefill_hymba"] = hymba_flash["prefill"]
     flash_launches["forward_hymba"] = hymba_flash["forward"]
+    log(f"phase 12: {CMDR} at full width, {FAMILY_LAYERS[CMDR]} layers, K1")
+    phase12_command_r(card)
+    log(f"phase 13: {DBRX} at full width, {FAMILY_LAYERS[DBRX]} layers, "
+        f"K1, K3 and K2")
+    family_launches = {}
+    family_launches[DBRX], flash_launches["prefill_dbrx"], _ = \
+        phase13_dbrx(card)
+    log(f"phase 14: {VISION} at full width, {FAMILY_LAYERS[VISION]} layers "
+        f"(2 super-layers), K1 and K2")
+    phase14_vision(card)
+    log(f"phase 15: {WHISPER} whole, K2 (encoder, first chunks) and K1")
+    family_launches[WHISPER], whisper_flash, _ = phase15_whisper(card)
+    flash_launches["prefill_whisper"] = whisper_flash["prefill"]
+    flash_launches["forward_whisper"] = whisper_flash["forward"]
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -2903,6 +3506,21 @@ def main():
                 "replaces": f"src/repro/kernels/paged_attention.py:{line}",
                 "launches": counts[kind],
                 "max_abs_err": max(errs[kind + suffix], f["err"]),
+                "ms": f["ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "library_ms": f["library_ms"]})
+    # K1 at the MoE's and whisper's shapes, launched by their serving runs
+    # (whisper prefills through its transient path: K1 serves its decode
+    # ticks only, so its prefill shape is timed in phase 2 but has no row)
+    for arch, kinds in ((DBRX, ("decode", "prefill")), (WHISPER, ("decode",))):
+        for kind in kinds:
+            f = family_full[arch][kind]
+            kernels.append({
+                "name": f"paged_attention[{kind} {arch}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:52",
+                "launches": family_launches[arch][kind],
+                "max_abs_err": max(errs[kind], f["err"]),
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": f["library_ms"]})

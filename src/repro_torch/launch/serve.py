@@ -11,8 +11,12 @@ every request completed and no prefill chunk failed:
       --no-reduced --num-layers 4 --s-max 1024 --requests 8
 
 The default arch is hymba-1.5b (reduced), as the reference CLI's is;
-``--arch rwkv6-7b`` serves the attention-free family (a page size is
-ignored there, its state being O(1)).
+``--arch`` takes every LM arch of ``repro_torch.configs.list_archs()``:
+the dense ones, the MoE ones (dbrx-132b, moonshot-v1-16b-a3b), the VLM
+(llama-3.2-vision-11b, on zero image embeddings), whisper-large-v3 (its
+decoder, over one encoder pass of zero frames a request group) and
+``rwkv6-7b``, the attention-free family (a page size is ignored there, its
+state being O(1)).
 
 ``--num-layers`` cuts the depth of the arch (its widths stay), which is
 how a full-width arch fits one card. As in ``ServeConfig``, the cache is

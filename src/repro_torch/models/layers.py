@@ -2,8 +2,9 @@
 projection, full-sequence attention (einsum, chunked, banded, flash
 kernel), decode and prefill-chunk attention against a dense or a paged KV
 cache (fp32 or int8 pages), MLA latent attention (dense latent cache or
-latent pages), the gated MLP, embeddings and logits, and the freed-slot
-gate of the recurrent families' state. Counterpart of the same-named
+latent pages), the MLP (gated SiLU, or ungated GELU / SiLU with optional
+biases), the grouped-capacity top-k mixture of experts, embeddings and
+logits, and the freed-slot gate of the recurrent families' state. Counterpart of the same-named
 functions in ``repro/models/layers.py`` (same argument layouts and
 operation order); parameters are dicts of tensors.
 
@@ -17,6 +18,7 @@ and a slice start is clamped as ``dynamic_update_slice`` clamps it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -71,9 +73,18 @@ def layer_params(tree, i: int):
 
 
 # ---------------------------------------------------------------- RoPE
+@functools.lru_cache(maxsize=None)
 def rope_freqs(head_dim: int, theta: float, device=None):
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta^(2i / head_dim), the power taken in float64 and rounded to
+    float32: what ``repro``'s layers get from XLA's compiled float32 power
+    (they run compiled), where torch's float32 ``pow`` can differ by one
+    ulp. That ulp is invisible at real positions, but an inactive slot
+    sits at INACTIVE_POS = 2^30, where it moves the angle by whole radians,
+    and an MoE layer still routes that slot's row. Computed once per
+    (head_dim, theta, device), on the CPU, and moved; callers only read
+    it."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return (1.0 / theta ** e.double()).float().to(device)
 
 
 def apply_rope(x, positions, theta: float):
@@ -121,12 +132,19 @@ def attn_init(gen, dims: AttnDims, lead=(), device=None):
     return p
 
 
-def mlp_init(gen, d_model: int, d_ff: int, lead=(), device=None):
-    """Gated-SiLU MLP weights with leading axes ``lead``."""
+def mlp_init(gen, d_model: int, d_ff: int, lead=(), device=None,
+             gated: bool = True, bias: bool = False):
+    """MLP weights with leading axes ``lead``: a gate projection when
+    ``gated``, zero biases ``b_up`` / ``b_down`` when ``bias``."""
     lead = tuple(lead)
-    return {"w_up": _dense(gen, lead + (d_model, d_ff), d_model, device),
-            "w_down": _dense(gen, lead + (d_ff, d_model), d_ff, device),
-            "w_gate": _dense(gen, lead + (d_model, d_ff), d_model, device)}
+    p = {"w_up": _dense(gen, lead + (d_model, d_ff), d_model, device),
+         "w_down": _dense(gen, lead + (d_ff, d_model), d_ff, device)}
+    if gated:
+        p["w_gate"] = _dense(gen, lead + (d_model, d_ff), d_model, device)
+    if bias:
+        p["b_up"] = torch.zeros(lead + (d_ff,), device=device)
+        p["b_down"] = torch.zeros(lead + (d_model,), device=device)
+    return p
 
 
 def embed_init(gen, padded_vocab: int, d_model: int, device=None):
@@ -216,16 +234,21 @@ def _sdpa_banded(q, k, v, dims: AttnDims, q_chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
-def attention(params, x, dims: AttnDims, positions, impl: str = "einsum"):
-    """Full-sequence self-attention. ``impl``: 'einsum' (the reference),
-    'chunked' (query chunks; the band only for a causal window), 'banded'
-    or 'pallas' (the flash-attention kernel, ``kernels.ops``). Without a
-    mesh ``repro``'s context-parallel banded form is the banded one, which
-    is what runs here (ROADMAP queue 1 item 12 ports the mesh form)."""
+def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
+              kv_override=None):
+    """Full-sequence self-attention, or cross-attention when
+    ``kv_override=(k, v, k_pos)`` gives the keys, values and key
+    positions. ``impl``: 'einsum' (the reference), 'chunked' (query
+    chunks; the band only for causal windowed self-attention), 'banded' or
+    'pallas' (the flash-attention kernel, ``kernels.ops``). Without a mesh
+    ``repro``'s context-parallel banded form is the banded one, which is
+    what runs here (ROADMAP queue 1 item 12 ports the mesh form)."""
     q, k, v = _qkv(params, x, dims, positions)
     k_pos = positions
+    if kv_override is not None:
+        k, v, k_pos = kv_override
     if impl == "banded" or (impl == "chunked" and dims.window > 0
-                            and dims.causal):
+                            and dims.causal and kv_override is None):
         out = _sdpa_banded(q, k, v, dims)
     elif impl == "chunked":
         out = _sdpa_chunked(q, k, v, positions, k_pos, dims)
@@ -909,11 +932,119 @@ def mla_attention_prefill_chunk_paged(params, x, dims: MLADims, pool_c,
 
 
 # ---------------------------------------------------------------- MLP
-def mlp(params, x):
-    """Gated SiLU MLP: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
+def mlp(params, x, act: str = "silu"):
+    """(silu(x @ w_gate) * up) @ w_down with a gate projection, else
+    act(up) @ w_down, where up = x @ w_up; biases are added where the
+    params hold them. ``act='gelu'`` is the tanh approximation, which is
+    ``jax.nn.gelu``'s default (torch's default is the erf form)."""
     up = x @ params["w_up"].to(x.dtype)
-    gate = x @ params["w_gate"].to(x.dtype)
-    return (F.silu(gate) * up) @ params["w_down"].to(x.dtype)
+    if "b_up" in params:
+        up = up + params["b_up"].to(x.dtype)
+    if "w_gate" in params:
+        h = F.silu(x @ params["w_gate"].to(x.dtype)) * up
+    else:
+        h = F.gelu(up, approximate="tanh") if act == "gelu" else F.silu(up)
+    out = h @ params["w_down"].to(x.dtype)
+    if "b_down" in params:
+        out = out + params["b_down"].to(x.dtype)
+    return out
+
+
+# ---------------------------------------------------------------- MoE
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    d_model: int
+    d_ff: int
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 128     # tokens per dispatch group (GShard)
+
+
+def moe_init(gen, dims: MoEDims, lead=(), device=None):
+    """Router and expert weights with leading axes ``lead``."""
+    E, D, F_ = dims.num_experts, dims.d_model, dims.d_ff
+    lead = tuple(lead)
+    return {"router": _dense(gen, lead + (D, E), D, device),
+            "w_gate": _dense(gen, lead + (E, D, F_), D, device),
+            "w_up": _dense(gen, lead + (E, D, F_), D, device),
+            "w_down": _dense(gen, lead + (E, F_, D), F_, device)}
+
+
+# When set to a list, every ``moe`` call appends its routing: a dict of
+# (T, K) ``expert`` indices, the (T, K) bool ``kept`` mask (choices that
+# found room in their expert's capacity), the (T, E) router ``probs`` and
+# the capacity ``cap``. Tensors are appended as they are; nothing
+# synchronises the device.
+MOE_TRACE: Optional[list] = None
+
+
+def moe(params, x, dims: MoEDims):
+    """Grouped-capacity top-k mixture of experts (GShard dispatch), as
+    ``repro`` computes it. x: (B, S, D) -> ((B, S, D), {"moe_aux",
+    "moe_z"}).
+
+    Router logits in fp32, softmax, top-k, the k gates renormalised. The
+    T = B * S tokens fall into G = max(1, T // group_size) groups of Sg =
+    T // G (T must divide, as ``repro``'s reshape requires); each expert
+    takes at most cap = ceil(Sg * K / E * capacity_factor) choices per
+    group, in the group's token-major, k-minor order, so every row routed
+    (inactive slots and padding included) can take capacity from the rows
+    after it. A dropped choice contributes nothing. The expert products
+    are plain batched products, which ``repro`` too leaves to its
+    compiler."""
+    B, S, D = x.shape
+    E, K = dims.num_experts, dims.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    logits = xt.float() @ params["router"].float()                  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # torch.topk and lax.top_k may order exactly tied probabilities
+    # differently; router probabilities of random weights make such ties
+    # improbable
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)            # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # Switch-style load balance and router z-loss
+    me = probs.mean(0)
+    ce = F.one_hot(expert_idx[:, 0], E).float().mean(0)
+    aux_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    G = max(1, T // dims.group_size)
+    Sg = T // G
+    cap = max(1, int(math.ceil(Sg * K / E * dims.capacity_factor)))
+    xg = xt.reshape(G, Sg, D)
+    idx_g = expert_idx.reshape(G, Sg, K)
+    gate_g = gate_vals.reshape(G, Sg, K)
+    # each (token, k)'s slot in its expert's buffer: the exclusive cumsum
+    # of the one-hots over the group's token-major, k-minor order
+    eo = F.one_hot(idx_g, E)                                   # (G,Sg,K,E)
+    flat = eo.reshape(G, Sg * K, E)
+    pos_in_e = (torch.cumsum(flat, dim=1) - flat).reshape(G, Sg, K, E)
+    slot = (pos_in_e * eo).sum(-1)                             # (G,Sg,K)
+    keep = (slot < cap) & (gate_g > 0)
+    gate_g = torch.where(keep, gate_g, 0.0)
+    if MOE_TRACE is not None:
+        MOE_TRACE.append({"expert": expert_idx, "kept": keep.reshape(T, K),
+                          "probs": probs, "cap": cap})
+
+    # dispatch / combine one-hots (G, Sg, K, E, cap) folded over K; a slot
+    # past cap has no one-hot column, as jax.nn.one_hot gives none
+    slot_oh = (slot[..., None] == torch.arange(cap, device=x.device))
+    kec = (eo.float()[..., None] * slot_oh.float()[..., None, :]
+           * keep.float()[..., None, None])
+    disp = kec.sum(2).to(x.dtype)                              # (G,Sg,E,cap)
+    comb = (kec * gate_g[..., None, None]).sum(2)
+
+    ein = torch.einsum("gsec,gsd->egcd", disp, xg)             # (E,G,cap,D)
+    h = torch.einsum("egcd,edf->egcf", ein, params["w_gate"].to(x.dtype))
+    u = torch.einsum("egcd,edf->egcf", ein, params["w_up"].to(x.dtype))
+    h = F.silu(h) * u
+    eout = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(x.dtype))
+    out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), eout)
+    return out.reshape(B, S, D), {"moe_aux": aux_loss, "moe_z": z_loss}
 
 
 # ---------------------------------------------------------------- embeddings

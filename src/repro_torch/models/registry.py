@@ -1,7 +1,7 @@
 """Model facade and the serving caches, as in ``repro/models/registry.py``.
-The port serves the dense family and the recurrent ones (rwkv6: SSM,
-hymba: HYBRID); every other family raises ``NotImplementedError`` naming
-its ROADMAP item.
+Every LM family of ``repro`` is served: the transformer module runs the
+dense, MoE and VLM families, ``encdec`` whisper, ``ssm`` rwkv6 and
+``hybrid`` hymba (ResNet20 runs through ``models.resnet`` directly).
 
 Cache conventions (shared with ``repro``). DENSE: "k"/"v" are (L, B, S,
 KV, hd) and "pos" is a scalar (a lockstep batch, a transient prefill
@@ -13,8 +13,9 @@ starts at ``layers.INACTIVE_POS``; its writes are dropped until it is
 admitted. An MLA cache has a single latent leaf "k" (one (c + r)-wide
 row per token, shaped as one kv head) and no "v"; every splice below is
 generic over the pool leaves the cache holds. Recurrent leaves (rwkv's
-"S" / "x_tm" / "x_cm", hymba's "h" / "conv") are per slot, (L, B, ...),
-and splice on the batch axis in both layouts; hymba's ring positions
+"S" / "x_tm" / "x_cm", hymba's "h" / "conv") and whisper's cross K/V
+("xk" / "xv", (L, B, ENC_LEN, KV, hd)) are per slot, (L, B, ...), and
+splice on the batch axis in both layouts; hymba's ring positions
 "slot_pos" page with its K/V. The splices write the resident cache IN
 PLACE.
 """
@@ -26,8 +27,18 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, Family, MoEConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models.encdec import ENC_LEN
 from repro_torch.models.layers import INACTIVE_POS
+
+_FAMILY_MODULES = {
+    Family.DENSE: transformer,
+    Family.MOE: transformer,
+    Family.VLM: transformer,
+    Family.ENCDEC: encdec,
+    Family.SSM: ssm,
+    Family.HYBRID: hybrid,
+}
 
 # pool leaves of a paged cache (when "block_tables" is present); everything
 # else keeps the dense (L, B, ...) per-slot layout
@@ -55,18 +66,42 @@ class Model:
     def prefill_chunk(self, params, tokens, cache, **kw):
         return self.mod.prefill_chunk(params, self.cfg, tokens, cache, **kw)
 
+    @property
+    def supports_paged_prefill(self) -> bool:
+        """True for the families whose prompt state is exactly (k, v, pos)
+        and whose chunks can splice straight into pages (dense, MoE, VLM):
+        hybrid's recurrent carry and encdec's cross K/V are not
+        page-resident."""
+        return hasattr(self.mod, "prefill_chunk_paged")
+
     def prefill_chunk_paged(self, params, tokens, cache, **kw):
         return self.mod.prefill_chunk_paged(params, self.cfg, tokens, cache,
                                             **kw)
 
+    def extra_inputs(self, batch: int, dtype=torch.float32,
+                     device=None) -> dict:
+        """The modality frontends' stub inputs as zeros: a VLM's
+        precomputed image embeddings (batch, num_image_tokens, D), an
+        encoder-decoder's frame embeddings (batch, ENC_LEN, D)."""
+        cfg = self.cfg
+        if cfg.family == Family.VLM:
+            return {"image_embeds": torch.zeros(
+                (batch, cfg.num_image_tokens, cfg.d_model), dtype=dtype,
+                device=device)}
+        if cfg.family == Family.ENCDEC:
+            return {"frames": torch.zeros((batch, ENC_LEN, cfg.d_model),
+                                          dtype=dtype, device=device)}
+        return {}
+
 
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family == Family.SSM:
-        return Model(cfg=cfg, mod=ssm)
-    if cfg.family == Family.HYBRID:
-        return Model(cfg=cfg, mod=hybrid)
-    transformer._check_supported(cfg)
-    return Model(cfg=cfg, mod=transformer)
+    if cfg.family == Family.CNN:
+        raise ValueError("resnet20 uses models.resnet directly (the paper's "
+                         "pipeline)")
+    mod = _FAMILY_MODULES[cfg.family]
+    if mod is transformer:
+        transformer._check_supported(cfg)
+    return Model(cfg=cfg, mod=mod)
 
 
 def vectorize_cache_pos(cache, batch: int, inactive: bool = False):

@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM, dense family (GQA or MLA attention): the
-full-sequence forward and serving over a dense or a paged KV cache (fp32
-or int8 pages, or MLA latent rows). Counterpart of
-``repro/models/transformer.py``: layer parameters are stacked along a
-leading L axis as in ``repro``, and a Python loop over layers takes the
-place of ``lax.scan`` / ``lax.fori_loop``; each layer's slice of the cache
-is a view, so the in-place writes land in the cache itself.
+"""Decoder-only transformer LM covering the dense, MoE and VLM (interleaved
+cross-attention) families, with GQA or MLA attention: the full-sequence
+forward and serving over a dense or a paged KV cache (fp32 or int8 pages,
+or MLA latent rows). Counterpart of ``repro/models/transformer.py``: layer
+parameters are stacked along a leading L axis as in ``repro`` (the VLM's
+along (n_super, per) under ``params["super"]["blocks"]``, its cross blocks
+along n_super), and a Python loop over layers takes the place of
+``lax.scan`` / ``lax.fori_loop``; each layer's slice of the cache is a
+view, so the in-place writes land in the cache itself.
 
 Public API (used by models.registry):
     init(cfg, gen, device)                        -> params
@@ -13,6 +15,10 @@ Public API (used by models.registry):
     prefill_chunk(params, cfg, tokens, cache, ...) -> logits, cache
     prefill_chunk_paged(params, cfg, tokens, cache, ...) -> logits, cache
     decode_step(params, cfg, token, cache, ...)   -> logits, cache
+
+The VLM's serving entry points take ``image_embeds`` (B, T_img, D), the
+stub frontend's precomputed image embeddings, which every cross block
+projects through its own wk / wv on every call, as ``repro`` does.
 """
 from __future__ import annotations
 
@@ -23,22 +29,26 @@ from repro_torch.models import layers as L
 
 
 def _check_supported(cfg: ArchConfig):
-    if cfg.family != Family.DENSE or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"family {cfg.family.value!r} is not ported yet (ROADMAP queue 1 "
-            f"item 5); the port serves the dense, ssm and hybrid families")
     _is_mla(cfg)
-    if cfg.norm != "rmsnorm" or cfg.mlp_bias:
-        raise NotImplementedError(
-            "layernorm and MLP biases are not ported yet (ROADMAP queue 1 "
-            "item 5, with whisper)")
+    if cfg.cross_attn_every and cfg.num_layers % cfg.cross_attn_every:
+        raise ValueError(f"num_layers {cfg.num_layers} must be a multiple of "
+                         f"cross_attn_every {cfg.cross_attn_every}")
 
 
-def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
+def _attn_dims(cfg: ArchConfig, causal: bool = True) -> L.AttnDims:
     return L.AttnDims(
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        qkv_bias=cfg.qkv_bias, window=cfg.window, rope_theta=cfg.rope_theta)
+        qkv_bias=cfg.qkv_bias, window=cfg.window, rope_theta=cfg.rope_theta,
+        causal=causal)
+
+
+def _cross_dims(cfg: ArchConfig) -> L.AttnDims:
+    """The VLM cross blocks' attention: not causal, no window, no RoPE."""
+    return L.AttnDims(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        qkv_bias=cfg.qkv_bias, window=0, rope_theta=0.0, causal=False)
 
 
 def _mla_dims(cfg: ArchConfig) -> L.MLADims:
@@ -46,6 +56,12 @@ def _mla_dims(cfg: ArchConfig) -> L.MLADims:
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         kv_lora_rank=cfg.kv_lora_rank, qk_rope_head_dim=cfg.qk_rope_head_dim,
         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+
+
+def _moe_dims(cfg: ArchConfig) -> L.MoEDims:
+    return L.MoEDims(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                     num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                     capacity_factor=cfg.moe.capacity_factor)
 
 
 def _is_mla(cfg: ArchConfig) -> bool:
@@ -60,54 +76,144 @@ def _is_mla(cfg: ArchConfig) -> bool:
     return True
 
 
+def _gated(cfg: ArchConfig) -> bool:
+    return cfg.norm == "rmsnorm" or cfg.family in (Family.DENSE, Family.MOE,
+                                                   Family.VLM)
+
+
+def _layer_init(gen, cfg: ArchConfig, lead, device) -> dict:
+    p = {"ln1": L.norm_init(cfg.d_model, lead, device, cfg.norm),
+         "attn": (L.mla_init(gen, _mla_dims(cfg), lead, device)
+                  if _is_mla(cfg)
+                  else L.attn_init(gen, _attn_dims(cfg), lead, device)),
+         "ln2": L.norm_init(cfg.d_model, lead, device, cfg.norm)}
+    if cfg.moe:
+        p["moe"] = L.moe_init(gen, _moe_dims(cfg), lead, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, lead, device,
+                              gated=_gated(cfg), bias=cfg.mlp_bias)
+    return p
+
+
 def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     """Random weights drawn from ``gen`` on ``device`` (same layout and
-    scales as ``repro``'s init; the draws themselves differ)."""
+    scales as ``repro``'s init; the draws themselves differ). A VLM's
+    cross gates start at 0, as ``repro``'s do."""
     _check_supported(cfg)
-    Ln = (cfg.num_layers,)
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
-        "final_norm": L.norm_init(cfg.d_model, device=device),
-        "layers": {
-            "ln1": L.norm_init(cfg.d_model, Ln, device),
-            "attn": (L.mla_init(gen, _mla_dims(cfg), Ln, device)
-                     if _is_mla(cfg)
-                     else L.attn_init(gen, _attn_dims(cfg), Ln, device)),
-            "ln2": L.norm_init(cfg.d_model, Ln, device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, Ln, device),
-        },
+        "final_norm": L.norm_init(cfg.d_model, device=device, kind=cfg.norm),
     }
+    if cfg.cross_attn_every:
+        n_super = cfg.num_layers // cfg.cross_attn_every
+        params["super"] = {
+            "blocks": _layer_init(gen, cfg, (n_super, cfg.cross_attn_every),
+                                  device),
+            "cross": {"ln": L.norm_init(cfg.d_model, (n_super,), device,
+                                        cfg.norm),
+                      "attn": L.attn_init(gen, _cross_dims(cfg), (n_super,),
+                                          device),
+                      "gate": torch.zeros((n_super,), device=device)}}
+    else:
+        params["layers"] = _layer_init(gen, cfg, (cfg.num_layers,), device)
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": L._dense(gen, (cfg.d_model, cfg.padded_vocab),
                                            cfg.d_model, device)}
     return params
 
 
-def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
-            attn_impl: str = "einsum", return_features: bool = False):
+def _ffn(cfg: ArchConfig, lp, x):
+    """The second half of a layer: x + ffn(norm(x)), the MoE's or the
+    MLP's; returns (x, the MoE's aux losses or None)."""
+    h = L.apply_norm(x, lp["ln2"], cfg.norm)
+    if cfg.moe:
+        y, aux = L.moe(lp["moe"], h, _moe_dims(cfg))
+        return x + y, aux
+    return x + L.mlp(lp["mlp"], h), None
+
+
+def _cross_apply(cfg: ArchConfig, cp, x, img):
+    """Gated cross-attention of x to the image embeddings img (B, T_img,
+    D), projected through this block's wk / wv: x + tanh(gate) * attn."""
+    h = L.apply_norm(x, cp["ln"], cfg.norm)
+    B, S, _ = x.shape
+    t_img = img.shape[1]
+    dims = _cross_dims(cfg)
+    kv_shape = (B, t_img, dims.num_kv_heads, dims.head_dim)
+    k = (img @ cp["attn"]["wk"].to(x.dtype)).reshape(kv_shape)
+    v = (img @ cp["attn"]["wv"].to(x.dtype)).reshape(kv_shape)
+    img_pos = torch.zeros((B, t_img), dtype=torch.long, device=x.device)
+    out = L.attention(cp["attn"], h, dims,
+                      torch.zeros((B, S), dtype=torch.long, device=x.device),
+                      impl="einsum", kv_override=(k, v, img_pos))
+    return x + torch.tanh(cp["gate"]).to(x.dtype) * out
+
+
+def _image(cfg: ArchConfig, image_embeds, compute_dtype):
+    if not cfg.cross_attn_every:
+        return None
+    if image_embeds is None:
+        raise ValueError(f"{cfg.name} needs image_embeds (B, "
+                         f"{cfg.num_image_tokens}, {cfg.d_model})")
+    return image_embeds.to(compute_dtype)
+
+
+def _layer_loop(params, cfg: ArchConfig, x, layer_fn, img=None):
+    """Every layer in order: ``layer_fn(li, lp, x) -> x`` with li the flat
+    layer index (a cache's leading axis stays (L, ...): layer li of a VLM
+    is block li % per of super-layer li // per, and its slice of the cache
+    is a view, as ``repro`` views it as (n_super, per, ...)); a VLM's cross
+    block follows each super-layer."""
+    if not cfg.cross_attn_every:
+        for i in range(cfg.num_layers):
+            x = layer_fn(i, L.layer_params(params["layers"], i), x)
+        return x
+    per = cfg.cross_attn_every
+    for s in range(cfg.num_layers // per):
+        sp = L.layer_params(params["super"], s)
+        for i in range(per):
+            x = layer_fn(s * per + i, L.layer_params(sp["blocks"], i), x)
+        x = _cross_apply(cfg, sp["cross"], x, img)
+    return x
+
+
+def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
+            compute_dtype=torch.float32, attn_impl: str = "einsum",
+            return_features: bool = False):
     """tokens: (B, S) at positions 0..S-1 -> (logits (B, S, Vp) float32,
     aux), or (features after the final norm, aux) with
     ``return_features``. ``attn_impl`` is ``layers.attention``'s (an MLA
-    stack always runs its absorbed chunk form). ``aux`` holds the MoE
-    losses ``repro`` returns, zero for the dense family."""
+    stack always runs its absorbed chunk form; cross blocks always the
+    einsum). ``aux`` holds the MoE losses summed over layers, zero for a
+    family without experts."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     dims = _attn_dims(cfg)
     mla = _is_mla(cfg)
-    for i in range(cfg.num_layers):
-        lp = L.layer_params(params["layers"], i)
-        h = L.rmsnorm(x, lp["ln1"]["scale"])
+    auxes = []
+
+    def layer(_, lp, x):
+        h = L.apply_norm(x, lp["ln1"], cfg.norm)
         if mla:
             x = x + _mla_full_attention(cfg, lp["attn"], h, positions)
         else:
             x = x + L.attention(lp["attn"], h, dims, positions,
                                 impl=attn_impl)
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
-    zero = torch.zeros((), device=x.device)
-    aux = {"moe_aux": zero, "moe_z": zero}
+        x, aux = _ffn(cfg, lp, x)
+        auxes.append(aux)
+        return x
+
+    x = _layer_loop(params, cfg, x, layer,
+                    _image(cfg, image_embeds, compute_dtype))
+    if cfg.moe:
+        aux = {key: torch.stack([a[key] for a in auxes]).sum()
+               for key in ("moe_aux", "moe_z")}
+    else:
+        zero = torch.zeros((), device=x.device)
+        aux = {"moe_aux": zero, "moe_z": zero}
     if return_features:
-        return L.rmsnorm(x, params["final_norm"]["scale"]), aux
+        return L.apply_norm(x, params["final_norm"], cfg.norm), aux
     return _logits(params, cfg, x), aux
 
 
@@ -126,11 +232,12 @@ def _mla_full_attention(cfg: ArchConfig, lp_attn, h, positions):
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                dtype=torch.float32, device=None):
-    """Dense per-slot cache (L, batch, s_max, KV, hd) with a scalar ``pos``;
-    for MLA a single latent leaf "k" (L, batch, s_max, 1, c + r) shaped as
-    one kv head, with no "v" (values are the latent rows' leading c
-    columns). The paged cache (registry.init_paged_cache) takes its shapes
-    from here (on the ``meta`` device)."""
+    """Dense per-slot cache (L, batch, s_max, KV, hd) with a scalar ``pos``
+    (a VLM's too: its layers are flat along L here); for MLA a single
+    latent leaf "k" (L, batch, s_max, 1, c + r) shaped as one kv head, with
+    no "v" (values are the latent rows' leading c columns). The paged
+    cache (registry.init_paged_cache) takes its shapes from here (on the
+    ``meta`` device)."""
     _check_supported(cfg)
     if _is_mla(cfg):
         shape = (cfg.num_layers, batch, s_max, 1, _mla_dims(cfg).latent_dim)
@@ -143,7 +250,7 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 
 
 def _logits(params, cfg: ArchConfig, x):
-    x = L.rmsnorm(x, params["final_norm"]["scale"])
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
     w_un = params["unembed"]["w"] if not cfg.tie_embeddings else None
     return L.lm_logits(params["embed"], x, w_un, vocab=cfg.vocab_size).float()
 
@@ -154,7 +261,7 @@ def _decode_layer(cfg: ArchConfig, lp, x, ck, cv, pos, positions,
     """One decode layer; ck/cv are one layer's dense cache (B, S_max, KV,
     hd) or, with ``block_tables``, its (P, ps, KV, hd) page pool slice;
     ``kscale``/``vscale`` are the layer's (P, 1) scales of int8 pools."""
-    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
     if block_tables is not None:
         out = L.attention_decode_paged(
             lp["attn"], h, _attn_dims(cfg), ck, cv, block_tables, pos,
@@ -162,15 +269,14 @@ def _decode_layer(cfg: ArchConfig, lp, x, ck, cv, pos, positions,
     else:
         out, _, _ = L.attention_decode(lp["attn"], h, _attn_dims(cfg), ck, cv,
                                        pos, positions)
-    x = x + out
-    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+    return _ffn(cfg, lp, x + out)[0]
 
 
 def _decode_layer_mla(cfg: ArchConfig, lp, x, ck, pos, positions,
                       block_tables=None, paged_impl: str = "einsum"):
     """``_decode_layer`` over one layer's latent cache: (B, S_max, 1, c+r)
     dense rows or, with ``block_tables``, a (P, ps, 1, c+r) page pool."""
-    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
     if block_tables is not None:
         out, _ = L.mla_attention_decode_paged(
             lp["attn"], h, _mla_dims(cfg), ck, block_tables, pos, positions,
@@ -178,52 +284,53 @@ def _decode_layer_mla(cfg: ArchConfig, lp, x, ck, pos, positions,
     else:
         out, _ = L.mla_attention_decode(lp["attn"], h, _mla_dims(cfg), ck,
                                         pos, positions)
-    x = x + out
-    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+    return _ffn(cfg, lp, x + out)[0]
 
 
 def _prefill_chunk_layer_mla(cfg: ArchConfig, lp, x, ck, start, positions):
-    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
     out, _ = L.mla_attention_prefill_chunk(lp["attn"], h, _mla_dims(cfg), ck,
                                            start, positions)
-    x = x + out
-    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+    return _ffn(cfg, lp, x + out)[0]
 
 
 def _prefill_chunk_layer_paged_mla(cfg: ArchConfig, lp, x, pk, bt, positions,
                                    write_floor, impl):
-    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
     out, _ = L.mla_attention_prefill_chunk_paged(
         lp["attn"], h, _mla_dims(cfg), pk, bt, positions, write_floor,
         impl=impl)
-    x = x + out
-    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
-
-
-def _mla_layer_loop(params, cfg: ArchConfig, x, ck_all, layer_fn):
-    """The MLA layer loop of decode, prefill and paged prefill: a loop over
-    layers carrying x; ``layer_fn(lp, x, ck)`` writes layer i's latent
-    cache slice ``ck_all[i]`` in place."""
-    for i in range(cfg.num_layers):
-        x = layer_fn(L.layer_params(params["layers"], i), x, ck_all[i])
-    return x
+    return _ffn(cfg, lp, x + out)[0]
 
 
 def _prefill_chunk_layer(cfg: ArchConfig, lp, x, ck, cv, start: int,
                          positions, use_kernel: bool):
     """One layer over a whole prompt chunk against a dense per-request
     cache: ``_decode_layer``'s math at the chunk's width."""
-    h = L.rmsnorm(x, lp["ln1"]["scale"])
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
     out, _, _ = L.attention_prefill_chunk(lp["attn"], h, _attn_dims(cfg), ck,
                                           cv, start, positions,
                                           use_kernel=use_kernel)
-    x = x + out
-    return x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+    return _ffn(cfg, lp, x + out)[0]
+
+
+def _prefill_chunk_layer_paged(cfg: ArchConfig, lp, x, pk, pv, bt, positions,
+                               write_floor: int, impl: str, kscale=None,
+                               vscale=None):
+    """One layer over a prompt chunk attending the paged pool directly (the
+    chunk's K/V rows are spliced into the group's pages first)."""
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
+    scales = ({} if kscale is None
+              else dict(k_scale=kscale, v_scale=vscale))
+    out = L.attention_prefill_chunk_paged(
+        lp["attn"], h, _attn_dims(cfg), pk, pv, bt, positions, write_floor,
+        impl=impl, **scales)[0]
+    return _ffn(cfg, lp, x + out)[0]
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, *,
-                  compute_dtype=torch.float32, attn_impl: str = "einsum",
-                  first: bool = False):
+                  image_embeds=None, compute_dtype=torch.float32,
+                  attn_impl: str = "einsum", first: bool = False):
     """One prompt chunk into a dense per-request cache, at full width.
 
     tokens: (B, C), consecutive positions from ``cache["pos"]`` (from 0 for
@@ -238,22 +345,22 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, *,
     use_kernel = first and attn_impl == "pallas"
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     if _is_mla(cfg):
-        x = _mla_layer_loop(params, cfg, x, cache["k"],
-                            lambda lp, x, ck: _prefill_chunk_layer_mla(
-                                cfg, lp, x, ck, start, positions))
+        x = _layer_loop(params, cfg, x,
+                        lambda i, lp, x: _prefill_chunk_layer_mla(
+                            cfg, lp, x, cache["k"][i], start, positions))
     else:
-        for i in range(cfg.num_layers):
-            lp = L.layer_params(params["layers"], i)
-            x = _prefill_chunk_layer(cfg, lp, x, cache["k"][i],
-                                     cache["v"][i], start, positions,
-                                     use_kernel)
+        x = _layer_loop(params, cfg, x,
+                        lambda i, lp, x: _prefill_chunk_layer(
+                            cfg, lp, x, cache["k"][i], cache["v"][i], start,
+                            positions, use_kernel),
+                        _image(cfg, image_embeds, compute_dtype))
     cache["pos"] = torch.tensor(start + C, dtype=torch.int32,
                                 device=tokens.device)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def prefill_chunk_paged(params, cfg: ArchConfig, tokens, cache, *, bt_rows,
-                        start: int, write_floor: int,
+                        start: int, write_floor: int, image_embeds=None,
                         compute_dtype=torch.float32, attn_impl: str = "kernel"):
     """One prompt chunk for a group of K slots, spliced into the RESIDENT
     paged cache incrementally.
@@ -272,27 +379,26 @@ def prefill_chunk_paged(params, cfg: ArchConfig, tokens, cache, *, bt_rows,
                                      ).expand(K, C)
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     if _is_mla(cfg):
-        x = _mla_layer_loop(params, cfg, x, cache["k"],
-                            lambda lp, x, pk: _prefill_chunk_layer_paged_mla(
-                                cfg, lp, x, pk, bt_rows, positions,
-                                write_floor, attn_impl))
+        x = _layer_loop(params, cfg, x,
+                        lambda i, lp, x: _prefill_chunk_layer_paged_mla(
+                            cfg, lp, x, cache["k"][i], bt_rows, positions,
+                            write_floor, attn_impl))
         return _logits(params, cfg, x[:, -1:]), cache
-    dims = _attn_dims(cfg)
     quantized = "k_scale" in cache
-    for i in range(cfg.num_layers):
-        lp = L.layer_params(params["layers"], i)
-        scales = (dict(k_scale=cache["k_scale"][i],
-                       v_scale=cache["v_scale"][i]) if quantized else {})
-        h = L.rmsnorm(x, lp["ln1"]["scale"])
-        out = L.attention_prefill_chunk_paged(
-            lp["attn"], h, dims, cache["k"][i], cache["v"][i], bt_rows,
-            positions, write_floor, impl=attn_impl, **scales)[0]
-        x = x + out
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]["scale"]))
+
+    def layer(i, lp, x):
+        scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quantized
+                  else (None, None))
+        return _prefill_chunk_layer_paged(
+            cfg, lp, x, cache["k"][i], cache["v"][i], bt_rows, positions,
+            write_floor, attn_impl, *scales)
+
+    x = _layer_loop(params, cfg, x, layer,
+                    _image(cfg, image_embeds, compute_dtype))
     return _logits(params, cfg, x[:, -1:]), cache
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, *,
+def decode_step(params, cfg: ArchConfig, token, cache, *, image_embeds=None,
                 compute_dtype=torch.float32, paged_attn_impl: str = "einsum"):
     """token: (B, 1). Returns (logits (B, 1, Vp) float32, cache with pos
     advanced by one); the cache is written in place. ``cache["pos"]`` is a
@@ -308,17 +414,20 @@ def decode_step(params, cfg: ArchConfig, token, cache, *,
     positions = L.decode_positions(pos, B)
     x = L.embed_lookup(params["embed"], token, compute_dtype)
     if _is_mla(cfg):
-        x = _mla_layer_loop(params, cfg, x, cache["k"],
-                            lambda lp, x, ck: _decode_layer_mla(
-                                cfg, lp, x, ck, pos, positions, bt,
-                                paged_attn_impl))
+        x = _layer_loop(params, cfg, x,
+                        lambda i, lp, x: _decode_layer_mla(
+                            cfg, lp, x, cache["k"][i], pos, positions, bt,
+                            paged_attn_impl))
     else:
         quantized = bt is not None and "k_scale" in cache
-        for i in range(cfg.num_layers):
+
+        def layer(i, lp, x):
             scales = ((cache["k_scale"][i], cache["v_scale"][i])
                       if quantized else (None, None))
-            lp = L.layer_params(params["layers"], i)
-            x = _decode_layer(cfg, lp, x, cache["k"][i], cache["v"][i], pos,
-                              positions, bt, paged_attn_impl, *scales)
+            return _decode_layer(cfg, lp, x, cache["k"][i], cache["v"][i],
+                                 pos, positions, bt, paged_attn_impl, *scales)
+
+        x = _layer_loop(params, cfg, x, layer,
+                        _image(cfg, image_embeds, compute_dtype))
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache

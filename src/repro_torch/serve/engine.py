@@ -5,7 +5,10 @@ port of ``repro/serve/engine.py``:
   rows. With a page size, K/V live in a shared page pool (L, num_pages,
   page_size, KV, hd) addressed through per-slot block tables — fp32, or
   int8 with per-page scales (``kv_backend="paged_int8"``); an MLA arch
-  caches one latent row per token instead (dense, or latent pages). The
+  caches one latent row per token instead (dense, or latent pages). A
+  VLM's layers share the one (L, ...) cache; whisper (ENCDEC) keeps its
+  cross K/V per slot beside the self-attention K/V, and prefills through
+  the transient path even on pages. The
   recurrent families carry their state per slot: rwkv6 (SSM) keeps only
   that O(1) state and ignores a page size with a warning; hymba (HYBRID)
   keeps a window-wide KV ring, dense or paged, beside it. The
@@ -57,8 +60,9 @@ port of ``repro/serve/engine.py``:
   its own job's pages above ``write_floor``, so a failed chunk cannot
   touch a bystander's K/V and no pool reset exists.
 
-Tensor parallelism and the MoE, VLM and encdec families raise
-``NotImplementedError`` naming their ROADMAP item.
+Every LM family of ``repro`` is served; a VLM is served on zero image
+embeddings, as ``repro`` serves it. Tensor parallelism is not ported
+(ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -180,11 +184,6 @@ class PageAllocator:
                 self._ref[p] = n - 1
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                               f"item {item})")
-
-
 class ServeEngine:
     """Slot-based continuous-batching engine over a dense or paged cache,
     on ``device`` (``"cuda"`` unless ``"cpu"`` is passed).
@@ -233,9 +232,6 @@ class ServeEngine:
         if paged_attn_impl not in ("auto", "kernel", "einsum"):
             raise ValueError(f"paged_attn_impl must be 'auto', 'kernel' or "
                              f"'einsum', got {paged_attn_impl!r}")
-        if self.cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
-            raise _not_ported(f"serving the {self.cfg.family.value} family",
-                              "5")
         self.prefill_mode = prefill_mode
         self.prefill_chunk_tokens = min(int(prefill_chunk_tokens), s_max)
         self.prefill_ladder = chunk_ladder(self.prefill_chunk_tokens)
@@ -315,10 +311,13 @@ class ServeEngine:
         self.paged_attn_impl = paged_attn_impl
         # incremental splice: chunks write K/V straight into their pages and
         # attend them through the block table; no transient request cache
+        # (not for encdec: its cross K/V are not page-resident)
         self.incremental_splice = (self.paged and prefill_mode == "parallel"
-                                   and paged_attn_impl == "kernel")
+                                   and paged_attn_impl == "kernel"
+                                   and model.supports_paged_prefill)
         self.prefill_failures = 0
         self.max_transient_cache_bytes = 0
+        self._zero_images: Dict[int, torch.Tensor] = {}
         self._cancel_at_splice: set = set()
         self._decode = steps_mod.make_decode_step(
             model, compute_dtype=compute_dtype,
@@ -397,6 +396,19 @@ class ServeEngine:
             params = dequantize_params(quantize_params(params),
                                        config.compute_dtype)
         return cls(model, params, **config.engine_kwargs())
+
+    # ------------------------------------------------------------ extras
+    def _prefill_extras(self, batch: int) -> dict:
+        """A VLM's stub image embeddings for a call of ``batch`` rows:
+        zeros of (batch, num_image_tokens, D) in the compute dtype on the
+        engine's device, as ``repro`` passes them to prefill and decode
+        (made once per batch size; nothing writes them)."""
+        if not self.cfg.cross_attn_every:
+            return {}
+        if batch not in self._zero_images:
+            self._zero_images[batch] = self.model.extra_inputs(
+                batch, self.compute_dtype, self.device)["image_embeds"]
+        return {"image_embeds": self._zero_images[batch]}
 
     # ------------------------------------------------------------ sampling
     def _filter_logits(self, scaled):
@@ -820,7 +832,9 @@ class ServeEngine:
         prompts = torch.from_numpy(np.stack(
             [r.prompt for _, r in group]).astype(np.int64)).to(self.device)
         t0 = self.metrics.now()
-        logits, rcache = self._prefill_scan(self.params, {"tokens": prompts})
+        logits, rcache = self._prefill_scan(
+            self.params, {"tokens": prompts,
+                          **self._prefill_extras(len(group))})
         self._sync()
         self.metrics.on_prefill_chunk(len(group) * plen,
                                       self.metrics.now() - t0)
@@ -901,7 +915,7 @@ class ServeEngine:
         t0 = self.metrics.now()
         try:
             if self.incremental_splice:
-                batch = {"tokens": toks,
+                batch = {"tokens": toks, **self._prefill_extras(K),
                          "bt": torch.from_numpy(
                              self._bt_host[job.slots]).to(dev),
                          "start": job.tail_start + job.filled,
@@ -909,11 +923,12 @@ class ServeEngine:
                 logits, self.cache = self._chunk_paged(self.params,
                                                        self.cache, batch)
             elif job.cache is None:
-                logits, job.cache = self._chunk_first(self.params,
-                                                      {"tokens": toks})
+                logits, job.cache = self._chunk_first(
+                    self.params, {"tokens": toks, **self._prefill_extras(K)})
             else:
-                logits, job.cache = self._chunk_cont(self.params, job.cache,
-                                                     {"tokens": toks})
+                logits, job.cache = self._chunk_cont(
+                    self.params, job.cache,
+                    {"tokens": toks, **self._prefill_extras(K)})
             self._sync()
         except Exception as err:  # noqa: BLE001 — released, not resumed
             log.exception("prefill chunk failed for rids %s; releasing "
@@ -1127,7 +1142,8 @@ class ServeEngine:
             else:
                 self._consec_prefill_ticks = 0
         if self.running:
-            batch = {"token": torch.from_numpy(self.cur_token).to(self.device)}
+            batch = {"token": torch.from_numpy(self.cur_token).to(self.device),
+                     **self._prefill_extras(self.batch_slots)}
             logits, self.cache = self._decode(self.params, self.cache, batch)
             self.metrics.on_decode_step()
             nxt = self._sample_rows(logits)

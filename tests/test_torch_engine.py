@@ -872,12 +872,6 @@ def test_cli_fails_when_a_prefill_chunk_fails(monkeypatch, capsys):
     assert "2 of 2 requests not completed, 1 prefill chunk(s) failed" in out
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "whisper-large-v3"])
-def test_families_outside_the_port_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        TEngine.build(arch, config=TConfig(device="cpu"))
-
-
 # ---------------------------------------- cancellation and failure release
 def _lockstep_pair(reference, **kw):
     """The reference engine and the port's over the same weights."""

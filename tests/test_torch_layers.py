@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -278,7 +279,11 @@ def test_attention_decode_dense_matches(vector, window):
         _t(p), torch.from_numpy(x), TL.AttnDims(**dims),
         torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
         torch.from_numpy(cache_pos), torch.from_numpy(positions))
-    want, wk, wv = JL.attention_decode(
+    # the reference compiled, as its model and serving paths run it: XLA's
+    # compiled float32 power gives RoPE frequencies one ulp from its
+    # op-by-op one, which the freed slot's position (2^30) turns into
+    # whole radians (layers.rope_freqs)
+    want, wk, wv = jax.jit(JL.attention_decode, static_argnums=2)(
         _j(p), jnp.asarray(x), JL.AttnDims(**dims), jnp.asarray(ck),
         jnp.asarray(cv), jnp.asarray(cache_pos), jnp.asarray(positions))
     _close(got, want)
@@ -286,6 +291,60 @@ def test_attention_decode_dense_matches(vector, window):
     _close(gv, wv)
     if vector:      # the freed slot's row is untouched bit for bit
         np.testing.assert_array_equal(gk[1].numpy(), ck[1])
+
+
+def _served_rope_pairs():
+    """(rotated width, theta) of every arch with RoPE, full and reduced:
+    the head_dim, or an MLA's decoupled qk_rope_head_dim."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.registry import reduced_config
+    pairs = set()
+    for arch in list_archs():
+        full = get_config(arch)
+        if not full.rope_theta or not full.num_heads:
+            continue
+        for cfg in (full, reduced_config(full)):
+            pairs.add((cfg.qk_rope_head_dim or cfg.head_dim, cfg.rope_theta))
+    return sorted(pairs)
+
+
+# (width, theta) pairs of the grid below where the port's frequencies and
+# the compiled reference's differ, each by one ulp at one frequency (XLA's
+# CPU power, at the jax these tests run with); no arch rotates such a width
+ROPE_ULP_PAIRS = {(174, 1e6), (184, 1e4), (202, 5e5), (220, 1e4),
+                  (252, 1e4)}
+
+
+def _compiled_rope_freqs(hd, theta):
+    return np.asarray(jax.jit(JL.rope_freqs, static_argnums=(0, 1))(
+        hd, theta))
+
+
+@pytest.mark.parametrize("hd,theta", _served_rope_pairs())
+def test_rope_freqs_equal_the_compiled_reference(hd, theta):
+    """At every rotated width and theta an arch serves, the frequencies
+    equal the compiled reference's bit for bit (an inactive slot's angle,
+    at position 2^30, magnifies any ulp into radians), on every call."""
+    want = _compiled_rope_freqs(hd, theta)
+    np.testing.assert_array_equal(TL.rope_freqs(hd, theta).numpy(), want)
+    assert TL.rope_freqs(hd, theta) is TL.rope_freqs(hd, theta)
+
+
+def test_rope_freqs_differ_only_at_the_listed_pairs():
+    """Over every even width 2-256 and the thetas of public models (1e4,
+    5e5, 1e6), the port's frequencies equal the compiled reference's but
+    at ``ROPE_ULP_PAIRS``, and there by one ulp."""
+    differ = set()
+    for theta in (1e4, 5e5, 1e6):
+        for hd in range(2, 258, 2):
+            want = _compiled_rope_freqs(hd, theta)
+            got = TL.rope_freqs(hd, theta).numpy()
+            if not np.array_equal(got, want):
+                differ.add((hd, theta))
+                ulps = np.abs(got.view(np.int32) - want.view(np.int32))
+                assert ulps.max() == 1, (hd, theta, ulps.max())
+    assert differ == ROPE_ULP_PAIRS
+    assert not differ & set(_served_rope_pairs())
 
 
 @pytest.mark.parametrize("use_kernel,start", [(True, 0), (False, 0),

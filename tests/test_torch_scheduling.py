@@ -10,7 +10,13 @@ running / queued / job counts and every metrics counter: the FIFO anchor
 single and double preemption (the ``Request.folded`` watermark) with the
 prefix cache off and on, shed and defer at the head, EDF, and a bursty
 open-loop schedule under every knob at once (the reference bench's burst
-policy) fed in by ticks. The scheduler's own ordering (EDF, priority,
+policy) fed in by ticks. Forced double preemption and the burst policy
+are held the same way beyond qwen's fp32 pages: on int8 pages, on the
+latent pages of qwen2.5-32b-mla, on hymba's paged and dense rings and
+rwkv6's dense state (their zero-initialised recurrent leaves perturbed)
+and on dbrx's pages, where every routed row takes expert capacity, so a
+resumed MoE request is held to the reference step by step, not to its
+uninterrupted stream. The scheduler's own ordering (EDF, priority,
 cancelled heads) is held on the module the port copies, and the engine
 wiring of ``edf`` and ``deadline`` as the reference wires them."""
 import math
@@ -62,6 +68,53 @@ def qwen():
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                        "cpu")
     return model, params, tmodel, tparams
+
+
+# (arch, engine fields beyond the test's own) of the held variants; an
+# empty dict is the arch's pages, sized by the test
+VARIANTS = {
+    "int8": ("qwen2.5-32b", dict(kv_backend="paged_int8")),
+    "latent": ("qwen2.5-32b-mla", dict(kv_backend="paged_latent")),
+    "hymba-paged": ("hymba-1.5b", dict()),
+    "hymba-dense": ("hymba-1.5b", dict(page_size=None)),
+    "rwkv6": ("rwkv6-7b", dict(page_size=None)),
+    "dbrx": ("dbrx-132b", dict()),
+}
+
+
+@pytest.fixture(scope="module")
+def variants():
+    """arch -> the ``qwen`` fixture's tuple for that arch (reduced), the
+    recurrent archs' zero-initialised leaves perturbed as in
+    tests/test_torch_engine.py; built once."""
+    from test_torch_engine import RECURRENT_NOISE
+    from test_torch_ssm import perturbed
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            model = get_model(reduced_config(jconfigs.get_config(arch)))
+            params = jax.tree.map(np.asarray,
+                                  model.init(jax.random.PRNGKey(0)))
+            if arch in RECURRENT_NOISE:
+                params = perturbed(params, RECURRENT_NOISE[arch])
+            tmodel = treg.get_model(treg.reduced_config(
+                tconfigs.get_config(arch)))
+            built[arch] = (model, jax.tree.map(jax.numpy.asarray, params),
+                           tmodel, bridge.params_from_numpy(params, "cpu"))
+        return built[arch]
+    return get
+
+
+def _variant_fields(name, page_size, num_pages):
+    """The variant's engine fields: its own, on pages of ``page_size``
+    (hymba's 8-row ring: pages of 4) where it pages."""
+    arch, fields = VARIANTS[name]
+    fields = dict(fields)
+    if "page_size" not in fields:
+        fields.update(page_size=4 if arch == "hymba-1.5b" else page_size,
+                      num_pages=num_pages)
+    return arch, fields
 
 
 class Lockstep:
@@ -331,6 +384,59 @@ def test_burst_under_every_knob_equals_the_reference(qwen):
     assert m.preemptions > 0 and m.shed_requests > 0
     assert ls.t.deferrals > 0 and m.starvation_guard_skips > 0
     assert ls.t.free_pages + len(set(ls.t.prefix_index.pages)) == 8
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_forced_double_preemption_equals_the_reference(variants, name):
+    """``_preempt`` on a running request, twice, with a request queued
+    behind it: the folded prompt re-prefills on every variant's cache and
+    every step equals the reference's."""
+    arch, fields = _variant_fields(name, 8, 6)
+    ls = Lockstep(variants(arch), policy=dict(preemption=True),
+                  batch_slots=2, s_max=48, prefix_cache=False, **fields)
+    victim = ls.submit(np.arange(1, 9), 8, priority=1)
+    ls.submit(np.arange(20, 31), 4)
+    for _ in range(4):
+        ls.step()
+    assert victim.state is RequestState.RUNNING and victim.tokens
+    ls.preempt(0)
+    n_first = len(victim.tokens)
+    for _ in range(400):
+        ls.step()
+        if (victim.state is RequestState.RUNNING
+                and len(victim.tokens) > n_first):
+            break
+    ls.preempt(0)
+    assert ls.t.metrics.preemptions == 2
+    assert len(victim.prompt) == 8 + len(victim.tokens)
+    ls.drain()
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_burst_policy_on_every_variant_equals_the_reference(variants, name):
+    """The reference bench's burst policy (4 slots, s_max 96; pages of 16,
+    8 of them, where the variant pages) under a bursty three-tenant
+    schedule of 12 requests from the port's ``generate``: every step
+    equals the reference's, and on pages of 16 the policy preempts."""
+    arch, fields = _variant_fields(name, 16, 8)
+    ls = Lockstep(variants(arch), policy=GOODPUT_POLICY_KW, batch_slots=4,
+                  s_max=96, **fields)
+    spec = tworkload.WorkloadSpec(
+        n_requests=12, rate_rps=2.0, seed=3, prompt_len_median=24,
+        prompt_len_sigma=0.5, prompt_len_max=48, gen_len_median=10,
+        gen_len_sigma=0.5, gen_len_max=24,
+        priority_weights=((0, 0.2), (1, 0.2), (2, 0.6)),
+        burst_start_frac=0.1, burst_len_frac=0.5, burst_mult=2.5)
+    events = tworkload.generate(spec, ls.t.cfg.vocab_size)
+    tick = 0
+    for e in events:
+        while tick < int(e.t * 2.0):
+            ls.step()
+            tick += 1
+        ls.submit(e.prompt, e.gen_len, priority=e.priority)
+    ls.drain()
+    if fields.get("page_size") == 16:
+        assert ls.t.metrics.preemptions > 0
 
 
 # ------------------------------------------------------------ scheduler
