@@ -28,9 +28,13 @@ before printing any result. Phases, each of which raises on failure:
    on the CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
    im2col GEMMs at batch 1 and 256 (K8 on per-channel int8 weights),
    qwen2.5-32b's wo at M = 8 and bf16 cases; then both timed over the 21
-   GEMMs of a batch-256 forward, and at wo. Every kernel's time and every
+   GEMMs of a batch-256 forward, and at wo, and K7 at the gradient GEMMs
+   of phase 16's training step (16e). Every kernel's time and every
    library call's is its device time under ``torch.profiler``
-   (``device_times``); the plain versions' are between CUDA events. The
+   (``device_times``; where six sessions in a row come back without
+   their events, between CUDA events behind a sleep queued on the card,
+   logged, and counted at the end); the plain versions' are between CUDA
+   events. The
    wkv6 scan (K5) and the selective scan (K6) on the CPU tests' cases
    (strong decay, T = 33 with chunk 16, T = 1), then at rwkv6-7b's and
    hymba-1.5b's widths for the forward (B=4, T=1024), a decode tick and a
@@ -140,13 +144,39 @@ before printing any result. Phases, each of which raises on failure:
    its forward and model step take seeded image embeddings; it serves on
    zero ones, as ``repro`` does. Whisper's encoder runs through K2, not
    causal, against the einsum.
+16. ResNet20 trained at the paper's widths (16 / 32 / 64), batch 128, on
+   synthetic_cifar(4096, seed=1) with the example's AdamW, TF32 off, from
+   one seeded init through K7 (im2col, output-stationary: forward, dX and
+   dW GEMMs) and through the plain route (im2col with ``@``): (a) step 1's
+   loss and every gradient leaf held (``TRAIN_GRAD_TOL``); (b) 20 steps,
+   the losses held step by step (``TRAIN_TRAJ_TOL``) and falling; (c) K7's
+   launches by role (``gemm_role``), 62 a step: 21 forward, 20 dX (the
+   stem's input needs no gradient), 21 dW; (d) a step's host wall, device
+   busy time and idle share per route; (e) the dX and dW GEMMs of a step
+   timed by device time, each group summed, beside their bound, the plain
+   version's and ``torch.matmul``'s time (run with phase 2's timings,
+   early: late in the run, after profiles of whole training steps, the
+   profiler dropped most calls' events); (f) BN folded, fp32 / fixed16 /
+   int8 accuracy on synthetic_cifar(1024, seed=2), then ``python -m
+   repro_torch.examples.train_resnet20_cifar --steps 50`` in its own
+   process.
+17. the LM trainer: minicpm-2b at full width cut to 4 of its 40 layers
+   (0.53 B params), fp32, remat, batch 4 x 512 from TokenStream, the
+   trainer's cosine schedule, 6 steps under deterministic algorithms
+   (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts) with a checkpoint
+   after step 3; a second trainer restored from it gives steps 4-6
+   bit-equal (losses, params, m, v); peak device memory and a step's host
+   wall and idle share. (17b) ``python -m repro_torch.launch.train --arch
+   codeqwen1.5-7b --reduced --steps 20 --ckpt-dir <tmp>`` in its own
+   process, then ``--steps 25``, which resumes from step 20; both exit 0
+   with a finite final loss.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
-path (3b's forward, 4, 4b, 5, 7, 9, 10, 11) and each forward of phases 8,
-8b, 9 and 10 runs with the kernels' launch counts set to 0 just before
-and read just after, and every serving run requires that no prefill
+path (3b's forward, 4, 4b, 5, 7, 9, 10, 11), each forward of phases 8,
+8b, 9 and 10 and phase 16's training runs run with the kernels' launch
+counts set to 0 just before and read just after, and every serving run requires that no prefill
 chunk failed (the engine catches a chunk that raises and fails its job);
 so do phases 12-15.
 Then one JSON line
@@ -156,27 +186,36 @@ computes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# phase 17 runs under torch.use_deterministic_algorithms(True), which needs
+# cuBLAS's workspace fixed before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs.resnet20_cifar import CONFIG as RESNET  # noqa: E402
 from repro_torch.core.quantize import (QuantizedTensor,  # noqa: E402
                                        dequantize_params, fixed_point_tree,
                                        page_scale, quantize_params,
                                        quantize_per_channel)
-from repro_torch.data.synthetic import synthetic_cifar  # noqa: E402
+from repro_torch.data.synthetic import (TokenStream,  # noqa: E402
+                                        synthetic_cifar)
+from repro_torch.examples import train_resnet20_cifar as resnet_example  # noqa: E402,E501
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
@@ -186,11 +225,14 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
-from repro_torch.models.registry import (init_paged_cache,  # noqa: E402
+from repro_torch.models.registry import (get_model,  # noqa: E402
+                                         init_paged_cache,
                                          insert_cache_rows_paged)
+from repro_torch.optim.adamw import AdamW, apply_updates  # noqa: E402
 from repro_torch.serve import (SLO, ReplicaRouter, SchedPolicy,  # noqa: E402
                                ServeConfig, ServeEngine, WorkloadSpec,
                                merged_summary)
@@ -199,6 +241,7 @@ from repro_torch.serve.metrics import percentile  # noqa: E402
 from repro_torch.serve.scheduler import RequestState  # noqa: E402
 from repro_torch.serve.kvcache import (PagedInt8Backend,  # noqa: E402
                                        PagedLatentBackend)
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
@@ -331,12 +374,14 @@ def time_ms(fn, iters: int) -> float:
     return total / iters
 
 
-def profiled_calls(fn, iters: int, attempts: int = 3) -> list:
+def profiled_calls(fn, iters: int, attempts: int = 6) -> list:
     """Run ``fn`` ``iters`` times, each call after the L2 flush, under one
     ``torch.profiler`` session; the (name, device us) of every kernel, copy
     and memset each call launched, in order (``split_calls``). A session
-    now and then comes back without its device events: it is run again, up
-    to ``attempts`` times."""
+    now and then comes back without its device events (its launches are
+    recorded on the host, and no kernel is), several in a row at times:
+    it is run again after a pause that doubles each time, up to
+    ``attempts`` sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     time_ms(fn, 1)
@@ -359,6 +404,7 @@ def profiled_calls(fn, iters: int, attempts: int = 3) -> list:
                 raise
             log(f"  (profiler session {attempt + 1} incomplete: {err}; "
                 f"again)")
+            time.sleep(0.05 * 2 ** attempt)
 
 
 def split_calls(events, iters: int) -> list:
@@ -385,6 +431,32 @@ def split_calls(events, iters: int) -> list:
     return kept
 
 
+# device times that the profiler could not give (``device_times``)
+FALLBACKS = []
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean time of ``fn`` in ms between CUDA events, each call after the
+    L2 flush and behind a ~2.5 ms sleep queued on the card, so that the
+    host has enqueued the whole call before the card reaches it: device
+    time of everything the call launches, without the host's enqueue
+    delay. ``device_times``' way when the profiler gives no events."""
+    for _ in range(2):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush_l2()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
 def device_times(fns, iters: int, kernel=None) -> list:
     """Per entry of ``fns``, the mean device time in ms of what one call
     launches (``profiled_calls``; no host enqueue delay, which an event
@@ -395,11 +467,21 @@ def device_times(fns, iters: int, kernel=None) -> list:
     must launch the same named kernels in the same order, at least one (a
     set of more than one logs each launch's time); without, everything a
     call launched counts (a library call, which may launch several
-    kernels)."""
+    kernels). Where no profiler session of ``fn`` comes back whole, its
+    time is ``queued_ms``', logged and counted in ``FALLBACKS``."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     out = []
     for fn in fns:
-        calls = profiled_calls(fn, iters)
+        try:
+            calls = profiled_calls(fn, iters)
+        except AssertionError as err:
+            ms = queued_ms(fn, iters)
+            FALLBACKS.append(ms)
+            log(f"  (profiler: {err} in every session; timed between "
+                f"events behind a queued sleep instead, everything the "
+                f"call launched: {ms:.4f} ms)")
+            out.append(ms)
+            continue
         if names is not None:
             calls = [[(next(k for k in names if k in name), us)
                       for name, us in c if any(k in name for k in names)]
@@ -2779,14 +2861,23 @@ def host_and_device(fn, label, card) -> dict:
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
+    for attempt in range(6):  # a session may come back without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation) / 1e3
+        if busy_ms > 0:
+            break
+        log(f"  (profiler session {attempt + 1} of {label} without device "
+            f"events; again)")
+        time.sleep(0.05 * 2 ** attempt)
+    else:
+        raise AssertionError(f"{label}: no profiler session with device "
+                             f"events")
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
     log(f"  {label}: {wall_ms:.2f} ms host wall, device busy {busy_ms:.4f} "
@@ -3398,6 +3489,416 @@ def phase15_whisper(card):
     return launches, flash, m
 
 
+# ---------------------------------------------- phase 16: ResNet20 training
+# the paper's ResNet20 trained at batch TRAIN_BATCH on synthetic_cifar(4096,
+# seed=1) with the example's AdamW, through K7 (im2col, output-stationary)
+# and through the plain route (im2col with ``@``)
+TRAIN_BATCH, TRAIN_STEPS = 128, 20
+# step 1, K7 against the plain route: the loss, and every gradient leaf
+# within TRAIN_GRAD_TOL of the leaf's largest magnitude. The routes differ
+# only in how each GEMM sums (K7 one FMA chain per element, cuBLAS blocked),
+# and the dW GEMMs sum 131,072 products at stage 1: GEMM_TOL's margin
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, GEMM_TOL
+# the two routes' losses over TRAIN_STEPS steps: AdamW's sign-like first
+# steps turn last-bit gradient differences into update differences of the
+# learning rate's order where a gradient is near zero, so the trajectories
+# part slowly; a CPU run of the reference against the port (the same
+# network through other convolutions) stayed within 2e-4 over 20 steps
+TRAIN_TRAJ_TOL = 1e-3
+GEMM_ROLES = ("forward", "dX", "dW")
+
+
+def gemm_role(x, w) -> str:
+    """Which GEMM of a training step a K7 call is: the backward runs
+    dX = g W^T on w's transposed view and dW = X^T g on x's (``ops._Matmul``),
+    the forward on the contiguous im2col patches and weight."""
+    if w.dim() == 2 and w.stride(0) == 1 and w.stride(1) != 1:
+        return "dX"
+    if x.dim() == 2 and x.stride(0) == 1 and x.stride(1) != 1:
+        return "dW"
+    return "forward"
+
+
+@contextlib.contextmanager
+def gemm_roles():
+    """Count the K7 calls by role (``gemm_role``) while the block runs; the
+    counts must add up to ``mm.LAUNCHES``'s, which the wrapper raises where
+    it launches the kernel."""
+    roles = dict.fromkeys(GEMM_ROLES, 0)
+    orig = mm.matmul
+
+    def counted(x, w, **kw):
+        roles[gemm_role(x, w)] += 1
+        return orig(x, w, **kw)
+    mm.matmul = counted
+    try:
+        yield roles
+    finally:
+        mm.matmul = orig
+
+
+def resnet_routes():
+    """Phase 16's two routes: every conv GEMM through K7, or through ``@``."""
+    return {"K7": dict(impl="im2col", matmul_fn=ops.matmul),
+            "plain": dict(impl="im2col")}
+
+
+def resnet_trainer(route):
+    """``step(params, opt_state, i) -> (params, opt_state, loss)``: one
+    AdamW step (the example's: lr 3e-3, weight decay 1e-4) on batch i of
+    the training images, and ``grads(params, i)``."""
+    xs, ys = (torch.from_numpy(a).to(DEV)
+              for a in synthetic_cifar(4096, seed=1))
+    grad_fn = steps.value_and_grad(resnet_example.loss_fn(RESNET, route))
+    opt = AdamW(learning_rate=3e-3, weight_decay=1e-4)
+
+    def batch(i):
+        j = (i * TRAIN_BATCH) % (len(ys) - TRAIN_BATCH)
+        return {"x": xs[j:j + TRAIN_BATCH], "y": ys[j:j + TRAIN_BATCH]}
+
+    def step(params, opt_state, i):
+        (loss, _), grads = grad_fn(params, batch(i))
+        updates, opt_state, _ = opt.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+    return opt, step, lambda params, i: grad_fn(params, batch(i))
+
+
+def named_leaves(tree, prefix=""):
+    """(name, leaf) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [nl for k in sorted(tree)
+                for nl in named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [nl for i, v in enumerate(tree)
+                for nl in named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def grads_held(got, want) -> float:
+    """Every leaf of ``got`` within TRAIN_GRAD_TOL of the largest magnitude
+    of ``want``'s leaf; returns the worst such ratio."""
+    worst = 0.0
+    for (name, g), (_, w) in zip(named_leaves(got), named_leaves(want)):
+        scale = max(w.abs().max().item(), 1e-30)
+        ratio = (g - w).abs().max().item() / scale
+        if not torch.isfinite(g).all() or ratio > TRAIN_GRAD_TOL:
+            raise AssertionError(f"step 1 gradient {name}: K7 differs from "
+                                 f"the plain route by {ratio:.3e} of its "
+                                 f"largest magnitude")
+        worst = max(worst, ratio)
+    return worst
+
+
+def backward_gemms(gen, batch):
+    """Seeded operands of the two gradient GEMMs of each conv at ``batch``,
+    with the strides the backward gives them: dX = g @ W^T (not for the
+    stem, whose input needs no gradient) and dW = X^T @ g, X the im2col
+    patches. Returns {role: [(label, x, w), ...]}."""
+    out = {"dX": [], "dW": []}
+    for i, (name, M, K, N) in enumerate(resnet.conv_layer_shapes(RESNET,
+                                                                 batch)):
+        x = rand_on_card(gen, M, K)
+        w = rand_on_card(gen, K, N) * (2.0 / K) ** 0.5
+        g = rand_on_card(gen, M, N) * 1e-3
+        if i:
+            out["dX"].append((f"{name} dX ({M}x{N}x{K})", g, w.t()))
+        out["dW"].append((f"{name} dW ({K}x{M}x{N})", x.t(), g))
+    return out
+
+
+def phase2_backward_gemms(card):
+    """Phase 16e, run with phase 2's timings: K7's dX and dW GEMMs of one
+    batch-TRAIN_BATCH ResNet20 training step, each group summed: the
+    kernel's and ``torch.matmul``'s device time after the L2 flush
+    (``device_times``), the plain version's between events, and the bound
+    (bytes at the HBM rate or fp32 FMAs at the fp32 peak, the larger, per
+    GEMM, summed). Each GEMM held against the plain version. Timed here,
+    early in the run: late in a long run, after phase 16's profiles of
+    whole training steps, the profiler came back with 2 of 10 calls in
+    session after session. Returns {role: row}."""
+    gen = torch.Generator(DEV).manual_seed(16)
+    rows = {}
+    for role, gemms in backward_gemms(gen, TRAIN_BATCH).items():
+        err = max(gemm_held(f"K7 {label}", mm.matmul(x, w),
+                            ref.matmul(x, w)) for label, x, w in gemms)
+        ms = device_times([lambda x=x, w=w: mm.matmul(x, w)
+                           for _, x, w in gemms], 10, GEMM_KERNEL)
+        lib = device_times([lambda x=x, w=w: torch.matmul(x, w)
+                            for _, x, w in gemms], 10)
+        plain = [time_ms(lambda x=x, w=w: ref.matmul(x, w), 10)
+                 for _, x, w in gemms]
+        bounds = [gemm_bound(x.shape[0], x.shape[1], w.shape[1])
+                  for _, x, w in gemms]
+        log(f"  {role} GEMMs of a batch-{TRAIN_BATCH} step, device ms: K7 | "
+            f"torch.matmul | bound; K7's grid")
+        for i, (label, x, w) in enumerate(gemms):
+            plan = mm.plan_for(x, w, mm.launch_geometry(x, w))
+            log(f"    {label}: {ms[i]:.4f} | {lib[i]:.4f} | "
+                f"{bounds[i][0]:.4f} ({bounds[i][1]}); {plan.blocks} blocks "
+                f"of {plan.bm}x{plan.bn}, {plan.chunks} K-chunk(s), x "
+                f"{'16-byte' if plan.vec_x else '4-byte'} copies")
+        row = dict(ms=sum(ms), plain_ms=sum(plain), library_ms=sum(lib),
+                   err=err, gemms=len(gemms))
+        row["bound_ms"], row["bound_by"] = sum_bounds(bounds)
+        log(f"  K7 [{role}], {len(gemms)} GEMMs: kernel {row['ms']:.4f} ms | "
+            f"plain {row['plain_ms']:.4f} ms | torch.matmul "
+            f"{row['library_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) | {row['ms'] / row['library_ms']:.2f}x "
+            f"the library, {row['ms'] / row['bound_ms']:.2f}x the bound | "
+            f"max abs err {err:.3e} ({card})")
+        rows[role] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase16_resnet_training(card):
+    """ResNet20 at the paper's widths (16 / 32 / 64) trained with AdamW at
+    batch TRAIN_BATCH, TF32 off, from one seeded init through K7 and
+    through the plain route: (a) step 1's loss and every gradient leaf
+    held; (b) TRAIN_STEPS steps each, losses held step by step and falling;
+    (c) K7's launches by role, per step, counted in (b)'s run (the main
+    path); (d) a step's host wall, device busy time and idle share; (f) BN
+    folded and fp32 / fixed16 / int8 accuracy on synthetic_cifar(1024,
+    seed=2), then the example in its own process. (e), the backward GEMMs
+    timed, runs with phase 2 (``phase2_backward_gemms``). Returns (K7
+    launches by role in (b), the step costs)."""
+    init = resnet.init(RESNET, torch.Generator(DEV).manual_seed(16), DEV)
+    routes = resnet_routes()
+    trainers = {name: resnet_trainer(route) for name, route in
+                routes.items()}
+    mm.reset_launches()
+    with gemm_roles() as roles:
+        (k7_loss, _), k7_grads = trainers["K7"][2](init, 0)
+        torch.cuda.synchronize()
+    (plain_loss, _), plain_grads = trainers["plain"][2](init, 0)
+    want = {"forward": 21, "dX": 20, "dW": 21}
+    if roles != want or mm.LAUNCHES["output_stationary"] != 62:
+        raise AssertionError(f"one K7 step launched {mm.LAUNCHES} by role "
+                             f"{roles}; want {want}")
+    dl = abs(k7_loss.item() - plain_loss.item())
+    if not torch.isfinite(k7_loss) or dl > TRAIN_LOSS_TOL:
+        raise AssertionError(f"step 1 loss: K7 {k7_loss.item()} against "
+                             f"plain {plain_loss.item()}")
+    worst = grads_held(k7_grads, plain_grads)
+    log(f"  (a) step 1: loss {k7_loss.item():.6f} (K7) vs "
+        f"{plain_loss.item():.6f} (plain), |diff| {dl:.3e}; "
+        f"{len(named_leaves(k7_grads))} gradient leaves, worst "
+        f"{worst:.3e} of a leaf's largest magnitude (tolerance "
+        f"{TRAIN_GRAD_TOL})")
+    log(f"  (c) one K7 step: {roles['forward']} forward + {roles['dX']} dX "
+        f"(the stem's input needs no gradient) + {roles['dW']} dW = "
+        f"{sum(roles.values())} launches")
+    del k7_grads, plain_grads
+
+    losses, trained = {}, {}
+    for name in ("plain", "K7"):
+        opt, step_fn, _ = trainers[name]
+        params, opt_state, run = init, opt.init(init), []
+        mm.reset_launches()
+        with gemm_roles() as roles:
+            for i in range(TRAIN_STEPS):
+                params, opt_state, loss = step_fn(params, opt_state, i)
+                run.append(loss)
+            torch.cuda.synchronize()
+        losses[name], trained[name] = torch.stack(run), params
+        if name == "K7":
+            launches = dict(roles)
+            if (sum(roles.values()) != mm.LAUNCHES["output_stationary"]
+                    or roles != {k: v * TRAIN_STEPS for k, v in
+                                 want.items()}):
+                raise AssertionError(f"{TRAIN_STEPS} K7 steps launched "
+                                     f"{mm.LAUNCHES} by role {roles}")
+        elif mm.LAUNCHES["output_stationary"]:
+            raise AssertionError(f"the plain route launched K7: "
+                                 f"{mm.LAUNCHES}")
+    k7, plain = losses["K7"], losses["plain"]
+    gap = (k7 - plain).abs().max().item()
+    if not torch.isfinite(k7).all() or gap > TRAIN_TRAJ_TOL:
+        raise AssertionError(f"{TRAIN_STEPS} steps: losses K7 {k7.tolist()}"
+                             f" against plain {plain.tolist()}")
+    if not k7[-1] < k7[0]:
+        raise AssertionError(f"the loss did not fall: {k7.tolist()}")
+    log(f"  (b) {TRAIN_STEPS} steps: loss {k7[0].item():.4f} -> "
+        f"{k7[-1].item():.4f} (K7), {plain[0].item():.4f} -> "
+        f"{plain[-1].item():.4f} (plain); largest gap between the routes "
+        f"{gap:.3e} (tolerance {TRAIN_TRAJ_TOL}); K7 launched "
+        f"{launches} ({sum(launches.values()) // TRAIN_STEPS} a step)")
+
+    cost = {}
+    for name in ("K7", "plain"):
+        opt, step_fn, _ = trainers[name]
+        opt_state = opt.init(init)
+        cost[name] = host_and_device(
+            lambda: step_fn(init, opt_state, 0),
+            f"(d) one training step through {name}, batch {TRAIN_BATCH}",
+            card)
+
+    folded = resnet.fold_bn(trained["K7"])
+    xt, yt = (torch.from_numpy(a).to(DEV)
+              for a in synthetic_cifar(1024, seed=2))
+    route = routes["K7"]
+    acc = {"fp32": resnet_example.accuracy(RESNET, folded, xt, yt, route,
+                                           folded=True),
+           "fixed16": resnet_example.accuracy(
+               RESNET, fixed_point_tree(folded), xt, yt, route, folded=True),
+           "int8": resnet_example.accuracy(
+               RESNET, dequantize_params(quantize_params(folded),
+                                         torch.float32),
+               xt, yt, route, folded=True)}
+    if not all(0.0 <= a <= 1.0 for a in acc.values()):
+        raise AssertionError(f"accuracies {acc}")
+    log(f"  (f) after {TRAIN_STEPS} steps, BN folded, on 1,024 synthetic "
+        f"test images through K7: fp32 {acc['fp32']:.3f} | fixed16 "
+        f"{acc['fixed16']:.3f} | int8 {acc['int8']:.3f}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = ["-m", "repro_torch.examples.train_resnet20_cifar", "--steps",
+           "50"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                          text=True, timeout=600, env=env, cwd=ROOT)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"  (f) {' '.join(cmd[1:])}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + " | ".join(ln.strip() for ln in lines if ln.startswith(
+            ("step 50", "trained", "accuracy", "measured"))))
+    del trained, init, folded
+    torch.cuda.empty_cache()
+    return launches, cost
+
+
+# ------------------------------------------------ phase 17: the LM trainer
+# minicpm-2b (the reference trainer's default arch) at full width, cut to
+# TRAIN_LAYERS of its 40 layers; fp32, batch x tokens TRAIN_LM_BATCH from
+# TokenStream, the trainer's cosine schedule over TRAIN_LM_STEPS steps (2 of
+# warmup), a checkpoint after TRAIN_LM_SAVE
+TRAIN_ARCH, TRAIN_LAYERS = "minicpm-2b", 4
+TRAIN_LM_BATCH, TRAIN_LM_STEPS, TRAIN_LM_SAVE = (4, 512), 6, 3
+
+
+def phase17_trainer(card):
+    """The LM train step at full width under deterministic algorithms:
+    TRAIN_LM_STEPS steps uninterrupted, a checkpoint (``CheckpointManager``,
+    async) after TRAIN_LM_SAVE, and a second trainer restored from it whose
+    steps give losses, params and AdamW state bit-equal to the
+    uninterrupted run's; peak device memory, a step's host wall and idle
+    share. Then (17b) the training CLI in its own process, 20 steps then
+    resumed to 25."""
+    tc = train_mod.TrainConfig(arch=TRAIN_ARCH, reduced=False,
+                               steps=TRAIN_LM_STEPS, warmup=2,
+                               device="cuda")
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    model = get_model(cfg)
+    opt = train_mod.make_optimizer(tc)
+    step_fn = steps.make_train_step(model, opt, compute_dtype=torch.float32,
+                                    attn_impl="einsum", remat=True)
+    B, S = TRAIN_LM_BATCH
+    stream = TokenStream(cfg.vocab_size, B, S, tc.seed)
+
+    def batch(i):
+        return {k: torch.from_numpy(v.copy()).to(DEV)
+                for k, v in stream.batch_at(i).items()}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = steps.init_train_state(
+            model, opt, torch.Generator(DEV).manual_seed(17), DEV)
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        log(f"  {TRAIN_ARCH}: d_model {cfg.d_model}, {cfg.num_heads} heads, "
+            f"vocab {cfg.vocab_size:,}"
+            f"{' (tied)' if cfg.tie_embeddings else ''}, cut to {TRAIN_LAYERS} of 40 "
+            f"layers: {n_params / 1e9:.3f} B params, "
+            f"{4 * 4 * n_params / 1e9:.1f} GB with gradients and AdamW's m "
+            f"and v in fp32; batch {B} x {S}, remat on")
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        with tempfile.TemporaryDirectory() as ckpt:
+            mgr = CheckpointManager(ckpt)
+            for i in range(TRAIN_LM_STEPS):
+                state, metrics = step_fn(state, batch(i))
+                losses.append(metrics["loss"])
+                if i + 1 == TRAIN_LM_SAVE:
+                    mgr.save(TRAIN_LM_SAVE, state)
+            mgr.wait()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            resumed, meta = mgr.restore(device=DEV)
+        if meta["step"] != TRAIN_LM_SAVE or int(resumed["step"]) != \
+                TRAIN_LM_SAVE:
+            raise AssertionError(f"restored step {meta['step']}, state step "
+                                 f"{int(resumed['step'])}")
+        again = []
+        for i in range(TRAIN_LM_SAVE, TRAIN_LM_STEPS):
+            resumed, metrics = step_fn(resumed, batch(i))
+            again.append(metrics["loss"])
+        losses, again = torch.stack(losses), torch.stack(again)
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"losses {losses.tolist()}")
+        if not torch.equal(losses[TRAIN_LM_SAVE:], again):
+            raise AssertionError(f"resumed losses {again.tolist()} against "
+                                 f"{losses[TRAIN_LM_SAVE:].tolist()}")
+        a, b = named_leaves(state), named_leaves(resumed)
+        if [n for n, _ in a] != [n for n, _ in b]:
+            raise AssertionError("the restored state's leaves differ")
+        unequal = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+        if unequal:
+            raise AssertionError(f"after step {TRAIN_LM_STEPS} the resumed "
+                                 f"state differs at {unequal[:5]}")
+        log(f"  losses {[round(x, 4) for x in losses.tolist()]}; resumed "
+            f"from the step-{TRAIN_LM_SAVE} checkpoint, steps "
+            f"{TRAIN_LM_SAVE + 1}-{TRAIN_LM_STEPS} bit-equal: losses and "
+            f"all {len(a)} leaves of params, m, v, count and step "
+            f"(deterministic algorithms on)")
+        log(f"  peak device memory {peak / 2**30:.2f} GiB ({card})")
+        del resumed
+        cost = host_and_device(lambda: step_fn(state, batch(0)),
+                               f"one {TRAIN_ARCH} step ({TRAIN_LAYERS} "
+                               f"layers, fp32, {B} x {S})", card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state
+    torch.cuda.empty_cache()
+    phase17b_cli(card)
+    return dict(cost, peak_gib=peak / 2**30)
+
+
+def phase17b_cli(card):
+    """``python -m repro_torch.launch.train`` as a user runs it, in its own
+    process: codeqwen1.5-7b reduced, 20 steps with a checkpoint directory,
+    then again with 25 steps, which must resume from step 20; both exit 0
+    with a finite final loss."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as ckpt:
+        for n in (20, 25):
+            cmd = ["-m", "repro_torch.launch.train", "--arch",
+                   "codeqwen1.5-7b", "--reduced", "--steps", str(n),
+                   "--ckpt-dir", ckpt]
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                                  text=True, timeout=600, env=env, cwd=ROOT)
+            what = " ".join(cmd[1:])
+            if proc.returncode:
+                raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+            final = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("final_loss=")]
+            if not final or not np.isfinite(float(final[-1].split("=")[1])):
+                raise AssertionError(f"{what}: no finite final loss in "
+                                     f"{proc.stdout[-2000:]}")
+            resumed = "resumed from step 20" in proc.stderr
+            if resumed != (n == 25):
+                raise AssertionError(f"{what}: resumed {resumed}:\n"
+                                     f"{proc.stderr[-2000:]}")
+            log(f"  (17b) {what.replace(ckpt, '<tmp>')}: exit 0, "
+                f"{final[-1]}{', resumed from step 20' if resumed else ''} "
+                f"({time.perf_counter() - t0:.1f} s, {card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3427,6 +3928,9 @@ def main():
     flash_full = phase2_flash_full_width()
     gemm_errs = phase2_gemm_cases()
     gemm_full = phase2_gemm_full_width()
+    log(f"  phase 16e: K7's gradient GEMMs of a batch-{TRAIN_BATCH} ResNet20 "
+        f"training step")
+    train_rows = phase2_backward_gemms(card)
     scan_errs = phase2_scan_cases()
     scan_full = phase2_scan_full_width()
 
@@ -3491,6 +3995,17 @@ def main():
     family_launches[WHISPER], whisper_flash, _ = phase15_whisper(card)
     flash_launches["prefill_whisper"] = whisper_flash["prefill"]
     flash_launches["forward_whisper"] = whisper_flash["forward"]
+    log(f"phase 16: ResNet20 trained at the paper's widths, batch "
+        f"{TRAIN_BATCH}, through K7's forward and backward and the plain "
+        f"route")
+    t0 = time.perf_counter()
+    train_launches, _ = phase16_resnet_training(card)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 17: the LM trainer, {TRAIN_ARCH} at full width, "
+        f"{TRAIN_LAYERS} of 40 layers, restart from a checkpoint")
+    t0 = time.perf_counter()
+    phase17_trainer(card)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -3548,6 +4063,18 @@ def main():
             "ms": f["ms"], "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": f["library_ms"]})
+    # K7's gradient GEMMs, launched by phase 16's training run through K7
+    for role in ("dX", "dW"):
+        f = train_rows[role]
+        kernels.append({
+            "name": f"matmul[{role} resnet20 B={TRAIN_BATCH}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:29",
+            "launches": train_launches[role], "max_abs_err": f["err"],
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
     for name, line in (("wkv6", 30), ("selective_scan", 105)):
         counts = scan_launches[name]
         # serving's launches by path: decode ticks, timed at 8 slots, and
@@ -3567,6 +4094,8 @@ def main():
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": None})
+    log(f"device times the profiler could not give, timed between events "
+        f"instead: {len(FALLBACKS)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,16 @@ class Family(str, enum.Enum):
     CNN = "cnn"        # resnet20 (the paper's own model)
 
 
+class MemoryStrategy(str, enum.Enum):
+    """The paper's optimization ladder (§4.1-4.4), the rungs the capacity
+    planner (``core/strategies.py``) maps onto planner configurations."""
+
+    BASELINE = "baseline"                # small local budget, no overlap credit
+    DUAL_CLOCK = "dual_clock"            # + movement/compute overlap (double buffering)
+    ULTRA_RAM = "ultra_ram"              # + large local budget (fewer partitions)
+    COMPILER_LARGE_LOCAL = "compiler_large_local"  # + whole-layer residency planning
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     num_experts: int

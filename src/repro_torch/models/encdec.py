@@ -77,20 +77,24 @@ def _norm(x, p):
 
 
 def encode(params, cfg: ArchConfig, frames, *, compute_dtype=torch.float32,
-           attn_impl: str = "einsum"):
+           attn_impl: str = "einsum", remat=False):
     """frames: (B, S_enc, D) precomputed frame embeddings -> the encoder's
     output after its final norm. ``attn_impl`` is ``layers.attention``'s
-    ('pallas': the flash kernel, not causal)."""
+    ('pallas': the flash kernel, not causal); ``remat`` checkpoints each
+    layer (``layers.remat``)."""
     B, S, _ = frames.shape
     x = (frames.to(compute_dtype)
          + _sinusoid(S, cfg.d_model, frames.device).to(compute_dtype))
     positions = torch.arange(S, device=frames.device).expand(B, S)
     dims = _self_dims(cfg, False)
-    for i in range(cfg.encoder_layers):
-        lp = L.layer_params(params["enc_layers"], i)
+
+    def body(lp, x):
         x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]), dims, positions,
                             impl=attn_impl)
-        x = x + L.mlp(lp["mlp"], _norm(x, lp["ln2"]), act="gelu")
+        return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"]), act="gelu")
+    body = L.remat(body, remat)
+    for i in range(cfg.encoder_layers):
+        x = body(L.layer_params(params["enc_layers"], i), x)
     return _norm(x, params["enc_norm"])
 
 
@@ -133,18 +137,19 @@ def _enc_positions(batch: int, n: int, device):
 
 def forward(params, cfg: ArchConfig, tokens, *, frames=None,
             compute_dtype=torch.float32, attn_impl: str = "einsum",
-            return_features: bool = False):
+            remat=False, return_features: bool = False):
     """tokens: (B, S_dec); frames: (B, S_enc, D), zeros of ENC_LEN rows
     when None. Returns (decoder logits (B, S_dec, Vp) float32, aux), or the
     features after the final norm with ``return_features``; aux holds zero
-    MoE losses, as ``repro``'s."""
+    MoE losses, as ``repro``'s. ``remat`` checkpoints each encoder and
+    decoder layer (``layers.remat``)."""
     B, S = tokens.shape
     dev = tokens.device
     if frames is None:
         frames = torch.zeros((B, ENC_LEN, cfg.d_model), dtype=compute_dtype,
                              device=dev)
     enc_out = encode(params, cfg, frames, compute_dtype=compute_dtype,
-                     attn_impl=attn_impl)
+                     attn_impl=attn_impl, remat=remat)
     enc_pos = _enc_positions(B, enc_out.shape[1], dev)
     pos_emb = params["pos_dec"][:min(S, POS_ROWS)]
     if S > POS_ROWS:     # tile the learned positions beyond the table
@@ -153,12 +158,15 @@ def forward(params, cfg: ArchConfig, tokens, *, frames=None,
          + pos_emb.to(compute_dtype)[None])
     positions = torch.arange(S, device=dev).expand(B, S)
     dims = _self_dims(cfg, True)
-    for i in range(cfg.num_layers):
-        lp = L.layer_params(params["dec_layers"], i)
+
+    def body(lp, x):
         x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]), dims, positions,
                             impl=attn_impl)
         xk, xv = _cross_kv(lp["xattn"], enc_out, cfg)
-        x = _mlp(lp, _cross(cfg, lp, x, positions, xk, xv, enc_pos))
+        return _mlp(lp, _cross(cfg, lp, x, positions, xk, xv, enc_pos))
+    body = L.remat(body, remat)
+    for i in range(cfg.num_layers):
+        x = body(L.layer_params(params["dec_layers"], i), x)
     zero = torch.zeros((), device=dev)
     aux = {"moe_aux": zero, "moe_z": zero}
     if return_features:

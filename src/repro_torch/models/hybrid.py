@@ -190,16 +190,20 @@ def _logits(params, cfg: ArchConfig, x):
 # ------------------------------------------------------------ public
 def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
             attn_impl: str = "einsum", scan_impl: str = "auto",
-            return_features: bool = False):
+            remat=False, return_features: bool = False):
     """tokens: (B, S) at positions 0..S-1 -> (logits (B, S, Vp) float32,
     aux), or (features after the final norm, aux). ``attn_impl`` is
-    ``layers.attention``'s ('pallas': the flash kernel with the window)."""
+    ``layers.attention``'s ('pallas': the flash kernel with the window).
+    ``remat`` checkpoints each layer (``layers.remat``); training runs the
+    plain scan (``scan_impl="scan"``): K6 has no backward, as ``repro``'s
+    has none."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    body = L.remat(lambda lp, x: _layer_apply(cfg, lp, x, positions,
+                                              attn_impl, scan_impl), remat)
     for i in range(cfg.num_layers):
-        x = _layer_apply(cfg, L.layer_params(params["layers"], i), x,
-                         positions, attn_impl, scan_impl)
+        x = body(L.layer_params(params["layers"], i), x)
     zero = torch.zeros((), device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
     if return_features:

@@ -65,6 +65,22 @@ def norm_init(d: int, lead=(), device=None, kind: str = "rmsnorm"):
             "bias": torch.zeros(shape, device=device)}
 
 
+def remat(fn, policy):
+    """``fn`` checkpointed for training, as ``repro`` wraps a layer's body
+    in ``jax.checkpoint``: only its inputs are saved and the body runs
+    again in the backward (``torch.utils.checkpoint``, not reentrant).
+    ``policy`` is ``repro``'s ``remat``: False keeps ``fn``; True and
+    "save_outs" both checkpoint (the reference's "save_outs" also saves the
+    attention and MLP outputs, which changes memory, not the numbers)."""
+    if not policy:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
 def layer_params(tree, i: int):
     """Layer ``i``'s parameters from a tree whose leaves are stacked along a
     leading L axis (views, not copies)."""

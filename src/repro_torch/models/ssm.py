@@ -166,15 +166,19 @@ def _logits(params, cfg: ArchConfig, x):
 # ------------------------------------------------------------ public
 def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
             attn_impl: str = "einsum", scan_impl: str = "auto",
-            return_features: bool = False):
+            remat=False, return_features: bool = False):
     """tokens: (B, S) -> (logits (B, S, Vp) float32, aux), or (features
     after the final norm, aux) with ``return_features``. ``attn_impl`` is
-    accepted for the common signature; rwkv has no attention."""
+    accepted for the common signature; rwkv has no attention. ``remat``
+    checkpoints each layer (``layers.remat``); training runs the plain
+    scan (``scan_impl="scan"``): K5 has no backward, as ``repro``'s has
+    none."""
     del attn_impl
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
+    body = L.remat(lambda lp, x: _layer_apply(cfg, lp, x, None, scan_impl)[0],
+                   remat)
     for i in range(cfg.num_layers):
-        x, _ = _layer_apply(cfg, L.layer_params(params["layers"], i), x,
-                            None, scan_impl)
+        x = body(L.layer_params(params["layers"], i), x)
     zero = torch.zeros((), device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
     if return_features:

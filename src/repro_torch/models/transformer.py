@@ -22,6 +22,8 @@ projects through its own wk / wv on every call, as ``repro`` does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ArchConfig, Family
@@ -158,34 +160,38 @@ def _image(cfg: ArchConfig, image_embeds, compute_dtype):
     return image_embeds.to(compute_dtype)
 
 
-def _layer_loop(params, cfg: ArchConfig, x, layer_fn, img=None):
+def _layer_loop(params, cfg: ArchConfig, x, layer_fn, img=None,
+                cross_fn=None):
     """Every layer in order: ``layer_fn(li, lp, x) -> x`` with li the flat
     layer index (a cache's leading axis stays (L, ...): layer li of a VLM
     is block li % per of super-layer li // per, and its slice of the cache
     is a view, as ``repro`` views it as (n_super, per, ...)); a VLM's cross
-    block follows each super-layer."""
+    block (``cross_fn``, :func:`_cross_apply` by default) follows each
+    super-layer."""
     if not cfg.cross_attn_every:
         for i in range(cfg.num_layers):
             x = layer_fn(i, L.layer_params(params["layers"], i), x)
         return x
     per = cfg.cross_attn_every
+    cross_fn = cross_fn or functools.partial(_cross_apply, cfg)
     for s in range(cfg.num_layers // per):
         sp = L.layer_params(params["super"], s)
         for i in range(per):
             x = layer_fn(s * per + i, L.layer_params(sp["blocks"], i), x)
-        x = _cross_apply(cfg, sp["cross"], x, img)
+        x = cross_fn(sp["cross"], x, img)
     return x
 
 
 def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
             compute_dtype=torch.float32, attn_impl: str = "einsum",
-            return_features: bool = False):
+            remat=False, return_features: bool = False):
     """tokens: (B, S) at positions 0..S-1 -> (logits (B, S, Vp) float32,
     aux), or (features after the final norm, aux) with
     ``return_features``. ``attn_impl`` is ``layers.attention``'s (an MLA
     stack always runs its absorbed chunk form; cross blocks always the
     einsum). ``aux`` holds the MoE losses summed over layers, zero for a
-    family without experts."""
+    family without experts. ``remat`` (``layers.remat``) checkpoints each
+    layer's body and each cross block for training."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -193,19 +199,24 @@ def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
     mla = _is_mla(cfg)
     auxes = []
 
-    def layer(_, lp, x):
+    def body(lp, x):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         if mla:
             x = x + _mla_full_attention(cfg, lp["attn"], h, positions)
         else:
             x = x + L.attention(lp["attn"], h, dims, positions,
                                 impl=attn_impl)
-        x, aux = _ffn(cfg, lp, x)
+        return _ffn(cfg, lp, x)
+    body = L.remat(body, remat)
+
+    def layer(_, lp, x):
+        x, aux = body(lp, x)
         auxes.append(aux)
         return x
 
     x = _layer_loop(params, cfg, x, layer,
-                    _image(cfg, image_embeds, compute_dtype))
+                    _image(cfg, image_embeds, compute_dtype),
+                    L.remat(functools.partial(_cross_apply, cfg), remat))
     if cfg.moe:
         aux = {key: torch.stack([a[key] for a in auxes]).sum()
                for key in ("moe_aux", "moe_z")}

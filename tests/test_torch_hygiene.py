@@ -31,7 +31,12 @@ def _sources():
             "data/synthetic.py", "kernels/linear_scan.py", "models/ssm.py",
             "models/hybrid.py", "serve/metrics.py", "serve/workload.py",
             "serve/router.py", "serve/scheduler.py",
-            "examples/serve_lm.py"} <= names
+            "examples/serve_lm.py", "core/dataflow.py", "core/planner.py",
+            "core/strategies.py", "core/perfmodel.py", "optim/adamw.py",
+            "optim/schedules.py", "checkpoint/manager.py",
+            "runtime/fault.py", "launch/train.py", "tree.py",
+            "examples/train_resnet20_cifar.py", "examples/quickstart.py",
+            "examples/quantize_ptq.py"} <= names
     return files
 
 

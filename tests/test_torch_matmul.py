@@ -440,3 +440,53 @@ def test_other_dtypes_raise_on_card(card):
         tmm.matmul(x, w.bfloat16())
     with pytest.raises(TypeError):
         tqm.quant_matmul(x, w, torch.ones(16, device=card))
+
+
+# the distinct conv GEMMs (M, K, N) of a batch-128 ResNet20 training step:
+# the stem (K = 27), the 3x3 convs and the 1x1 projections of each stage
+TRAIN_B128 = [(131072, 27, 16), (131072, 144, 16), (32768, 144, 32),
+              (32768, 288, 32), (32768, 16, 32), (8192, 288, 64),
+              (8192, 576, 64), (8192, 32, 64)]
+
+
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_tile_plan_at_the_gradient_gemms_of_resnet20_training(mkn):
+    """The backward's operands as ``ops._Matmul`` passes them: dX = g @
+    W^T reads w's transpose (strides (1, N)), dW = X^T @ g reads x's
+    (strides (1, K)), over a reduction of M = 8,192-131,072 rows. Each
+    plan fits shared memory, its K-chunks cover the reduction, and a
+    transposed x is staged by 4-byte copies (no 16-byte row runs)."""
+    m, k, n = mkn
+    dx = tmm.tile_plan(m, n, k, n, 1, 1, n)          # g (m, n) @ w.t()
+    dw = tmm.tile_plan(k, m, n, 1, k, n, 1)          # x.t() (k, m) @ g
+    for plan, reduction in ((dx, n), (dw, m)):
+        assert plan.smem <= tmm.SMEM_MAX
+        assert plan.kc * plan.chunks >= reduction
+        assert plan.kc % tmm.BK == 0 or plan.skinny
+    assert not dw.vec_x and not dx.vec_w
+    assert dw.grid[0] == -(-k // dw.bm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_matmul_backward_at_resnet20_training_shapes_on_card(card, mkn):
+    """The gradient GEMMs of a batch-128 training step through the kernel
+    (its transposed views, reductions over up to 131,072 rows) against the
+    plain version's; the stem's input needs no gradient, so its step
+    launches two GEMMs, the others three."""
+    m, k, n = mkn
+    x, w = (a.to(card) for a in map(_t, _xw(16, m, k, n)))
+    g = torch.randn(m, n, device=card, generator=torch.Generator(
+        card).manual_seed(1))
+    stem = k == 27
+    tx = x.clone().requires_grad_(not stem)
+    tw = w.clone().requires_grad_()
+    tmm.reset_launches()
+    tops.matmul(tx, tw).backward(g)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES["output_stationary"] == (2 if stem else 3)
+    want_dw = tref.matmul(x.t(), g)
+    torch.testing.assert_close(tw.grad, want_dw, **_card_tol(want_dw))
+    if not stem:
+        want_dx = tref.matmul(g, w.t())
+        torch.testing.assert_close(tx.grad, want_dx, **_card_tol(want_dx))
