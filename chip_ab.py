@@ -9,7 +9,7 @@ cache and on latent pages, and hymba-1.5b's (32 layers, phase 10's
 weights) host wall and device busy time of one decode tick and one
 64-token first chunk.
 
-    python3 chip_ab.py OTHER_TREE
+    python3 chip_ab.py [--attention] OTHER_TREE
 
 OTHER_TREE is another checkout of the repository, unpacked with
 ``git archive`` (for example the parent commit's, into a directory that
@@ -23,7 +23,9 @@ runs ``phase2_full_width``, ``phase2_q8_full_width``,
 ``phase7_mla`` and ``tick_and_chunk`` as they are. Prints each worker's
 lines, then one JSON object ``{"ab": [{"tree": ..., "card": ...,
 "kernels": {...}, "serving": {...}, "recurrent": {...}}, ...]}`` with the
-turns in order. Needs CUDA; exits nonzero if any worker fails.
+turns in order. With ``--attention`` a worker runs the attention rows
+(K1, K3, K4, K2) and nothing else. Needs CUDA; exits nonzero if any worker
+fails.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def worker(tree: pathlib.Path) -> dict:
+def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import repro_torch  # noqa: F401  (the tree's package, before chip_smoke)
     sys.path.insert(1, str(HERE))
@@ -55,6 +57,8 @@ def worker(tree: pathlib.Path) -> dict:
                      for kind, f in phase().items()})
     rows.update({f"flash_attention[{kind}]": f
                  for kind, f in cs.phase2_flash_full_width().items()})
+    if attention_only:
+        return {"tree": str(tree), "card": card, "kernels": rows}
     rows.update({f"{name}[{kind}]": f for (name, kind), f in
                  cs.phase2_scan_full_width().items()})
 
@@ -91,22 +95,26 @@ def worker(tree: pathlib.Path) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        print("AB " + json.dumps(worker(pathlib.Path(sys.argv[2]))),
+    args = sys.argv[1:]
+    attention = "--attention" in args
+    args = [a for a in args if a != "--attention"]
+    if len(args) == 2 and args[0] == "--worker":
+        print("AB " + json.dumps(worker(pathlib.Path(args[1]), attention)),
               flush=True)
         return 0
-    if len(sys.argv) != 2:
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_ab: CUDA is not available", file=sys.stderr)
         return 1
-    other = pathlib.Path(sys.argv[1]).resolve()
+    other = pathlib.Path(args[0]).resolve()
     results = []
     for tree in (other, HERE, HERE, other):
         proc = subprocess.run([sys.executable, __file__, "--worker",
-                               str(tree)], capture_output=True, text=True)
+                               str(tree)] + ["--attention"] * attention,
+                              capture_output=True, text=True)
         lines = proc.stdout.splitlines()
         print("\n".join(ln for ln in lines if not ln.startswith("AB ")),
               flush=True)

@@ -40,7 +40,13 @@ before printing any result. Phases, each of which raises on failure:
    hymba-1.5b's widths for the forward (B=4, T=1024), a decode tick and a
    64-token prefill chunk of 8 slots and of one request (the shape of most
    serving chunks; there other staging depths must give equal bits) and a
-   tick of one request, timed beside their bounds.
+   tick of one request, timed beside their bounds. Then the bf16 entries
+   (``phase2_bf16_cases``): K1 at every ``SPLIT_EDGES`` case with bf16 q
+   over bf16 pools, over fp32 pools and fp32 q over bf16 pools, K3 with
+   bf16 q over int8 pools, K4 at its latent widths for each pair, K2 with
+   q, k, v in bf16, each within one bf16 step of its plain version's
+   element; and timed at the full-width shapes of their fp32 rows (bytes
+   at bf16 width in the bound, SDPA on the same bf16 tensors).
 3. qwen2.5-32b at full width cut to 4 layers (the weights of
    ``ServeEngine.build``, built once for phases 3-5): one paged prefill
    chunk plus 8 decode steps through ``impl="kernel"`` and
@@ -51,7 +57,17 @@ before printing any result. Phases, each of which raises on failure:
 4. paged serving: 16 requests (100-700 prompt tokens, half sharing a
    256-token prefix, 32 generated each) through the paged engine; (4b)
    the same requests on int8 pages (``kv_backend="paged_int8"``), every
-   attention through K3, tokens against phase 4's reported.
+   attention through K3, tokens against phase 4's reported. (18, run
+   right after phase 11 on the same weights) bf16 serving:
+   ``compute_dtype=bfloat16`` with the cache in bf16: (a) the model step
+   on bf16 pages, fp32 pages and int8 pages, kernel against einsum in
+   lockstep (both take the einsum's greedy tokens; logits within
+   ``BF16_MODEL_TOL``, tokens equal where the top-2 gap exceeds it); (d)
+   the bf16 forward through K2 against the einsum; (b) the 16 requests on
+   bf16 pages (K1), int8 pages (K3) and the dense cache (K2's first
+   chunks), each bf16 entry launched layers x ticks and chunks, ITL p50 /
+   p99 and an idle tick's idle share beside phase 4's fp32 figures; (c) a
+   tick with every slot freed gives finite logits.
 5. the main path: ``ServeEngine.build("qwen2.5-32b", ...)`` with the
    default dense cache serving the same 16 requests; its tokens against
    phase 4's.
@@ -66,7 +82,9 @@ before printing any result. Phases, each of which raises on failure:
    weights are freed): paged latent prefill chunk plus 8 decode steps
    through K4 and through the latent einsum; the 16 requests on the dense
    latent cache and on latent pages, every paged attention through K4,
-   streams compared.
+   streams compared; then its bf16 leg: the model step on bf16 latent
+   pages (K4 against the latent einsum in lockstep) and the 16 requests
+   on bf16 latent pages through K4's bf16 entry.
 8. ResNet20 / CIFAR at the paper's widths (random weights and BN stats
    from a seeded generator, a head fitted to synthetic training images),
    folded, on synthetic CIFAR images at batch 1 and 256: ``lax`` (cuDNN),
@@ -174,7 +192,7 @@ before printing any result. Phases, each of which raises on failure:
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
-path (3b's forward, 4, 4b, 5, 7, 9, 10, 11), each forward of phases 8,
+path (3b's forward, 4, 4b, 5, 7, 9, 10, 11, 18), each forward of phases 8,
 8b, 9 and 10 and phase 16's training runs run with the kernels' launch
 counts set to 0 just before and read just after, and every serving run requires that no prefill
 chunk failed (the engine catches a chunk that raises and fails its job);
@@ -182,7 +200,8 @@ so do phases 12-15.
 Then one JSON line
 describing each kernel, and as the last line ``{"ok": true, "device":
 {...}}``. TF32 is off throughout: every number is fp32, as the reference
-computes.
+computes, but for the bf16 legs of phases 2, 7 and 18, which compute in
+bf16 as the reference does at ``compute_dtype=bfloat16``.
 """
 from __future__ import annotations
 
@@ -252,6 +271,19 @@ MODEL_TOL = 1e-3                 # logits after 4 full-width fp32 layers
 # int8 step (a page's amax / 127) apart; such flips, not the kernel, set
 # the logits gap of the int8 model comparison
 Q8_MODEL_TOL = 1e-2
+# bf16 (phases 2 and 18): every kernel computes in fp32 and rounds its
+# output once, so a bf16 kernel is held to its plain version within
+# KERNEL_TOL and one bf16 step of each element (``kernel_held``). Model logits of two routes
+# in bf16 (phase 18: the kernel, fp32 inside, against the einsum, which
+# rounds scores and probabilities to bf16 as the reference's einsum does)
+# are held within BF16_MODEL_TOL of the step's largest magnitude, on one
+# trajectory (both take the einsum route's greedy tokens), and their
+# tokens where the top-2 gap exceeds that: at full width 1.6-1.8e-2 apart
+# (qwen2.5-32b on bf16, fp32 and int8 pages, qwen2.5-32b-mla on latent
+# pages, the forward), so 3e-2 leaves room for another card's library
+# choices; the einsum's rounded scores, not the kernels, set the gap
+BF16 = torch.bfloat16
+BF16_MODEL_TOL = 3e-2
 INACTIVE = 1 << 30
 ARCH = "qwen2.5-32b"
 MLA_ARCH = "qwen2.5-32b-mla"
@@ -595,6 +627,43 @@ def held(name, got, want):
     return got, err
 
 
+def bf16_step(x):
+    """The spacing of bf16 values at magnitude |x| (below the smallest
+    normal, the smallest normal's)."""
+    big = x.abs().clamp_min(torch.finfo(BF16).smallest_normal)
+    return torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
+def kernel_held(name, got, want):
+    """A kernel's output against its plain version's on the same inputs:
+    fp32 outputs within KERNEL_TOL (``held``); bf16 outputs within
+    KERNEL_TOL plus one bf16 step of each element (both compute in fp32,
+    their sums in other orders, as the fp32 outputs do, and each rounds
+    once to bf16, which adds at most one step). Returns (got, max
+    |diff|)."""
+    if got.dtype != BF16:
+        return held(name, got, want)
+    torch.cuda.synchronize()
+    if want.dtype != BF16:
+        raise AssertionError(f"{name}: plain version gave {want.dtype}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    allowed = (bf16_step(torch.maximum(g.abs(), w.abs()))
+               + KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * w.abs())
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()) or (
+            diff > allowed).any():
+        i = torch.argmax(diff - allowed)
+        raise AssertionError(f"{name}: bf16 kernel further than KERNEL_TOL "
+                             f"and a bf16 step from the plain version at "
+                             f"{int((diff > allowed).sum())} elements (worst "
+                             f"{g.flatten()[i].item()} against "
+                             f"{w.flatten()[i].item()}), max abs err {err}")
+    log(f"  {name}: max abs err {err:.3e} (within KERNEL_TOL and a bf16 "
+        f"step)")
+    return got, err
+
+
 def check_case(name, args, window=0, kind="prefill", **scales):
     """Paged attention (K1, or K3 given int8 pools and their scales) vs
     its plain version on the card; returns (out, max |diff|)."""
@@ -723,16 +792,19 @@ def visible_pairs(fill, Sq) -> int:
 def bound_ms(args, fill, kv_bytes=4) -> tuple:
     """Least time for the work this data needs: every live K/V row a query
     can see read once (``kv_bytes`` per element; int8 pools add one f32
-    scale per live page for K and for V), q read once, out written once,
-    at the HBM rate; against the fp32 FMAs of the valid (query, key) pairs
-    (score and value products) at the fp32 peak."""
+    scale per live page for K and for V), q read once and out written once
+    in q's dtype, at the HBM rate; against the fp32 FMAs of the valid
+    (query, key) pairs (score and value products) at the fp32 peak (the
+    kernels keep the TPU kernels' fp32 arithmetic whatever the operands'
+    dtype)."""
     q = args[0]
     B, Sq, H, hd = q.shape
     ps, KV = args[1].shape[1:3]
     rows = int(np.sum(fill))                          # keys up to last query
-    scales = 0 if kv_bytes == 4 else 2 * 4 * sum(-(-int(f) // ps)
+    scales = 0 if kv_bytes != 1 else 2 * 4 * sum(-(-int(f) // ps)
                                                  for f in fill)
-    nbytes = (2 * rows * KV * hd * kv_bytes + scales + 2 * q.numel() * 4
+    nbytes = (2 * rows * KV * hd * kv_bytes + scales
+              + 2 * q.numel() * q.element_size()
               + args[3].numel() * 4 + args[4].numel() * 4)
     return roofline(nbytes, 4 * visible_pairs(fill, Sq) * H * hd)
 
@@ -758,30 +830,46 @@ def sdpa_call(args):
                                                   enable_gqa=True)
 
 
-def phase2_full_width(arch=ARCH):
+def phase2_full_width(arch=ARCH, q_dtype=torch.float32,
+                      pool_dtype=torch.float32):
     """K1 at ``arch``'s decode and prefill shapes (8 slots; a 64-row
-    chunk): against the plain version, then the kernel's, the plain
-    version's and SDPA's times beside the bound."""
+    chunk), q and the pools in the given dtypes: against the plain
+    version, then the kernel's, the plain version's and SDPA's times
+    beside the bound. The rows are keyed by kind and ``launch_suffix``
+    (SDPA takes one dtype: for a mixed pair, q cast to the pools')."""
     out = {}
     cfg = configs.get_config(arch)
+    mixed = (q_dtype, pool_dtype) != (torch.float32, torch.float32)
+    suffix = pa.launch_suffix(q_dtype, pool_dtype) if mixed else ""
     for kind, Sq, seed in (("decode", 1, 11), ("prefill", 64, 12)):
         args, fill = full_width_case(Sq, seed, arch)
-        _, err = check_case(f"full width {kind} {arch} (B={SLOTS}, Sq={Sq}, "
-                            f"H={cfg.num_heads}, KV={cfg.num_kv_heads}, "
-                            f"hd={cfg.head_dim}, ps={PS})", args, kind=kind)
-        lib = sdpa_call(args)
+        name = (f"full width {kind}{suffix} {arch} (B={SLOTS}, Sq={Sq}, "
+                f"H={cfg.num_heads}, KV={cfg.num_kv_heads}, "
+                f"hd={cfg.head_dim}, ps={PS})")
+        if mixed:
+            args = [args[0].to(q_dtype), args[1].to(pool_dtype),
+                    args[2].to(pool_dtype), *args[3:]]
+            _, err = kernel_held(name, pa.paged_attention(*args, kind=kind),
+                                 ref.paged_attention(*args))
+            lib = sdpa_call([args[0].to(pool_dtype), *args[1:]])
+        else:
+            _, err = check_case(name, args, kind=kind)
+            lib = sdpa_call(args)
         want = ref.paged_attention(*args)
-        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        lib_err = (lib().transpose(1, 2).float() - want.float()
+                   ).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention(*args, kind=kind), 50,
                        PAGED_KERNELS)
         plain = time_ms(lambda: ref.paged_attention(*args), 10)
         lib_ms = device_ms(lib, 10)
-        bms, by = bound_ms(args, fill)
-        log(f"  {kind} {arch}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
-            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
-            f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
-        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by)
+        bms, by = bound_ms(args, fill, kv_bytes=args[1].element_size())
+        log(f"  {kind}{suffix} {arch}: kernel {ms:.4f} ms | plain "
+            f"{plain:.4f} ms | sdpa {lib_ms:.4f} ms (max abs diff "
+            f"{lib_err:.2e}) | bound {bms:.4f} ms ({by}) | live rows "
+            f"{int(np.sum(fill))}")
+        out[kind + suffix] = dict(err=err, ms=ms, plain_ms=plain,
+                                  library_ms=lib_ms, bound_ms=bms,
+                                  bound_by=by)
     return out
 
 
@@ -860,32 +948,42 @@ def phase2_q8_cases():
     return errs
 
 
-def phase2_q8_full_width():
-    """K3 at qwen2.5-32b's serving shapes, int8 pools. The library call is
-    SDPA on the pre-gathered, pre-dequantized view, timed alone."""
+def phase2_q8_full_width(q_dtype=torch.float32):
+    """K3 at qwen2.5-32b's serving shapes, int8 pools, q in ``q_dtype``.
+    The library call is SDPA on the pre-gathered view dequantized to q's
+    dtype, timed alone."""
     out = {}
+    suffix = "" if q_dtype == torch.float32 else "_bf16"
     for kind, Sq, seed in (("decode_q8", 1, 13), ("prefill_q8", 64, 14)):
         f32_args, fill = full_width_case(Sq, seed)
         args, sc = q8_args(f32_args)
-        _, err = check_case(f"full width {kind} (B={SLOTS}, Sq={Sq}, H=40, "
-                            f"KV=8, hd=128, ps={PS}, int8)", args, kind=kind,
-                            **sc)
-        deq = [args[0]] + [p.float() * s[:, None, None, None] for p, s in
-                           ((args[1], sc["k_scale"]),
-                            (args[2], sc["v_scale"]))] + args[3:]
+        name = (f"full width {kind}{suffix} (B={SLOTS}, Sq={Sq}, H=40, "
+                f"KV=8, hd=128, ps={PS}, int8)")
+        if suffix:
+            args[0] = args[0].to(q_dtype)
+            _, err = kernel_held(name, pa.paged_attention(*args, kind=kind,
+                                                          **sc),
+                                 ref.paged_attention(*args, **sc))
+        else:
+            _, err = check_case(name, args, kind=kind, **sc)
+        deq = [args[0]] + [(p.float() * s[:, None, None, None]).to(q_dtype)
+                           for p, s in ((args[1], sc["k_scale"]),
+                                        (args[2], sc["v_scale"]))] + args[3:]
         lib = sdpa_call(deq)
         want = ref.paged_attention(*args, **sc)
-        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        lib_err = (lib().transpose(1, 2).float() - want.float()
+                   ).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention(*args, kind=kind, **sc),
                        50, PAGED_KERNELS)
         plain = time_ms(lambda: ref.paged_attention(*args, **sc), 10)
         lib_ms = device_ms(lib, 10)
         bms, by = bound_ms(args, fill, kv_bytes=1)
-        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+        log(f"  {kind}{suffix}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by}) | live rows {int(np.sum(fill))}")
-        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by)
+        out[kind + suffix] = dict(err=err, ms=ms, plain_ms=plain,
+                                  library_ms=lib_ms, bound_ms=bms,
+                                  bound_by=by)
         del f32_args, args, deq, want
     torch.cuda.empty_cache()
     return out
@@ -938,26 +1036,37 @@ def phase2_latent_cases():
     return errs
 
 
-def phase2_latent_full_width():
+def phase2_latent_full_width(q_dtype=torch.float32,
+                             pool_dtype=torch.float32):
     """K4 at qwen2.5-32b-mla's serving shapes: 8 slots of 100-732 latent
     rows (576 floats; values the first 512), 40 heads, page_size 16, the
-    softmax scaled by 1/sqrt(192). The library call is SDPA with q
-    (B, 40, Sq, 576), the gathered latent view as its one K head and the
-    view's first 512 columns as V, timed alone."""
+    softmax scaled by 1/sqrt(192); q and the pool in the given dtypes. The
+    library call is SDPA with q (B, 40, Sq, 576), the gathered latent view
+    as its one K head and the view's first 512 columns as V, timed
+    alone."""
     cfg = configs.get_config(MLA_ARCH)
     H, c, r = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     Lw, scale_dim = c + r, cfg.head_dim + r
     mps = S_MAX // PS
     out = {}
+    mixed = (q_dtype, pool_dtype) != (torch.float32, torch.float32)
+    suffix = pa.launch_suffix(q_dtype, pool_dtype) if mixed else ""
     for kind, Sq, seed in (("decode_latent", 1, 15),
                            ("prefill_latent", 64, 16)):
         fill = np.random.default_rng(seed).integers(100, 733, SLOTS)
         q, pool, bt = latent_case(seed, SLOTS, Sq, H, Lw, SLOTS * mps, PS,
                                   mps, fill)
         args = on_card(q, pool, bt, (fill - Sq).astype(np.int32))
-        _, err = check_latent(f"full width {kind} (B={SLOTS}, Sq={Sq}, "
-                              f"H={H}, {Lw}/{c}, ps={PS})", args, scale_dim,
-                              c, kind)
+        name = (f"full width {kind}{suffix} (B={SLOTS}, Sq={Sq}, H={H}, "
+                f"{Lw}/{c}, ps={PS})")
+        if mixed:
+            args = [args[0].to(q_dtype), args[1].to(pool_dtype), *args[2:]]
+            _, err = kernel_held(name, pa.paged_attention_latent(
+                *args, scale_dim=scale_dim, d_v=c, kind=kind),
+                ref.paged_attention_latent(*args, scale_dim=scale_dim,
+                                           d_v=c))
+        else:
+            _, err = check_latent(name, args, scale_dim, c, kind)
         qd, pool_d, bt_d, st_d = args
         n = mps * PS
         j = torch.arange(n, device=DEV)
@@ -969,12 +1078,13 @@ def phase2_latent_full_width():
         qpos = st_d.long()[:, None] + torch.arange(Sq, device=DEV)
         mask = ok[:, None, :] & (j[None, None, :] <= qpos[:, :, None])
         mask = mask[:, None]
-        qt = qd.transpose(1, 2).contiguous()
+        qt = qd.transpose(1, 2).to(pool_dtype).contiguous()
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, k, v, attn_mask=mask, scale=scale_dim ** -0.5,
             enable_gqa=True)
         want = ref.paged_attention_latent(*args, scale_dim=scale_dim, d_v=c)
-        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        lib_err = (lib().transpose(1, 2).float() - want.float()
+                   ).abs().max().item()
         ms = device_ms(lambda: pa.paged_attention_latent(
             *args, scale_dim=scale_dim, d_v=c, kind=kind), 50,
             LATENT_KERNELS)
@@ -984,15 +1094,17 @@ def phase2_latent_full_width():
         # each slot's latent rows read once for all heads; q read and the
         # output written once; (Lw + c) FMAs per visible (row, head, key)
         rows = int(np.sum(fill))
-        nbytes = 4 * (rows * Lw + qd.numel() + SLOTS * Sq * H * c
-                      + bt_d.numel() + st_d.numel())
+        nbytes = (rows * Lw * pool_d.element_size()
+                  + (qd.numel() + SLOTS * Sq * H * c) * qd.element_size()
+                  + 4 * (bt_d.numel() + st_d.numel()))
         bms, by = roofline(nbytes,
                            2 * (Lw + c) * visible_pairs(fill, Sq) * H)
-        log(f"  {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+        log(f"  {kind}{suffix}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
             f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by}) | live rows {rows}")
-        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by)
+        out[kind + suffix] = dict(err=err, ms=ms, plain_ms=plain,
+                                  library_ms=lib_ms, bound_ms=bms,
+                                  bound_by=by)
         del args, qd, pool_d, view, k, v, qt, want
     torch.cuda.empty_cache()
     return out
@@ -1007,16 +1119,12 @@ def flash_case(seed, B, Sq, Sk, H, KV, hd):
 
 
 def check_flash(name, args, causal=True, window=0, kind="forward"):
-    """K2 vs its plain version on the card; returns max |diff|."""
-    got = fa.flash_attention(*args, causal=causal, window=window, kind=kind)
-    want = ref.flash_attention(*args, causal=causal, window=window)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, **KERNEL_TOL):
-        raise AssertionError(f"{name}: kernel differs from plain version, "
-                             f"max abs err {err}")
-    log(f"  {name}: max abs err {err:.3e}")
-    return err
+    """K2 vs its plain version on the card (``kernel_held``); returns max
+    |diff|."""
+    return kernel_held(name, fa.flash_attention(*args, causal=causal,
+                                                window=window, kind=kind),
+                       ref.flash_attention(*args, causal=causal,
+                                           window=window))[1]
 
 
 def phase2_flash_cases():
@@ -1058,11 +1166,11 @@ def flash_bound_ms(args, causal=True, window=0) -> tuple:
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
     hi = np.minimum(i, Sk - 1) if causal else np.full_like(i, Sk - 1)
     pairs = B * H * int(np.maximum(hi - lo + 1, 0).sum())
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     return roofline(nbytes, 4 * pairs * hd)
 
 
-def phase2_flash_full_width():
+def phase2_flash_full_width(dtype=torch.float32, shapes=FLASH_SHAPES):
     """K2 at the shapes the models give it (``FLASH_SHAPES``), a serving
     first chunk and a forward each: qwen2.5-32b's 40 query heads over 8 kv
     heads at head_dim 128, causal, hymba-1.5b's 25 over 5 at head_dim 64
@@ -1072,9 +1180,11 @@ def phase2_flash_full_width():
     causal; and whisper's encoder, 20 over 20 at head_dim 64 over 1500
     frames, not causal, which phase 15 runs. The library call is SDPA,
     causal where the kernel is (the window is wider than the sequence, so
-    it masks nothing more)."""
+    it masks nothing more). q, k and v in ``dtype``; bf16 rows are keyed
+    with "_bf16" after the kind, as their launches are counted."""
     out = {}
-    for kind, (arch, B, S) in FLASH_SHAPES.items():
+    tag = "" if dtype == torch.float32 else "_bf16"
+    for kind, (arch, B, S) in shapes.items():
         cfg = configs.get_config(arch)
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         window = cfg.window or 0
@@ -1082,17 +1192,18 @@ def phase2_flash_full_width():
         if window and window < S:
             raise AssertionError(f"{arch}: the SDPA yardstick is causal, but "
                                  f"the window {window} < S = {S}")
-        args = flash_case(40, B, S, S, H, KV, hd)
+        args = [t.to(dtype) for t in flash_case(40, B, S, S, H, KV, hd)]
         count = kind.split("_")[0]
-        err = check_flash(f"full width flash {kind} ({arch}: B={B}, S={S}, "
-                          f"H={H}, KV={KV}, hd={hd}, window={window}, "
+        err = check_flash(f"full width flash {kind}{tag} ({arch}: B={B}, "
+                          f"S={S}, H={H}, KV={KV}, hd={hd}, window={window}, "
                           f"causal={causal})", args, causal=causal,
                           window=window, kind=count)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, enable_gqa=True)
         want = ref.flash_attention(*args, causal=causal, window=window)
-        lib_err = (lib().transpose(1, 2) - want).abs().max().item()
+        lib_err = (lib().transpose(1, 2).float() - want.float()
+                   ).abs().max().item()
         del want
         iters = 50 if count == "prefill" else 10
         ms = device_ms(lambda: fa.flash_attention(
@@ -1102,14 +1213,135 @@ def phase2_flash_full_width():
             *args, causal=causal, window=window), 5)
         lib_ms = device_ms(lib, iters)
         bms, by = flash_bound_ms(args, causal=causal, window=window)
-        log(f"  flash {kind}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
-            f"sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
+        log(f"  flash {kind}{tag}: kernel {ms:.4f} ms | plain {plain:.4f} "
+            f"ms | sdpa {lib_ms:.4f} ms (max abs diff {lib_err:.2e}) | bound "
             f"{bms:.4f} ms ({by})")
-        out[kind] = dict(err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by)
+        out[kind + tag] = dict(err=err, ms=ms, plain_ms=plain,
+                               library_ms=lib_ms, bound_ms=bms, bound_by=by)
         del args, qt, kt, vt
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------- phase 2: bf16 entries (K1-K4)
+# the (q, pool) dtype pairs of the paged kernels' bf16 entries: bf16
+# compute over bf16 pages (cache_dtype None), over fp32 pages (repro's
+# step default) and fp32 q over bf16 pages
+PAGED_BF16_PAIRS = ((BF16, BF16), (BF16, torch.float32),
+                    (torch.float32, BF16))
+# the full-width bf16 rows of the kernels line and the pairs they time
+PAGED_BF16_ROWS = ((BF16, BF16), (BF16, torch.float32))
+
+
+def phase2_bf16_cases():
+    """The bf16 entries against their plain versions on the card: K1 at
+    every SPLIT_EDGES case for each (q, pool) pair of PAGED_BF16_PAIRS
+    (rows no query sees NaN in the kernel's pools), K3 at the same cases
+    with bf16 q over int8 pools (NaN scales on pages no query sees), K4 at
+    latent widths 10/8, 64/48, 576/512 and 1024/512 for each pair (a freed
+    slot exact zeros), and K2 with q, k and v in bf16 on phase 2's forward
+    cases and chunk lengths. Returns the worst error by launch key."""
+    errs = {}
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for qd, pd in PAGED_BF16_PAIRS:
+        suffix = pa.launch_suffix(qd, pd)
+        for n, case in enumerate(SPLIT_EDGES):
+            args, seen = split_edge(30 + n, case)
+            args = [args[0].to(qd), args[1].to(pd), args[2].to(pd),
+                    *args[3:]]
+            mask = torch.from_numpy(seen).to(DEV)[:, :, None, None]
+            bad = [torch.where(mask, a, float("nan")) for a in args[1:3]]
+            kind = "decode" if case[0] == 1 else "prefill"
+            name = f"split edge {n} {kind}{suffix}"
+            got, err = kernel_held(name, pa.paged_attention(
+                args[0], *bad, *args[3:], window=case[8], kind=kind),
+                ref.paged_attention(*args, window=case[8]))
+            zero_where_freed(name, got, args[4])
+            note(kind + suffix, err)
+
+    for n, case in enumerate(SPLIT_EDGES):
+        f32_args, seen = split_edge(30 + n, case)
+        args, sc = q8_args(f32_args)
+        args[0] = args[0].to(BF16)
+        unseen = torch.from_numpy(~seen.any(axis=1)).to(DEV)
+        nan_sc = {k: torch.where(unseen, float("nan"), v)
+                  for k, v in sc.items()}
+        kind = "decode_q8" if case[0] == 1 else "prefill_q8"
+        name = f"q8 split edge {n} {kind}_bf16"
+        got, err = kernel_held(name, pa.paged_attention(
+            *args, window=case[8], kind=kind, **sc),
+            ref.paged_attention(*args, window=case[8], **sc))
+        if not torch.equal(pa.paged_attention(*args, window=case[8],
+                                              kind=kind, **nan_sc), got):
+            raise AssertionError(f"{name}: a scale of an unvisited page "
+                                 f"was read")
+        zero_where_freed(name, got, args[4])
+        note(kind + "_bf16", err)
+
+    for qd, pd in PAGED_BF16_PAIRS:
+        suffix = pa.launch_suffix(qd, pd)
+        for Lw, d_v, scale_dim in ((10, 8, 18), (64, 48, 96),
+                                   (576, 512, 192), (1024, 512, 192)):
+            for Sq in (1, 37):
+                ps, mps = 16, 4
+                fill = [ps + ps // 2 + Sq, ps // 2 + Sq, 0]
+                q, pool, bt = latent_case(50 + Sq, 3, Sq, 40, Lw, 12, ps,
+                                          mps, fill)
+                start = np.asarray([fill[0] - Sq, fill[1] - Sq, INACTIVE],
+                                   np.int32)
+                args = on_card(q, pool, bt, start)
+                args = [args[0].to(qd), args[1].to(pd), *args[2:]]
+                kind = "decode_latent" if Sq == 1 else "prefill_latent"
+                got, err = kernel_held(
+                    f"latent {Lw}/{d_v} Sq={Sq} {kind}{suffix}",
+                    pa.paged_attention_latent(*args, scale_dim=scale_dim,
+                                              d_v=d_v, kind=kind),
+                    ref.paged_attention_latent(*args, scale_dim=scale_dim,
+                                               d_v=d_v))
+                if not torch.all(got[2] == 0):
+                    raise AssertionError("latent bf16: freed slot not "
+                                         "exactly 0")
+                note(kind + suffix, err)
+
+    cases = [dict(Sq=256, Sk=256, H=8, KV=8, causal=True, window=0),
+             dict(Sq=256, Sk=256, H=40, KV=8, causal=False, window=0),
+             dict(Sq=256, Sk=256, H=16, KV=2, causal=True, window=64),
+             dict(Sq=128, Sk=512, H=8, KV=1, causal=False, window=0)]
+    for hd in (128, 16, 64, 256):
+        for i, c in enumerate(cases if hd == 128 else cases[:2]):
+            args = [t.to(BF16) for t in flash_case(
+                20 + i, 2, c["Sq"], c["Sk"], c["H"], c["KV"], hd)]
+            note("flash_forward_bf16", check_flash(
+                f"flash bf16 case{i} hd={hd}", args, c["causal"],
+                c["window"]))
+    for C in (1, 37, 64, 100):
+        for window in (0, 64):
+            args = [t.to(BF16) for t in flash_case(30 + C, 3, C, C, 40, 8,
+                                                    128)]
+            note("flash_prefill_bf16", check_flash(
+                f"flash bf16 chunk C={C} window={window}", args,
+                window=window, kind="prefill"))
+    return errs
+
+
+def phase2_bf16_full_width():
+    """The bf16 entries at the full-width shapes of the fp32 rows: K1 at
+    qwen2.5-32b's decode and prefill over bf16 pages and, with bf16 q,
+    over fp32 pages; K3 with bf16 q; K4 at qwen2.5-32b-mla's; K2 at
+    qwen2.5-32b's first chunk and forward. Timed as the fp32 rows are
+    (device time after the L2 flush); the bound counts bytes at bf16
+    width and the fp32 FMAs the kernels keep; the library call is SDPA on
+    the same bf16 tensors. Rows keyed as their launches are counted."""
+    out = {}
+    for qd, pd in PAGED_BF16_ROWS:
+        out.update(phase2_full_width(ARCH, qd, pd))
+    out.update(phase2_q8_full_width(BF16))
+    out.update(phase2_latent_full_width(BF16, BF16))
+    return out, phase2_flash_full_width(BF16, {
+        kind: FLASH_SHAPES[kind] for kind in ("prefill", "forward")})
 
 
 # --------------------------------------------- phase 2: scans (K5, K6)
@@ -1418,7 +1650,8 @@ def phase3b_flash_model(model, params):
     for impl in ("pallas", "einsum"):
         fa.reset_launches()
         t0 = time.perf_counter()
-        logits = steps.make_prefill(model, attn_impl=impl)(
+        logits = steps.make_prefill(model, attn_impl=impl,
+                                    compute_dtype=torch.float32)(
             params, {"tokens": toks})
         torch.cuda.synchronize()
         if impl == "pallas":
@@ -1437,7 +1670,8 @@ def phase3b_flash_model(model, params):
     for impl in ("pallas", "einsum"):
         fa.reset_launches()
         first = steps.make_prefill_chunk(model, s_max=S_MAX, first=True,
-                                         attn_impl=impl)
+                                         attn_impl=impl,
+                                         compute_dtype=torch.float32)
         logits, cache = first(params, {"tokens": toks})
         if fa.LAUNCHES["prefill"] != (LAYERS if impl == "pallas" else 0):
             raise AssertionError(f"dense first chunk ({impl}) launched K2 "
@@ -1520,6 +1754,7 @@ def serve(engine, prompts):
     unhook = keep_firsts(engine, firsts)
     reqs = [engine.submit(p, 32) for p in prompts]
     m = engine.run()
+    m["itl_s"]["p99"] = itl_p99(engine)
     unhook()
     no_failures(engine, "serving")
     served_in_full(reqs, engine.cfg.vocab_size)
@@ -2094,9 +2329,11 @@ def phase6_anchors():
             s_max=64, batch_slots=4, page_size=16, kv_backend="paged_int8"))
         if impl == "einsum":
             engine._decode = steps.make_decode_step(
-                engine.model, paged_attn_impl="einsum")
+                engine.model, compute_dtype=engine.compute_dtype,
+                paged_attn_impl="einsum")
             engine._chunk_paged = steps.make_prefill_chunk_paged(
-                engine.model, attn_impl="einsum")
+                engine.model, compute_dtype=engine.compute_dtype,
+                attn_impl="einsum")
         pa.reset_launches()
         reqs = [engine.submit(p, 16) for p in prompts]
         engine.run()
@@ -2195,12 +2432,16 @@ def equal_streams(streams):
 
 
 # ------------------------------------------------------------ phase 7
-def phase7_mla(card):
+def phase7_mla(card, bf16=False):
     """qwen2.5-32b-mla at full width cut to 4 layers: the model step on
     latent pages through K4 against the latent einsum, then the 16
     requests on the dense latent cache (einsum only, no kernel) and on
     latent pages (every paged attention through K4); streams compared.
-    Returns K4's launches and each cache's serving metrics."""
+    With ``bf16``, then the bf16 leg on the same weights: the model step
+    on bf16 latent pages, kernel against einsum in lockstep, and the 16
+    requests on bf16 latent pages through K4's bf16 entry (a tick with
+    every slot freed finite after). Returns K4's launches (the bf16 ones
+    as "decode_bf16" / "prefill_bf16") and each run's serving metrics."""
     t0 = time.perf_counter()
     dense = ServeEngine.build(MLA_ARCH, config=ServeConfig(
         reduced=False, cfg_overrides={"num_layers": LAYERS}, s_max=S_MAX,
@@ -2245,7 +2486,20 @@ def phase7_mla(card):
         f"lookups, {m['prefix']['cow_copies']} COW copies")
     compare_streams("dense latent", (d_reqs, d_firsts), "latent pages",
                     (p_reqs, p_firsts))
-    del paged, model, params
+    del paged
+    torch.cuda.empty_cache()
+    if bf16:
+        phase18_model_step(model, params, "bf16 latent pages",
+                           PagedLatentBackend(PS, SLOTS * mps))
+        got, b_reqs, b_firsts, m, _ = serve_bf16(
+            model, params, prompts, card, "bf16 latent pages",
+            ("decode_latent_bf16", "prefill_latent_bf16"), page_size=PS,
+            kv_backend="paged_latent")
+        launches.update({f"{k}_bf16": v for k, v in got.items()})
+        served["bf16_latent_pages"] = m
+        compare_streams("bf16 latent pages", (b_reqs, b_firsts),
+                        "latent pages", (p_reqs, p_firsts), strict=False)
+    del model, params
     torch.cuda.empty_cache()
     return launches, served
 
@@ -2767,8 +3021,8 @@ def recurrent_forward(model, params):
     fa.reset_launches()
     got = logits_of("pallas", "pallas")
     if ls.LAUNCHES[kernel] != cfg.num_layers or sum(
-            ls.LAUNCHES.values()) != cfg.num_layers or fa.LAUNCHES != {
-                "prefill": 0, "forward": flash}:
+            ls.LAUNCHES.values()) != cfg.num_layers or fa.LAUNCHES != \
+            flash_counts(forward=flash):
         raise AssertionError(f"forward: {ls.LAUNCHES}, {fa.LAUNCHES}; want "
                              f"{cfg.num_layers} {kernel} and {flash} K2 "
                              f"forward launches")
@@ -2947,7 +3201,7 @@ def serve_recurrent(engine, prompts, card, label):
     want = layers * (m["prefill_chunks"] + m["decode_steps"])
     flash = layers * n_first[0] if cfg.name == HYMBA else 0
     if (ls.LAUNCHES[kernel] != want or sum(ls.LAUNCHES.values()) != want
-            or fa.LAUNCHES != {"prefill": flash, "forward": 0}
+            or fa.LAUNCHES != flash_counts(prefill=flash)
             or sum(pa.LAUNCHES.values())):
         raise AssertionError(f"{label}: {ls.LAUNCHES}, {fa.LAUNCHES}, "
                              f"{pa.LAUNCHES}; want {want} {kernel} and "
@@ -3110,6 +3364,12 @@ def tick_floor(model, params, batch=SLOTS) -> dict:
            f"{FP32_FLOPS / 1e12:.0f} TFLOP/s)" if flops else "")
         + f": floor {ms:.2f} ms ({by})")
     return dict(ms=ms, by=by, bytes=nbytes, flops=flops)
+
+
+def flash_counts(**want) -> dict:
+    """``fa.LAUNCHES`` as it should read: the named counts, every other
+    key (the bf16 entries' among them) 0."""
+    return {k: want.get(k, 0) for k in fa.LAUNCHES}
 
 
 def launches_held(label, want_paged, want_flash):
@@ -3386,11 +3646,12 @@ def whisper_step(model, params):
     for impl in ("pallas", "einsum"):
         fa.reset_launches()
         first = steps.make_prefill_chunk(model, s_max=S_MAX, first=True,
-                                         attn_impl=impl)
+                                         attn_impl=impl,
+                                         compute_dtype=torch.float32)
         firsts[impl] = first(params, {"tokens": toks, "frames": frames})
         torch.cuda.synchronize()
         want = layers if impl == "pallas" else 0
-        if fa.LAUNCHES != {"prefill": want, "forward": 0}:
+        if fa.LAUNCHES != flash_counts(prefill=want):
             raise AssertionError(f"whisper first chunk ({impl}) launched K2 "
                                  f"{fa.LAUNCHES}")
     del frames
@@ -3899,6 +4160,264 @@ def phase17b_cli(card):
                 f"({time.perf_counter() - t0:.1f} s, {card})")
 
 
+# ------------------------------------------------------------ phase 18
+def bf16_logits_held(label, got, want, cfg, tol=None):
+    """Logits of two routes on one trajectory (``want`` the reference
+    route's): finite, of the padded vocab's width, within ``tol`` of the
+    reference's largest magnitude at every step, and the same greedy token
+    wherever the reference's top-2 gap exceeds that. Logs and returns
+    (worst |diff| / largest magnitude, tokens compared, rows)."""
+    tol = BF16_MODEL_TOL if tol is None else tol
+    worst, compared, rows = 0.0, 0, 0
+    for g, w in zip(got, want):
+        g = g[..., :cfg.vocab_size].float().reshape(-1, cfg.vocab_size)
+        w = w[..., :cfg.vocab_size].float().reshape(-1, cfg.vocab_size)
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        top = w.abs().max().item()
+        diff = (g - w).abs().max().item()
+        worst = max(worst, diff / top)
+        top2 = w.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > tol * top
+        if not torch.equal(g.argmax(-1)[clear], w.argmax(-1)[clear]):
+            raise AssertionError(f"{label}: greedy tokens differ where the "
+                                 f"top-2 gap exceeds {tol} of the largest "
+                                 f"logit")
+        compared += int(clear.sum())
+        rows += len(w)
+    log(f"  {label}: logits within {worst:.3e} of the largest magnitude "
+        f"(tol {tol}); greedy tokens equal on the {compared} of {rows} "
+        f"rows whose top-2 gap exceeds it")
+    if worst > tol:
+        raise AssertionError(f"{label}: logits {worst:.3e} apart")
+    return worst, compared, rows
+
+
+def phase18_model_step(model, params, label, backend=None, cache_dtype=None):
+    """bf16 compute at full width: one 64-token chunk for 8 slots on fresh
+    pages (bf16 unless ``cache_dtype``, or the cache ``backend`` builds),
+    then 8 greedy decode steps, through the kernel and through the masked
+    einsum in lockstep: both take the einsum run's greedy token each step,
+    so they stay on one trajectory (``bf16_logits_held``). Returns the
+    paged kernel's launches (the chunk and the 8 steps x layers)."""
+    cfg = model.cfg
+    layers = cfg.num_layers
+    dtype = cache_dtype or BF16
+    mps = S_MAX // PS
+    bt = torch.arange(SLOTS * mps, dtype=torch.int32,
+                      device=DEV).reshape(SLOTS, mps)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SLOTS, 64))).to(DEV)
+    caches = {}
+    for impl in ("kernel", "einsum"):
+        caches[impl] = (init_paged_cache(model, SLOTS, S_MAX, page_size=PS,
+                                         num_pages=SLOTS * mps, dtype=dtype,
+                                         device=DEV)
+                        if backend is None else
+                        backend.init_cache(model, SLOTS, S_MAX, dtype, DEV))
+        caches[impl]["block_tables"].copy_(bt)
+    pa.reset_launches()
+    seqs = {"kernel": [], "einsum": []}
+    t0 = time.perf_counter()
+    for impl in ("kernel", "einsum"):
+        logits, caches[impl] = model.prefill_chunk_paged(
+            params, toks, caches[impl], bt_rows=bt, start=0, write_floor=0,
+            compute_dtype=BF16, attn_impl=impl)
+        caches[impl]["pos"].fill_(64)
+        seqs[impl].append(logits)
+    for _ in range(8):
+        tok = seqs["einsum"][-1][:, :, :cfg.vocab_size].argmax(-1)
+        for impl in ("kernel", "einsum"):
+            logits, caches[impl] = model.decode_step(
+                params, tok, caches[impl], compute_dtype=BF16,
+                paged_attn_impl=impl)
+            seqs[impl].append(logits)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in pa.LAUNCHES.items() if v}
+    pool = caches["kernel"]["k"]
+    log(f"  {label}: pools {pool.dtype}, a chunk + 8 decode steps on each "
+        f"route in {time.perf_counter() - t0:.3f} s (host clock), paged "
+        f"kernel launches {launches}")
+    kinds = sorted(launches)
+    if (len(kinds) != 2 or launches[kinds[0]] != 8 * layers
+            or launches[kinds[1]] != layers
+            or not kinds[0].startswith("decode")):
+        raise AssertionError(f"{label}: launches {launches}, not {layers} "
+                             f"chunks and {8 * layers} ticks of one entry")
+    bf16_logits_held(f"{label}, kernel vs einsum", seqs["kernel"],
+                     seqs["einsum"], cfg)
+    del caches, seqs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase18_forward(model, params):
+    """The full-sequence prefill step (``FORWARD_BATCH``) in bf16 through
+    K2 ('pallas') and through the einsum; K2's bf16 launches counted."""
+    cfg = model.cfg
+    B, S = FORWARD_BATCH
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S))).to(DEV)
+    out = {}
+    for impl in ("pallas", "einsum"):
+        fa.reset_launches()
+        pa.reset_launches()
+        out[impl] = steps.make_prefill(model, attn_impl=impl,
+                                       compute_dtype=BF16)(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            launches = fa.LAUNCHES["forward_bf16"]
+            if launches != LAYERS or sum(fa.LAUNCHES.values()) != LAYERS:
+                raise AssertionError(f"bf16 forward launched {fa.LAUNCHES}, "
+                                     f"not forward_bf16 once per layer")
+    bf16_logits_held(f"bf16 forward (B={B}, S={S}), pallas vs einsum",
+                     [out["pallas"]], [out["einsum"]], cfg)
+    return launches
+
+
+def itl_p99(engine) -> float:
+    """The 99th percentile of the engine's inter-token latencies (s)."""
+    return percentile([g for r in engine.metrics.requests.values()
+                       if r.t_done is not None and not r.aborted
+                       for g in r.itl_s], 99)
+
+
+def freed_tick_finite(engine, label):
+    """``tests/test_serve.py:512-530`` on the card: with every slot freed
+    (positions parked at INACTIVE_POS, block tables all -1) a bf16 decode
+    tick gives finite logits."""
+    if any(r is not None for r in engine.slot_req):
+        raise AssertionError(f"{label}: a slot is still held")
+    logits, engine.cache = engine._decode(engine.params, engine.cache, {
+        "token": torch.from_numpy(engine.cur_token).to(DEV),
+        **engine._prefill_extras(engine.batch_slots)})
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: a tick with every slot freed gave "
+                             f"non-finite logits")
+    log(f"  {label}: a bf16 tick with every slot freed: finite logits")
+
+
+def serve_bf16(model, params, prompts, card, label, kinds, **fields):
+    """The 16 requests at bf16 compute (the cache in bf16), every paged
+    attention through the bf16 entry ``kinds`` (K1, K3, K4), or on the
+    dense cache (``kinds`` None: first chunks through K2's bf16 entry,
+    ticks through the einsum). Then the freed-slot tick and an idle tick's
+    host wall and device idle share. Returns (launches, requests, first
+    logits, metrics, idle tick)."""
+    engine = ServeEngine(model, params, **ServeConfig(
+        reduced=False, s_max=S_MAX, batch_slots=SLOTS, compute_dtype=BF16,
+        **fields).engine_kwargs())
+    pool = engine.cache["k"].dtype
+    pool_want = (torch.int8 if fields.get("kv_backend") == "paged_int8"
+                 else BF16)
+    if pool != pool_want or engine.cache_dtype != BF16:
+        raise AssertionError(f"{label}: cache {pool}, not {pool_want}")
+    n_first = [0]
+    first = engine._chunk_first
+
+    def counted(*args):
+        n_first[0] += 1
+        return first(*args)
+
+    engine._chunk_first = counted
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    engine._chunk_first = first
+    if kinds is not None:
+        launches = check_paged_launches(kinds, m, f"{label} ({kinds[0]})")
+        engine.assert_page_invariants()
+    else:
+        launches = dict(fa.LAUNCHES)
+        want = n_first[0] * LAYERS
+        if (sum(pa.LAUNCHES.values()) or launches["prefill_bf16"] != want
+                or sum(launches.values()) != want or not n_first[0]):
+            raise AssertionError(f"{label}: launches {pa.LAUNCHES}, "
+                                 f"{launches}; {n_first[0]} first chunks")
+        log(f"  {label}: flash-attention launches prefill_bf16 "
+            f"{launches['prefill_bf16']} ({n_first[0]} first chunks x "
+            f"{LAYERS} layers) of {m['prefill_chunks']} chunks")
+    log_serving(m, card)
+    log(f"  {label}: ITL p50 {m['itl_s']['p50'] * 1e3:.2f} ms, p99 "
+        f"{m['itl_s']['p99'] * 1e3:.2f} ms ({card})")
+    freed_tick_finite(engine, label)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=DEV)
+    tick = host_and_device(
+        lambda: engine._decode(engine.params, engine.cache, {"token": tok}),
+        f"{label}: one idle decode tick ({SLOTS} slots)", card)
+    del engine
+    torch.cuda.empty_cache()
+    return launches, reqs, firsts, m, tick
+
+
+def phase18_bf16(model, params, prompts, card, fp32):
+    """bf16 serving at full width on phases 3-5's qwen2.5-32b (4 layers):
+    (a) the model step, kernel against einsum in lockstep, on bf16 pages
+    (K1's bf16 entry), on fp32 pages with bf16 compute (bf16 q over fp32
+    pools) and on int8 pages with bf16 compute (K3); (d) the bf16 forward
+    through K2; (b) the 16 requests on bf16 pages (K1), int8 pages (K3)
+    and the dense cache (K2's first chunks), each run's launches layers x
+    ticks and chunks of one bf16 entry, ITL p50 / p99 and an idle tick's
+    idle share beside phase 4's fp32 figures (an fp32 paged engine's idle
+    tick measured here), streams against phase 4's reported; (c) after
+    each run, a tick with every slot freed gives finite logits. Returns
+    the launches by kernels-line key."""
+    mps = S_MAX // PS
+    launches = {}
+    log("  (18a) model step, kernel vs einsum, bf16 compute")
+    launches.update(phase18_model_step(model, params, "bf16 pages"))
+    launches.update(phase18_model_step(model, params,
+                                       "fp32 pages, bf16 compute",
+                                       cache_dtype=torch.float32))
+    launches.update(phase18_model_step(
+        model, params, "int8 pages, bf16 compute",
+        PagedInt8Backend(PS, SLOTS * mps)))
+    log("  (18d) the bf16 forward through K2")
+    launches["forward_bf16"] = phase18_forward(model, params)
+    log("  (18b, 18c) serving the 16 requests in bf16")
+    ref32 = ServeEngine(model, params, **ServeConfig(
+        reduced=False, page_size=PS, s_max=S_MAX,
+        batch_slots=SLOTS).engine_kwargs())
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=DEV)
+    tick32 = host_and_device(
+        lambda: ref32._decode(ref32.params, ref32.cache, {"token": tok}),
+        f"fp32 pages: one idle decode tick ({SLOTS} slots)", card)
+    del ref32
+    torch.cuda.empty_cache()
+    p_reqs, p_firsts, p_m = fp32
+    runs = {}
+    for label, kinds, fields in (
+            ("bf16 pages", ("decode_bf16", "prefill_bf16"),
+             dict(page_size=PS)),
+            ("int8 pages, bf16", ("decode_q8_bf16", "prefill_q8_bf16"),
+             dict(page_size=PS, kv_backend="paged_int8")),
+            ("dense, bf16", None, dict())):
+        got, reqs, firsts, m, tick = serve_bf16(model, params, prompts,
+                                                card, label, kinds, **fields)
+        runs[label] = (reqs, firsts, m, tick)
+        if kinds is None:
+            launches["prefill_bf16_flash"] = got["prefill_bf16"]
+        else:
+            launches.update({kinds[0]: got["decode"],
+                             kinds[1]: got["prefill"]})
+    log(f"  fp32 pages (phase 4): ITL p50 {p_m['itl_s']['p50'] * 1e3:.2f} "
+        f"ms, p99 {p_m['itl_s']['p99'] * 1e3:.2f} ms, idle tick "
+        f"{tick32['wall_ms']:.2f} ms host wall, {tick32['idle']:.1%} idle")
+    for label, (reqs, firsts, m, tick) in runs.items():
+        log(f"  {label}: ITL p50 {m['itl_s']['p50'] * 1e3:.2f} ms, p99 "
+            f"{m['itl_s']['p99'] * 1e3:.2f} ms, idle tick "
+            f"{tick['wall_ms']:.2f} ms host wall, {tick['idle']:.1%} idle "
+            f"({card})")
+    bf = runs["bf16 pages"]
+    compare_streams("bf16 pages", bf[:2], "fp32 pages", (p_reqs, p_firsts),
+                    strict=False)
+    compare_streams("dense, bf16", runs["dense, bf16"][:2], "bf16 pages",
+                    bf[:2], strict=False)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3933,6 +4452,11 @@ def main():
     train_rows = phase2_backward_gemms(card)
     scan_errs = phase2_scan_cases()
     scan_full = phase2_scan_full_width()
+    log("  the bf16 entries (K1, K3, K4, K2) against their plain versions")
+    t0 = time.perf_counter()
+    bf16_errs = phase2_bf16_cases()
+    bf16_full, bf16_flash = phase2_bf16_full_width()
+    log(f"  the bf16 legs took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     dense = ServeEngine.build(ARCH, config=ServeConfig(
@@ -3963,12 +4487,19 @@ def main():
     log("phase 11: sampling, scheduling policy, router, cancellation and "
         "the CLIs on fp32 pages (full width, 4 layers)")
     phase11(model, params, prompts, card, (p_reqs, p_firsts, p_m))
+    log("phase 18: bf16 serving at full width, 4 layers (K1, K3 and K2's "
+        "bf16 entries)")
+    t0 = time.perf_counter()
+    bf16_launches = phase18_bf16(model, params, prompts, card,
+                                 (p_reqs, p_firsts, p_m))
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
     del dense, model, params
     torch.cuda.empty_cache()
     log("phase 6: prefill anchors at reduced width")
     phase6_anchors()
-    log("phase 7: qwen2.5-32b-mla at full width, 4 layers")
-    latent_launches, _ = phase7_mla(card)
+    log("phase 7: qwen2.5-32b-mla at full width, 4 layers (fp32, then "
+        "bf16)")
+    latent_launches, _ = phase7_mla(card, bf16=True)
     log("phase 8: ResNet20 / CIFAR at the paper's widths, lax vs im2col "
         "vs K7")
     gemm_launches, _ = phase8_resnet(card)
@@ -4039,6 +4570,45 @@ def main():
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": f["library_ms"]})
+    # the bf16 entries, launched by phase 18 (K4's by phase 7's bf16 leg)
+    for suffix, source, line, counts in (
+            ("", "paged_attention.cu", 52, bf16_launches),
+            ("_q8", "paged_attention.cu", 112, bf16_launches),
+            ("_latent", "paged_attention_latent.cu", 168,
+             {f"{k}_latent_bf16": latent_launches[f"{k}_bf16"]
+              for k in ("decode", "prefill")})):
+        pairs = PAGED_BF16_ROWS if suffix == "" else ((BF16, BF16),)
+        for qd, pd in pairs:
+            for kind in ("decode", "prefill"):
+                key = kind + suffix + pa.launch_suffix(qd, pd)
+                f = bf16_full[key]
+                what = ("bf16" if pd == BF16 or suffix == "_q8"
+                        else "bf16 q, fp32 pages")
+                kernels.append({
+                    "name": f"paged_attention{suffix}[{kind} {what}]",
+                    "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{source}",
+                    "replaces": f"src/repro/kernels/paged_attention.py:"
+                                f"{line}",
+                    "launches": counts[key],
+                    "max_abs_err": max(bf16_errs[key], f["err"]),
+                    "ms": f["ms"], "plain_ms": f["plain_ms"],
+                    "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                    "library_ms": f["library_ms"]})
+    for kind, launched in (("prefill", bf16_launches["prefill_bf16_flash"]),
+                           ("forward", bf16_launches["forward_bf16"])):
+        f = bf16_flash[kind + "_bf16"]
+        kernels.append({
+            "name": "flash_attention[%s bf16]" % (
+                "first chunk" if kind == "prefill" else kind),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:26",
+            "launches": launched,
+            "max_abs_err": max(bf16_errs[f"flash_{kind}_bf16"], f["err"]),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"]})
     for kind in FLASH_SHAPES:
         f = flash_full[kind]
         kernels.append({

@@ -1,4 +1,4 @@
-// cp.async helpers shared by the port's kernels: 16- and 4-byte copies
+// cp.async helpers shared by the port's kernels: 16-, 8- and 4-byte copies
 // from device memory into shared memory that run while the block computes,
 // committed in groups and waited for by count.
 #pragma once
@@ -11,7 +11,7 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of 16 or 4 bytes; `in` false fills the destination with zeros
+// cp.async of 16, 8 or 4 bytes; `in` false fills the destination with zeros
 // (nothing is read, but `src` must still be a valid address).
 // With PREFETCH the 16-byte copy asks L2 for the whole 128-byte line, so
 // a row read 64 bytes per ring stage comes from device memory in 128-byte
@@ -30,6 +30,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(in ? 8 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -1,4 +1,5 @@
-// Blockwise GQA flash attention in fp32, written for Hopper (sm_90a).
+// Blockwise GQA flash attention over fp32 or bf16 operands, computed in
+// fp32, written for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::_kernel, the Pallas TPU kernel
 // behind ops.flash_attention (the full-sequence forward) and
@@ -52,6 +53,15 @@
 // the causal frontier of its last row, or wholly behind the window of its
 // first row), so the loop walks that range only.
 //
+// bf16 (q, k, v and the output all bf16, as a bf16 serving path gives
+// them): K and V are staged as bf16, half the bytes and half the shared
+// memory, by 8-byte copies into rows of HDP + 4 elements (the 16 lanes
+// reading 16 key rows hit distinct banks), and each element is upcast as
+// the products read it; q is upcast and scaled in f32 as it is staged;
+// the output is rounded once, at the store. That is the TPU kernel's
+// `.astype(jnp.float32)` of each operand and `.astype(o_ref.dtype)` of its
+// output.
+//
 // Numerics as the TPU kernel: q is scaled by 1/sqrt(hd) as it is staged,
 // then dotted with each key. Masked probabilities are exactly 0, so a tile
 // whose keys are all masked for a row adds nothing; NEG_INF is -1e30 and
@@ -60,12 +70,15 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "warp.cuh"
 
 namespace {
 
+using repro::bf16;
 using repro::cp_async16;
+using repro::cp_async8;
 using repro::cp_commit;
 using repro::cp_wait;
 using repro::NEG_INF;
@@ -79,8 +92,9 @@ constexpr int PC = 32;  // keys of P staged at a time
 
 // Lanes: 2 along rows (lr), 16 along keys and value columns (lk).
 // WIDE: 16 rows a warp and 128-key tiles (head_dim 128 on a grid that
-// fills the card); else 8 rows and 64 keys.
-template <int HDP, bool WIDE>
+// fills the card); else 8 rows and 64 keys. T: the element of q, K, V and
+// the output (float or bf16); Q and P are f32 in shared memory.
+template <int HDP, bool WIDE, typename T>
 struct Tiles {
   static_assert(!WIDE || HDP == 128, "wide tiles are for head_dim 128");
   static constexpr int RW = WIDE ? 16 : 8;        // query rows per warp
@@ -92,17 +106,25 @@ struct Tiles {
   static constexpr int QP = HDP + 4;              // row pitch of Q, K, V
   static constexpr int PP = BR + 4;               // row pitch of P
   // Q, K, V and PC keys of P at a time
-  static constexpr size_t BYTES =
-      (BR * QP + 2 * BC * QP + PC * PP) * sizeof(float);
+  static constexpr size_t BYTES = (BR * QP + PC * PP) * sizeof(float) +
+                                  2 * BC * QP * sizeof(T);
   static_assert(BYTES <= SMEM_MAX, "flash attention tiles exceed smem");
 };
 
+// 4 elements of a staged K or V row as f32 (16- or 8-byte aligned)
+__device__ __forceinline__ float4 tile4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 tile4(const bf16* p) {
+  return repro::bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
+}
+
 // s[i][j] += Q[rows lr + 2 i] . K[keys lk + 16 j] over d < hd, for the
-// first NJA of the thread's NJ keys: per 4 d, MI + NJA float4 reads of
-// shared memory feed 4 MI NJA FMAs.
-template <int MI, int NJ, int NJA, int QP>
+// first NJA of the thread's NJ keys: per 4 d, MI + NJA 16- (8-) byte reads
+// of shared memory feed 4 MI NJA FMAs.
+template <int MI, int NJ, int NJA, int QP, typename T>
 __device__ __forceinline__ void scores(float (&s)[MI][NJ], const float* qr,
-                                       const float* kr, int hd) {
+                                       const T* kr, int hd) {
 #pragma unroll 2
   for (int d = 0; d < hd; d += 4) {
     float4 a[MI];
@@ -111,7 +133,7 @@ __device__ __forceinline__ void scores(float (&s)[MI][NJ], const float* qr,
       a[i] = *reinterpret_cast<const float4*>(qr + 2 * i * QP + d);
 #pragma unroll
     for (int j = 0; j < NJA; ++j) {
-      const float4 k = *reinterpret_cast<const float4*>(kr + 16 * j * QP + d);
+      const float4 k = tile4(kr + 16 * j * QP + d);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         s[i][j] = fmaf(a[i].x, k.x, s[i][j]);
@@ -165,22 +187,22 @@ __device__ __forceinline__ void softmax(float (&s)[MI][NJ], float (&m)[MI],
   }
 }
 
-template <int HDP, bool WIDE>
+template <int HDP, bool WIDE, typename T>
 __global__ void __launch_bounds__(THREADS, WIDE || HDP > 128 ? 1 : 2)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       float* __restrict__ out,
+flash_attention_kernel(const T* __restrict__ q,
+                       const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       T* __restrict__ out,
                        int Sq, int Sk, int H, int KV, int hd,
                        int causal, int window, float scale) {
-  using T = Tiles<HDP, WIDE>;
-  constexpr int RW = T::RW, BR = T::BR, MI = T::MI, BC = T::BC, NJ = T::NJ,
-                NC = T::NC, QP = T::QP, PP = T::PP;
+  using Tl = Tiles<HDP, WIDE, T>;
+  constexpr int RW = Tl::RW, BR = Tl::BR, MI = Tl::MI, BC = Tl::BC,
+                NJ = Tl::NJ, NC = Tl::NC, QP = Tl::QP, PP = Tl::PP;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [BR][QP]
-  float* ks = qs + BR * QP;                     // [BC][QP]
-  float* vs = ks + BC * QP;                     // [BC][QP]
-  float* ps = vs + BC * QP;                     // [PC][PP]
+  T* ks = reinterpret_cast<T*>(qs + BR * QP);   // [BC][QP]
+  T* vs = ks + BC * QP;                         // [BC][QP]
+  float* ps = reinterpret_cast<float*>(vs + BC * QP);  // [PC][PP]
 
   const int b = blockIdx.z;
   const int kh = blockIdx.y;
@@ -204,15 +226,19 @@ flash_attention_kernel(const float* __restrict__ q,
     t_lo = Sk - 1 < x ? n_tiles : (x > 0 ? x / BC : 0);
   }
 
-  // rows [t * BC, t * BC + BC) of K (or V) into dst, zeros past Sk and hd
+  // rows [t * BC, t * BC + BC) of K (or V) into dst, zeros past Sk and hd:
+  // 4 elements a copy (16 bytes of f32, 8 of bf16)
   constexpr int hd4 = HDP / 4;
-  auto issue = [&](const float* src, float* dst, int t) {
+  auto issue = [&](const T* src, T* dst, int t) {
     const int k0 = t * BC;
     for (int e = tid; e < BC * hd4; e += THREADS) {
       const int r = e / hd4, c = (e - r * hd4) * 4;
       const bool in = k0 + r < Sk && c < hd;
       const size_t at = (((size_t)b * Sk + k0 + r) * KV + kh) * hd + c;
-      cp_async16(dst + r * QP + c, in ? src + at : src, in);
+      if constexpr (sizeof(T) == 4)
+        cp_async16(dst + r * QP + c, in ? src + at : src, in);
+      else
+        cp_async8(dst + r * QP + c, in ? src + at : src, in);
     }
     cp_commit();
   };
@@ -225,8 +251,7 @@ flash_attention_kernel(const float* __restrict__ q,
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < n_q && c < hd) {
       const int i = row / G, h = kh * G + row % G;
-      val = *reinterpret_cast<const float4*>(
-          q + ((size_t)(b * Sq + i) * H + h) * hd + c);
+      val = repro::load4(q + ((size_t)(b * Sq + i) * H + h) * hd + c, true);
       val.x *= scale; val.y *= scale; val.z *= scale; val.w *= scale;
     }
     *reinterpret_cast<float4*>(qs + r * QP + c) = val;
@@ -318,8 +343,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           if (!on[cc]) continue;
-          const float4 w = *reinterpret_cast<const float4*>(
-              vs + (c0 + c) * QP + lk * 4 + 64 * cc);
+          const float4 w = tile4(vs + (c0 + c) * QP + lk * 4 + 64 * cc);
 #pragma unroll
           for (int i = 0; i < MI; ++i) {
             acc[i][cc * 4 + 0] = fmaf(pr[i], w.x, acc[i][cc * 4 + 0]);
@@ -339,43 +363,40 @@ flash_attention_kernel(const float* __restrict__ q,
     if (qpos[i] >= Sq) continue;
     const int row = row0 + wrow + lr + 2 * i;
     const int h = kh * G + row % G;
-    float* op = out + ((size_t)(b * Sq + qpos[i]) * H + h) * hd;
+    T* op = out + ((size_t)(b * Sq + qpos[i]) * H + h) * hd;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       if (!on[cc]) continue;
-      *reinterpret_cast<float4*>(op + lk * 4 + 64 * cc) = make_float4(
-          acc[i][cc * 4 + 0] / denom, acc[i][cc * 4 + 1] / denom,
-          acc[i][cc * 4 + 2] / denom, acc[i][cc * 4 + 3] / denom);
+      repro::store4(op + lk * 4 + 64 * cc,
+                    make_float4(acc[i][cc * 4 + 0] / denom,
+                                acc[i][cc * 4 + 1] / denom,
+                                acc[i][cc * 4 + 2] / denom,
+                                acc[i][cc * 4 + 3] / denom),
+                    4, true);
     }
   }
 }
 
-template <int HDP, bool WIDE = false>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   float* out, int B, int Sq, int Sk, int H, int KV, int hd,
-                   int causal, int window, float scale, cudaStream_t s) {
-  using T = Tiles<HDP, WIDE>;
+template <typename T, int HDP, bool WIDE = false>
+cudaError_t launch(const T* q, const T* k, const T* v, T* out, int B,
+                   int Sq, int Sk, int H, int KV, int hd, int causal,
+                   int window, float scale, cudaStream_t s) {
+  using Tl = Tiles<HDP, WIDE, T>;
   static const cudaError_t ready = cudaFuncSetAttribute(
-      flash_attention_kernel<HDP, WIDE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
+      flash_attention_kernel<HDP, WIDE, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::BYTES);
   if (ready != cudaSuccess) return ready;
-  const dim3 grid((H / KV * Sq + T::BR - 1) / T::BR, KV, B);
-  flash_attention_kernel<HDP, WIDE><<<grid, THREADS, T::BYTES, s>>>(
+  const dim3 grid((H / KV * Sq + Tl::BR - 1) / Tl::BR, KV, B);
+  flash_attention_kernel<HDP, WIDE, T><<<grid, THREADS, Tl::BYTES, s>>>(
       q, k, v, out, Sq, Sk, H, KV, hd, causal, window, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q (B, Sq, H, hd), k / v (B, Sk, KV, hd), out (B, Sq, H, hd): fp32,
-// contiguous, 16-byte aligned. causal is 0 or 1; window 0 means none.
-// sms is the card's SM count, which decides the tiles at head_dim 128.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int repro_flash_attention_f32(
-    const float* q, const float* k, const float* v, float* out, int B,
-    int Sq, int Sk, int H, int KV, int hd, int causal, int window,
-    int sms, float scale, void* stream) {
+template <typename T>
+int run(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+        int H, int KV, int hd, int causal, int window, int sms, float scale,
+        void* stream) {
   if (B < 1 || B > 65535 || Sq < 1 || Sk < 1 || KV < 1 || KV > 65535 ||
       H % KV != 0 || hd < 4 || hd > 256 || hd % 4 != 0 || window < 0 ||
       sms < 1 || (long long)(H / KV) * Sq > 0x7fffffffLL - 128)
@@ -383,17 +404,41 @@ extern "C" int repro_flash_attention_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = causal != 0;
   if (hd <= 64)
-    return (int)launch<64>(q, k, v, out, B, Sq, Sk, H, KV, hd, c, window,
-                           scale, s);
+    return (int)launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, hd, c, window,
+                              scale, s);
   if (hd <= 128) {
     // wide tiles where their grid gives every SM two blocks or more
     const long long wide = (H / KV * (long long)Sq + 127) / 128 * KV * B;
     if (wide >= 2LL * sms)
-      return (int)launch<128, true>(q, k, v, out, B, Sq, Sk, H, KV, hd, c,
-                                    window, scale, s);
-    return (int)launch<128>(q, k, v, out, B, Sq, Sk, H, KV, hd, c, window,
-                            scale, s);
+      return (int)launch<T, 128, true>(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                       c, window, scale, s);
+    return (int)launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, hd, c,
+                               window, scale, s);
   }
-  return (int)launch<256>(q, k, v, out, B, Sq, Sk, H, KV, hd, c, window,
-                          scale, s);
+  return (int)launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, hd, c, window,
+                             scale, s);
+}
+
+}  // namespace
+
+// q (B, Sq, H, hd), k / v (B, Sk, KV, hd), out (B, Sq, H, hd): all fp32
+// (_f32) or all bf16 (_bf16), contiguous, 16-byte aligned. causal is 0 or
+// 1; window 0 means none. sms is the card's SM count, which decides the
+// tiles at head_dim 128. Launches on `stream` and returns
+// cudaGetLastError() (0 = launched) or cudaErrorInvalidValue for shapes
+// the kernel cannot take.
+extern "C" int repro_flash_attention_f32(
+    const float* q, const float* k, const float* v, float* out, int B,
+    int Sq, int Sk, int H, int KV, int hd, int causal, int window,
+    int sms, float scale, void* stream) {
+  return run<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, sms,
+                    scale, stream);
+}
+
+extern "C" int repro_flash_attention_bf16(
+    const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Sq,
+    int Sk, int H, int KV, int hd, int causal, int window, int sms,
+    float scale, void* stream) {
+  return run<bf16>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, sms,
+                   scale, stream);
 }

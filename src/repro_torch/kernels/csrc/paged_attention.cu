@@ -1,9 +1,9 @@
-// Paged attention over an fp32 or an int8 KV page pool, written for Hopper
-// (sm_90a).
+// Paged attention over an fp32, a bf16 or an int8 KV page pool, written for
+// Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels of repro/kernels/paged_attention.py:
-// _kernel (K1, fp32 pools) and _kernel_q8 (K3, int8 pools with per-page
-// f32 scales), behind ops.paged_decode(_q8) (Sq = 1) and
+// _kernel (K1, fp32 or bf16 pools) and _kernel_q8 (K3, int8 pools with
+// per-page f32 scales), behind ops.paged_decode(_q8) (Sq = 1) and
 // ops.paged_prefill(_q8) (Sq = C). It computes, for every slot b and query
 // row i at position start[b] + i, causal (optionally sliding-window) GQA
 // attention over the slot's logical key rows, which live in the pages named
@@ -45,7 +45,15 @@
 //     an f32 K/V tile that the same product code reads. That is the
 //     reference's one rounding, so the values equal dequantizing at every
 //     use bit for bit. The pass costs a barrier a tile; 32-key tiles leave
-//     room for a second block on the SM to run beside it.
+//     room for a second block on the SM to run beside it. Bf16 pools take
+//     the same path, half the bytes of fp32 staged and upcast exactly
+//     (the TPU kernel's `.astype(jnp.float32)`), with no scale.
+//   - q and the output are fp32 or bf16 (`qbf`, a flag and not a template
+//     parameter: Q is read once and the output written once per block, so
+//     the branch costs nothing and the source builds half the kernels). A
+//     bf16 q is upcast as it is staged; the output is rounded once, at the
+//     store (the TPU kernel's `.astype(o_ref.dtype)`); the split partials
+//     stay f32 and the merge rounds.
 //   - A call whose (slot, kv head, row tile) blocks do not fill the card (a
 //     decode tick) divides each slot's live key tiles among `splits` blocks
 //     on the device. Each split leaves (m, l, unnormalised O) per row in
@@ -68,7 +76,8 @@
 // (paged_attention.py:99-101) applied row by row; every row not read is
 // zero-filled and masked, and a skipped page's scale is never read.
 //
-// Numerics as the reference: dot, then scale by 1/sqrt(hd); masked
+// Numerics as the reference: every product and sum in f32 whatever the
+// operands' types; dot, then scale by 1/sqrt(hd); masked
 // probabilities set to 0 explicitly; NEG_INF = -1e30; window predicate
 // k_pos > q_pos - window; output acc / max(l, 1e-30). The sums run in
 // another order than the plain version's (micro-tiles, splits).
@@ -78,12 +87,14 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "split_merge.cuh"
 #include "warp.cuh"
 
 namespace {
 
+using repro::bf16;
 using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_commit;
@@ -102,25 +113,25 @@ constexpr int MAX_KEYS = 1 << 30;  // keys a slot, rows a call, window
 // A block's shared memory in bytes (kernels/paged_attention.py
 // _paged_smem mirrors it): Q (BR rows of HDP + 4 floats), P (PC x BR + 4),
 // the ring's per-row read flags; then the ring of K/V tiles, in f32 rows of
-// HDP + 4 floats, or for int8 pools int8 rows of HDP bytes, the f32 K/V
-// tiles they are dequantized into and the ring's per-row scales. 16 bytes
-// after the flags hold the block's slot.
+// HDP + 4 floats, or for bf16 and int8 pools (elem 2 or 1 bytes) rows of
+// HDP elements, the f32 K/V tiles they are upcast into and, for int8, the
+// ring's per-row scales. 16 bytes after the flags hold the block's slot.
 struct Layout {
   size_t p, flags, slot, ring, tile, scales, total;
 };
 
 __host__ __device__ inline Layout layout(int rows, int kt, int hdp,
-                                         int stages, bool q8) {
+                                         int stages, int elem) {
   const size_t qp = hdp + 4;
   Layout o;
   o.p = 4 * rows * qp;
   o.flags = o.p + 4 * (size_t)PC * (rows + 4);
   o.slot = o.flags + 4 * (size_t)stages * kt;
   o.ring = o.slot + 16;
-  if (q8) {
-    o.tile = o.ring + (size_t)stages * 2 * kt * hdp;
+  if (elem != 4) {
+    o.tile = o.ring + (size_t)stages * 2 * kt * hdp * elem;
     o.scales = o.tile + 4 * 2 * kt * qp;
-    o.total = o.scales + 4 * (size_t)stages * 2 * kt;
+    o.total = o.scales + (elem == 1 ? 4 * (size_t)stages * 2 * kt : 0);
   } else {
     o.tile = o.scales = o.ring;
     o.total = o.ring + 4 * (size_t)stages * 2 * kt * qp;
@@ -155,26 +166,27 @@ __device__ __forceinline__ void scores(float (&s)[MI][NJ], const float* qr,
 }
 
 // HDP: head_dim padded to 64, 128 or 256. RW: query rows a warp (BR = 8
-// RW). BC: keys a tile. T: the pool element, float (K1) or int8_t (K3).
-// Two blocks an SM where the plan sizes shared memory for it (128
-// registers a thread), else one.
+// RW). BC: keys a tile. T: the pool element, float or bf16 (K1) or int8_t
+// (K3). q and out: float, or bf16 where qbf. Two blocks an SM where the
+// plan sizes shared memory for it (128 registers a thread), else one.
 template <int HDP, int RW, int BC, typename T>
 __global__ void __launch_bounds__(THREADS,
                                   RW == 8 && (BC == 64 || HDP == 256) ? 1 : 2)
-paged_attention_kernel(const float* __restrict__ q,
+paged_attention_kernel(const void* __restrict__ q_in,
                        const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v,
                        const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ start,
-                       float* __restrict__ out,
+                       void* __restrict__ out_in,
                        float* __restrict__ part_o,
                        float* __restrict__ part_ml,
                        int Sq, int H, int KV, int hd, int P, int ps, int mps,
-                       int window, int stages, int splits, int vec,
+                       int window, int stages, int splits, int vec, int qbf,
                        float scale) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
+  constexpr bool CONV = !std::is_same<T, float>::value;  // staged, upcast
   constexpr int BR = WARPS * RW;  // query rows per block
   constexpr int MI = RW / 2;      // rows per thread
   constexpr int NJ = BC / 16;     // keys per thread
@@ -184,15 +196,15 @@ paged_attention_kernel(const float* __restrict__ q,
   static_assert(MI == 1 || MI % 4 == 0, "P is stored by 1 or 4 rows");
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
-  const Layout lay = layout(BR, BC, HDP, stages, Q8);
+  const Layout lay = layout(BR, BC, HDP, stages, (int)sizeof(T));
   float* qs = reinterpret_cast<float*>(sm);                 // [BR][QP]
   float* pbuf = reinterpret_cast<float*>(sm + lay.p);       // [PC][PP]
   int* read_s = reinterpret_cast<int*>(sm + lay.flags);     // [stages][BC]
-  char* ring = sm + lay.ring;  // [stages][K, V][BC][QP f32 | HDP int8]
+  char* ring = sm + lay.ring;  // [stages][K, V][BC][QP f32 | HDP T]
   float* tile = reinterpret_cast<float*>(sm + lay.tile);    // [K, V][BC][QP]
   float* scl = reinterpret_cast<float*>(sm + lay.scales);   // [stages][2][BC]
   int* slot_s = reinterpret_cast<int*>(sm + lay.slot);      // the slot
-  constexpr int RB = Q8 ? HDP : QP * 4;  // bytes a staged row takes
+  constexpr int RB = CONV ? HDP * (int)sizeof(T) : QP * 4;  // a staged row
 
   const int tid = threadIdx.x;
   // blocks start in grid order, so the slots are taken longest first (by
@@ -321,21 +333,28 @@ paged_attention_kernel(const float* __restrict__ q,
       stage(std::integral_constant<int, 4>(), t, slot);
   };
 
-  // Q rows, zeros past hd and past the group's rows, copied with the first
-  // live tile (cp.async group 0)
+  // Q rows, zeros past hd and past the group's rows: fp32 copied with the
+  // first live tile (cp.async group 0), bf16 loaded and upcast here (the
+  // loop's first barrier publishes both)
   for (int e = tid; e < BR * (HDP / 4); e += THREADS) {
     const int r = e / (HDP / 4), c = (e % (HDP / 4)) * 4;
     const int row = row0 + r;
     const bool in = row < n_q && c < hd;
-    const float* src =
-        in ? q + (((size_t)b * Sq + row / G) * H + kh * G + row % G) * hd + c
-           : q;
+    const size_t at =
+        in ? (((size_t)b * Sq + row / G) * H + kh * G + row % G) * hd + c : 0;
     float* dst = qs + r * QP + c;
+    if (qbf) {
+      *reinterpret_cast<float4*>(dst) =
+          in ? repro::load4(static_cast<const bf16*>(q_in) + at, vec)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    const float* q = static_cast<const float*>(q_in);
     if (vec) {
-      cp_async16(dst, src, in);
+      cp_async16(dst, q + at, in);
     } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) cp_async4(dst + u, in ? src + u : q, in);
+      for (int u = 0; u < 4; ++u) cp_async4(dst + u, q + at + u, in);
     }
   }
 
@@ -387,18 +406,24 @@ paged_attention_kernel(const float* __restrict__ q,
     cp_commit();
     const int slot = n % stages;
     const float* kt;
-    if constexpr (Q8) {
-      // dequantize the staged tile once: float(x) * the row's page scale
-      const int8_t* kb = reinterpret_cast<const int8_t*>(
-          ring + (size_t)slot * 2 * BC * RB);
+    if constexpr (CONV) {
+      // upcast the staged tile once: int8 float(x) * the row's page scale,
+      // bf16 exactly
+      const char* kb = ring + (size_t)slot * 2 * BC * RB;
       const float* ss = scl + slot * 2 * BC;
       for (int e = tid; e < 2 * BC * (HDP / 4); e += THREADS) {
         const int r = e / (HDP / 4), c = (e % (HDP / 4)) * 4;  // r < 2 BC
-        const char4 x = *reinterpret_cast<const char4*>(kb + r * HDP + c);
-        const float sc = ss[r];
-        *reinterpret_cast<float4*>(tile + r * QP + c) =
-            make_float4((float)x.x * sc, (float)x.y * sc, (float)x.z * sc,
-                        (float)x.w * sc);
+        float4 f;
+        if constexpr (Q8) {
+          const char4 x = *reinterpret_cast<const char4*>(kb + r * HDP + c);
+          const float sc = ss[r];
+          f = make_float4((float)x.x * sc, (float)x.y * sc, (float)x.z * sc,
+                          (float)x.w * sc);
+        } else {
+          f = repro::bf16x4_to_float4(
+              *reinterpret_cast<const uint2*>(kb + (r * HDP + c) * 2));
+        }
+        *reinterpret_cast<float4*>(tile + r * QP + c) = f;
       }
       __syncthreads();
       kt = tile;
@@ -503,8 +528,9 @@ paged_attention_kernel(const float* __restrict__ q,
   }
   cp_wait<0>();
 
-  // one split: out = acc / max(l, 1e-30); several: the split's
-  // unnormalised O and (m, l), rows in the output's order, for the merge
+  // one split: out = acc / max(l, 1e-30), in out's type; several: the
+  // split's unnormalised O (f32) and (m, l), rows in the output's order,
+  // for the merge
   const int n_out = Sq * H;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
@@ -514,7 +540,6 @@ paged_attention_kernel(const float* __restrict__ q,
     const size_t at = splits == 1
         ? (size_t)b * n_out + orow
         : ((size_t)b * splits + split) * n_out + orow;
-    float* dst = (splits == 1 ? out : part_o) + at * hd;
     const float denom = splits == 1 ? fmaxf(l[i], 1e-30f) : 1.f;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
@@ -522,12 +547,13 @@ paged_attention_kernel(const float* __restrict__ q,
       const float4 o = make_float4(
           acc[i][cc * 4 + 0] / denom, acc[i][cc * 4 + 1] / denom,
           acc[i][cc * 4 + 2] / denom, acc[i][cc * 4 + 3] / denom);
-      float* d4 = dst + lk * 4 + 64 * cc;
-      if (vec || splits > 1) {
-        *reinterpret_cast<float4*>(d4) = o;
-      } else {
-        d4[0] = o.x; d4[1] = o.y; d4[2] = o.z; d4[3] = o.w;
-      }
+      const size_t d4 = at * hd + lk * 4 + 64 * cc;
+      if (splits > 1)
+        *reinterpret_cast<float4*>(part_o + d4) = o;
+      else if (qbf)
+        repro::store4(static_cast<bf16*>(out_in) + d4, o, 4, vec);
+      else
+        repro::store4(static_cast<float*>(out_in) + d4, o, 4, vec);
     }
     if (splits > 1 && lk == 0) {
       part_ml[at * 2] = m[i];
@@ -537,12 +563,12 @@ paged_attention_kernel(const float* __restrict__ q,
 }
 
 template <int HDP, int RW, int BC, typename T>
-cudaError_t launch(const float* q, const T* pool_k, const T* pool_v,
+cudaError_t launch(const void* q, const T* pool_k, const T* pool_v,
                    const float* k_scale, const float* v_scale, const int* bt,
-                   const int* start, float* out, float* part_o,
+                   const int* start, void* out, float* part_o,
                    float* part_ml, int B, int Sq, int H, int KV, int hd,
                    int P, int ps, int mps, int window, int stages,
-                   int splits, int vec, float scale, size_t smem,
+                   int splits, int vec, int qbf, float scale, size_t smem,
                    cudaStream_t s) {
   static const cudaError_t ready = cudaFuncSetAttribute(
       paged_attention_kernel<HDP, RW, BC, T>,
@@ -552,20 +578,23 @@ cudaError_t launch(const float* q, const T* pool_k, const T* pool_v,
   const dim3 grid((H / KV * Sq + BR - 1) / BR, KV * splits, B);
   paged_attention_kernel<HDP, RW, BC, T><<<grid, THREADS, smem, s>>>(
       q, pool_k, pool_v, k_scale, v_scale, bt, start, out, part_o, part_ml,
-      Sq, H, KV, hd, P, ps, mps, window, stages, splits, vec, scale);
+      Sq, H, KV, hd, P, ps, mps, window, stages, splits, vec, qbf, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return repro::launch_split_merge(part_o, part_ml, out, B, Sq * H, hd,
-                                   splits, s);
+  if (qbf)
+    return repro::launch_split_merge(part_o, part_ml, static_cast<bf16*>(out),
+                                     B, Sq * H, hd, splits, s);
+  return repro::launch_split_merge(part_o, part_ml, static_cast<float*>(out),
+                                   B, Sq * H, hd, splits, s);
 }
 
 template <typename T>
-int run(const float* q, const T* pool_k, const T* pool_v,
+int run(const void* q, const T* pool_k, const T* pool_v,
         const float* k_scale, const float* v_scale, const int* bt,
-        const int* start, float* out, float* part_o, float* part_ml, int B,
+        const int* start, void* out, float* part_o, float* part_ml, int B,
         int Sq, int H, int KV, int hd, int P, int ps, int mps, int window,
-        int rows, int key_tile, int stages, int splits, int vec, float scale,
-        void* stream) {
+        int rows, int key_tile, int stages, int splits, int vec, int qbf,
+        float scale, void* stream) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
   const int bad = (int)cudaErrorInvalidValue;
   if (B < 1 || B > 65535 || Sq < 1 || KV < 1 || H < KV || H % KV != 0 ||
@@ -580,22 +609,24 @@ int run(const float* q, const T* pool_k, const T* pool_v,
       (long long)KV * splits > 65535)
     return bad;
   const int hdp = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
-  const size_t smem = layout(rows, key_tile, hdp, stages, Q8).total;
+  const size_t smem =
+      layout(rows, key_tile, hdp, stages, (int)sizeof(T)).total;
   if (smem > SMEM_MAX) return bad;
   if (splits > 1 && (part_o == nullptr || part_ml == nullptr)) return bad;
   if (Q8 && (k_scale == nullptr || v_scale == nullptr)) return bad;
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
+  // 16-byte copies of whole 16-byte pieces of a row
   if (vec && !(aligned(q) && aligned(pool_k) && aligned(pool_v) &&
-               aligned(out) && (!Q8 || hd % 16 == 0)))
+               aligned(out) && hd * sizeof(T) % 16 == 0))
     return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LAUNCH(HDP, RW, BC)                                                  \
   return (int)launch<HDP, RW, BC, T>(q, pool_k, pool_v, k_scale, v_scale,    \
                                      bt, start, out, part_o, part_ml, B, Sq, \
                                      H, KV, hd, P, ps, mps, window, stages,  \
-                                     splits, vec, scale, smem, s)
+                                     splits, vec, qbf, scale, smem, s)
 #define BY_TILES(HDP)                       \
   if (key_tile == 64) LAUNCH(HDP, 8, 64);    \
   if (rows == 64) LAUNCH(HDP, 8, 32);        \
@@ -613,38 +644,51 @@ int run(const float* q, const T* pool_k, const T* pool_v,
 
 }  // namespace
 
-// q (B, Sq, H, hd), pools (P, ps, KV, hd), out (B, Sq, H, hd): fp32,
-// contiguous. block_tables (B, mps) and start (B,): int32. The plan (rows,
-// key_tile, stages, splits, vec) is kernels/paged_attention.py
-// paged_plan's; with splits > 1, part_o (B, splits, Sq * H, hd) and part_ml
-// (B, splits, Sq * H, 2) f32 are the splits' scratch and a merge kernel
-// follows. vec: q, the pools and out 16-byte aligned. Launches on `stream`
-// and returns 0, cudaErrorInvalidValue for shapes or a plan the kernel
-// cannot run, or cudaGetLastError().
-extern "C" int repro_paged_attention_f32(
-    const float* q, const float* pool_k, const float* pool_v,
-    const int* block_tables, const int* start, float* out, float* part_o,
-    float* part_ml, int B, int Sq, int H, int KV, int hd, int P, int ps,
-    int mps, int window, int rows, int key_tile, int stages, int splits,
-    int vec, float scale, void* stream) {
-  return run<float>(q, pool_k, pool_v, nullptr, nullptr, block_tables, start,
-                    out, part_o, part_ml, B, Sq, H, KV, hd, P, ps, mps,
-                    window, rows, key_tile, stages, splits, vec, scale,
-                    stream);
-}
+// q (B, Sq, H, hd) and out (B, Sq, H, hd): fp32 (QT f32) or bf16 (QT bf16);
+// pools (P, ps, KV, hd): fp32, bf16 or int8 (PT); all contiguous.
+// block_tables (B, mps) and start (B,): int32. The plan (rows, key_tile,
+// stages, splits, vec) is kernels/paged_attention.py paged_plan's; with
+// splits > 1, part_o (B, splits, Sq * H, hd) and part_ml (B, splits,
+// Sq * H, 2) f32 are the splits' scratch and a merge kernel follows. vec:
+// q, the pools and out 16-byte aligned and a pool row a multiple of 16
+// bytes. Launches on `stream` and returns 0, cudaErrorInvalidValue for
+// shapes or a plan the kernel cannot run, or cudaGetLastError().
+// repro_paged_attention_<QT>_<PT> for QT in {f32, bf16}, PT in {f32, bf16}.
+#define REPRO_PAGED_ENTRY(NAME, QBF, PT)                                    \
+  extern "C" int NAME(const void* q, const PT* pool_k, const PT* pool_v,   \
+                      const int* block_tables, const int* start, void* out, \
+                      float* part_o, float* part_ml, int B, int Sq, int H,  \
+                      int KV, int hd, int P, int ps, int mps, int window,   \
+                      int rows, int key_tile, int stages, int splits,       \
+                      int vec, float scale, void* stream) {                 \
+    return run<PT>(q, pool_k, pool_v, nullptr, nullptr, block_tables,       \
+                   start, out, part_o, part_ml, B, Sq, H, KV, hd, P, ps,    \
+                   mps, window, rows, key_tile, stages, splits, vec, QBF,   \
+                   scale, stream);                                          \
+  }
+REPRO_PAGED_ENTRY(repro_paged_attention_f32_f32, 0, float)
+REPRO_PAGED_ENTRY(repro_paged_attention_f32_bf16, 0, bf16)
+REPRO_PAGED_ENTRY(repro_paged_attention_bf16_f32, 1, float)
+REPRO_PAGED_ENTRY(repro_paged_attention_bf16_bf16, 1, bf16)
+#undef REPRO_PAGED_ENTRY
 
 // The int8 pools of K3: pools (P, ps, KV, hd) int8; k_scale / v_scale (P,)
 // f32, the per-page symmetric scales; vec also needs hd % 16 == 0;
-// everything else as repro_paged_attention_f32.
-extern "C" int repro_paged_attention_i8(
-    const float* q, const int8_t* pool_k, const int8_t* pool_v,
-    const float* k_scale, const float* v_scale, const int* block_tables,
-    const int* start, float* out, float* part_o, float* part_ml, int B,
-    int Sq, int H, int KV, int hd, int P, int ps, int mps, int window,
-    int rows, int key_tile, int stages, int splits, int vec, float scale,
-    void* stream) {
-  return run<int8_t>(q, pool_k, pool_v, k_scale, v_scale, block_tables,
-                     start, out, part_o, part_ml, B, Sq, H, KV, hd, P, ps,
-                     mps, window, rows, key_tile, stages, splits, vec, scale,
-                     stream);
-}
+// everything else as above. repro_paged_attention_<QT>_i8.
+#define REPRO_PAGED_I8_ENTRY(NAME, QBF)                                     \
+  extern "C" int NAME(const void* q, const int8_t* pool_k,                  \
+                      const int8_t* pool_v, const float* k_scale,           \
+                      const float* v_scale, const int* block_tables,        \
+                      const int* start, void* out, float* part_o,           \
+                      float* part_ml, int B, int Sq, int H, int KV, int hd, \
+                      int P, int ps, int mps, int window, int rows,         \
+                      int key_tile, int stages, int splits, int vec,        \
+                      float scale, void* stream) {                          \
+    return run<int8_t>(q, pool_k, pool_v, k_scale, v_scale, block_tables,   \
+                       start, out, part_o, part_ml, B, Sq, H, KV, hd, P,    \
+                       ps, mps, window, rows, key_tile, stages, splits,     \
+                       vec, QBF, scale, stream);                            \
+  }
+REPRO_PAGED_I8_ENTRY(repro_paged_attention_f32_i8, 0)
+REPRO_PAGED_I8_ENTRY(repro_paged_attention_bf16_i8, 1)
+#undef REPRO_PAGED_I8_ENTRY

@@ -9,6 +9,15 @@
 // leading d_v (= c) columns of the same rows. Causal mask only; the output
 // (B, Sq, H, d_v) stays in latent space.
 //
+// q and the output are fp32 or bf16, the pool fp32 or bf16, in any
+// pairing (the Pallas kernel upcasts both with `.astype(jnp.float32)` and
+// writes its output in q's dtype). A bf16 pool is staged as bf16, half the
+// bytes, and each staged tile is upcast once into an f32 tile that the
+// same product code reads (a barrier a tile); a bf16 q is upcast as it is
+// staged; the output is rounded once, at the store; split partials stay
+// f32 and the merge rounds. Both types are template parameters: a flag
+// for q's type cost the fp32 decode (its 16-row tile) registers and ~9 %.
+//
 // Bound: at decode the bytes of each slot's live latent rows, which every
 // head shares; at prefill the fp32 FMAs, (L + d_v) per visible (row, head,
 // key). fp32 FMA throughout, no tensor cores and no TF32. So the design
@@ -68,12 +77,14 @@
 
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "split_merge.cuh"
 #include "warp.cuh"
 
 namespace {
 
+using repro::bf16;
 using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_commit;
@@ -88,61 +99,61 @@ constexpr int KT = 16;  // key rows per tile
 constexpr int SMEM_MAX = 232448;
 constexpr int MAX_WIDTH = 1024;
 
-// A block's shared memory, in floats (kernels/paged_attention.py
-// _latent_smem mirrors it): Q (BR rows), the ring (stages x KT rows), the
-// slices' partial scores, P (KT x BR) and the rows' m, l, correction.
-// Staged rows are `width` = slices * sw floats (zeros past L), pitch lp.
+// A block's shared memory (kernels/paged_attention.py _latent_smem mirrors
+// it), offsets in floats: Q (BR rows), the ring (stages x KT rows; for a
+// bf16 pool the one f32 tile it is upcast into), the slices' partial
+// scores, P (KT x BR) and the rows' m, l, correction; for a bf16 pool then
+// the bf16 ring (stages x KT rows of pitch bp) at byte ring16. Staged rows
+// are `width` = slices * sw elements (zeros past L), pitch lp (f32).
 struct Layout {
-  int slices, sw, width, lp, ring, part, p, stats, total;
+  int slices, sw, width, lp, ring, part, p, stats, total, bp;
+  size_t ring16, bytes;
 };
 
-__host__ __device__ inline Layout layout(int rows, int Lw, int stages) {
+__host__ __device__ inline Layout layout(int rows, int Lw, int stages,
+                                         int elem) {
   Layout o;
   o.slices = THREADS / rows;
   o.sw = ((Lw + 3) / 4 + o.slices - 1) / o.slices * 4;
   o.width = o.slices * o.sw;
   o.lp = o.width + 4;
   o.ring = rows * o.lp;
-  o.part = o.ring + stages * KT * o.lp;
+  o.part = o.ring + (elem == 4 ? stages : 1) * KT * o.lp;
   o.p = o.part + o.slices * rows * KT;
   o.stats = o.p + KT * (rows + 4);
   o.total = o.stats + 3 * rows;
+  o.bp = o.width + 8;  // 16-byte aligned bf16 rows
+  o.ring16 = (size_t)o.total * 4;
+  o.bytes = elem == 4 ? o.ring16 : o.ring16 + (size_t)stages * KT * o.bp * 2;
   return o;
 }
 
-// 4 floats at dst[0..3] for the columns below `n` (16 bytes when `vec`).
-__device__ __forceinline__ void store4(float* dst, float4 v, int n,
-                                       bool vec) {
-  if (vec && n >= 4) {
-    *reinterpret_cast<float4*>(dst) = v;
-    return;
-  }
-  const float a[4] = {v.x, v.y, v.z, v.w};
-  for (int e = 0; e < 4 && e < n; ++e) dst[e] = a[e];
-}
-
-template <int BR>
+// TP: the pool element, TQ: q's and the output's; each float or bf16
+template <int BR, typename TP, typename TQ>
 __global__ void __launch_bounds__(THREADS, 1)
-latent_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ pool,
+latent_attention_kernel(const TQ* __restrict__ q,
+                        const TP* __restrict__ pool,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ start,
-                        float* __restrict__ out,
+                        TQ* __restrict__ out,
                         float* __restrict__ part_o,
                         float* __restrict__ part_ml,
                         int Sq, int H, int Lw, int d_v, int P, int ps,
                         int mps, int stages, int splits, int vec,
                         float scale) {
+  constexpr bool BF = sizeof(TP) == 2;
   constexpr int RG = BR / 8;        // row groups of the value product
   constexpr int CG = THREADS / RG;  // its column groups (a float4 each)
   constexpr int NE = (BR * KT + THREADS - 1) / THREADS;  // softmax entries
   constexpr int PP = BR + 4;        // row pitch of P
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Layout lay = layout(BR, Lw, stages);
+  const Layout lay = layout(BR, Lw, stages, (int)sizeof(TP));
   const int lp = lay.lp;
   float* qs = sm;                   // [BR][lp]
-  float* ring = sm + lay.ring;      // [stages][KT][lp]
+  float* ring = sm + lay.ring;      // [stages | 1][KT][lp]
+  bf16* ring16 = reinterpret_cast<bf16*>(
+      reinterpret_cast<char*>(smem4) + lay.ring16);  // [stages][KT][bp]
   float* part = sm + lay.part;      // [slices][BR][KT]
   float* pt = sm + lay.p;           // [KT][PP]
   float* m_s = sm + lay.stats;      // [BR]
@@ -186,14 +197,28 @@ latent_attention_kernel(const float* __restrict__ q,
   // key tile t into ring slot `slot`, zeros where a row is not read and
   // past L: a warp a row, each lane its columns lane * 4 + 128 c (16-byte
   // copies; 4-byte ones at lane + 32 c where rows are not a multiple of 4
-  // floats)
+  // floats); bf16 rows by 16-byte copies at lane * 8 + 256 c, or 4-byte
+  // ones at lane * 2 + 64 c (L even)
   const int r_own = tid >> 5, c_own = tid & 31;
   auto issue = [&](int t, int slot) {
-    float* dst = ring + slot * KT * lp + r_own * lp;
     const int key = t * KT + r_own;
     const int pg = page_of(key);
-    const float* src =
+    const TP* src =
         pg >= 0 ? pool + ((size_t)pg * ps + key % ps) * Lw : pool;
+    if constexpr (BF) {
+      bf16* dst = ring16 + (size_t)(slot * KT + r_own) * lay.bp;
+      if (vec) {
+        for (int c = c_own * 8; c < lay.width; c += 256)
+          cp_async16(dst + c, pg >= 0 && c < Lw ? src + c : pool,
+                     pg >= 0 && c < Lw);
+      } else {
+        for (int c = c_own * 2; c < lay.width; c += 64)
+          cp_async4(dst + c, pg >= 0 && c < Lw ? src + c : pool,
+                    pg >= 0 && c < Lw);
+      }
+      return;
+    }
+    float* dst = ring + slot * KT * lp + r_own * lp;
     if (vec) {
       for (int c = c_own * 4; c < lay.width; c += 128)
         cp_async16(dst + c, pg >= 0 && c < Lw ? src + c : pool,
@@ -216,22 +241,23 @@ latent_attention_kernel(const float* __restrict__ q,
     cp_commit();
   }
 
-  // Q rows, zeros past L and past the last row
+  // Q rows, zeros past L and past the last row (bf16 upcast here)
   const int w4 = lay.width / 4;
   if (vec) {
     for (int e = tid; e < BR * w4; e += THREADS) {
       const int r = e / w4, c = (e - r * w4) * 4;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      const size_t at = ((size_t)b * n_q + row0 + r) * Lw + c;
       if (row0 + r < n_q && c < Lw)
-        val = *reinterpret_cast<const float4*>(
-            q + ((size_t)b * n_q + row0 + r) * Lw + c);
+        val = repro::load4(q + at, true);
       *reinterpret_cast<float4*>(qs + r * lp + c) = val;
     }
   } else {
     for (int e = tid; e < BR * lay.width; e += THREADS) {
       const int r = e / lay.width, c = e - r * lay.width;
+      const size_t at = ((size_t)b * n_q + row0 + r) * Lw + c;
       qs[r * lp + c] = row0 + r < n_q && c < Lw
-                           ? q[((size_t)b * n_q + row0 + r) * Lw + c]
+                           ? repro::to_f32(q[at])
                            : 0.f;
     }
   }
@@ -269,7 +295,20 @@ latent_attention_kernel(const float* __restrict__ q,
       t_next = next_live(t_next + 1);
     }
     cp_commit();
-    const float* ks = ring + (n % stages) * KT * lp;
+    const float* ks;
+    if constexpr (BF) {
+      // upcast the staged bf16 tile once into the f32 tile
+      const bf16* kb = ring16 + (size_t)(n % stages) * KT * lay.bp;
+      for (int e = tid; e < KT * w4; e += THREADS) {
+        const int r = e / w4, c = (e - r * w4) * 4;
+        *reinterpret_cast<float4*>(ring + r * lp + c) =
+            repro::load4(kb + (size_t)r * lay.bp + c, true);
+      }
+      __syncthreads();
+      ks = ring;
+    } else {
+      ks = ring + (n % stages) * KT * lp;
+    }
 
     // partial scores over this thread's slice of L
     {
@@ -380,13 +419,15 @@ latent_attention_kernel(const float* __restrict__ q,
     const size_t orow = splits == 1
         ? (size_t)b * n_q + row0 + row
         : ((size_t)b * splits + split) * n_q + row0 + row;
-    float* dst = (splits == 1 ? out : part_o) + orow * d_v;
+    const size_t at = orow * d_v + vcg * 4;
     const float denom = splits == 1 ? fmaxf(l_s[row], 1e-30f) : 1.f;
-    if (on)
-      store4(dst + vcg * 4,
-             make_float4(acc[i][0] / denom, acc[i][1] / denom,
-                         acc[i][2] / denom, acc[i][3] / denom),
-             d_v - vcg * 4, vec_out);
+    if (!on) continue;
+    const float4 o = make_float4(acc[i][0] / denom, acc[i][1] / denom,
+                                 acc[i][2] / denom, acc[i][3] / denom);
+    if (splits > 1)
+      repro::store4(part_o + at, o, d_v - vcg * 4, vec_out);
+    else
+      repro::store4(out + at, o, d_v - vcg * 4, vec_out);
   }
   if (splits > 1 && tid < BR && row0 + tid < n_q) {
     float* ml = part_ml +
@@ -396,19 +437,19 @@ latent_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int BR>
-cudaError_t launch(const float* q, const float* pool, const int* bt,
-                   const int* start, float* out, float* part_o,
+template <int BR, typename TP, typename TQ>
+cudaError_t launch(const TQ* q, const TP* pool, const int* bt,
+                   const int* start, TQ* out, float* part_o,
                    float* part_ml, int B, int Sq, int H, int Lw, int d_v,
                    int P, int ps, int mps, int stages, int splits, int vec,
                    float scale, size_t smem, cudaStream_t s) {
   static const cudaError_t ready = cudaFuncSetAttribute(
-      latent_attention_kernel<BR>,
+      latent_attention_kernel<BR, TP, TQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (ready != cudaSuccess) return ready;
   const int n_q = H * Sq;
   const dim3 grid((n_q + BR - 1) / BR, splits, B);
-  latent_attention_kernel<BR><<<grid, THREADS, smem, s>>>(
+  latent_attention_kernel<BR, TP, TQ><<<grid, THREADS, smem, s>>>(
       q, pool, bt, start, out, part_o, part_ml, Sq, H, Lw, d_v, P, ps, mps,
       stages, splits, vec, scale);
   cudaError_t err = cudaGetLastError();
@@ -417,45 +458,65 @@ cudaError_t launch(const float* q, const float* pool, const int* bt,
                                    s);
 }
 
-}  // namespace
-
-// q (B, Sq, H, Lw), pool (P, ps, 1, Lw), out (B, Sq, H, d_v): fp32,
-// contiguous. block_tables (B, mps) and start (B,): int32. Lw <= 1024 and
-// 1 <= d_v <= Lw. The plan (rows, stages, splits, vec) is
-// kernels/paged_attention.py latent_plan's; with splits > 1, part_o
-// (B, splits, H * Sq, d_v) and part_ml (B, splits, H * Sq, 2) f32 are the
-// splits' scratch and a merge kernel follows. vec: Lw % 4 == 0 and q and
-// pool 16-byte aligned. Launches on `stream` and returns 0,
-// cudaErrorInvalidValue for shapes or a plan the kernel cannot run, or
-// cudaGetLastError().
-extern "C" int repro_paged_attention_latent_f32(
-    const float* q, const float* pool, const int* block_tables,
-    const int* start, float* out, float* part_o, float* part_ml, int B,
-    int Sq, int H, int Lw, int d_v, int P, int ps, int mps, int rows,
-    int stages, int splits, int vec, float scale, void* stream) {
+template <typename TP, typename TQ>
+int run(const TQ* q, const TP* pool, const int* block_tables,
+        const int* start, TQ* out, float* part_o, float* part_ml, int B,
+        int Sq, int H, int Lw, int d_v, int P, int ps, int mps, int rows,
+        int stages, int splits, int vec, float scale, void* stream) {
+  constexpr bool BF = sizeof(TP) == 2;
   const cudaError_t bad = cudaErrorInvalidValue;
   if (B < 1 || B > 65535 || Sq < 1 || H < 1 || Lw < 1 || Lw > MAX_WIDTH ||
       d_v < 1 || d_v > Lw || P < 1 || ps < 1 || mps < 1 ||
       (long long)H * Sq > 0x7fffffffLL - 32 ||
-      (long long)mps * ps > 0x7fffffffLL - KT)
+      (long long)mps * ps > 0x7fffffffLL - KT || (BF && Lw % 2 != 0))
     return (int)bad;
   if ((rows != 16 && rows != 32) || (stages != 2 && stages != 3) ||
       splits < 1 || splits > MAX_SPLITS)
     return (int)bad;
   // a float4 column for each of THREADS / (rows / 8) threads covers d_v
   if (THREADS / (rows / 8) * 4 < d_v) return (int)bad;
-  const size_t smem = layout(rows, Lw, stages).total * sizeof(float);
+  const size_t smem = layout(rows, Lw, stages, (int)sizeof(TP)).bytes;
   if (smem > SMEM_MAX) return (int)bad;
   if (splits > 1 && (part_o == nullptr || part_ml == nullptr)) return (int)bad;
-  if (vec && (Lw % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+  if (vec && (Lw % (BF ? 8 : 4) != 0 ||
+              reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
               reinterpret_cast<uintptr_t>(pool) % 16 != 0))
     return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(rows == 32
-                    ? launch<32>(q, pool, block_tables, start, out, part_o,
-                                 part_ml, B, Sq, H, Lw, d_v, P, ps, mps,
-                                 stages, splits, vec, scale, smem, s)
-                    : launch<16>(q, pool, block_tables, start, out, part_o,
-                                 part_ml, B, Sq, H, Lw, d_v, P, ps, mps,
-                                 stages, splits, vec, scale, smem, s));
+                   ? launch<32>(q, pool, block_tables, start, out, part_o,
+                                part_ml, B, Sq, H, Lw, d_v, P, ps, mps,
+                                stages, splits, vec, scale, smem, s)
+                   : launch<16>(q, pool, block_tables, start, out, part_o,
+                                part_ml, B, Sq, H, Lw, d_v, P, ps, mps,
+                                stages, splits, vec, scale, smem, s));
 }
+
+}  // namespace
+
+// q (B, Sq, H, Lw) and out (B, Sq, H, d_v): fp32 (QT f32) or bf16 (QT
+// bf16); pool (P, ps, 1, Lw): fp32 or bf16 (PT, Lw even for bf16); all
+// contiguous. block_tables (B, mps) and start (B,): int32. Lw <= 1024 and
+// 1 <= d_v <= Lw. The plan (rows, stages, splits, vec) is
+// kernels/paged_attention.py latent_plan's; with splits > 1, part_o
+// (B, splits, H * Sq, d_v) and part_ml (B, splits, H * Sq, 2) f32 are the
+// splits' scratch and a merge kernel follows. vec: Lw a multiple of 4 (8
+// for bf16 pools) and q and pool 16-byte aligned. Launches on `stream` and
+// returns 0, cudaErrorInvalidValue for shapes or a plan the kernel cannot
+// run, or cudaGetLastError(). repro_paged_attention_latent_<QT>_<PT>.
+#define REPRO_LATENT_ENTRY(NAME, QT, PT)                                   \
+  extern "C" int NAME(const QT* q, const PT* pool,                         \
+                      const int* block_tables, const int* start, QT* out,  \
+                      float* part_o, float* part_ml, int B, int Sq, int H, \
+                      int Lw, int d_v, int P, int ps, int mps, int rows,   \
+                      int stages, int splits, int vec, float scale,        \
+                      void* stream) {                                      \
+    return run<PT, QT>(q, pool, block_tables, start, out, part_o, part_ml, \
+                       B, Sq, H, Lw, d_v, P, ps, mps, rows, stages,        \
+                       splits, vec, scale, stream);                        \
+  }
+REPRO_LATENT_ENTRY(repro_paged_attention_latent_f32_f32, float, float)
+REPRO_LATENT_ENTRY(repro_paged_attention_latent_f32_bf16, float, bf16)
+REPRO_LATENT_ENTRY(repro_paged_attention_latent_bf16_f32, bf16, float)
+REPRO_LATENT_ENTRY(repro_paged_attention_latent_bf16_bf16, bf16, bf16)
+#undef REPRO_LATENT_ENTRY

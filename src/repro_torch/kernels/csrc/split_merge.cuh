@@ -6,11 +6,13 @@
 // online-softmax state (m_s, l_s) per row in scratch the wrapper allocates:
 // part_o (B, splits, n_q, d_v) and part_ml (B, splits, n_q, 2), f32, rows
 // in the output's order. This kernel, launched after the split's on the
-// same stream, combines them by log-sum-exp into out (B, n_q, d_v).
+// same stream, combines them by log-sum-exp into out (B, n_q, d_v), f32 or
+// bf16 (rounded once, at the store).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "warp.cuh"
 
 namespace repro {
@@ -23,10 +25,12 @@ constexpr int MAX_SPLITS = 1024;
 // w_s = exp(m_s - max m) over the splits s that saw a key (l_s > 0); a
 // split that saw none has w_s = 0 and its O_s is never read, so a row no
 // split saw is exactly 0. One block per (row, b); a thread per column.
+// OutT: float or bf16.
+template <typename OutT>
 __global__ void __launch_bounds__(MERGE_THREADS)
 split_merge_kernel(const float* __restrict__ part_o,
                    const float* __restrict__ part_ml,
-                   float* __restrict__ out, int n_q, int d_v, int splits) {
+                   OutT* __restrict__ out, int n_q, int d_v, int splits) {
   __shared__ float m_s[MAX_SPLITS], l_s[MAX_SPLITS], w_s[MAX_SPLITS];
   const int row = blockIdx.x, b = blockIdx.y;
   const int threads = blockDim.x;
@@ -53,7 +57,11 @@ split_merge_kernel(const float* __restrict__ part_o,
     for (int s = 0; s < splits; ++s)
       if (w_s[s] > 0.f)
         acc = fmaf(w_s[s], part_o[(base + (size_t)s * n_q) * d_v + d], acc);
-    out[((size_t)b * n_q + row) * d_v + d] = acc / denom;
+    const float o = acc / denom;
+    if constexpr (sizeof(OutT) == 4)
+      out[((size_t)b * n_q + row) * d_v + d] = o;
+    else
+      out[((size_t)b * n_q + row) * d_v + d] = __float2bfloat16_rn(o);
   }
 }
 
@@ -61,14 +69,15 @@ split_merge_kernel(const float* __restrict__ part_o,
 // row, as many threads as d_v needs (a multiple of 32, at most 512; every
 // output is one thread's sum in split order, so the count does not change
 // a bit of it).
+template <typename OutT>
 inline cudaError_t launch_split_merge(const float* part_o,
-                                      const float* part_ml, float* out,
+                                      const float* part_ml, OutT* out,
                                       int B, int n_q, int d_v, int splits,
                                       cudaStream_t s) {
   const int threads = d_v >= MERGE_THREADS ? MERGE_THREADS
                                            : (d_v + 31) / 32 * 32;
-  split_merge_kernel<<<dim3(n_q, B), threads, 0, s>>>(part_o, part_ml, out,
-                                                      n_q, d_v, splits);
+  split_merge_kernel<OutT><<<dim3(n_q, B), threads, 0, s>>>(
+      part_o, part_ml, out, n_q, d_v, splits);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-"""Flash attention: blockwise causal / windowed GQA attention in fp32 over
+"""Flash attention: blockwise causal / windowed GQA attention over
 contiguous K/V, for the full-sequence forward and a serving prefill's
-first chunk.
+first chunk. q, k and v are all fp32 or all bf16; the kernel computes in
+fp32 and returns q's dtype, as the Pallas kernel does.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (it replaces the Pallas kernel
@@ -18,9 +19,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # kernel launches per caller ("prefill": ops.flash_prefill, "forward":
-# ops.flash_attention): plain integers, raised by one exactly where the
-# kernel is launched
-LAUNCHES = {"prefill": 0, "forward": 0}
+# ops.flash_attention) and dtype (bf16 operands add "_bf16"): plain
+# integers, raised by one exactly where the kernel is launched
+KINDS = ("prefill", "forward")
+_DT = {torch.float32: "", torch.bfloat16: "_bf16"}
+LAUNCHES = {kind + tag: 0 for kind in KINDS for tag in _DT.values()}
 
 MAX_HEAD_DIM = 256
 
@@ -30,9 +33,10 @@ def reset_launches():
         LAUNCHES[key] = 0
 
 
-def _lib():
+def _lib(dtype):
     lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention_f32
+    fn = getattr(lib, "repro_flash_attention_"
+                 + ("bf16" if dtype == torch.bfloat16 else "f32"))
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -54,14 +58,14 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kind: str = "forward"):
-    """q: (B, Sq, H, hd) float32; k, v: (B, Sk, KV, hd) float32. Query row i
-    and key row j sit at positions i and j. Returns (B, Sq, H, hd) float32.
-    ``kind`` names the caller whose launch count the kernel raises
-    ('forward' or 'prefill')."""
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); all float32 or all
+    bfloat16. Query row i and key row j sit at positions i and j. Returns
+    (B, Sq, H, hd) in q's dtype, computed in fp32. ``kind`` names the
+    caller whose launch count the kernel raises ('forward' or 'prefill';
+    the key adds "_bf16" for bf16 operands)."""
     _check(q, k, v)
-    if kind not in LAUNCHES:
-        raise ValueError(f"kind must be one of {sorted(LAUNCHES)}, got "
-                         f"{kind!r}")
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {list(KINDS)}, got {kind!r}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if not q.is_cuda:
@@ -71,10 +75,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all tensors must share q's device")
+    if q.dtype not in _DT:
+        raise TypeError(f"flash_attention: q must be torch.float32 or "
+                        f"torch.bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention: {name} must be torch.float32, "
-                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} must be {q.dtype} as "
+                            f"q is, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.data_ptr() % 16:
@@ -88,11 +95,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = _lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
                      int(window), _build.SMS, 1.0 / math.sqrt(hd), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES[kind] += 1
+    LAUNCHES[kind + _DT[q.dtype]] += 1
     return out

@@ -10,7 +10,15 @@ shape (ragged M, K and N, no padding), and for the scans every T >= 1 (T = 1
 included), any B up to 65535, any H or D, and a state width N up to 64
 (wkv6) or 32 (selective_scan), whatever ``chunk`` is, and raise on anything
 else. ``chunk`` only sets how many steps a scan kernel stages at a time.
-A CPU tensor runs the plain version (see the wrappers)."""
+A CPU tensor runs the plain version (see the wrappers).
+
+Dtypes, as the TPU kernels take them: the paged kernels take q in fp32 or
+bf16 over fp32, bf16 or int8 pools (latent pools fp32 or bf16) in any
+pairing, flash attention q, k and v all fp32 or all bf16; each computes in
+fp32 and returns q's dtype. The GEMMs take any float activations. The two
+scans take fp32 only: ``repro``'s wkv6 callers upcast r, k, v, w and u
+before the call (so does the port), its hymba casts every selective-scan
+input to fp32, and both Pallas scans return fp32."""
 from __future__ import annotations
 
 import torch

@@ -52,7 +52,13 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0,
     k_scale/v_scale: the int8 pools' f32 per-page symmetric scales, (P,)
     or (P, T) with group t covering the contiguous KV/T kv heads; the
     gathered view is dequantized page by page before the softmax, as the
-    int8 kernel dequantizes each page it gathers."""
+    int8 kernel dequantizes each page it gathers.
+
+    q may be fp32 or bf16 and the pools fp32, bf16 or int8 in any pairing:
+    like the Pallas kernels, every operand is upcast to fp32, the scores,
+    p and the sums stay fp32, and the output is rounded once, to q's
+    dtype. (``repro.kernels.ref`` rounds K, V and p to q's dtype, which in
+    bf16 is not the kernels' function; in fp32 the two are the same.)"""
     B, Sq, H, hd = q.shape
     P, ps, KV, _ = pool_k.shape
     mps = block_tables.shape[1]
@@ -73,22 +79,20 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0,
         rep = KV // ks.shape[-1]                # heads per scale group
         ks = ks.repeat_interleave(rep, dim=-1)  # (B, n_rows, KV)
         vs = vs.repeat_interleave(rep, dim=-1)
-        view_k = (view_k.float() * ks[..., None]).to(q.dtype)
-        view_v = (view_v.float() * vs[..., None]).to(q.dtype)
+        view_k = view_k.float() * ks[..., None]
+        view_v = view_v.float() * vs[..., None]
     q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
     if window > 0:
         valid &= j[None, None, :] > q_pos[:, :, None] - window
-    qg = q.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, view_k.to(q.dtype)
-                     ).float() / math.sqrt(hd)
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, view_k.float()) / math.sqrt(hd)
     vm = valid[:, None, None, :, :]
     s = torch.where(vm, s, mask_value(s.dtype))
     m = s.amax(dim=-1)
     p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype),
-                       view_v.to(q.dtype)).float()
+    acc = torch.einsum("bkgqs,bskh->bkgqh", p, view_v.float())
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -104,7 +108,9 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim,
     ``d_v`` columns of the same rows). Scores divide by
     sqrt(``scale_dim``), the logical head width, not the latent width.
     Masked probabilities are zeroed, so a freed slot returns exactly 0.
-    Returns (B, Sq, H, d_v), still in latent space."""
+    Returns (B, Sq, H, d_v), still in latent space. q and the pool may be
+    fp32 or bf16: computed in fp32 and rounded once to q's dtype, as
+    :func:`paged_attention`."""
     B, Sq, H, Lw = q.shape
     P, ps = pool_c.shape[:2]
     mps = block_tables.shape[1]
@@ -117,15 +123,14 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim,
     view = pool_c.reshape(P * ps, Lw)[phys]                 # (B, n_rows, c+r)
     q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
-    s = torch.einsum("bqhl,bsl->bhqs", q, view.to(q.dtype)
-                     ).float() / math.sqrt(scale_dim)
+    view = view.float()
+    s = torch.einsum("bqhl,bsl->bhqs", q.float(), view) / math.sqrt(scale_dim)
     vm = valid[:, None, :, :]
     s = torch.where(vm, s, mask_value(s.dtype))
     m = s.amax(dim=-1)
     p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhqs,bsl->bhql", p.to(q.dtype),
-                       view[..., :d_v].to(q.dtype)).float()
+    acc = torch.einsum("bhqs,bsl->bhql", p, view[..., :d_v])
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B, H, Sq, d_v)
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -164,7 +169,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_positions=None,
     (B, Sk, KV, hd) -> (B, Sq, H, hd). Positions default to the row indices
     (query i at i, key j at j). A query row that sees no key at all gets
     the softmax's uniform average here and exact zeros from the kernel;
-    no caller of the port builds such a row."""
+    no caller of the port builds such a row. In bf16, as the Pallas
+    kernel: q, k and v upcast, scores and p in fp32, the output rounded
+    once to q's dtype (``repro.kernels.ref`` rounds p to v's dtype); in
+    fp32 the two are the same."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -173,8 +181,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_positions=None,
         q_positions = torch.arange(Sq, device=dev).expand(B, Sq)
     if k_positions is None:
         k_positions = torch.arange(Sk, device=dev).expand(B, Sk)
-    qg = q.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
     diff = (q_positions.long()[:, None, None, :, None]
             - k_positions.long()[:, None, None, None, :])
     ok = torch.ones(diff.shape, dtype=torch.bool, device=dev)
@@ -183,8 +191,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_positions=None,
     if window > 0:
         ok &= diff < window
     s = torch.where(ok, s, mask_value(s.dtype))
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", p, v).reshape(B, Sq, H, hd)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).reshape(
+        B, Sq, H, hd).to(q.dtype)
 
 
 def flash_attention_kv(q, k, v, *, causal=True, window=0):

@@ -105,7 +105,7 @@ def head_weight(model: Model, params):
     return params["embed"]["table"], True
 
 
-def make_prefill(model: Model, *, compute_dtype=torch.float32,
+def make_prefill(model: Model, *, compute_dtype=torch.bfloat16,
                  attn_impl: str = "chunked", return_cache: bool = False,
                  s_max: int = 0, cache_dtype=torch.float32):
     """Prefill step builder.
@@ -155,7 +155,7 @@ def make_prefill(model: Model, *, compute_dtype=torch.float32,
     return prefill
 
 
-def make_prefill_chunk(model: Model, *, compute_dtype=torch.float32,
+def make_prefill_chunk(model: Model, *, compute_dtype=torch.bfloat16,
                        s_max: int = 0, cache_dtype=torch.float32,
                        first: bool = False, attn_impl: str = "einsum"):
     """Parallel chunked prefill into a dense transient request cache.
@@ -191,7 +191,7 @@ def make_prefill_chunk(model: Model, *, compute_dtype=torch.float32,
     return first_chunk
 
 
-def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.float32,
+def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.bfloat16,
                              attn_impl: str = "kernel"):
     """Incremental paged prefill: returns ``chunk(params, cache, batch) ->
     (last_logits, cache)``. ``batch`` carries ``tokens`` (K, C), ``bt``
@@ -207,7 +207,7 @@ def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.float32,
     return chunk
 
 
-def make_decode_step(model: Model, *, compute_dtype=torch.float32,
+def make_decode_step(model: Model, *, compute_dtype=torch.bfloat16,
                      paged_attn_impl: Optional[str] = None):
     """One-token decode against the serving cache, updated in place.
     ``paged_attn_impl`` ('kernel' | 'einsum') selects the paged read path;

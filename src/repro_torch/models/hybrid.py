@@ -139,7 +139,7 @@ def _mamba_branch(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
             else torch.zeros((Bsz, CONV_K - 1, D), dtype=x.dtype,
                              device=x.device))
     xpad = torch.cat([tail, xin], dim=1)
-    xc = F.silu(sum(xpad[:, i:i + T] * conv_w[i] for i in range(CONV_K)))
+    xc = L.silu(sum(xpad[:, i:i + T] * conv_w[i] for i in range(CONV_K)))
 
     xf = xc.float()
     # F.softplus is the identity above 20, where jax's logaddexp(x, 0)

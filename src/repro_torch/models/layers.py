@@ -49,6 +49,38 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     return (out * scale.float() + bias.float()).to(dtype)
 
 
+# ---------------------------------------------------------------- activations
+# ``jax.nn``'s activations as XLA evaluates them: the expression in the
+# input's dtype, every op rounding to it (constants rounded first). In bf16
+# that is what ``repro`` computes, bit for bit, where torch's fused
+# ``F.silu`` / ``torch.sigmoid`` / ``F.gelu`` compute in fp32 and round
+# once (they differ from it in 30-40 % of bf16 elements). In fp32 the
+# fused ops are kept: they are within an ulp of XLA's, and the fp32 path
+# keeps its bits.
+def sigmoid(x):
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x))."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (tanh approximation): x * 0.5 * (1 + tanh(sqrt(2 /
+    pi) * (x + 0.044715 x^3)))."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float64).to(x.dtype)
+    a = torch.tensor(0.044715, dtype=torch.float64).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
 def apply_norm(x, params, kind: str):
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"])
@@ -957,9 +989,9 @@ def mlp(params, x, act: str = "silu"):
     if "b_up" in params:
         up = up + params["b_up"].to(x.dtype)
     if "w_gate" in params:
-        h = F.silu(x @ params["w_gate"].to(x.dtype)) * up
+        h = silu(x @ params["w_gate"].to(x.dtype)) * up
     else:
-        h = F.gelu(up, approximate="tanh") if act == "gelu" else F.silu(up)
+        h = gelu(up) if act == "gelu" else silu(up)
     out = h @ params["w_down"].to(x.dtype)
     if "b_down" in params:
         out = out + params["b_down"].to(x.dtype)
@@ -1057,7 +1089,7 @@ def moe(params, x, dims: MoEDims):
     ein = torch.einsum("gsec,gsd->egcd", disp, xg)             # (E,G,cap,D)
     h = torch.einsum("egcd,edf->egcf", ein, params["w_gate"].to(x.dtype))
     u = torch.einsum("egcd,edf->egcf", ein, params["w_up"].to(x.dtype))
-    h = F.silu(h) * u
+    h = silu(h) * u
     eout = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(x.dtype))
     out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), eout)
     return out.reshape(B, S, D), {"moe_aux": aux_loss, "moe_z": z_loss}

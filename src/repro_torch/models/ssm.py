@@ -112,7 +112,7 @@ def _time_mix(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
     r = (x_r @ lp["wr"].to(x.dtype)).reshape(B, T, H, N)
     k = (x_k @ lp["wk"].to(x.dtype)).reshape(B, T, H, N)
     v = (x_v @ lp["wv"].to(x.dtype)).reshape(B, T, H, N)
-    g = F.silu(x_g @ lp["wg"].to(x.dtype))
+    g = L.silu(x_g @ lp["wg"].to(x.dtype))
     dec = (lp["w0"].float()
            + torch.tanh(x_w.float() @ lp["wA"].float()) @ lp["wB"].float())
     w = torch.exp(-torch.exp(dec)).reshape(B, T, H, N).to(x.dtype)
@@ -121,9 +121,10 @@ def _time_mix(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
           else torch.zeros((B, H, N, N), dtype=torch.float32,
                            device=x.device))
     if impl == "pallas":
-        # the TPU kernel reads its inputs as f32 (a no-op at f32 compute)
+        # the TPU kernel reads its inputs as f32 (a no-op at f32 compute);
+        # u reaches it in x's dtype, as ``repro`` passes it
         y, S = kops.wkv6(r.float(), k.float(), v.float(), w.float(),
-                         lp["u"].float(), S0)
+                         lp["u"].to(x.dtype).float(), S0)
     elif impl == "scan":
         y, S = ref.wkv6(r, k, v, w, lp["u"].float(), S0)
     else:
@@ -144,7 +145,7 @@ def _channel_mix(lp, x, state):
     xk = x + xx * lp["cmu_k"].to(x.dtype)
     xr = x + xx * lp["cmu_r"].to(x.dtype)
     k = torch.square(F.relu(xk @ lp["ck"].to(x.dtype)))
-    r = torch.sigmoid(xr @ lp["cr"].to(x.dtype))
+    r = L.sigmoid(xr @ lp["cr"].to(x.dtype))
     return r * (k @ lp["cv"].to(x.dtype)), {"x_cm": x[:, -1].float()}
 
 

@@ -194,10 +194,13 @@ class ServeEngine:
     reproducibly for a fixed ``seed``. ``prefill_attn_impl='auto'``
     resolves to the flash-attention kernel ('pallas') on the card and to
     the einsum reference on the CPU, as ``repro`` resolves it on and off
-    the TPU."""
+    the TPU. ``cache_dtype`` (None: ``compute_dtype``) is the dtype of the
+    cache's K/V rows, pools and transient request caches, as in
+    ``repro``; int8 pages keep f32 scales and the recurrent states stay
+    f32."""
 
     def __init__(self, model: Model, params, *, batch_slots: int, s_max: int,
-                 compute_dtype=torch.float32,
+                 compute_dtype=torch.float32, cache_dtype=None,
                  temperature: float = 0.0, seed: int = 0,
                  top_k: int = 0, top_p: float = 1.0,
                  page_size: Optional[int] = None,
@@ -219,6 +222,7 @@ class ServeEngine:
         self.batch_slots = batch_slots
         self.s_max = s_max
         self.compute_dtype = compute_dtype
+        self.cache_dtype = cache_dtype or compute_dtype
         self.temperature = float(temperature)
         if int(top_k) < 0:
             raise ValueError(f"top_k must be >= 0 (0 = off), got {top_k}")
@@ -276,7 +280,7 @@ class ServeEngine:
         else:
             self.backend = make_backend(kv_backend, family=self.cfg.family)
         self.cache = self.backend.init_cache(model, batch_slots, s_max,
-                                             compute_dtype, self.device)
+                                             self.cache_dtype, self.device)
 
         # prefix cache: paged + parallel prefill + an attention-only family
         # (None = on where supported; an explicit True elsewhere warns and
@@ -326,13 +330,13 @@ class ServeEngine:
             model, compute_dtype=compute_dtype, attn_impl=paged_attn_impl)
         self._chunk_first = steps_mod.make_prefill_chunk(
             model, compute_dtype=compute_dtype, s_max=s_max,
-            cache_dtype=compute_dtype, first=True,
+            cache_dtype=self.cache_dtype, first=True,
             attn_impl=prefill_attn_impl)
         self._chunk_cont = steps_mod.make_prefill_chunk(
             model, compute_dtype=compute_dtype, attn_impl=prefill_attn_impl)
         self._prefill_scan = steps_mod.make_prefill(
             model, compute_dtype=compute_dtype, return_cache=True,
-            s_max=s_max, cache_dtype=compute_dtype)
+            s_max=s_max, cache_dtype=self.cache_dtype)
 
         # (head rid, free pages, index version) at the last deferral: admit()
         # short-circuits while nothing that could change the outcome moved
@@ -784,7 +788,7 @@ class ServeEngine:
         phys, ok = self._prefix_gather_rows(job.prefix_plans, cached_len)
         t0 = self.metrics.now()
         job.cache = self.backend.seed_prefix(
-            self.model, self.s_max, self.compute_dtype)(
+            self.model, self.s_max, self.cache_dtype)(
             self.cache, torch.from_numpy(phys).to(self.device),
             torch.from_numpy(ok).to(self.device), job.tail_start)
         self._sync()

@@ -180,7 +180,8 @@ def test_dense_chunks_then_decode_match_reference(fam, arch):
     step_extras = {k: v for k, v in extras.items() if k != "frames"}
     jfirst = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
                                        s_max=S_MAX, first=True)
-    tfirst = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True)
+    tfirst = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
+                                       compute_dtype=torch.float32)
     jl, jc = jfirst(jparams, {"tokens": jnp.asarray(toks[:, :12]),
                               **_j(extras)})
     tl, tc = tfirst(tparams, {"tokens": torch.from_numpy(toks[:, :12]),
@@ -190,7 +191,8 @@ def test_dense_chunks_then_decode_match_reference(fam, arch):
     jl, jc = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32)(
         jparams, jc, {"tokens": jnp.asarray(toks[:, 12:]),
                       **_j(step_extras)})
-    tl, tc = tsteps.make_prefill_chunk(tmodel)(
+    tl, tc = tsteps.make_prefill_chunk(tmodel,
+                                       compute_dtype=torch.float32)(
         tparams, tc, {"tokens": torch.from_numpy(toks[:, 12:]),
                       **_t(step_extras)})
     _close(tl, jl)
@@ -297,7 +299,8 @@ def test_whisper_transient_chunk_spliced_into_pages(fam, impl):
     jl, jr = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
                                        s_max=S_MAX, first=True)(
         jparams, {"tokens": jnp.asarray(toks), **_j(frames)})
-    tl, tr = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True)(
+    tl, tr = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
+                                       compute_dtype=torch.float32)(
         tparams, {"tokens": torch.from_numpy(toks), **_t(frames)})
     _close(tl, jl)
     slots = np.asarray([0, 2])

@@ -138,7 +138,8 @@ def test_forward_matches_reference(models, scan_impl, attn_impl):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     jpre = jsteps.make_prefill(jreg.get_model(jcfg), attn_impl=attn_impl,
                                compute_dtype=jnp.float32)
-    tpre = tsteps.make_prefill(treg.get_model(tcfg), attn_impl=attn_impl)
+    tpre = tsteps.make_prefill(treg.get_model(tcfg), attn_impl=attn_impl,
+                               compute_dtype=torch.float32)
     np.testing.assert_allclose(
         tpre(tparams, {"tokens": torch.from_numpy(toks)}).numpy(),
         np.asarray(jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})),
@@ -162,8 +163,10 @@ def test_prefill_chunks_then_decode_match_reference(models, attn_impl):
     jcont = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
                                       attn_impl=attn_impl)
     tfirst = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
-                                       attn_impl=attn_impl)
-    tcont = tsteps.make_prefill_chunk(tmodel, attn_impl=attn_impl)
+                                       attn_impl=attn_impl,
+                                       compute_dtype=torch.float32)
+    tcont = tsteps.make_prefill_chunk(tmodel, attn_impl=attn_impl,
+                                      compute_dtype=torch.float32)
     jl, jc = jfirst(jparams, {"tokens": jnp.asarray(toks[:, :6], jnp.int32)})
     tl, tc = tfirst(tparams, {"tokens": torch.from_numpy(toks[:, :6])})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -211,7 +214,8 @@ def test_paged_ring_decode_matches_reference(models):
     jl, jc = jsteps.make_prefill_chunk(
         jmodel, compute_dtype=jnp.float32, s_max=S_MAX, first=True)(
         jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
-    tl, tc = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True)(
+    tl, tc = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
+                                       compute_dtype=torch.float32)(
         tparams, {"tokens": torch.from_numpy(toks)})
     W = treg.cache_capacity(tcfg, S_MAX)
     assert W == jreg.cache_capacity(jcfg, S_MAX) == 8
@@ -278,7 +282,8 @@ def test_scan_prefill_matches_reference(models):
     jpre = jsteps.make_prefill(jreg.get_model(jcfg), return_cache=True,
                                s_max=S_MAX, compute_dtype=jnp.float32)
     tpre = tsteps.make_prefill(treg.get_model(tcfg), return_cache=True,
-                               s_max=S_MAX)
+                               s_max=S_MAX,
+                               compute_dtype=torch.float32)
     jl, jc = jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = tpre(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)

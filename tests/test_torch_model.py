@@ -136,7 +136,8 @@ def test_forward_matches_reference(models, impl):
     assert set(taux) == set(jaux)
     jpre = jsteps.make_prefill(jreg.get_model(jcfg), attn_impl=impl,
                                compute_dtype=jnp.float32)
-    tpre = tsteps.make_prefill(treg.get_model(tcfg), attn_impl=impl)
+    tpre = tsteps.make_prefill(treg.get_model(tcfg), attn_impl=impl,
+                               compute_dtype=torch.float32)
     np.testing.assert_allclose(
         tpre(tparams, {"tokens": torch.from_numpy(toks)}).numpy(),
         np.asarray(jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})),
@@ -166,9 +167,11 @@ def test_dense_prefill_chunks_then_decode_matches(models, attn_impl):
     jcont = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
                                       s_max=S_MAX, attn_impl=attn_impl)
     tfirst = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX, first=True,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl,
+                                       compute_dtype=torch.float32)
     tcont = tsteps.make_prefill_chunk(tmodel, s_max=S_MAX,
-                                      attn_impl=attn_impl)
+                                      attn_impl=attn_impl,
+                                      compute_dtype=torch.float32)
     jl, jc = jfirst(jparams, {"tokens": jnp.asarray(toks[:, :16], jnp.int32)})
     tl, tc = tfirst(tparams, {"tokens": torch.from_numpy(toks[:, :16])})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -210,7 +213,8 @@ def test_scan_prefill_matches_reference(models):
                                compute_dtype=jnp.float32, return_cache=True,
                                s_max=S_MAX)
     tpre = tsteps.make_prefill(treg.get_model(tcfg), return_cache=True,
-                               s_max=S_MAX)
+                               s_max=S_MAX,
+                               compute_dtype=torch.float32)
     jl, jc = jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = tpre(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)

@@ -479,31 +479,37 @@ def test_latent_plan_rejects_and_unaligned():
 
 
 # --------------------------------------------- K1 / K3: plan and splits
-# (B, Sq, H, KV, hd, mps * page_size, quantized, pointers)
-#   -> (rows, key_tile, stages, splits, vec)
+# (B, Sq, H, KV, hd, mps * page_size, pool element bytes, pointers)
+#   -> (rows, key_tile, stages, splits, vec); int8 pools are 1, bf16 2
 PAGED_PLANS = [
     # qwen2.5-32b at full width: a decode tick (64 pairs for 132 SMs:
     # split 4 ways) and a prefill chunk (320 pairs: no split)
-    ((8, 1, 40, 8, 128, 1024, False, (256, 512)), (16, 32, 3, 4, True)),
-    ((8, 64, 40, 8, 128, 1024, False, (256, 512)), (64, 64, 2, 1, True)),
+    ((8, 1, 40, 8, 128, 1024, 4, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 128, 1024, 4, (256, 512)), (64, 64, 2, 1, True)),
     # int8 pools: a quarter of the ring's bytes; 32-key tiles at prefill,
     # whose 3 stages leave room for two blocks on an SM
-    ((8, 1, 40, 8, 128, 1024, True, (256, 512)), (16, 32, 3, 4, True)),
-    ((8, 64, 40, 8, 128, 1024, True, (256, 512)), (64, 32, 3, 1, True)),
+    ((8, 1, 40, 8, 128, 1024, 1, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 128, 1024, 1, (256, 512)), (64, 32, 3, 1, True)),
     # head_dim 16 (int8 rows of 16 bytes), 64 and 256 (64-key tiles no
     # longer fit a ring beside 64 rows of Q)
-    ((8, 1, 40, 8, 16, 1024, True, (256, 512)), (16, 32, 3, 4, True)),
-    ((8, 64, 40, 8, 64, 1024, False, (256, 512)), (64, 64, 3, 1, True)),
-    ((8, 1, 40, 8, 256, 1024, False, (256, 512)), (16, 32, 3, 4, True)),
-    ((8, 64, 40, 8, 256, 1024, False, (256, 512)), (64, 32, 2, 1, True)),
+    ((8, 1, 40, 8, 16, 1024, 1, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 64, 1024, 4, (256, 512)), (64, 64, 3, 1, True)),
+    ((8, 1, 40, 8, 256, 1024, 4, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 256, 1024, 4, (256, 512)), (64, 32, 2, 1, True)),
     # one page a slot (page_size == s_max = 64): few pairs, but no more
     # splits than key tiles
-    ((2, 1, 8, 2, 128, 64, False, (256, 512)), (16, 32, 3, 2, True)),
-    ((2, 64, 8, 2, 128, 64, True, (256, 512)), (64, 32, 3, 2, True)),
+    ((2, 1, 8, 2, 128, 64, 4, (256, 512)), (16, 32, 3, 2, True)),
+    ((2, 64, 8, 2, 128, 64, 1, (256, 512)), (64, 32, 3, 2, True)),
     # an unaligned pointer, int8 rows not a multiple of 16 bytes: 4-byte
     # staging
-    ((2, 4, 4, 2, 128, 256, False, (256, 8)), (16, 32, 3, 8, False)),
-    ((2, 1, 4, 2, 20, 256, True, (256, 512)), (16, 32, 3, 8, False)),
+    ((2, 4, 4, 2, 128, 256, 4, (256, 8)), (16, 32, 3, 8, False)),
+    ((2, 1, 4, 2, 20, 256, 1, (256, 512)), (16, 32, 3, 8, False)),
+    # bf16 pools: 32-key tiles as int8's (the upcasting pass); 16-byte
+    # staging needs rows of 8 elements
+    ((8, 1, 40, 8, 128, 1024, 2, (256, 512)), (16, 32, 3, 4, True)),
+    ((8, 64, 40, 8, 128, 1024, 2, (256, 512)), (64, 32, 3, 1, True)),
+    ((8, 64, 40, 8, 256, 1024, 2, (256, 512)), (64, 32, 2, 1, True)),
+    ((2, 1, 4, 2, 20, 256, 2, (256, 512)), (16, 32, 3, 8, False)),
 ]
 
 
@@ -514,19 +520,18 @@ def test_paged_plan(shape, want):
     else 32), 3 stages where they fit, no split where the (slot,
     kv head, row tile) blocks fill the SMs, else about two blocks per SM
     capped at one split per key tile; its shared memory fits the card."""
-    B, Sq, H, KV, hd, n_keys, quantized, ptrs = shape
-    plan = pa.paged_plan(B, Sq, H, KV, hd, n_keys, quantized=quantized,
-                         ptrs=ptrs)
+    B, Sq, H, KV, hd, n_keys, elem, ptrs = shape
+    plan = pa.paged_plan(B, Sq, H, KV, hd, n_keys, elem=elem, ptrs=ptrs)
     assert (plan.rows, plan.key_tile, plan.stages, plan.splits,
             plan.vec) == want
     assert plan.c_args() == want[:4] + (int(want[4]),)
     hdp = pa._head_pad(hd)
     assert plan.smem == pa._paged_smem(plan.rows, plan.key_tile, hdp,
-                                       plan.stages, quantized)
+                                       plan.stages, elem)
     assert plan.smem <= pa.SMEM_MAX
     if plan.stages == 2:
         assert pa._paged_smem(plan.rows, plan.key_tile, hdp, 3,
-                              quantized) > pa.SMEM_MAX
+                              elem) > pa.SMEM_MAX
     pairs = B * KV * -(-(H // KV * Sq) // plan.rows)
     if pairs >= pa.SMS:
         assert plan.splits == 1
@@ -667,6 +672,101 @@ def test_q8_kernel_split_edges_on_card(case):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     assert torch.equal(got, got_nan)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            assert torch.all(got[b] == 0)
+
+
+def _within_bf16_step(got, want):
+    """bf16 outputs within TOL and one bf16 step at every element: the
+    kernel and its plain version compute in fp32, their sums in other
+    orders (TOL), and each rounds once to bf16 (a step at most)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float().cpu(), want.float().cpu()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.bfloat16).smallest_normal)
+    allowed = (torch.exp2(torch.floor(torch.log2(big)) - 7) + TOL["atol"]
+               + TOL["rtol"] * w.abs())
+    assert bool(((g - w).abs() <= allowed).all())
+
+
+# (q dtype, pool dtype) of the bf16 entries: bf16 compute over bf16 pages,
+# over fp32 pages, and fp32 q over bf16 pages
+BF16_PAIRS = [(torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", BF16_PAIRS, ids=["bf16", "bf16-f32",
+                                                    "f32-bf16"])
+@pytest.mark.parametrize("case", PAGED_CARD_CASES)
+def test_bf16_kernel_split_edges_on_card(case, dtypes):
+    """K1's bf16 entries at the split's edges: within one bf16 step of the
+    plain version for a bf16 output (fp32 q: TOL), rows no query can see
+    NaN and never read, a freed slot exactly 0; K3 with bf16 q over int8
+    pools the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Sq, hd, B, ps, mps, start, holes, spare, window = case
+    qd, pd = dtypes
+    q, pk, pv, bt, start, seen = _paged_edges(23, B, Sq, hd, ps, mps, start,
+                                              holes, spare, window)
+    poison = lambda a: np.where(seen[:, :, None, None], a,  # noqa: E731
+                                np.nan).astype(np.float32)
+    args = _on_card(q, pk, pv, bt, start)
+    args = [args[0].to(qd), args[1].to(pd), args[2].to(pd), *args[3:]]
+    bad = [t.to(pd) for t in _on_card(poison(pk), poison(pv))]
+    kind = "decode" if Sq == 1 else "prefill"
+    got = pa.paged_attention(args[0], *bad, *args[3:], window=window,
+                             kind=kind)
+    want = tref.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    if qd == torch.bfloat16:
+        _within_bf16_step(got, want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
+    for b in range(B):
+        if start[b] >= INACTIVE:
+            assert torch.all(got[b] == 0)
+    if dtypes == BF16_PAIRS[0]:
+        (pkq, ks), (pvq, vs) = _q8(pk), _q8(pv)
+        a8 = _on_card(q, pkq, pvq, bt, start)
+        a8[0] = a8[0].to(torch.bfloat16)
+        sc = dict(zip(("k_scale", "v_scale"), _on_card(ks, vs)))
+        got = pa.paged_attention(*a8, window=window, kind=kind + "_q8", **sc)
+        _within_bf16_step(got, tref.paged_attention(*a8, window=window,
+                                                    **sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", BF16_PAIRS, ids=["bf16", "bf16-f32",
+                                                    "f32-bf16"])
+@pytest.mark.parametrize("case", LATENT_CARD_CASES)
+def test_bf16_latent_kernel_on_card(case, dtypes):
+    """K4's bf16 entries at the latent card cases, as the fp32 test: rows
+    no query can see NaN in the pool, a freed slot exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Sq, (Lw, d_v, scale_dim), B, ps, mps, start, holes, spare = case
+    qd, pd = dtypes
+    q, clean, poisoned, bt, start = _latent_edges(
+        17, B, Sq, 40, Lw, ps, mps, start, holes, spare)
+    q, clean, poisoned, bt, start = (torch.from_numpy(a).cuda() for a in (
+        q, clean, poisoned, bt, start))
+    q, clean, poisoned = q.to(qd), clean.to(pd), poisoned.to(pd)
+    kind = "decode_latent" if Sq == 1 else "prefill_latent"
+    got = pa.paged_attention_latent(q, poisoned, bt, start,
+                                    scale_dim=scale_dim, d_v=d_v, kind=kind)
+    want = tref.paged_attention_latent(q, clean, bt, start,
+                                       scale_dim=scale_dim, d_v=d_v)
+    torch.cuda.synchronize()
+    if qd == torch.bfloat16:
+        _within_bf16_step(got, want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
     for b in range(B):
         if start[b] >= INACTIVE:
             assert torch.all(got[b] == 0)

@@ -119,7 +119,8 @@ def test_forward_matches_reference(models, scan_impl):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     jpre = jsteps.make_prefill(jreg.get_model(jcfg),
                                compute_dtype=jnp.float32)
-    tpre = tsteps.make_prefill(treg.get_model(tcfg))
+    tpre = tsteps.make_prefill(treg.get_model(tcfg),
+                               compute_dtype=torch.float32)
     np.testing.assert_allclose(
         tpre(tparams, {"tokens": torch.from_numpy(toks)}).numpy(),
         np.asarray(jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})),
@@ -139,8 +140,10 @@ def test_prefill_chunks_then_decode_match_reference(models):
     jfirst = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32,
                                        s_max=32, first=True)
     jcont = jsteps.make_prefill_chunk(jmodel, compute_dtype=jnp.float32)
-    tfirst = tsteps.make_prefill_chunk(tmodel, s_max=32, first=True)
-    tcont = tsteps.make_prefill_chunk(tmodel)
+    tfirst = tsteps.make_prefill_chunk(tmodel, s_max=32, first=True,
+                                       compute_dtype=torch.float32)
+    tcont = tsteps.make_prefill_chunk(tmodel,
+                                      compute_dtype=torch.float32)
     jl, jc = jfirst(jparams, {"tokens": jnp.asarray(toks[:, :9], jnp.int32)})
     tl, tc = tfirst(tparams, {"tokens": torch.from_numpy(toks[:, :9])})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -199,7 +202,8 @@ def test_scan_prefill_matches_reference(models):
     jpre = jsteps.make_prefill(jreg.get_model(jcfg), return_cache=True,
                                s_max=16, compute_dtype=jnp.float32)
     tpre = tsteps.make_prefill(treg.get_model(tcfg), return_cache=True,
-                               s_max=16)
+                               s_max=16,
+                               compute_dtype=torch.float32)
     jl, jc = jpre(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = tpre(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
