@@ -70,8 +70,8 @@ def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
     prompts = cs.serve_prompts(dense.cfg.vocab_size)
     _, reqs, firsts, nbytes, m_fp32 = cs.phase4_serve(model, params,
                                                       prompts, card)
-    _, m_int8 = cs.phase4b_serve_int8(model, params, prompts, card,
-                                      (reqs, firsts, nbytes))
+    _, m_int8, _ = cs.phase4b_serve_int8(model, params, prompts, card,
+                                         (reqs, firsts, nbytes))
     served = {"fp32 pages": m_fp32, "int8 pages": m_int8}
     del dense, model, params
     torch.cuda.empty_cache()

@@ -188,11 +188,29 @@ before printing any result. Phases, each of which raises on failure:
    codeqwen1.5-7b --reduced --steps 20 --ckpt-dir <tmp>`` in its own
    process, then ``--steps 25``, which resumes from step 20; both exit 0
    with a finite final loss.
+19. tensor-parallel serving, run after phase 18 on phase 4's weights:
+   (19a) K1 (fp32 and bf16), K3 and K4 at full width on every rank's head
+   slab at tp 2, 4 and 8 (``SlabMesh``: every rank's slab in this one
+   process), each launched with the whole launch's plan: the slabs
+   concatenated are the whole launch bit for bit, each slab within
+   KERNEL_TOL of its plain version; rank 0's slab timed beside the plan
+   the slab alone would take, the bound and SDPA on the slab; (19b)
+   phase 4's 16 requests through a one-rank NCCL mesh (from an in-process
+   store): tokens and first-token logits bit-equal to phase 4's, K1
+   launched layers x ticks and chunks; (19c) two ranks serving them at
+   tp = 2 (``chip_smoke.py --tp-rank``: one card each over NCCL where
+   there are two, else both on cuda:0 over gloo, the all-gather staged
+   through the host): tokens equal to phase 4's, each rank's pool half of
+   tp = 1's, every attention through K1's slabs; then on int8 pages
+   through K3's slabs, phase 3c's model step held to one device's
+   (L, P, 2) scale groups within Q8_MODEL_TOL, and the served streams'
+   greedy prefix match with phase 4b's reported beside 4b's own with
+   phase 4.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
-path (3b's forward, 4, 4b, 5, 7, 9, 10, 11, 18), each forward of phases 8,
+path (3b's forward, 4, 4b, 5, 7, 9, 10, 11, 18, 19b, 19c), each forward of phases 8,
 8b, 9 and 10 and phase 16's training runs run with the kernels' launch
 counts set to 0 just before and read just after, and every serving run requires that no prefill
 chunk failed (the engine catches a chunk that raises and fails its job);
@@ -207,6 +225,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -260,6 +279,7 @@ from repro_torch.serve.metrics import percentile  # noqa: E402
 from repro_torch.serve.scheduler import RequestState  # noqa: E402
 from repro_torch.serve.kvcache import (PagedInt8Backend,  # noqa: E402
                                        PagedLatentBackend)
+from repro_torch.sharding import specs  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -1843,7 +1863,7 @@ def phase4b_serve_int8(model, params, prompts, card, fp32):
                     strict=False)
     del engine
     torch.cuda.empty_cache()
-    return launches, m
+    return launches, m, reqs
 
 
 def compare_streams(a_name, a, b_name, b, strict=True):
@@ -4418,6 +4438,432 @@ def phase18_bf16(model, params, prompts, card, fp32):
     return launches
 
 
+
+# ------------------------------------------------------------ phase 19
+TP_DEGREES = (2, 4, 8)
+TP_SERVE = 2                  # 19c: ranks serving phase 4's requests
+TP_TIMEOUT = 420              # s, 19c's two ranks together
+
+
+class SlabMesh:
+    """Rank ``r``'s view of a 1-axis "model" mesh of ``tp`` ranks: what the
+    head-sharded wrappers read (``specs.head_slab``). 19a launches every
+    rank's slab in this one process; no collective runs."""
+
+    def __init__(self, r, tp):
+        self.mesh_dim_names, self.shape, self.r = (specs.TP_AXIS,), (tp,), r
+
+    def get_local_rank(self, axis):
+        return self.r
+
+
+def slab(t, r, tp, dim=2):
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+def quiet(r):
+    """Rank 0's check logs its line; the other ranks' checks only raise."""
+    return (contextlib.nullcontext() if r == 0
+            else contextlib.redirect_stdout(io.StringIO()))
+
+
+def match_frac(a, b) -> float:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n / max(len(a), len(b), 1)
+
+
+def paged_slab_rows(card, kind, Sq, seed, variant):
+    """K1 (fp32 or bf16) or K3 at qwen2.5-32b's ``kind`` shape: every
+    rank's slab at tp 2, 4, 8 with the whole launch's plan concatenates to
+    the whole launch bit for bit, each slab is held to its plain version,
+    and rank 0's slab is timed (not the bf16 one) beside the plan the slab
+    alone would take."""
+    args, fill = full_width_case(Sq, seed)
+    sc, kv_bytes = {}, 4
+    if variant == "_q8":
+        args, sc = q8_args(args)
+        kv_bytes = 1
+    elif variant == "_bf16":
+        args = [args[0].to(BF16), args[1].to(BF16), args[2].to(BF16),
+                *args[3:]]
+        kv_bytes = 2
+    q, pk, pv, bt, st = args
+    B, _, H, hd = q.shape
+    KV = pk.shape[2]
+    key = kind + variant
+    kkind = kind + ("_q8" if variant == "_q8" else "")
+    whole = pa.paged_attention(*args, kind=kkind, **sc)
+    whole_plan = pa.paged_plan(B, Sq, H, KV, hd, bt.shape[1] * PS,
+                               elem=pk.element_size())
+    rows = {}
+    for tp in TP_DEGREES:
+        parts, err = [], 0.0
+        for r in range(tp):
+            sa = [q, slab(pk, r, tp), slab(pv, r, tp), bt, st]
+            got = pa.paged_attention_head_sharded(
+                SlabMesh(r, tp), specs.TP_AXIS, *sa, kind=kkind, **sc)
+            with quiet(r):
+                _, e = kernel_held(f"  {key} tp={tp} rank {r} slab", got,
+                                   ref.paged_attention(slab(q, r, tp),
+                                                       *sa[1:], **sc))
+            parts.append(got)
+            err = max(err, e)
+        if not torch.equal(torch.cat(parts, dim=2), whole):
+            raise AssertionError(f"{key} tp={tp}: the slabs concatenated "
+                                 f"differ from the whole launch")
+        s0 = [slab(q, 0, tp), slab(pk, 0, tp), slab(pv, 0, tp), bt, st]
+        own_plan = pa.paged_plan(B, Sq, H // tp, KV // tp, hd,
+                                 bt.shape[1] * PS, elem=pk.element_size())
+        own = pa.paged_attention(*s0, kind=kkind, **sc)
+        own_same = torch.equal(own, parts[0])
+        log(f"  {key} tp={tp}: {tp} slabs bit-equal to the whole launch "
+            f"(plan: rows {whole_plan.rows}, key tile "
+            f"{whole_plan.key_tile}, {whole_plan.stages} stages, "
+            f"{whole_plan.splits} splits); the slab's own plan would take "
+            f"{own_plan.splits} splits and give "
+            f"{'the same' if own_same else 'other'} bits")
+        row = dict(err=err, own_splits=own_plan.splits,
+                   whole_splits=whole_plan.splits, own_same=own_same)
+        if variant != "_bf16":
+            call = lambda: pa.paged_attention(  # noqa: E731
+                *s0, kind=kkind, plan_heads=(H, KV), **sc)
+            ms = device_ms(call, 20, PAGED_KERNELS)
+            own_ms = device_ms(lambda: pa.paged_attention(
+                *s0, kind=kkind, **sc), 20, PAGED_KERNELS)
+            plain = time_ms(lambda: ref.paged_attention(*s0, **sc), 5)
+            lib_args = s0
+            if sc:
+                lib_args = [s0[0]] + [
+                    (p.float() * s[:, None, None, None])
+                    for p, s in ((s0[1], sc["k_scale"]),
+                                 (s0[2], sc["v_scale"]))] + s0[3:]
+            lib_ms = device_ms(sdpa_call(lib_args), 5)
+            bms, by = bound_ms(s0, fill, kv_bytes=kv_bytes)
+            log(f"  {key} tp={tp} rank-0 slab: kernel {ms:.4f} ms (its own "
+                f"plan {own_ms:.4f} ms) | plain {plain:.4f} ms | sdpa "
+                f"{lib_ms:.4f} ms | bound {bms:.4f} ms ({by}) ({card})")
+            row.update(ms=ms, own_ms=own_ms, plain_ms=plain,
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        rows[(key, tp)] = row
+    return rows
+
+
+def latent_slab_rows(card, kind, Sq, seed):
+    """K4 at qwen2.5-32b-mla's ``kind`` shape (40 heads over the whole
+    latent pool): the same as ``paged_slab_rows``."""
+    cfg = configs.get_config(MLA_ARCH)
+    H, c, r_ = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    Lw, scale_dim = c + r_, cfg.head_dim + r_
+    mps = S_MAX // PS
+    fill = np.random.default_rng(seed).integers(100, 733, SLOTS)
+    args = on_card(*latent_case(seed, SLOTS, Sq, H, Lw, SLOTS * mps, PS,
+                                mps, fill), (fill - Sq).astype(np.int32))
+    q, pool, bt, st = args
+    kw = dict(scale_dim=scale_dim, d_v=c, kind=kind)
+    whole = pa.paged_attention_latent(*args, **kw)
+    whole_plan = pa.latent_plan(SLOTS, H * Sq, Lw, c, mps * PS)
+    rows = {}
+    for tp in TP_DEGREES:
+        parts, err = [], 0.0
+        for r in range(tp):
+            got = pa.paged_attention_latent_head_sharded(
+                SlabMesh(r, tp), specs.TP_AXIS, *args, **kw)
+            with quiet(r):
+                _, e = held(f"  {kind} tp={tp} rank {r} slab", got,
+                            ref.paged_attention_latent(
+                                slab(q, r, tp), pool, bt, st,
+                                scale_dim=scale_dim, d_v=c))
+            parts.append(got)
+            err = max(err, e)
+        if not torch.equal(torch.cat(parts, dim=2), whole):
+            raise AssertionError(f"{kind} tp={tp}: the slabs concatenated "
+                                 f"differ from the whole launch")
+        q0 = slab(q, 0, tp)
+        own_plan = pa.latent_plan(SLOTS, H // tp * Sq, Lw, c, mps * PS)
+        own = pa.paged_attention_latent(q0, pool, bt, st, **kw)
+        own_same = torch.equal(own, parts[0])
+        ms = device_ms(lambda: pa.paged_attention_latent(
+            q0, pool, bt, st, plan_heads=H, **kw), 20, LATENT_KERNELS)
+        own_ms = device_ms(lambda: pa.paged_attention_latent(
+            q0, pool, bt, st, **kw), 20, LATENT_KERNELS)
+        plain = time_ms(lambda: ref.paged_attention_latent(
+            q0, pool, bt, st, scale_dim=scale_dim, d_v=c), 5)
+        n = mps * PS
+        j = torch.arange(n, device=DEV)
+        page = bt.long()[:, j // PS]
+        ok = page >= 0
+        view = pool.reshape(-1, Lw)[torch.where(ok, page * PS + j % PS, 0)]
+        kk, vv = view[:, None].contiguous(), view[:, None, :, :c].contiguous()
+        qpos = st.long()[:, None] + torch.arange(Sq, device=DEV)
+        mask = (ok[:, None, :] & (j[None, None, :] <= qpos[:, :, None]))[:,
+                                                                         None]
+        qt = q0.transpose(1, 2).contiguous()
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kk, vv, attn_mask=mask, scale=scale_dim ** -0.5,
+            enable_gqa=True), 5)
+        Hs = H // tp
+        nbytes = (int(np.sum(fill)) * Lw * 4 + (q0.numel() + SLOTS * Sq * Hs
+                                                * c) * 4
+                  + 4 * (bt.numel() + st.numel()))
+        bms, by = roofline(nbytes, 2 * (Lw + c) * visible_pairs(fill, Sq) * Hs)
+        log(f"  {kind} tp={tp}: {tp} slabs bit-equal to the whole launch "
+            f"(plan: rows {whole_plan.rows}, {whole_plan.splits} splits; the "
+            f"slab's own: rows {own_plan.rows}, {own_plan.splits} splits, "
+            f"{'the same' if own_same else 'other'} bits); rank-0 slab: "
+            f"kernel {ms:.4f} ms (own plan {own_ms:.4f} ms) | plain "
+            f"{plain:.4f} ms | sdpa {lib_ms:.4f} ms | bound {bms:.4f} ms "
+            f"({by}) ({card})")
+        rows[(kind, tp)] = dict(err=err, ms=ms, own_ms=own_ms,
+                                plain_ms=plain, library_ms=lib_ms,
+                                bound_ms=bms, bound_by=by,
+                                own_splits=own_plan.splits,
+                                whole_splits=whole_plan.splits,
+                                own_same=own_same)
+    return rows
+
+
+def phase19a_slabs(card):
+    """19a: K1 (fp32, bf16), K3 and K4 at full width on each rank's head
+    slab at tp 2, 4 and 8, with the whole launch's plan: bit-equal to the
+    whole launch, each slab within KERNEL_TOL of its plain version (a bf16
+    step more for bf16), rank 0's slab timed beside the slab's own plan."""
+    t0 = time.perf_counter()
+    rows = {}
+    for kind, Sq, seed in (("decode", 1, 11), ("prefill", 64, 12)):
+        for variant in ("", "_bf16", "_q8"):
+            rows.update(paged_slab_rows(card, kind, Sq, seed, variant))
+            torch.cuda.empty_cache()
+    for kind, Sq, seed in (("decode_latent", 1, 15),
+                           ("prefill_latent", 64, 16)):
+        rows.update(latent_slab_rows(card, kind, Sq, seed))
+    torch.cuda.empty_cache()
+    log(f"  19a took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase19b_tp1(model, params, prompts, card, phase4):
+    """19b: phase 4's 16 requests through a one-rank NCCL mesh (made from an
+    in-process store): tokens and first-token logits bit-equal to phase
+    4's mesh-free stream, K1 launched layers x ticks and chunks. Returns
+    the pool bytes (tp = 1's, every kv head)."""
+    import torch.distributed as dist
+    p_reqs, p_firsts, p_m = phase4
+    specs.check_serve_group(1, "cuda")
+    log(f"  process group: {dist.get_backend()}, {dist.get_world_size()} "
+        f"rank")
+    mesh = specs.serve_mesh(1, "cuda")
+    engine = ServeEngine(model, params, mesh=mesh, **ServeConfig(
+        reduced=False, page_size=PS, s_max=S_MAX,
+        batch_slots=SLOTS).engine_kwargs())
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, firsts = serve(engine, prompts)
+    check_paged_launches(("decode", "prefill"), m, "tp=1 mesh K1")
+    if [r.tokens for r in reqs] != [r.tokens for r in p_reqs]:
+        raise AssertionError("tp=1 mesh: tokens differ from phase 4's")
+    if not all(torch.equal(a, b) for a, b in zip(firsts, p_firsts)):
+        raise AssertionError("tp=1 mesh: first-token logits differ from "
+                             "phase 4's")
+    log_serving(m, card)
+    log(f"  tp=1 mesh: tokens and first-token logits bit-equal to phase "
+        f"4's; ITL p50 {m['itl_s']['p50'] * 1e3:.2f} ms against phase 4's "
+        f"{p_m['itl_s']['p50'] * 1e3:.2f} ms")
+    pool = engine.per_shard_kv_bytes()
+    del engine
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return pool
+
+
+def phase19c_tp2(card, p_reqs, q8_reqs, pool_bytes):
+    """19c: two ranks (one card each over NCCL where there are two, else
+    both on cuda:0 over gloo, the all-gather staged through the host) serve
+    phase 4's requests at tp = 2: tokens equal to tp = 1's (phase 4's),
+    each rank holding half the pool. The int8 leg serves them through K3's
+    slabs, reporting the greedy prefix match against phase 4b's tp = 1
+    stream beside 4b's own against phase 4 (int8 against fp32), and holds
+    phase 3c's model step at tp = 2 to tp = 1 within Q8_MODEL_TOL
+    (``int8_step_tp``). Returns rank 0's counts."""
+    form = "nccl" if torch.cuda.device_count() >= TP_SERVE else "gloo"
+    log(f"  19c form: {form}, " + (
+        f"one card per rank" if form == "nccl" else
+        "both ranks on cuda:0, the all-gather staged through the host"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--tp-rank", str(r), str(TP_SERVE), d, form])
+            for r in range(TP_SERVE)]
+        deadline = time.monotonic() + TP_TIMEOUT
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"19c: ranks still running after "
+                                         f"{TP_TIMEOUT} s")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise AssertionError(f"19c: ranks failed {bad}")
+        ranks = [json.loads((pathlib.Path(d) / f"rank{r}.json").read_text())
+                 for r in range(TP_SERVE)]
+    want = [list(r.tokens) for r in p_reqs]
+    q8_want = [list(r.tokens) for r in q8_reqs]
+    base = float(np.mean([match_frac(a, b) for a, b in zip(q8_want, want)]))
+    for r, got in enumerate(ranks):
+        if got["tokens"] != want:
+            raise AssertionError(f"19c rank {r}: tp=2 tokens differ from "
+                                 f"tp=1's")
+        if got["pool_bytes"] * TP_SERVE != pool_bytes:
+            raise AssertionError(f"19c rank {r}: {got['pool_bytes']} pool "
+                                 f"bytes, not {pool_bytes} / {TP_SERVE}")
+        frac = float(np.mean([match_frac(a, b) for a, b in
+                              zip(got["tokens_q8"], q8_want)]))
+        log(f"  rank {r} ({got['device']}): tokens equal to tp=1's; pool "
+            f"{got['pool_bytes']} bytes = tp=1's / {TP_SERVE}; ITL p50 "
+            f"{got['itl_p50'] * 1e3:.2f} ms, tok/s {got['tok_s']:.1f}; "
+            f"int8 pages: model step within {got['q8_step_diff'][0]:.3e} of "
+            f"one device's {TP_SERVE} scale groups (of tp=1's whole-page "
+            f"scales {got['q8_step_diff'][1]:.3e}), served streams' greedy "
+            f"prefix match with tp=1's "
+            f"{frac:.3f} (int8 against fp32 at tp=1: {base:.3f}), ITL p50 "
+            f"{got['itl_p50_q8'] * 1e3:.2f} ms; K1 slab launches "
+            f"{got['launches']}, K3 {got['launches_q8']}; engine built "
+            f"(weights made and broadcast) in {got['build_s']:.2f} s")
+    if form == "gloo":
+        log(f"  gloo all_gather of CUDA tensors on this card's torch: "
+            f"{ranks[0]['gloo_cuda']}")
+    log(f"  19c took {time.perf_counter() - t0:.1f} s ({card})")
+    return ranks[0]
+
+
+def int8_step_tp(model, params, mesh):
+    """Phase 3c's model step (a 64-token paged chunk for 8 slots, then 8
+    greedy decode steps) on int8 pages at ``mesh``'s tp through K3's slabs,
+    each rank quantizing its slab with its own scale group, against the
+    same step on one device with the reference's (L, P, tp) group scales
+    read by the masked einsum: logits within Q8_MODEL_TOL and equal tokens
+    (phase 3c's means: int8 read paths part by int8 steps at rounding
+    ties). Also reports the step against one device's whole-page scales
+    (tp = 1), which differ by design. Every rank runs it; the tp run's
+    all-gathers pair them up. Returns (max |diff| against the groups,
+    against tp = 1)."""
+    cfg = model.cfg
+    tp = specs.tp_degree(mesh)
+    mps = S_MAX // PS
+    bt = torch.arange(SLOTS * mps, dtype=torch.int32,
+                      device=DEV).reshape(SLOTS, mps)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SLOTS, 64))).to(DEV)
+    runs = {}
+    for name, m, impl, groups in ((f"tp={tp} K3", mesh, "kernel", 1),
+                                  (f"{tp} groups einsum", None, "einsum", tp),
+                                  ("tp=1 K3", None, "kernel", 1)):
+        cache = PagedInt8Backend(PS, SLOTS * mps, mesh=m).init_cache(
+            model, SLOTS, S_MAX, torch.float32, DEV)
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.ones(tuple(cache[key].shape[:2]) + (groups,),
+                                    device=DEV)
+        cache["block_tables"].copy_(bt)
+        with specs.use_mesh(m, specs.TP_SERVE_RULES):
+            logits, cache = model.prefill_chunk_paged(
+                params, toks, cache, bt_rows=bt, start=0, write_floor=0,
+                attn_impl=impl)
+            cache["pos"].fill_(64)
+            seq, tok = [logits], logits[:, :, :cfg.vocab_size].argmax(-1)
+            tokens = [tok]
+            for _ in range(8):
+                logits, cache = model.decode_step(params, tok, cache,
+                                                  paged_attn_impl=impl)
+                tok = logits[:, :, :cfg.vocab_size].argmax(-1)
+                seq.append(logits)
+                tokens.append(tok)
+        runs[name] = (seq, torch.cat(tokens, 1))
+        del cache
+    tp_run, grouped, whole = runs
+    diff = {b: max((x - y).abs().max().item() for x, y in
+                   zip(runs[tp_run][0], runs[b][0])) for b in (grouped, whole)}
+    log(f"  int8 model step {tp_run} against tp=1's whole-page scales: "
+        f"logits max abs diff {diff[whole]:.3e}, greedy tokens "
+        f"{'equal' if torch.equal(runs[tp_run][1], runs[whole][1]) else 'differ'}"
+        f" (other scale groups, by design)")
+    compare_runs(runs, cfg, tp_run, grouped, Q8_MODEL_TOL)
+    return diff[grouped], diff[whole]
+
+
+def tp_rank(rank: int, world: int, out_dir: str, form: str) -> int:
+    """One rank of 19c (``chip_smoke.py --tp-rank R N DIR FORM``): build
+    qwen2.5-32b at full width (4 layers, phase 4's seed) at tp = N, serve
+    phase 4's requests on fp32 pages and then on int8 pages, and write
+    what it saw to DIR/rank<R>.json."""
+    import datetime
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if form == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(form, init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    gloo_cuda = None
+    if form == "gloo":
+        try:
+            parts = [torch.empty(2, device=dev) for _ in range(world)]
+            dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+            gloo_cuda = ("takes them" if [p[0].item() for p in parts]
+                         == [float(r) for r in range(world)] else
+                         "gathers wrong values")
+        except Exception as err:  # noqa: BLE001 — reported, staging serves
+            gloo_cuda = f"refuses them ({type(err).__name__})"
+    base = dict(reduced=False, s_max=S_MAX, batch_slots=SLOTS, page_size=PS,
+                device=str(dev))
+    t0 = time.perf_counter()
+    engine = ServeEngine.build(ARCH, config=ServeConfig(
+        cfg_overrides={"num_layers": LAYERS}, tp=world, **base))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0       # the weights' broadcast included
+    prompts = serve_prompts(engine.cfg.vocab_size)
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, _ = serve(engine, prompts)
+    launches = check_paged_launches(("decode", "prefill"), m,
+                                    f"rank {rank} K1 slabs")
+    out = dict(device=str(dev), gloo_cuda=gloo_cuda, build_s=built,
+               tokens=[list(r.tokens) for r in reqs],
+               pool_bytes=engine.per_shard_kv_bytes(), launches=launches,
+               itl_p50=m["itl_s"]["p50"],
+               tok_s=m["throughput_tokens_per_s"])
+    q8 = ServeEngine(engine.model, engine.params, mesh=engine.mesh,
+                     **ServeConfig(kv_backend="paged_int8",
+                                   **base).engine_kwargs())
+    pa.reset_launches()
+    fa.reset_launches()
+    reqs, m, _ = serve(q8, prompts)
+    q8.assert_page_invariants()
+    out.update(tokens_q8=[list(r.tokens) for r in reqs],
+               itl_p50_q8=m["itl_s"]["p50"],
+               launches_q8=check_paged_launches(
+                   ("decode_q8", "prefill_q8"), m, f"rank {rank} K3 slabs"))
+    del q8
+    out["q8_step_diff"] = int8_step_tp(engine.model, engine.params,
+                                       engine.mesh)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4478,8 +4924,9 @@ def main():
     launches, p_reqs, p_firsts, p_bytes, p_m = phase4_serve(
         model, params, prompts, card)
     log("phase 4b: int8 pages serving")
-    q8_launches, _ = phase4b_serve_int8(model, params, prompts, card,
-                                        (p_reqs, p_firsts, p_bytes))
+    q8_launches, _, q8_reqs = phase4b_serve_int8(model, params, prompts,
+                                                 card, (p_reqs, p_firsts,
+                                                        p_bytes))
     log("phase 5: ServeEngine main path (dense cache)")
     flash_launches = phase5_serve_dense(dense, prompts, card,
                                         (p_reqs, p_firsts))
@@ -4493,8 +4940,16 @@ def main():
     bf16_launches = phase18_bf16(model, params, prompts, card,
                                  (p_reqs, p_firsts, p_m))
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    log("phase 19: tensor-parallel serving (head slabs, a one-rank mesh, "
+        "two ranks)")
+    t19 = time.perf_counter()
+    slab_rows = phase19a_slabs(card)
+    pool_bytes = phase19b_tp1(model, params, prompts, card,
+                              (p_reqs, p_firsts, p_m))
     del dense, model, params
     torch.cuda.empty_cache()
+    tp2 = phase19c_tp2(card, p_reqs, q8_reqs, pool_bytes)
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
     log("phase 6: prefill anchors at reduced width")
     phase6_anchors()
     log("phase 7: qwen2.5-32b-mla at full width, 4 layers (fp32, then "
@@ -4664,6 +5119,20 @@ def main():
                 "ms": f["ms"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
                 "library_ms": None})
+    # K1 and K3 on a rank's head slab (19a), launched by 19c's two ranks
+    for suffix, line, counts in (("", 52, tp2["launches"]),
+                                 ("_q8", 112, tp2["launches_q8"])):
+        for kind in ("decode", "prefill"):
+            f = slab_rows[(kind + suffix, 2)]
+            kernels.append({
+                "name": f"paged_attention{suffix}[{kind} tp=2 slab]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "replaces": f"src/repro/kernels/paged_attention.py:{line}",
+                "launches": counts[kind],
+                "max_abs_err": f["err"], "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
     log(f"device times the profiler could not give, timed between events "
         f"instead: {len(FALLBACKS)}")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4674,4 +5143,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5]))
     sys.exit(main())

@@ -50,8 +50,9 @@
 //     most 128 registers. Wider rows take BR 16 and, past 3 stages' room,
 //     2 (L 1024: 226 KB).
 //   - Decode (Sq = 1) has H rows a slot, 8 slots give 24 (slot, row tile)
-//     pairs for 132 SMs, so the slot's live key tiles are divided among
-//     `splits` blocks on the device (each block reads the slot's start).
+//     pairs for 132 SMs, so the slot's key tiles up to its last query's
+//     frontier are divided among `splits` blocks on the device (each
+//     block reads the slot's start); every row tile divides them alike.
 //     Each split leaves (m, l, unnormalised O) per row in scratch the
 //     wrapper allocates, and split_merge_kernel (split_merge.cuh, shared
 //     with paged_attention.cu) combines the splits by log-sum-exp. A
@@ -172,8 +173,14 @@ latent_attention_kernel(const TQ* __restrict__ q,
   // keys at or past key_end are never read
   const int key_end = (int)min((long long)n_keys, pos_last + 1);
 
-  // this split's share of the slot's key tiles up to the frontier
-  const int n_live = key_end > 0 ? (key_end + KT - 1) / KT : 0;
+  // this split's share of the slot's key tiles up to its LAST query's
+  // frontier: the same tiles for every row tile of the slot, so a row's
+  // keys divide among the splits alike whichever row tile holds it (a
+  // launch on a slab of the heads, whose row tiles hold other rows, then
+  // gives the whole launch's bits); tiles past this block's key_end are
+  // not live and are skipped
+  const long long slot_end = min((long long)n_keys, st + Sq);
+  const int n_live = slot_end > 0 ? (int)((slot_end + KT - 1) / KT) : 0;
   const int t_end = (int)((long long)(split + 1) * n_live / splits);
 
   // the page holding logical key row `key`, or -1 when the row is not read

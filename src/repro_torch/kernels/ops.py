@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_attention
@@ -32,79 +33,112 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_latent)
 
 
+def _paged(q, pool_k, pool_v, block_tables, start, window, kind, mesh,
+           shard_axis, k_scale=None, v_scale=None):
+    """The paged dispatch: the rank's head slab under a tensor-parallel
+    mesh (``mesh`` / ``shard_axis`` from ``specs.head_shard_axis``, as the
+    reference routes them), else every head."""
+    if mesh is not None and shard_axis is not None:
+        return _pa.paged_attention_head_sharded(
+            mesh, shard_axis, q, pool_k, pool_v, block_tables, start,
+            window=window, kind=kind, k_scale=k_scale, v_scale=v_scale)
+    return paged_attention(q, pool_k, pool_v, block_tables, start,
+                           window=window, kind=kind, k_scale=k_scale,
+                           v_scale=v_scale)
+
+
 def paged_decode(q, pool_k, pool_v, block_tables, cache_pos, *,
-                 window: int = 0):
+                 window: int = 0, mesh=None, shard_axis=None):
     """Single-token decode attention against a paged KV cache.
 
     q: (B, 1, H, hd); pool_k/pool_v: (P, page_size, KV, hd), one layer's
     slice of the shared pool; block_tables: (B, mps) int32 (-1 =
     unallocated); cache_pos: (B,) int32 per-slot positions. The new K/V row
     must already be written at logical row cache_pos[b]. A freed slot
-    (all--1 table) returns exactly 0."""
-    return paged_attention(q, pool_k, pool_v, block_tables, cache_pos,
-                           window=window, kind="decode")
+    (all--1 table) returns exactly 0. ``mesh`` / ``shard_axis`` (from
+    ``specs.head_shard_axis``): the pools are this rank's kv-head slab and
+    the result its (B, 1, H / tp, hd) query heads."""
+    return _paged(q, pool_k, pool_v, block_tables, cache_pos, window,
+                  "decode", mesh, shard_axis)
 
 
 def paged_prefill(q, pool_k, pool_v, block_tables, start, *,
-                  window: int = 0):
+                  window: int = 0, mesh=None, shard_axis=None):
     """Prefill-chunk attention against a paged KV cache.
 
     q: (B, C, H, hd), row i of slot b at position ``start[b] + i``; the
     chunk's K/V rows must already be spliced into the slot's pages, so
     prior chunks, aliased prefix pages and the chunk itself are read
-    uniformly through the block table."""
-    return paged_attention(q, pool_k, pool_v, block_tables, start,
-                           window=window, kind="prefill")
+    uniformly through the block table. ``mesh`` / ``shard_axis`` as in
+    :func:`paged_decode`."""
+    return _paged(q, pool_k, pool_v, block_tables, start, window, "prefill",
+                  mesh, shard_axis)
 
 
 def _squeeze_scale(s):
-    """A (P,) scale table, or the int8 backend's (P, 1) single-group column
-    taken as (P,) (tensor-parallel scale groups are not ported)."""
+    """A (P,) scale table, or the int8 backend's (P, 1) column taken as
+    (P,): one whole-page group without tensor parallelism, and under it
+    this rank's own group, the only one its slab of the pool holds."""
     if s is not None and s.dim() == 2:
         s = s[:, 0]
     return s
 
 
 def paged_decode_q8(q, pool_k, pool_v, k_scale, v_scale, block_tables,
-                    cache_pos, *, window: int = 0):
+                    cache_pos, *, window: int = 0, mesh=None,
+                    shard_axis=None):
     """:func:`paged_decode` over INT8 pools: pool_k/pool_v are int8 and
     k_scale/v_scale their (P,) or (P, 1) f32 per-page symmetric scales. The
-    kernel dequantizes each page it gathers, so only int8 payload moves."""
-    return paged_attention(q, pool_k, pool_v, block_tables, cache_pos,
-                           window=window, kind="decode_q8",
-                           k_scale=_squeeze_scale(k_scale),
-                           v_scale=_squeeze_scale(v_scale))
+    kernel dequantizes each page it gathers, so only int8 payload moves.
+    Under ``mesh`` each rank dequantizes its slab with its own group's
+    scale column."""
+    return _paged(q, pool_k, pool_v, block_tables, cache_pos, window,
+                  "decode_q8", mesh, shard_axis,
+                  k_scale=_squeeze_scale(k_scale),
+                  v_scale=_squeeze_scale(v_scale))
 
 
 def paged_prefill_q8(q, pool_k, pool_v, k_scale, v_scale, block_tables,
-                     start, *, window: int = 0):
+                     start, *, window: int = 0, mesh=None, shard_axis=None):
     """:func:`paged_prefill` over INT8 pools (see paged_decode_q8)."""
-    return paged_attention(q, pool_k, pool_v, block_tables, start,
-                           window=window, kind="prefill_q8",
-                           k_scale=_squeeze_scale(k_scale),
-                           v_scale=_squeeze_scale(v_scale))
+    return _paged(q, pool_k, pool_v, block_tables, start, window,
+                  "prefill_q8", mesh, shard_axis,
+                  k_scale=_squeeze_scale(k_scale),
+                  v_scale=_squeeze_scale(v_scale))
+
+
+def _latent(q, pool_c, block_tables, start, scale_dim, d_v, kind, mesh,
+            shard_axis):
+    if mesh is not None and shard_axis is not None:
+        return _pa.paged_attention_latent_head_sharded(
+            mesh, shard_axis, q, pool_c, block_tables, start,
+            scale_dim=scale_dim, d_v=d_v, kind=kind)
+    return paged_attention_latent(q, pool_c, block_tables, start,
+                                  scale_dim=scale_dim, d_v=d_v, kind=kind)
 
 
 def paged_decode_latent(q, pool_c, block_tables, cache_pos, *,
-                        scale_dim: int, d_v: int):
+                        scale_dim: int, d_v: int, mesh=None,
+                        shard_axis=None):
     """Single-token decode attention over MLA latent pages. q: (B, 1, H,
     c+r) absorbed queries; pool_c: (P, page_size, 1, c+r), one latent row
     per token read once per page for both the scores and (its leading
     ``d_v`` columns) the values. Returns (B, 1, H, d_v) in latent space;
-    the caller applies wkv_b's value half and ``wo``."""
-    return paged_attention_latent(q, pool_c, block_tables, cache_pos,
-                                  scale_dim=scale_dim, d_v=d_v,
-                                  kind="decode_latent")
+    the caller applies wkv_b's value half and ``wo``. The latent pool has
+    no kv-head axis and stays whole on every rank; ``mesh`` /
+    ``shard_axis`` (from ``specs.latent_head_shard_axis``) shard the
+    absorbed queries and the output on their head axis."""
+    return _latent(q, pool_c, block_tables, cache_pos, scale_dim, d_v,
+                   "decode_latent", mesh, shard_axis)
 
 
 def paged_prefill_latent(q, pool_c, block_tables, start, *, scale_dim: int,
-                         d_v: int):
+                         d_v: int, mesh=None, shard_axis=None):
     """Prefill-chunk attention over MLA latent pages (see
     paged_decode_latent). q: (B, C, H, c+r); the chunk's latent rows must
     already be spliced into the slot's pages."""
-    return paged_attention_latent(q, pool_c, block_tables, start,
-                                  scale_dim=scale_dim, d_v=d_v,
-                                  kind="prefill_latent")
+    return _latent(q, pool_c, block_tables, start, scale_dim, d_v,
+                   "prefill_latent", mesh, shard_axis)
 
 
 def _check_row_positions(positions, n: int, name: str):

@@ -20,6 +20,9 @@ given. A call that does not fill the card (a decode tick) divides each
 slot's keys among several blocks, which leave partial results in scratch
 this module allocates, and a second launch (``csrc/split_merge.cuh``,
 shared by both kernels) merges them; the pair counts as one launch.
+Under tensor parallelism :func:`paged_attention_head_sharded` and
+:func:`paged_attention_latent_head_sharded` launch the same kernels on a
+rank's head slab with the plan of the whole-head call.
 """
 from __future__ import annotations
 
@@ -223,8 +226,8 @@ def latent_plan(B: int, n_rows: int, Lw: int, d_v: int, n_keys: int, *,
     stages where they fit. The split over keys: one where the (slot, row
     tile) pairs fill the SMs (a prefill chunk), else as many as give about
     two blocks per SM (a decode tick), at most one per key tile; the kernel
-    divides each slot's live key tiles among them on the device. 16-byte
-    staging where q and the pool are 16-byte aligned and Lw is a multiple
+    divides the key tiles up to each slot's last query among them on the
+    device, alike in every row tile. 16-byte staging where q and the pool are 16-byte aligned and Lw is a multiple
     of 16 bytes' elements (4 fp32, 8 bf16). A bf16 pool needs Lw even (its
     narrowest copy is 2 elements)."""
     if not 1 <= d_v <= Lw <= MAX_LATENT_WIDTH:
@@ -324,7 +327,7 @@ def _on_cpu(name, tensors) -> bool:
 
 def paged_attention(q, pool_k, pool_v, block_tables, start, *,
                     window: int = 0, kind: str = "decode", k_scale=None,
-                    v_scale=None):
+                    v_scale=None, plan_heads=None):
     """q: (B, Sq, H, hd) float32 or bfloat16; pool_k/pool_v: (P,
     page_size, KV, hd), float32 or bfloat16, or int8 with
     ``k_scale``/``v_scale`` (P,) float32 per-page symmetric scales;
@@ -332,7 +335,11 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *,
     int32 position of each slot's first query row. Returns (B, Sq, H, hd)
     in q's dtype, computed in fp32. ``kind`` names the caller whose launch
     count the kernel raises ('decode' or 'prefill', with '_q8' for int8
-    pools; the key adds :func:`launch_suffix`)."""
+    pools; the key adds :func:`launch_suffix`). ``plan_heads`` = (H, KV)
+    of a whole-head call this one is a head slab of: the kernel then runs
+    that call's plan (row tile, key tile, stages, splits), so each head
+    sums in the order the whole call sums it (see
+    :func:`paged_attention_head_sharded`)."""
     _check(q, pool_k, pool_v, block_tables, start)
     quantized = k_scale is not None or v_scale is not None
     _check_kind(kind, "_q8" if quantized else "")
@@ -364,7 +371,8 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *,
     P, ps, KV, _ = pool_k.shape
     mps = block_tables.shape[1]
     out = torch.empty_like(q)
-    plan = paged_plan(B, Sq, H, KV, hd, mps * ps,
+    plan_H, plan_KV = plan_heads or (H, KV)
+    plan = paged_plan(B, Sq, plan_H, plan_KV, hd, mps * ps,
                       elem=pool_k.element_size(),
                       ptrs=(q.data_ptr(), pool_k.data_ptr(),
                             pool_v.data_ptr(), out.data_ptr()))
@@ -392,14 +400,17 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *,
 
 
 def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim: int,
-                           d_v: int, kind: str = "decode_latent"):
+                           d_v: int, kind: str = "decode_latent",
+                           plan_heads=None):
     """MLA attention over latent pages. q: (B, Sq, H, c+r) float32 or
     bfloat16 absorbed queries; pool_c: (P, page_size, 1, c+r) float32 or
     bfloat16 (c+r even), one latent row per token; block_tables / start as
     in :func:`paged_attention`. Scores are scaled by 1/sqrt(``scale_dim``);
     values are the leading ``d_v`` columns of the same rows. Returns (B,
     Sq, H, d_v) in q's dtype, computed in fp32. ``kind``: 'decode_latent'
-    or 'prefill_latent' (the key adds :func:`launch_suffix`)."""
+    or 'prefill_latent' (the key adds :func:`launch_suffix`).
+    ``plan_heads``: H of a whole-head call this one is a head slab of, whose
+    plan the kernel then runs (see :func:`paged_attention_head_sharded`)."""
     if q.dim() != 4 or pool_c.dim() != 4 or pool_c.shape[2] != 1 \
             or pool_c.shape[3] != q.shape[3]:
         raise ValueError(f"paged_attention_latent wants q (B,Sq,H,L) and a "
@@ -424,7 +435,8 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim: int,
                          f"of at most {MAX_LATENT_WIDTH} floats, got {Lw}")
     P, ps = pool_c.shape[:2]
     mps = block_tables.shape[1]
-    plan = latent_plan(B, H * Sq, Lw, d_v, mps * ps, q_ptr=q.data_ptr(),
+    plan = latent_plan(B, (plan_heads or H) * Sq, Lw, d_v, mps * ps,
+                       q_ptr=q.data_ptr(),
                        pool_ptr=pool_c.data_ptr(),
                        elem=pool_c.element_size())
     out = torch.empty((B, Sq, H, d_v), dtype=q.dtype, device=q.device)
@@ -448,3 +460,52 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim: int,
                            f"CUDA error {err}")
     LAUNCHES[kind + launch_suffix(q.dtype, pool_c.dtype)] += 1
     return out
+
+
+def paged_attention_head_sharded(mesh, axis, q, pool_k, pool_v, block_tables,
+                                 start, *, window: int = 0,
+                                 kind: str = "decode", k_scale=None,
+                                 v_scale=None):
+    """Tensor-parallel head-slab dispatch of :func:`paged_attention`, the
+    torch form of the reference's ``shard_map`` wrapper. q: (B, Sq, H, hd),
+    every head (the dataflow before attention is replicated); pool_k /
+    pool_v: this rank's resident (P, ps, KV / tp, hd) slab of the pool;
+    k_scale / v_scale: its (P,) scale column (int8 pools: one scale per
+    page per kv-head group, computed from the slab alone). Block tables and
+    starts are the replicated ones: page ids are shard-invariant.
+
+    The rank takes its query heads: kv head k and its query heads k * G ..
+    k * G + G - 1 stay together, so the slab of heads r * H / tp .. is
+    exactly the one its pool slab serves. It launches on them with the
+    plan of the whole-head call (``plan_heads``): a slab alone would fill
+    fewer blocks and pick more splits over keys, and a head's log-sum-exp
+    merge would then round otherwise. With the whole call's plan every
+    head sums as the whole call sums it, so the slabs concatenated in rank
+    order are the whole call bit for bit. Returns (B, Sq, H / tp, hd); the
+    caller all-gathers it before the output projection."""
+    from repro_torch.sharding import specs
+    tp = specs.mesh_shape(mesh)[axis]
+    H = q.shape[2]
+    KV = pool_k.shape[2] * tp
+    q_loc = q[:, :, specs.head_slab(H, mesh, axis)].contiguous()
+    return paged_attention(q_loc, pool_k, pool_v, block_tables, start,
+                           window=window, kind=kind, k_scale=k_scale,
+                           v_scale=v_scale, plan_heads=(H, KV))
+
+
+def paged_attention_latent_head_sharded(mesh, axis, q, pool_c, block_tables,
+                                        start, *, scale_dim: int, d_v: int,
+                                        kind: str = "decode_latent"):
+    """Tensor-parallel dispatch of :func:`paged_attention_latent`. The
+    latent pool has no kv-head axis and is resident whole on every rank,
+    so the split lives on the absorbed queries: the rank launches on its
+    query heads r * H / tp .. over the whole pool, with the whole-head
+    call's plan (``plan_heads``; the kernel divides each slot's keys among
+    its splits alike in every row tile), and returns (B, Sq, H / tp, d_v)
+    for the caller to all-gather."""
+    from repro_torch.sharding import specs
+    H = q.shape[2]
+    q_loc = q[:, :, specs.head_slab(H, mesh, axis)].contiguous()
+    return paged_attention_latent(q_loc, pool_c, block_tables, start,
+                                  scale_dim=scale_dim, d_v=d_v, kind=kind,
+                                  plan_heads=H)

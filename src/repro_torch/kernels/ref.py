@@ -85,14 +85,23 @@ def paged_attention(q, pool_k, pool_v, block_tables, start, *, window=0,
     valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
     if window > 0:
         valid &= j[None, None, :] > q_pos[:, :, None] - window
-    qg = q.float().reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, view_k.float()) / math.sqrt(hd)
+    # one (G * Sq, hd) @ (hd, n_rows) product per (slot, kv head), with
+    # the keys copied to (hd, n_rows) rows whatever KV is: with one kv head
+    # a transposed view would serve, and a product on that layout rounds
+    # otherwise, so a head slab (tensor parallelism) would not give the
+    # same heads of the whole call bit for bit
+    qg = q.float().reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
+    kt = view_k.float().permute(0, 2, 3, 1).reshape(B * KV, hd, n_rows)
+    s = torch.bmm(qg.reshape(B * KV, G * Sq, hd), kt.contiguous()).reshape(
+        B, KV, G, Sq, n_rows) / math.sqrt(hd)
     vm = valid[:, None, None, :, :]
     s = torch.where(vm, s, mask_value(s.dtype))
     m = s.amax(dim=-1)
     p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgqs,bskh->bkgqh", p, view_v.float())
+    vk = view_v.float().permute(0, 2, 1, 3).reshape(B * KV, n_rows, hd)
+    acc = torch.bmm(p.reshape(B * KV, G * Sq, n_rows), vk.contiguous())
+    acc = acc.reshape(B, KV, G, Sq, hd)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B,KV,G,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -123,14 +132,22 @@ def paged_attention_latent(q, pool_c, block_tables, start, *, scale_dim,
     view = pool_c.reshape(P * ps, Lw)[phys]                 # (B, n_rows, c+r)
     q_pos = start.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     valid = ok[:, None, :] & (j[None, None, :] <= q_pos[:, :, None])
-    view = view.float()
-    s = torch.einsum("bqhl,bsl->bhqs", q.float(), view) / math.sqrt(scale_dim)
+    # one (Sq, Lw) @ (Lw, n_rows) product per (slot, head): a product over
+    # the rows of several heads rounds its sums by how many rows it has, so
+    # a head slab (tensor parallelism) would not give the same heads of the
+    # whole call bit for bit
+    kt = view.float().transpose(1, 2).contiguous()          # (B, Lw, n_rows)
+    vv = view[..., :d_v].float().contiguous()               # (B, n_rows, d_v)
+    qf = q.float()
+    s = torch.stack([torch.bmm(qf[:, :, h].contiguous(), kt)
+                     for h in range(H)], dim=1) / math.sqrt(scale_dim)
     vm = valid[:, None, :, :]
     s = torch.where(vm, s, mask_value(s.dtype))
     m = s.amax(dim=-1)
     p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhqs,bsl->bhql", p, view[..., :d_v])
+    acc = torch.stack([torch.bmm(p[:, h].contiguous(), vv)
+                       for h in range(H)], dim=1)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]         # (B, H, Sq, d_v)
     return out.permute(0, 2, 1, 3).to(q.dtype)
 

@@ -231,13 +231,16 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32,
     }
 
 
-def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims):
+def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims, gather=False):
     """Masked attention over a ring or key view: q (B, Sq, H, hd); ck/cv
     (B, S, KV, hd); valid (B, S) (one query, shared mask) or (B, Sq, S).
-    Shared by the dense ring, the paged ring and the prefill chunk."""
+    Shared by the dense ring, the paged ring and the prefill chunk.
+    ``gather``: q and the view are this rank's head slab under a tensor-
+    parallel mesh, and the output is all-gathered before ``wo``."""
     B, Sq = q.shape[:2]
-    H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    KV, hd = ck.shape[2], dims.head_dim
+    G = dims.num_heads // dims.num_kv_heads
+    qg = q.reshape(B, Sq, KV, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg,
                           ck.to(q.dtype)) / math.sqrt(hd)
     if valid.dim() == 2:
@@ -246,7 +249,9 @@ def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims):
                          mask_value(torch.float32))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, cv.to(q.dtype)
-                       ).reshape(B, Sq, H * hd)
+                       ).reshape(B, Sq, KV * G * hd)
+    if gather:
+        out = L._sp.replicate(out)
     return out @ lp["attn"]["wo"].to(h.dtype)
 
 
@@ -289,10 +294,18 @@ def _window_attn_decode_paged(lp, h, cfg: ArchConfig, pool_k, pool_v,
     KV, hd); pool_spos: (P, ps) absolute position per pool row (-1 = never
     written); pos: (B,). The gathered view is the ring in ring order, so
     for equal contents this is the dense ring's arithmetic; rows of
-    unallocated pages are masked as never written."""
+    unallocated pages are masked as never written. Under a tensor-parallel
+    mesh the pools are this rank's kv-head slab: it writes and attends its
+    heads and all-gathers the output before ``wo``."""
     dims = _attn_dims(cfg)
     q, k, v = L._qkv(lp["attn"], h, dims, positions)
-    ps = pool_k.shape[1]
+    tp_mesh, tp_axis = L._sp.head_shard_axis(dims.num_heads,
+                                             dims.num_kv_heads)
+    if tp_mesh is not None:
+        kv_slab = L._sp.head_slab(dims.num_kv_heads, tp_mesh, tp_axis)
+        k, v = k[:, :, kv_slab], v[:, :, kv_slab]
+        q = q[:, :, L._sp.head_slab(dims.num_heads, tp_mesh, tp_axis)]
+    ps, KV, hd = pool_k.shape[1:]
     act = pos < L.INACTIVE_POS
     ridx = torch.where(act, pos % ring_w, 0)
     w_row, page_ok = L.paged_write_target(block_tables, ridx, ps)
@@ -301,12 +314,12 @@ def _window_attn_decode_paged(lp, h, cfg: ArchConfig, pool_k, pool_v,
     L.paged_write_rows(pool_v, v[:, 0], w_row, w_ok)
     L.paged_write_rows(pool_spos, pos, w_row, w_ok)
     phys, ok = L.paged_row_indices(block_tables, ps, ring_w)
-    KV, hd = dims.num_kv_heads, dims.head_dim
     view_k = pool_k.reshape(-1, KV, hd)[phys]               # (B, W, KV, hd)
     view_v = pool_v.reshape(-1, KV, hd)[phys]
     spos = torch.where(ok, pool_spos.reshape(-1)[phys], -1)
     valid = _window_valid(spos, pos[:, None], cfg.window)
-    return _ring_sdpa(lp, h, q, view_k, view_v, valid, dims)
+    return _ring_sdpa(lp, h, q, view_k, view_v, valid, dims,
+                      gather=tp_mesh is not None)
 
 
 def _window_attn_prefill_chunk(lp, h, cfg: ArchConfig, ck, cv, slot_pos,

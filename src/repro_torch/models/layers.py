@@ -8,6 +8,12 @@ logits, and the freed-slot gate of the recurrent families' state. Counterpart of
 functions in ``repro/models/layers.py`` (same argument layouts and
 operation order); parameters are dicts of tensors.
 
+Under a tensor-parallel serving mesh (``sharding.specs``) the paged paths
+take the reference's head-shard decision: the rank writes only its
+kv-head slab of each new K/V row into its slab of the pool, attends on its
+own query heads and all-gathers the head outputs before ``wo``
+(``specs.replicate``); everything else runs replicated.
+
 Where ``repro`` returns a functionally updated cache or page pool
 (``dynamic_update_slice``, ``.at[].set(mode="drop")``), the port writes it
 IN PLACE and returns the same tensor. Rows that JAX would drop (freed
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import page_scale
 from repro_torch.kernels.ref import mask_value
+from repro_torch.sharding import specs as _sp
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -290,7 +297,8 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     chunks; the band only for causal windowed self-attention), 'banded' or
     'pallas' (the flash-attention kernel, ``kernels.ops``). Without a mesh
     ``repro``'s context-parallel banded form is the banded one, which is
-    what runs here (ROADMAP queue 1 item 12 ports the mesh form)."""
+    what runs here (context parallelism, the mesh form, belongs to the
+    training half of ROADMAP queue 1 item 12)."""
     q, k, v = _qkv(params, x, dims, positions)
     k_pos = positions
     if kv_override is not None:
@@ -615,15 +623,24 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
     this layer. The new row's write re-quantizes the slot's current page
     in place (``paged_append_row_q8``), reads dequantize per page (inside
     the kernel's gather on the kernel path), and the return grows to
-    (out, pool_k, pool_v, k_scale, v_scale)."""
+    (out, pool_k, pool_v, k_scale, v_scale).
+
+    Under a tensor-parallel mesh whose axis divides the head counts
+    (``specs.head_shard_axis``) the pools (and scales) are this rank's
+    kv-head slab: the rank writes its slab of the new row, attends on its
+    query heads and all-gathers the output before ``wo``."""
     q, k, v = _qkv(params, x, dims, positions)
-    P, ps, KV, hd = pool_k.shape
+    P, ps, KV, hd = pool_k.shape          # KV: the kv heads this rank holds
     B = q.shape[0]
     mps = block_tables.shape[1]
     n_rows = mps * ps
     H = dims.num_heads
-    G = H // KV
+    G = H // dims.num_kv_heads
     quantized = k_scale is not None
+    tp_mesh, tp_axis = _sp.head_shard_axis(H, dims.num_kv_heads)
+    if tp_mesh is not None:
+        kv_slab = _sp.head_slab(dims.num_kv_heads, tp_mesh, tp_axis)
+        k, v = k[:, :, kv_slab], v[:, :, kv_slab]
 
     pos = cache_pos.long()
     safe_pos = pos.clamp(0, n_rows - 1)
@@ -641,14 +658,17 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
         bt, cp = block_tables.int().contiguous(), cache_pos.int().contiguous()
+        sharding = dict(mesh=tp_mesh, shard_axis=tp_axis)
         if quantized:
             out = kops.paged_decode_q8(q, pool_k, pool_v, k_scale, v_scale,
-                                       bt, cp, window=dims.window)
+                                       bt, cp, window=dims.window, **sharding)
         else:
             out = kops.paged_decode(q, pool_k, pool_v, bt, cp,
-                                    window=dims.window)
-        out = out.reshape(B, 1, H * hd)
+                                    window=dims.window, **sharding)
+        out = out.reshape(B, 1, KV * G * hd)
     else:
+        if tp_mesh is not None:
+            q = q[:, :, _sp.head_slab(H, tp_mesh, tp_axis)]
         qg = q.reshape(B, 1, KV, G, hd)
         phys, ok = paged_row_indices(block_tables, ps, n_rows)
         view_k = pool_k.reshape(P * ps, KV, hd)[phys]   # (B, n_rows, KV, hd)
@@ -661,7 +681,11 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
         l, acc = _decode_sdpa_local(qg, view_k, view_v, pos[:, None],
                                        k_positions, dims.window, hd)
         out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
-        out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, KV * G * hd)
+    if tp_mesh is not None:
+        # the one all-gather of the layer, BEFORE wo: an un-split wo
+        # contraction keeps tp > 1 bitwise equal to tp = 1
+        out = _sp.replicate(out)
     out = out @ params["wo"].to(x.dtype)
     if quantized:
         return out, pool_k, pool_v, k_scale, v_scale
@@ -688,14 +712,21 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
     this layer. The splice re-quantizes each page the chunk writes
     (``paged_splice_chunk_q8``; aliased prefix pages keep their shared
     scales), reads dequantize per page, and the return grows to (out,
-    pool_k, pool_v, k_scale, v_scale)."""
+    pool_k, pool_v, k_scale, v_scale). Under a tensor-parallel mesh the
+    rank splices its kv-head slab and attends on its query heads, as in
+    ``attention_decode_paged``."""
     q, k, v = _qkv(params, x, dims, positions)
-    B, C, KV, hd = k.shape
-    P, ps = pool_k.shape[:2]
+    B, C = k.shape[:2]
+    P, ps, KV, hd = pool_k.shape          # KV: the kv heads this rank holds
     mps = block_tables.shape[1]
     n_rows = mps * ps
     H = dims.num_heads
+    G = H // dims.num_kv_heads
     quantized = k_scale is not None
+    tp_mesh, tp_axis = _sp.head_shard_axis(H, dims.num_kv_heads)
+    if tp_mesh is not None:
+        kv_slab = _sp.head_slab(dims.num_kv_heads, tp_mesh, tp_axis)
+        k, v = k[:, :, kv_slab], v[:, :, kv_slab]
 
     pos = positions.long()
     flat_k = pool_k.view(P * ps, KV, hd)
@@ -718,15 +749,17 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
         from repro_torch.kernels import ops as kops
         bt = block_tables.int().contiguous()
         st = positions[:, 0].int().contiguous()
+        sharding = dict(mesh=tp_mesh, shard_axis=tp_axis)
         if quantized:
             out = kops.paged_prefill_q8(q, pool_k, pool_v, k_scale, v_scale,
-                                        bt, st, window=dims.window)
+                                        bt, st, window=dims.window, **sharding)
         else:
             out = kops.paged_prefill(q, pool_k, pool_v, bt, st,
-                                     window=dims.window)
-        out = out.reshape(B, C, H * hd)
+                                     window=dims.window, **sharding)
+        out = out.reshape(B, C, KV * G * hd)
     else:
-        G = H // KV
+        if tp_mesh is not None:
+            q = q[:, :, _sp.head_slab(H, tp_mesh, tp_axis)]
         qg = q.reshape(B, C, KV, G, hd)
         phys, ok = paged_row_indices(block_tables, ps, n_rows)
         view_k = flat_k[phys]                          # (B, n_rows, KV, hd)
@@ -745,7 +778,9 @@ def attention_prefill_chunk_paged(params, x, dims: AttnDims, pool_k, pool_v,
                              mask_value(scores.dtype))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bkgqs,bskh->bqkgh", probs, view_v.to(q.dtype)
-                           ).reshape(B, C, H * hd)
+                           ).reshape(B, C, KV * G * hd)
+    if tp_mesh is not None:
+        out = _sp.replicate(out)        # all-gather before wo (see decode)
     out = out @ params["wo"].to(x.dtype)
     if quantized:
         return out, pool_k, pool_v, k_scale, v_scale
@@ -832,12 +867,25 @@ def mla_latent_rows(params, x, dims: MLADims, positions):
 
 def _mla_out(params, attn, dims: MLADims, x):
     """Absorbed output projection: latent attention output (B, S, H, c) ->
-    value heads through wb_v -> wo. (The reference all-gathers the value
-    heads before ``wo`` under tensor parallelism, which is not ported.)"""
+    value heads through wb_v -> wo. Under tensor parallelism the caller
+    hands it every head: the paged latent kernel path all-gathers its head
+    slabs first (``_gather_latent_heads``), so wb_v and ``wo`` contract as
+    at tp = 1."""
     B, S, H, _ = attn.shape
     _, wb_v = _mla_wkv_b(params, dims, x.dtype)
     out = torch.einsum("bshc,hcd->bshd", attn, wb_v)
     return out.reshape(B, S, H * dims.head_dim) @ params["wo"].to(x.dtype)
+
+
+def _gather_latent_heads(attn, tp_mesh):
+    """The rank's (B, S, H / tp, c) slab of the latent attention output
+    all-gathered on its head axis (identity without a head-sharded core).
+    The gather comes before wb_v rather than after it, as the reference
+    has it: wb_v then runs on every head at once, as at tp = 1, whatever
+    a batched product of fewer heads would choose, and ``wo`` follows.
+    The masked-einsum path runs every head on every rank (the latent pool
+    is whole there) and gathers nothing."""
+    return attn if tp_mesh is None else _sp.replicate(attn, dim=2)
 
 
 def mla_attention_decode(params, x, dims: MLADims, cache_c, cache_pos,
@@ -916,10 +964,13 @@ def mla_attention_decode_paged(params, x, dims: MLADims, pool_c,
 
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
+        tp_mesh, tp_axis = _sp.latent_head_shard_axis(H)
         attn = kops.paged_decode_latent(q, pool_c,
                                         block_tables.int().contiguous(),
                                         cache_pos.int().contiguous(),
-                                        scale_dim=dims.scale_dim, d_v=c)
+                                        scale_dim=dims.scale_dim, d_v=c,
+                                        mesh=tp_mesh, shard_axis=tp_axis)
+        attn = _gather_latent_heads(attn, tp_mesh)
     else:
         qg = q.reshape(B, 1, 1, H, dims.latent_dim)
         phys, ok = paged_row_indices(block_tables, ps, n_rows)
@@ -958,10 +1009,13 @@ def mla_attention_prefill_chunk_paged(params, x, dims: MLADims, pool_c,
 
     if impl == "kernel":
         from repro_torch.kernels import ops as kops
+        tp_mesh, tp_axis = _sp.latent_head_shard_axis(H)
         attn = kops.paged_prefill_latent(q, pool_c,
                                          block_tables.int().contiguous(),
                                          positions[:, 0].int().contiguous(),
-                                         scale_dim=dims.scale_dim, d_v=c)
+                                         scale_dim=dims.scale_dim, d_v=c,
+                                         mesh=tp_mesh, shard_axis=tp_axis)
+        attn = _gather_latent_heads(attn, tp_mesh)
     else:
         qg = q.reshape(B, C, 1, H, dims.latent_dim)
         phys, ok = paged_row_indices(block_tables, ps, n_rows)

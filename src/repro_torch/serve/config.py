@@ -8,7 +8,8 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.serve.kvcache import BACKENDS, KVBackend
+from repro_torch.serve.kvcache import (BACKENDS, KVBackend, _shards_kv_heads,
+                                       check_tp_support)
 
 
 def resolve_device(device) -> torch.device:
@@ -37,7 +38,9 @@ class ServeConfig:
       (None = auto);
     * paths: ``prefill_mode``, ``prefill_chunk_tokens``,
       ``prefill_attn_impl``, ``paged_attn_impl``;
-    * scheduling: ``policy``; parallelism: ``tp``;
+    * scheduling: ``policy``; parallelism: ``tp`` (tensor-parallel
+      serving over this rank's group of ``tp`` ranks of the process group;
+      see ``ServeEngine.build``);
     * ``device``: where the engine runs.
     """
 
@@ -70,8 +73,7 @@ class ServeConfig:
 
     def validate(self, cfg=None) -> "ServeConfig":
         """Raise ValueError on any inconsistent field combination (messages
-        equal to ``repro``'s); returns self. Tensor parallelism raises
-        ``NotImplementedError``."""
+        equal to ``repro``'s); returns self."""
         if self.batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got "
                              f"{self.batch_slots}")
@@ -116,9 +118,25 @@ class ServeConfig:
         elif paged_backend:
             raise ValueError(f"kv_backend={name!r} needs page_size")
 
-        if self.tp is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported "
-                                      "yet (ROADMAP queue 1 item 12)")
+        tp = self.tp or 1
+        if tp > 1:
+            if self.page_size is None:
+                raise ValueError(
+                    "tensor-parallel serving needs a PAGED cache (pass "
+                    "page_size=): only the page pool has a mesh layout")
+            if isinstance(self.kv_backend, KVBackend):
+                cls = type(self.kv_backend)
+            elif isinstance(name, str):
+                cls = BACKENDS[name]
+            else:
+                cls = BACKENDS["paged"]     # layout follows page_size
+            check_tp_support(cls, tp)
+            if (cfg is not None and _shards_kv_heads(cls)
+                    and cfg.num_kv_heads % tp):
+                raise ValueError(
+                    f"num_kv_heads={cfg.num_kv_heads} is not divisible by "
+                    f"tp={tp}; pick a tp dividing the kv-head count "
+                    "(whole GQA groups must stay shard-local)")
         if (cfg is not None and name == "paged_latent"
                 and getattr(cfg, "kv_lora_rank", 0) <= 0):
             raise ValueError(
@@ -129,7 +147,8 @@ class ServeConfig:
 
     def engine_kwargs(self) -> dict:
         """The ``ServeEngine.__init__`` keyword subset (build() resolves
-        reduced, quantize_int8, tp and cfg_overrides itself)."""
+        the model and mesh fields, reduced, quantize_int8, tp and
+        cfg_overrides, itself)."""
         return dict(
             batch_slots=self.batch_slots, s_max=self.s_max,
             compute_dtype=self.compute_dtype, temperature=self.temperature,

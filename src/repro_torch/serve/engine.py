@@ -61,12 +61,26 @@ port of ``repro/serve/engine.py``:
   touch a bystander's K/V and no pool reset exists.
 
 Every LM family of ``repro`` is served; a VLM is served on zero image
-embeddings, as ``repro`` serves it. Tensor parallelism is not ported
-(ROADMAP queue 1 item 12).
+embeddings, as ``repro`` serves it.
+
+* **Tensor parallelism** (``ServeConfig(tp=N)``, paged caches only), SPMD
+  over ``torch.distributed``: one process per rank, each running this
+  engine on the same requests with the same weights (broadcast from the
+  group's first rank), scheduler, allocator and prefix index. A rank holds
+  its kv-head slab of the page pool (int8 pages: its column of the
+  per-page, per-kv-head-group scales; latent pages: the whole pool),
+  launches the paged kernel on its own query heads and all-gathers the
+  head outputs before ``wo``; block tables and every host-side decision
+  are the same on every rank, so every rank takes the same decision at the
+  same tick (the open-loop replays, which read a clock on each rank,
+  refuse tp > 1). tp > 1 serves tp = 1's tokens bit for bit (int8 pages: their
+  finer scale groups round otherwise). tp = 1 is a one-rank mesh, made
+  from an in-process store where no process group exists.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import warnings
 from typing import Dict, List, Optional
@@ -88,6 +102,7 @@ from repro_torch.serve.metrics import MetricsRecorder
 from repro_torch.serve.prefix import PrefixIndex, PrefixPlan
 from repro_torch.serve.scheduler import (Request, RequestState, SchedPolicy,
                                          Scheduler)
+from repro_torch.sharding import specs
 
 log = logging.getLogger("repro_torch.serve.engine")
 
@@ -197,7 +212,8 @@ class ServeEngine:
     the TPU. ``cache_dtype`` (None: ``compute_dtype``) is the dtype of the
     cache's K/V rows, pools and transient request caches, as in
     ``repro``; int8 pages keep f32 scales and the recurrent states stay
-    f32."""
+    f32. ``mesh``: the tensor-parallel serving mesh (``specs.serve_mesh``;
+    ``build`` makes it from ``ServeConfig.tp``), None for one device."""
 
     def __init__(self, model: Model, params, *, batch_slots: int, s_max: int,
                  compute_dtype=torch.float32, cache_dtype=None,
@@ -214,7 +230,7 @@ class ServeEngine:
                  scheduler: Optional[Scheduler] = None,
                  metrics: Optional[MetricsRecorder] = None,
                  policy: Optional[SchedPolicy] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -256,6 +272,19 @@ class ServeEngine:
         self._drr_cursor = 0          # rotates the DRR starting job per tick
         self._consec_prefill_ticks = 0  # starvation-guard state
 
+        # tensor-parallel serving mesh: the backend places its pool on it,
+        # the weights are made equal on every rank, and the steps run
+        # inside its context, where the attention cores take the rank's
+        # heads. The engine holds the mesh as a token and reads no axis
+        self.mesh = mesh
+        self.tp = specs.tp_degree(mesh)
+        if mesh is not None:
+            if page_size is None:
+                raise ValueError(
+                    "tensor-parallel serving needs a PAGED cache (pass "
+                    "page_size=): only the page pool has a mesh layout")
+            self.params = specs.replicate_params(self.params, mesh)
+
         if page_size is not None and self.cfg.family == Family.SSM:
             log.warning("ssm/rwkv state is O(1) in s_max — ignoring paging")
             page_size = None
@@ -270,7 +299,8 @@ class ServeEngine:
                               else batch_slots * self.max_pages_per_slot)
             self.backend: KVBackend = make_backend(
                 kv_backend, family=self.cfg.family, page_size=page_size,
-                num_pages=self.num_pages)
+                num_pages=self.num_pages, mesh=mesh,
+                num_kv_heads=self.cfg.num_kv_heads)
             self.capacity = self.backend.capacity(self.cfg, s_max)
             self.allocator = PageAllocator(self.num_pages)
             self.slot_pages: List[List[int]] = [[] for _ in
@@ -278,7 +308,8 @@ class ServeEngine:
             self._bt_host = np.full((batch_slots, self.max_pages_per_slot),
                                     -1, np.int32)
         else:
-            self.backend = make_backend(kv_backend, family=self.cfg.family)
+            self.backend = make_backend(kv_backend, family=self.cfg.family,
+                                        mesh=mesh)
         self.cache = self.backend.init_cache(model, batch_slots, s_max,
                                              self.cache_dtype, self.device)
 
@@ -323,20 +354,21 @@ class ServeEngine:
         self.max_transient_cache_bytes = 0
         self._zero_images: Dict[int, torch.Tensor] = {}
         self._cancel_at_splice: set = set()
-        self._decode = steps_mod.make_decode_step(
+        traced = functools.partial(specs.serve_trace, mesh)
+        self._decode = traced(steps_mod.make_decode_step(
             model, compute_dtype=compute_dtype,
-            paged_attn_impl=paged_attn_impl if self.paged else None)
-        self._chunk_paged = steps_mod.make_prefill_chunk_paged(
-            model, compute_dtype=compute_dtype, attn_impl=paged_attn_impl)
-        self._chunk_first = steps_mod.make_prefill_chunk(
+            paged_attn_impl=paged_attn_impl if self.paged else None))
+        self._chunk_paged = traced(steps_mod.make_prefill_chunk_paged(
+            model, compute_dtype=compute_dtype, attn_impl=paged_attn_impl))
+        self._chunk_first = traced(steps_mod.make_prefill_chunk(
             model, compute_dtype=compute_dtype, s_max=s_max,
             cache_dtype=self.cache_dtype, first=True,
-            attn_impl=prefill_attn_impl)
-        self._chunk_cont = steps_mod.make_prefill_chunk(
-            model, compute_dtype=compute_dtype, attn_impl=prefill_attn_impl)
-        self._prefill_scan = steps_mod.make_prefill(
+            attn_impl=prefill_attn_impl))
+        self._chunk_cont = traced(steps_mod.make_prefill_chunk(
+            model, compute_dtype=compute_dtype, attn_impl=prefill_attn_impl))
+        self._prefill_scan = traced(steps_mod.make_prefill(
             model, compute_dtype=compute_dtype, return_cache=True,
-            s_max=s_max, cache_dtype=self.cache_dtype)
+            s_max=s_max, cache_dtype=self.cache_dtype))
 
         # (head rid, free pages, index version) at the last deferral: admit()
         # short-circuits while nothing that could change the outcome moved
@@ -361,6 +393,15 @@ class ServeEngine:
         before any weights are built. ``cfg_overrides`` are applied after
         reduction (``reduced=False, cfg_overrides={"num_layers": 4}`` keeps
         every width of the arch and cuts its depth).
+
+        ``config.tp`` serves tensor-parallel over this rank's group of
+        ``tp`` consecutive ranks of the current process group (every rank
+        of the world builds alike; ``torchrun --nproc-per-node=N`` starts
+        N, each passing its own ``device``); tp must divide the group's
+        size. tp = 1 is a one-rank mesh: it runs the whole mesh path and is
+        the bit-exactness anchor against the mesh-free engine. With no
+        process group, tp = 1 makes a one-rank one from an in-process
+        store (no network).
 
         DEPRECATED spelling, kept because ``repro``'s callers use it:
         ``build(arch, page_size=..., s_max=...)``. Each keyword maps onto
@@ -392,14 +433,20 @@ class ServeEngine:
             cfg = reduced_config(cfg)
         if config.cfg_overrides:
             cfg = dataclasses.replace(cfg, **config.cfg_overrides)
+        # the rank-count guard outranks validate(), as the reference's
+        # device-count guard does
+        if config.tp is not None:
+            specs.check_serve_group(config.tp, device.type)
         config.validate(cfg)
+        mesh = (specs.serve_mesh(config.tp, device.type)
+                if config.tp is not None else None)
         model = get_model(cfg)
         gen = torch.Generator(device=device).manual_seed(config.seed)
         params = model.init(gen, device)
         if config.quantize_int8:
             params = dequantize_params(quantize_params(params),
                                        config.compute_dtype)
-        return cls(model, params, **config.engine_kwargs())
+        return cls(model, params, mesh=mesh, **config.engine_kwargs())
 
     # ------------------------------------------------------------ extras
     def _prefill_extras(self, batch: int) -> dict:
@@ -1092,8 +1139,22 @@ class ServeEngine:
         """Device bytes of the resident serving cache: every leaf the
         backend built (pools, per-page scales, block tables, positions),
         not a fixed k/v pair, so int8 scales and a single latent pool
-        count as they are."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        count as they are. GLOBAL logical bytes: under a tp mesh a leaf
+        the ranks hold slabs of counts tp slabs; see
+        :meth:`per_shard_kv_bytes` for one rank's."""
+        return sum(t.numel() * t.element_size()
+                   * (self.tp if key in self.backend.sharded else 1)
+                   for key, t in self.cache.items())
+
+    def per_shard_kv_bytes(self) -> int:
+        """This rank's resident bytes of the cache's pool leaves (payload
+        and per-page scales: every leaf the backend made but the block
+        tables and positions), as it holds them: its slab of a sharded
+        leaf, the whole of a replicated one. Without a mesh, the global
+        bytes."""
+        return sum(t.numel() * t.element_size()
+                   for key, t in self.cache.items()
+                   if key not in ("block_tables", "pos"))
 
     def transient_cache_bytes(self) -> int:
         """Device bytes held right now by in-flight prefill jobs' transient

@@ -4,17 +4,29 @@ and the cache's representation, as in ``repro/serve/kvcache.py``.
 * :class:`DenseBackend`: per-slot (B, s_max) rows.
 * :class:`PagedFP32Backend`: the vLLM-style shared fp32 page pool.
 * :class:`PagedInt8Backend`: int8 page pools with one symmetric f32 scale
-  per page (the page is the quantization block), held in (L, P, 1)
-  "k_scale"/"v_scale" leaves beside the pools. Writes re-quantize the page
-  they touch; reads dequantize inside the paged kernel's gather. A prefix
-  hit aliases a page's scales with its payload; copy-on-write carries the
-  source page's scale and the next splice re-quantizes the fresh page once.
+  per page and kv-head group (the page is the quantization block), in
+  (L, P, tp) "k_scale"/"v_scale" leaves beside the pools: group t covers
+  the KV / tp kv heads rank t holds, so each scale is an amax over
+  rank-local values. Writes re-quantize the page they touch; reads
+  dequantize inside the paged kernel's gather. A prefix hit aliases a
+  page's scales with its payload; copy-on-write carries the source page's
+  scale and the next splice re-quantizes the fresh page once.
 * :class:`PagedLatentBackend`: MLA latent pages, one (c + r)-wide row per
   token shared by every head, in a single "k" pool.
 
-Tensor parallelism (the reference's sharding hooks and per-shard scale
-groups) is not ported (ROADMAP queue 1 item 12). The splices write the
-resident cache in place and return it.
+Sharding is a property of the backend, as in the reference:
+``pool_axes()`` declares each leaf's logical axes, ``place(cache, mesh)``
+keeps of each leaf declared on "kv_heads" only this rank's slab (the K/V
+pools (L, P, ps, KV / tp, hd), the int8 scales (L, P, 1), this rank's
+column of the reference's (L, P, tp)) and every other leaf whole, and
+``tp_compatible`` is the capability query ``ServeConfig.validate`` and
+:func:`make_backend` consult. A backend that declares nothing serves under
+tp with its cache whole on every rank (and a warning). Page ids are
+shard-invariant, so block tables, positions and the host-side allocator
+and prefix index are the same on every rank. The splices write the
+resident cache in place and return it; under tp the completion splice
+writes the rank's slab of the transient rows and the prefix seed
+all-gathers the slabs it reads back.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from repro_torch.models.registry import (Model, cache_capacity, copy_pool_rows,
                                          insert_cache_rows_paged,
                                          seed_prefix_cache,
                                          vectorize_cache_pos)
+from repro_torch.sharding import specs as _sp
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -66,7 +79,8 @@ def insert_cache_rows_paged_q8(cache, request_cache, slots, phys_rows):
     """Int8 completion splice, in place: as
     ``registry.insert_cache_rows_paged``, but the fp32 transient K/V rows
     are quantized page by page on the way into the int8 pools and each
-    written page's scales land in the (L, P, 1) scale leaves. Rows and
+    written page's scales land in the (L, P, T) scale leaves (T groups of
+    kv heads: the leaf's trailing dim). Rows and
     pages outside the request's reservation (phys >= P * ps, everything
     below a page-aligned write floor included) drop from payload and scale
     alike. Returns ``cache``."""
@@ -192,6 +206,86 @@ class KVBackend:
     def check_page_meta(self, cache, num_pages: int) -> None:
         """Invariant hook for per-page metadata (assert_page_invariants)."""
 
+    # ------------------------------------------------------ sharding hooks
+    # leaf name -> the dim this rank holds a slab of (set by place())
+    sharded: dict = {}
+
+    @classmethod
+    def pool_axes(cls) -> dict:
+        """Logical sharding axes per cache leaf (leaf name -> logical-axis
+        tuple, resolved under ``specs.TP_POOL_RULES``), scale leaves
+        included. The base declares nothing: every leaf stays whole."""
+        return {}
+
+    @classmethod
+    def tp_compatible(cls, mesh) -> bool:
+        """Can this representation serve under the given tensor
+        parallelism? ``mesh``: a mesh, None or a plain int tp degree
+        (``ServeConfig.validate`` runs before any mesh exists)."""
+        return True
+
+    def place(self, cache, mesh):
+        """Keep of each leaf named in :meth:`pool_axes` this rank's slab on
+        its declared axes (resolved under ``specs.TP_POOL_RULES``; a dim the
+        axis does not divide stays whole) and every other leaf whole;
+        records the sliced dims in ``self.sharded``. No-op without a mesh.
+        A backend that never overrode :meth:`pool_axes` keeps its whole
+        cache on every rank under tp > 1, with a warning: correct, but the
+        pool does not shrink per rank."""
+        self.sharded = {}
+        if mesh is None:
+            return cache
+        if (type(self).pool_axes.__func__ is KVBackend.pool_axes.__func__
+                and _tp_degree(mesh) > 1):
+            log.warning(
+                "KV backend %r declares no pool_axes(); placing its cache "
+                "fully replicated on the tp=%d mesh (correct, but the pool "
+                "does not shrink per shard)", self.name, _tp_degree(mesh))
+        axes_map = self.pool_axes()
+        with _sp.use_mesh(mesh, _sp.TP_POOL_RULES):
+            for key, leaf in cache.items():
+                axes = axes_map.get(key)
+                if axes is None or len(axes) != leaf.dim():
+                    continue
+                for d, ax in enumerate(_sp._fit_axes(leaf.shape, axes)):
+                    if ax is None:
+                        continue
+                    mesh_ax = _sp.resolve(ax)[0]
+                    idx = [slice(None)] * leaf.dim()
+                    idx[d] = _sp.head_slab(leaf.shape[d], mesh, mesh_ax)
+                    leaf = cache[key] = leaf[tuple(idx)].contiguous()
+                    self.sharded[key] = d
+        return cache
+
+    def _local_rows(self, request_cache):
+        """A transient request cache with this rank's slab of every leaf
+        the resident cache holds a slab of (same dims: the transient
+        (L, K, S, KV, hd) rows against the pool's (L, P, ps, KV, hd))."""
+        if not self.sharded:
+            return request_cache
+        out = dict(request_cache)
+        for key, d in self.sharded.items():
+            if key in out:
+                idx = [slice(None)] * out[key].dim()
+                idx[d] = _sp.head_slab(out[key].shape[d], self.mesh)
+                out[key] = out[key][tuple(idx)]
+        return out
+
+    def _gathered(self, seed):
+        """``seed`` (a prefix seed over this rank's slab) followed by an
+        all-gather of every slab leaf it returns: the transient cache
+        every rank prefills with holds every kv head."""
+        if not self.sharded:
+            return seed
+
+        def gathered(*args, **kwargs):
+            out = seed(*args, **kwargs)
+            for key, d in self.sharded.items():
+                if key in out:
+                    out[key] = _sp.all_gather(out[key], d, self.mesh)
+            return out
+        return gathered
+
 
 @register_backend
 class DenseBackend(KVBackend):
@@ -209,35 +303,83 @@ class DenseBackend(KVBackend):
     def insert_rows(self, cache, request_cache, slots, phys_rows=None):
         return insert_cache_rows(cache, request_cache, slots)
 
+    @classmethod
+    def tp_compatible(cls, mesh) -> bool:
+        # tensor-parallel serving shards the PAGED pool (page ids are
+        # shard-invariant); the per-slot dense cache has no mesh layout
+        return _tp_degree(mesh) <= 1
+
+
+def _tp_degree(mesh) -> int:
+    """Size of the serving mesh's tensor-parallel axis (1 if no mesh); a
+    plain int is taken as the degree itself."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, int):
+        return mesh
+    return _sp.tp_degree(mesh)
+
+
+def _shards_kv_heads(cls) -> bool:
+    """Does this backend's declared pool layout shard the kv-head axis?
+    (Gates the num_kv_heads % tp requirement: a whole or head-free pool,
+    e.g. paged_latent, has none.)"""
+    return any("kv_heads" in axes for axes in cls.pool_axes().values())
+
+
+def check_tp_support(spec, tp: int) -> None:
+    """Raise the reference's tp-incompatibility error when ``spec``'s (a
+    registry name or KVBackend class) capability query refuses the tp
+    degree. Shared by ``ServeConfig.validate`` and :func:`make_backend`."""
+    cls = BACKENDS[spec] if isinstance(spec, str) else spec
+    if tp > 1 and not cls.tp_compatible(tp):
+        raise ValueError(
+            f"kv_backend={cls.name!r} reports tp_compatible=False for "
+            f"tp={tp}: this cache representation does not compose with "
+            f"tensor-parallel serving; use kv_backend='paged' with tp>1 "
+            f"or drop tp")
+
 
 @register_backend(aliases=("paged_fp32",))
 class PagedFP32Backend(KVBackend):
     """The shared fp32 page pool. Page ids index the pool's page axis; the
-    engine owns the allocator and block tables."""
+    engine owns the allocator and block tables.
+
+    ``mesh``: the serving mesh, if any. ``init_cache`` then keeps this
+    rank's (L, P, ps, KV / tp, hd) slab of the K/V pools and every other
+    leaf whole; the splice, copy-on-write and prefix seed work on the slab
+    with the replicated page ids."""
 
     name = "paged"
     paged = True
 
-    def __init__(self, page_size: int, num_pages: int):
+    def __init__(self, page_size: int, num_pages: int, mesh=None):
         self.page_size = page_size
         self.num_pages = num_pages
+        self.mesh = mesh
+
+    @classmethod
+    def pool_axes(cls) -> dict:
+        return {"k": _sp.KV_POOL_AXES, "v": _sp.KV_POOL_AXES}
 
     def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
                    device):
-        return init_paged_cache(model, batch_slots, s_max,
-                                page_size=self.page_size,
-                                num_pages=self.num_pages, dtype=dtype,
-                                device=device)
+        cache = init_paged_cache(model, batch_slots, s_max,
+                                 page_size=self.page_size,
+                                 num_pages=self.num_pages, dtype=dtype,
+                                 device=device)
+        return self.place(cache, self.mesh)
 
     def insert_rows(self, cache, request_cache, slots, phys_rows=None):
-        return insert_cache_rows_paged(cache, request_cache, slots, phys_rows)
+        return insert_cache_rows_paged(cache, self._local_rows(request_cache),
+                                       slots, phys_rows)
 
     def copy_rows(self, cache, src_rows, dst_rows):
         return copy_pool_rows(cache, src_rows, dst_rows)
 
     def seed_prefix(self, model: Model, s_max: int, dtype):
-        return functools.partial(seed_prefix_cache, model, s_max=s_max,
-                                 dtype=dtype)
+        return self._gathered(functools.partial(
+            seed_prefix_cache, model, s_max=s_max, dtype=dtype))
 
     def resolve_attn_impl(self, family: Family, multi_page: bool) -> str:
         # the one-page-per-slot config stays on the einsum path: it is the
@@ -256,31 +398,47 @@ class PagedInt8Backend(PagedFP32Backend):
 
     name = "paged_int8"
 
+    @classmethod
+    def pool_axes(cls) -> dict:
+        axes = dict(super().pool_axes())
+        # scale leaves (L, P, tp): one scale per page per kv-head group,
+        # group t covering the KV / tp kv heads rank t holds, so the
+        # group column shards with its kv heads and each rank computes
+        # its scales from its own slab
+        axes["k_scale"] = (None, None, "kv_heads")
+        axes["v_scale"] = (None, None, "kv_heads")
+        return axes
+
     def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
                    device):
-        cache = super().init_cache(model, batch_slots, s_max, dtype, device)
+        cache = init_paged_cache(model, batch_slots, s_max,
+                                 page_size=self.page_size,
+                                 num_pages=self.num_pages, dtype=dtype,
+                                 device=device)
+        tp = _tp_degree(self.mesh)
         for key in ("k", "v"):
             shape = cache[key].shape
             cache[key] = torch.zeros(shape, dtype=torch.int8, device=device)
             # scale 1.0 everywhere: a never-written page dequantizes to
             # exact zeros, as the fp32 pool's zero init reads
-            cache[key + "_scale"] = torch.ones(tuple(shape[:2]) + (1,),
+            cache[key + "_scale"] = torch.ones(tuple(shape[:2]) + (tp,),
                                                dtype=torch.float32,
                                                device=device)
-        return cache
+        return self.place(cache, self.mesh)
 
     def insert_rows(self, cache, request_cache, slots, phys_rows=None):
-        return insert_cache_rows_paged_q8(cache, request_cache, slots,
-                                          phys_rows)
+        return insert_cache_rows_paged_q8(
+            cache, self._local_rows(request_cache), slots, phys_rows)
 
     def copy_rows(self, cache, src_rows, dst_rows):
         return copy_pool_rows_q8(cache, src_rows, dst_rows)
 
     def seed_prefix(self, model: Model, s_max: int, dtype):
-        return functools.partial(seed_prefix_cache_q8, model, s_max=s_max,
-                                 dtype=dtype)
+        return self._gathered(functools.partial(
+            seed_prefix_cache_q8, model, s_max=s_max, dtype=dtype))
 
     def check_page_meta(self, cache, num_pages: int) -> None:
+        # this rank's column of the reference's (L, P, tp) groups
         for key in ("k_scale", "v_scale"):
             sc = cache[key]
             want = (cache[key[0]].shape[0], num_pages, 1)
@@ -300,6 +458,13 @@ class PagedLatentBackend(PagedFP32Backend):
 
     name = "paged_latent"
 
+    @classmethod
+    def pool_axes(cls) -> dict:
+        # a latent row has no kv-head axis (every query head reads the same
+        # compressed row) and is small: the pool stays whole on every rank,
+        # and tp shards the absorbed queries' head axis instead
+        return {}
+
     def init_cache(self, model: Model, batch_slots: int, s_max: int, dtype,
                    device):
         if getattr(model.cfg, "kv_lora_rank", 0) <= 0:
@@ -311,13 +476,21 @@ class PagedLatentBackend(PagedFP32Backend):
         return super().init_cache(model, batch_slots, s_max, dtype, device)
 
 
-def make_backend(spec, *, family: Family, page_size=None, num_pages=None):
+def make_backend(spec, *, family: Family, page_size=None, num_pages=None,
+                 mesh=None, num_kv_heads=None):
     """Resolve an engine ``kv_backend`` spec: None (layout follows
     page_size), a name registered in :data:`BACKENDS`, or a ready
     KVBackend instance. Int8 on a family outside
     :data:`INT8_KV_FAMILIES` falls back to fp32 pages with a warning, as
-    the reference does."""
+    the reference does. ``mesh``: the serving mesh the backend places its
+    pool on; ``num_kv_heads``, given with a tp > 1 mesh, is checked
+    against the backend's layout (a kv-head-sharded pool needs tp to
+    divide it), so a direct ``ServeEngine(...)`` meets the preflight of
+    ``ServeConfig.validate``."""
     if isinstance(spec, KVBackend):
+        if mesh is not None and getattr(spec, "mesh", None) is not mesh:
+            raise ValueError("a ready KVBackend instance must be built with "
+                             "the engine's mesh (pass mesh= to its ctor)")
         return spec
     if spec is None:
         spec = "paged" if page_size is not None else "dense"
@@ -325,10 +498,15 @@ def make_backend(spec, *, family: Family, page_size=None, num_pages=None):
     if cls is None:
         raise ValueError(f"unknown kv_backend {spec!r}; available: "
                          f"{sorted(BACKENDS)}")
+    tp = _tp_degree(mesh)
     if not cls.paged:
         if page_size is not None:
             raise ValueError(f"kv_backend={spec!r} conflicts with page_size="
                              f"{page_size}; drop one of them")
+        if tp > 1:
+            raise ValueError("tensor-parallel serving shards the PAGED pool "
+                             "(page indices are shard-invariant); the dense "
+                             "backend has no mesh layout — pass page_size=")
         return cls()
     if page_size is None:
         raise ValueError(f"kv_backend={spec!r} needs page_size")
@@ -337,4 +515,11 @@ def make_backend(spec, *, family: Family, page_size=None, num_pages=None):
                     "falling back to fp32 pages",
                     [f.name for f in INT8_KV_FAMILIES], family)
         cls = PagedFP32Backend
-    return cls(page_size, num_pages)
+    check_tp_support(cls, tp)
+    if (tp > 1 and num_kv_heads is not None and _shards_kv_heads(cls)
+            and num_kv_heads % tp):
+        raise ValueError(
+            f"num_kv_heads={num_kv_heads} is not divisible by tp={tp}; "
+            f"pick a tp dividing the kv-head count (whole GQA groups must "
+            f"stay shard-local)")
+    return cls(page_size, num_pages, mesh=mesh)

@@ -43,7 +43,7 @@ import numpy as np
 
 from repro_torch.serve.metrics import ReplaySummary, SLO, merged_summary
 from repro_torch.serve.prefix import _SEED, chain_hash
-from repro_torch.serve.workload import ArrivalEvent
+from repro_torch.serve.workload import ArrivalEvent, refuse_tp
 
 __all__ = ["ReplicaRouter"]
 
@@ -195,7 +195,10 @@ class ReplicaRouter:
         the single-engine replay returns) with the per-replica breakdown,
         router counters, and router-shed count attached; the historical
         ``result["replicas"][i]`` / ``result["router"]`` /
-        ``result["shed_at_router"]`` indexing still works."""
+        ``result["shed_at_router"]`` indexing still works. Refuses
+        tensor-parallel replicas, as ``workload.replay`` does."""
+        for e in self.engines:
+            refuse_tp(e)
         ev = sorted(events, key=lambda e: e.t)
         for e in self.engines:
             e.metrics.on_start()

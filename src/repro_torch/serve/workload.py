@@ -107,6 +107,16 @@ def generate(spec: WorkloadSpec, vocab_size: int) -> List[ArrivalEvent]:
     return events
 
 
+def refuse_tp(engine):
+    """Every rank of a tensor-parallel engine must take the same decision
+    at the same tick, and a replay on a real clock cannot promise that."""
+    if getattr(engine, "tp", 1) > 1:
+        raise ValueError(
+            f"open-loop replay reads a clock on every rank: under tp="
+            f"{engine.tp} the ranks could submit at different ticks and "
+            f"their collectives would hang; serve a tp engine closed-loop")
+
+
 def replay(engine, events: List[ArrivalEvent],
            slo: Optional[SLO] = None) -> ReplaySummary:
     """Open-loop replay on a real clock: each event is submitted at its
@@ -116,7 +126,10 @@ def replay(engine, events: List[ArrivalEvent],
     ``engine.metrics.summary(slo)`` — including the ``goodput`` section
     when an SLO is given. Dict-style indexing keeps working
     (``summary["requests"]``), same as the multi-replica
-    ``router.replay``."""
+    ``router.replay``. It refuses a tensor-parallel engine (tp > 1), whose
+    ranks would each read their own clock and could submit at different
+    ticks; drive such an engine closed-loop (submit, then ``run``)."""
+    refuse_tp(engine)
     ev = sorted(events, key=lambda e: e.t)
     m = engine.metrics
     m.on_start()

@@ -326,14 +326,17 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch,
 
 
 def test_configs_outside_the_slice_name_their_roadmap_item():
-    """Tensor-parallel serving is not ported: it raises naming its item
-    before any weights are built (sampling and every SchedPolicy knob
-    serve, held in test_torch_sampling.py and test_torch_scheduling.py)."""
-    for tp in (1, 2):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 12"):
-            TEngine.build("qwen2.5-32b", config=TConfig(
-                page_size=PS, tp=tp, device="cpu"))
+    """Tensor-parallel serving is ported (held in test_torch_tp.py); what
+    is left of parallelism, the training half, raises naming its item
+    before any work starts: the trainer's ``mesh_shape`` and a data
+    pipeline sharded over a mesh."""
+    from repro_torch.data.synthetic import make_lm_pipeline
+    from repro_torch.launch.train import TrainConfig, train
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        train(TrainConfig(arch="codeqwen1.5-7b", mesh_shape=(2, 2),
+                          device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        make_lm_pipeline(512, 2, 16, device="cpu", mesh=object())
 
 
 def test_cli_defaults_to_the_dense_cache(monkeypatch, capsys):

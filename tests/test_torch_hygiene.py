@@ -36,7 +36,8 @@ def _sources():
             "optim/schedules.py", "checkpoint/manager.py",
             "runtime/fault.py", "launch/train.py", "tree.py",
             "examples/train_resnet20_cifar.py", "examples/quickstart.py",
-            "examples/quantize_ptq.py"} <= names
+            "examples/quantize_ptq.py", "sharding/specs.py",
+            "launch/mesh.py"} <= names
     return files
 
 
