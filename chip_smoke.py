@@ -96,14 +96,16 @@ before printing any result. Phases, each of which raises on failure:
    (8b) int8 PTQ over 10,000 synthetic images in batches of 1,000: fp32
    against 16-bit fixed point and int8, then every conv GEMM through K8
    on the int8 weights against the dequant-on-load forward.
-9. rwkv6-7b at full width and depth (32 layers, 30.3 GB fp32): the
+9. rwkv6-7b at full width, 16 of its 32 layers (cut from full depth so
+   that phase 20 fits the script's time): the
    forward on (2, 512) tokens through K5 against the plain recurrence,
    one prefill chunk plus 8 decode steps through K5 ('auto') against
    'scan' (logits, state leaves, greedy tokens), then the 16 requests of
    phases 4-5 on the dense cache (rwkv has nothing to page), K5 launched
    once per layer per chunk and per tick (the (B, T) of every launch
    counted and printed).
-10. hymba-1.5b at full width and depth (32 layers, 5.3 GB): the same
+10. hymba-1.5b at full width, 8 of its 32 layers (cut from full depth,
+   as phase 9): the same
    forward and step comparisons through K6, then the 16 requests plus 4
    of 1,100-1,500 tokens (s_max 2048, so the 1024-row ring wraps) on the
    dense ring and on the paged ring (pages of 16 rows), every selective
@@ -206,6 +208,19 @@ before printing any result. Phases, each of which raises on failure:
    (L, P, 2) scale groups within Q8_MODEL_TOL, and the served streams'
    greedy prefix match with phase 4b's reported beside 4b's own with
    phase 4.
+20. sharded training, after phase 17: minicpm-2b at full width cut to
+   2 layers (0.405 B params, 4.86 GB of params, m and v), fp32, no remat,
+   the trainer's data and optimizer; ranks are processes (``chip_smoke.py
+   --train-rank``: one card each over NCCL where there are enough, else
+   all on cuda:0 over gloo, every collective staged through the host).
+   (20a) 3 steps mesh-free, then on (2, 1), (1, 2) and (2, 2) from the
+   same initial state: losses within TRAIN20_TOL, step-1 gradients within
+   GRAD20_TOL of each leaf's largest, each rank's resident share of the
+   state and its peak memory; (20b) saved after a step on (2, 2),
+   restored on (2, 2), (4, 1) and (1, 4), a step each within ELASTIC_TOL;
+   (20c) the compressed all-reduce and the GPipe pipeline on CUDA tensors
+   over 4 ranks, to ``tests/test_distributed.py``'s bounds; (20d) the
+   trainer at mesh_shape (2, 1), its losses equal to 20a's (2, 1) run.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
@@ -262,6 +277,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
@@ -350,7 +366,8 @@ RECURRENT_NOISE = {
     RWKV: {"u": 0.1, "mu": 0.1, "mu_x": 0.1, "lora_B": 0.01, "wB": 0.01},
     HYMBA: {"logA": 0.5},
 }
-RWKV_LAYERS = HYMBA_LAYERS = 32          # full depth: 30 GB and 5.3 GB fp32
+# depth cut so that phase 20 fits the script's time (of 32 layers each)
+RWKV_LAYERS, HYMBA_LAYERS = 16, 8
 HYMBA_S_MAX = 2048                       # the ring (1024 rows) wraps
 # K5 / K6 at full width: (B, T) of the forward, a decode tick and a
 # 64-token chunk of 8 slots, and a chunk and a tick of one request (the
@@ -371,7 +388,7 @@ RECURRENT_TOL = 1e-3
 # depth of phases 9-10's forward and step comparisons: the random
 # rwkv6-7b with its perturbed leaves amplifies the scans' fp32 rounding
 # layer by layer, past RECURRENT_TOL by its fourth layer, so rwkv is
-# compared on its first 2 layers; hymba resolves it at full depth
+# compared on its first 2 layers; hymba resolves it at HYMBA_LAYERS
 CHECK_LAYERS = {RWKV: 2, HYMBA: HYMBA_LAYERS}
 DEV = torch.device("cuda")
 
@@ -3250,7 +3267,7 @@ def serve_recurrent(engine, prompts, card, label):
 def phase9_rwkv(card):
     """rwkv6-7b at full width: the forward and the step path through K5
     against the plain recurrence on the first CHECK_LAYERS layers, then
-    the 16 requests at full depth on the dense cache (rwkv has nothing to
+    the 16 requests at RWKV_LAYERS on the dense cache (rwkv has nothing to
     page), every recurrence through K5. Returns K5's launches by path
     (forward, chunk, tick)."""
     engine = build_recurrent(RWKV, RWKV_LAYERS, S_MAX)
@@ -4680,6 +4697,37 @@ def phase19b_tp1(model, params, prompts, card, phase4):
     return pool
 
 
+def spawn_ranks(world, out_dir, flag, timeout):
+    """``chip_smoke.py FLAG R WORLD DIR FORM`` as ``world`` processes (FORM
+    NCCL with a card each where there are enough, else gloo on cuda:0);
+    fails if one fails or the timeout passes. Returns (FORM, each rank's
+    DIR/rank<R>.json)."""
+    form = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), flag,
+         str(r), str(world), str(out_dir), form])
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{flag}: {world} ranks still running "
+                                     f"after {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(f"{flag}: ranks failed {bad}")
+    return form, [json.loads((pathlib.Path(out_dir) / f"rank{r}.json")
+                             .read_text()) for r in range(world)]
+
+
 def phase19c_tp2(card, p_reqs, q8_reqs, pool_bytes):
     """19c: two ranks (one card each over NCCL where there are two, else
     both on cuda:0 over gloo, the all-gather staged through the host) serve
@@ -4689,35 +4737,12 @@ def phase19c_tp2(card, p_reqs, q8_reqs, pool_bytes):
     stream beside 4b's own against phase 4 (int8 against fp32), and holds
     phase 3c's model step at tp = 2 to tp = 1 within Q8_MODEL_TOL
     (``int8_step_tp``). Returns rank 0's counts."""
-    form = "nccl" if torch.cuda.device_count() >= TP_SERVE else "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        form, ranks = spawn_ranks(TP_SERVE, d, "--tp-rank", TP_TIMEOUT)
     log(f"  19c form: {form}, " + (
         f"one card per rank" if form == "nccl" else
         "both ranks on cuda:0, the all-gather staged through the host"))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        procs = [subprocess.Popen(
-            [sys.executable, str(pathlib.Path(__file__).resolve()),
-             "--tp-rank", str(r), str(TP_SERVE), d, form])
-            for r in range(TP_SERVE)]
-        deadline = time.monotonic() + TP_TIMEOUT
-        try:
-            while any(p.poll() is None for p in procs):
-                if any(p.poll() not in (None, 0) for p in procs):
-                    break
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"19c: ranks still running after "
-                                         f"{TP_TIMEOUT} s")
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
-        if bad:
-            raise AssertionError(f"19c: ranks failed {bad}")
-        ranks = [json.loads((pathlib.Path(d) / f"rank{r}.json").read_text())
-                 for r in range(TP_SERVE)]
     want = [list(r.tokens) for r in p_reqs]
     q8_want = [list(r.tokens) for r in q8_reqs]
     base = float(np.mean([match_frac(a, b) for a, b in zip(q8_want, want)]))
@@ -4864,6 +4889,377 @@ def tp_rank(rank: int, world: int, out_dir: str, form: str) -> int:
     dist.destroy_process_group()
     return 0
 
+# ------------------------------------------------------------ phase 20
+# sharded training: minicpm-2b at full width cut to TRAIN20_LAYERS layers,
+# fp32, no remat, the trainer's data (TokenStream, batch x tokens
+# TRAIN20_BATCH) and optimizer (make_optimizer: cosine, warmup 10); ranks
+# are processes (one card each over NCCL where there are enough, else all
+# on cuda:0 over gloo, every collective staged through the host)
+TRAIN20_ARCH, TRAIN20_LAYERS, TRAIN20_BATCH = "minicpm-2b", 2, (8, 128)
+TRAIN20_STEPS = 3
+TRAIN20_MESHES = ((2, 1), (1, 2), (2, 2))
+ELASTIC_MESHES = ((2, 2), (4, 1), (1, 4))
+TRAIN20_TOL = 1e-3          # the reference's sharded-vs-single loss bound
+GRAD20_TOL = 1e-5           # of each leaf's largest |gradient|
+ELASTIC_TOL = 1e-4          # the reference's elastic-restore bound
+TRAIN20_TIMEOUT = 900
+PIPE_STAGES, PIPE_MICRO, PIPE_B, PIPE_D = 4, 8, 2, 16
+
+
+def train20_setup():
+    """(TrainConfig, model, optimizer, the steps' batches as numpy) of
+    phase 20: the trainer's config with ``reduced_config`` standing for the
+    depth cut (full width, TRAIN20_LAYERS layers, fp32, no remat)."""
+    B, S = TRAIN20_BATCH
+    tc = train_mod.TrainConfig(arch=TRAIN20_ARCH, reduced=True,
+                               steps=TRAIN20_STEPS, batch=B, seq_len=S,
+                               log_every=1, device="cuda")
+    model = get_model(train20_config(configs.get_config(TRAIN20_ARCH)))
+    stream = TokenStream(model.cfg.vocab_size, B, S, tc.seed)
+    return (tc, model, train_mod.make_optimizer(tc),
+            [stream.batch_at(i) for i in range(TRAIN20_STEPS)])
+
+
+def train20_config(cfg):
+    return dataclasses.replace(cfg, num_layers=TRAIN20_LAYERS)
+
+
+def train20_batch(raw, dev):
+    return {k: torch.from_numpy(v.copy()).to(dev) for k, v in raw.items()}
+
+
+def phase20_sharded_training(card):
+    """20a: TRAIN20_STEPS steps mesh-free here, then on each of
+    TRAIN20_MESHES from the same initial state in spawned ranks: every
+    mesh's losses within TRAIN20_TOL of mesh-free, the step-1 gradients
+    (each rank's blocks) within GRAD20_TOL of each leaf's largest
+    magnitude, each rank's resident share of the state and its peak
+    memory. 20b: saved after one step on (2, 2), restored on
+    ELASTIC_MESHES (``elastic_restore``), one step each within
+    ELASTIC_TOL. 20c: the compressed all-reduce and the GPipe pipeline on
+    CUDA tensors over 4 ranks, to ``tests/test_distributed.py``'s bounds.
+    20d: the trainer at mesh_shape (2, 1) in the spawned ranks, its losses
+    equal to 20a's (2, 1) run. Deterministic algorithms on."""
+    t20 = time.perf_counter()
+    tc, model, opt, raws = train20_setup()
+    cfg = model.cfg
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = steps.init_train_state(
+            model, opt, torch.Generator(DEV).manual_seed(tc.seed), DEV)
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        log(f"  {TRAIN20_ARCH}: d_model {cfg.d_model}, {cfg.num_heads} over "
+            f"{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, padded vocab "
+            f"{cfg.padded_vocab:,}, {TRAIN20_LAYERS} layers: "
+            f"{n_params / 1e9:.3f} B params, state (params, m, v) "
+            f"{3 * 4 * n_params / 1e9:.2f} GB fp32; batch "
+            f"{TRAIN20_BATCH[0]} x {TRAIN20_BATCH[1]}, no remat")
+        loss_fn = steps.make_loss_fn(model, compute_dtype=torch.float32,
+                                     remat=False)
+        grads = steps.value_and_grad(loss_fn)(
+            state["params"], train20_batch(raws[0], DEV))[1]
+        step_fn = steps.make_train_step(model, opt,
+                                        compute_dtype=torch.float32,
+                                        remat=False)
+        with tempfile.TemporaryDirectory() as d:
+            torch.save({n: g.cpu() for n, g in named_leaves(grads)},
+                       os.path.join(d, "grads.pt"))
+            del grads
+            losses, times = [], []
+            for raw in raws:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, train20_batch(raw, DEV))
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            del state, m
+            torch.cuda.empty_cache()
+            log(f"  20a mesh-free: losses {losses}, step wall "
+                f"{[round(t, 4) for t in times]} s ({card})")
+            ranks = {}
+            for world in (2, 4):
+                t0 = time.perf_counter()
+                run = os.path.join(d, f"world{world}")
+                os.mkdir(run)
+                form, ranks[world] = spawn_ranks(
+                    world, run, "--train-rank", TRAIN20_TIMEOUT)
+                log(f"  {world} ranks ({form}"
+                    + (", all on cuda:0, the collectives staged through "
+                       "the host" if form == "gloo" else "") + f") took "
+                    f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    meshes = {}
+    for world, rs in ranks.items():
+        for shape in TRAIN20_MESHES:
+            key = str(shape)
+            if key not in rs[0]:
+                continue
+            got = [r[key] for r in rs]
+            if any(g["losses"] != got[0]["losses"] for g in got):
+                raise AssertionError(f"20a {shape}: ranks disagree")
+            diff = max(abs(a - b) for a, b in zip(got[0]["losses"], losses))
+            gerr = max(g["grad_err"] for g in got)
+            if not diff < TRAIN20_TOL or not gerr < GRAD20_TOL:
+                raise AssertionError(f"20a {shape}: losses "
+                                     f"{got[0]['losses']} vs mesh-free "
+                                     f"{losses} (max diff {diff:.3e}), "
+                                     f"step-1 gradients {gerr:.3e}")
+            meshes[key] = got[0]["losses"]
+            log(f"  20a {shape}: losses {got[0]['losses']} (max diff "
+                f"{diff:.3e} of mesh-free, bound {TRAIN20_TOL}); step-1 "
+                f"gradients within {gerr:.3e} of each leaf's largest "
+                f"(bound {GRAD20_TOL}); step wall "
+                f"{[round(t, 3) for t in got[0]['times']]} s; per rank "
+                f"resident state share "
+                f"{[round(g['resident'], 4) for g in got]}, peak memory "
+                f"{[round(g['peak_gib'], 2) for g in got]} GiB ({card})")
+            prof = got[0]["profile"]
+            log(f"  20a {shape} rank 0's step 3 under torch.profiler: "
+                f"{prof['wall']:.3f} s wall, device busy {prof['busy']:.3f} s "
+                f"(idle {1 - prof['busy'] / prof['wall']:.1%}); host self "
+                f"time in copies {prof['copies']:.3f} s, in the weight "
+                f"gathers and gradient reductions {prof['collectives']:.3f} "
+                f"s; most self time: " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in prof["top"]))
+    el = [r["elastic"] for r in ranks[4]]
+    if any(e["losses"] != el[0]["losses"] for e in el):
+        raise AssertionError("20b: ranks disagree")
+    vals = list(el[0]["losses"].values())
+    if not max(vals) - min(vals) < ELASTIC_TOL or el[0]["mesh6"] != 6:
+        raise AssertionError(f"20b: losses {el[0]['losses']}, "
+                             f"choose_mesh_shape(6) gives {el[0]['mesh6']}")
+    log(f"  20b elastic: saved after step 1 on (2, 2) "
+        f"({el[0]['save_s']:.1f} s), one step restored on each: "
+        f"{el[0]['losses']} (spread {max(vals) - min(vals):.3e}, bound "
+        f"{ELASTIC_TOL}); restores took {el[0]['restore_s']} s; "
+        f"choose_mesh_shape(6, model_parallel=4) = {el[0]['mesh6_shape']}")
+    c = ranks[4][0]["collectives"]
+    log(f"  20c compressed all-reduce over 4 ranks on CUDA tensors: mean "
+        f"within {c['mean_err']:.3e} (bound 0.04), residual "
+        f"{c['resid']:.3f} of a step (bound 0.51), the mean of 8 EF steps "
+        f"within rtol 0.02 / atol 0.002 of the true mean: {c['ef_ok']}; "
+        f"pipeline "
+        f"{PIPE_STAGES} stages x {PIPE_MICRO} microbatches within "
+        f"{c['pipe_err']:.3e} of the sequential stages (bound 2e-5), "
+        f"bubble {c['bubble']:.4f}")
+    trainer = [r["trainer"] for r in ranks[2]]
+    if any(t != meshes["(2, 1)"] for t in trainer):
+        raise AssertionError(f"20d: the trainer's losses {trainer} differ "
+                             f"from 20a's (2, 1) {meshes['(2, 1)']}")
+    log(f"  20d trainer at mesh_shape (2, 1): losses {trainer[0]} equal to "
+        f"20a's (2, 1) run on both ranks")
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s ({card})")
+
+
+def train20_mesh(model, opt, raws, shape, dev, ref_grads):
+    """One 20a mesh on this rank: step-1 gradient error of its blocks, the
+    steps' losses and walls, its resident state share and peak memory."""
+    mesh = mesh_mod.make_mesh(shape, ("data", "model"), dev.type)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with specs.use_mesh(mesh):
+        full = steps.init_train_state(
+            model, opt, torch.Generator(dev).manual_seed(0), dev)
+        whole = sum(t.numel() * t.element_size() for t in tree_leaves(full))
+        state = steps.place(full, steps.state_shardings(model, full))
+        del full
+        batches = [steps.place(train20_batch(raw, dev), steps.batch_shardings(
+            model, train20_batch(raw, dev))) for raw in raws]
+    held = sum(t.to_local().numel() * t.to_local().element_size()
+               for t in tree_leaves(state))
+    # step 1 as make_train_step computes it (value and gradients, then the
+    # update), with its gradients held to the mesh-free ones on the way
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, _), got = steps.sharded_value_and_grad(model, steps.make_loss_fn(
+        model, compute_dtype=torch.float32, remat=False))(
+            state["params"], batches[0])
+    state, _ = steps.sharded_update(opt, state, got)
+    losses, times = [float(loss)], [time.perf_counter() - t0]
+    err = 0.0
+    for (name, g), leaf in zip(named_leaves(got),
+                               tree_leaves(state["params"])):
+        want = specs.local_block(ref_grads[name],
+                                 specs.sharding_of(leaf)).to(dev)
+        err = max(err, float((g - want).abs().max() / want.abs().max()))
+    del got
+    step_fn = steps.make_train_step(model, opt, compute_dtype=torch.float32,
+                                    remat=False)
+    for b in batches[1:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, m = step_fn(state, batches[-1])
+        losses.append(float(m["loss"]))
+    times.append(time.perf_counter() - t0)
+    return {"losses": losses, "times": times, "grad_err": err,
+            "resident": held / whole,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "profile": step_breakdown(prof, times[-1])}
+
+
+def step_breakdown(prof, wall) -> dict:
+    """A profiled step's device busy share and its host time by op: the
+    copies (``aten::copy_``, ``cudaMemcpyAsync``: the host staging of the
+    gloo collectives among them), the weight gathers and gradient
+    reductions (``_Materialize`` and its backward, whose self time is the
+    wait on gloo), and the five ops of most self CPU time (s)."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e6
+    cpu = {e.key: e.self_cpu_time_total / 1e6 for e in events
+           if e.device_type == DeviceType.CPU}
+    return {"wall": wall, "busy": busy,
+            "copies": cpu.get("aten::copy_", 0) + cpu.get(
+                "cudaMemcpyAsync", 0),
+            "collectives": cpu.get("_Materialize", 0) + cpu.get(
+                "_MaterializeBackward", 0),
+            "top": sorted(cpu.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def train20_elastic(model, opt, raws, dev, out_dir):
+    """20b on this rank: one step on (2, 2), saved; restored on each of
+    ELASTIC_MESHES and one step taken there."""
+    from repro_torch.runtime import elastic
+    step_fn = steps.make_train_step(model, opt, compute_dtype=torch.float32,
+                                    remat=False)
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), async_save=False)
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), dev.type)
+    with specs.use_mesh(mesh):
+        full = steps.init_train_state(
+            model, opt, torch.Generator(dev).manual_seed(0), dev)
+        state = steps.place(full, steps.state_shardings(model, full))
+        del full
+        b = train20_batch(raws[0], dev)
+        state, _ = step_fn(state, steps.place(b, steps.batch_shardings(
+            model, b)))
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    save_s = time.perf_counter() - t0
+    del state
+    losses, restore_s = {}, []
+    for shape in ELASTIC_MESHES:
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"), dev.type)
+        t0 = time.perf_counter()
+        restored, meta = elastic.elastic_restore(mgr, model, opt, mesh=mesh,
+                                                 device=dev)
+        restore_s.append(round(time.perf_counter() - t0, 2))
+        if meta["step"] != 1:
+            raise AssertionError(f"20b restored step {meta['step']}")
+        b = train20_batch(raws[1], dev)
+        with specs.use_mesh(mesh):
+            b = steps.place(b, steps.batch_shardings(model, b))
+        _, m = step_fn(restored, b)
+        losses[str(shape)] = float(m["loss"])
+        del restored
+    shape6, _ = elastic.choose_mesh_shape(6, model_parallel=4)
+    return {"losses": losses, "save_s": save_s, "restore_s": restore_s,
+            "mesh6": int(np.prod(shape6)), "mesh6_shape": list(shape6)}
+
+
+def train20_collectives(rank, world, dev):
+    """20c on this rank: the compressed all-reduce (tests/
+    test_distributed.py's case at ``world`` data ranks) and the GPipe
+    pipeline, on CUDA tensors; the contract's bounds checked here."""
+    from repro_torch.optim.grad_compress import (init_error,
+                                                 make_compressed_allreduce)
+    from repro_torch.sharding.pipeline import bubble_fraction, make_pipeline
+    g_all = np.random.default_rng(0).standard_normal(
+        (world, 64, 32)).astype(np.float32)
+    mesh = mesh_mod.make_mesh((world,), ("data",), dev.type)
+    grads = {"w": torch.from_numpy(g_all[rank]).to(dev)}
+    ar = make_compressed_allreduce(mesh, None, dp_axes=("data",))
+    mean, err = ar(grads, init_error(grads))
+    want = g_all.mean(0)
+    diff = np.abs(mean["w"].cpu().numpy() - want)
+    mean_err = float(diff.max())
+    resid = float(err["w"].abs().max()) / float(np.abs(g_all).max() / 127.0)
+    err, total = init_error(grads), np.zeros_like(want)
+    for _ in range(8):
+        mean, err = ar(grads, err)
+        total += mean["w"].cpu().numpy()
+    ef_ok = bool(np.allclose(total / 8, want, rtol=0.02, atol=0.002))
+    if not (np.all(diff <= 0.04 + 0.04 * np.abs(want))
+            and resid <= 0.51 + 1e-6 and ef_ok):
+        raise AssertionError(f"20c compressed all-reduce: mean err "
+                             f"{mean_err}, residual {resid}, EF {ef_ok}")
+    rng = np.random.default_rng(1)
+    ws = (rng.standard_normal((PIPE_STAGES, PIPE_D, PIPE_D))
+          / np.sqrt(PIPE_D)).astype(np.float32)
+    x = rng.standard_normal((PIPE_MICRO, PIPE_B, PIPE_D)).astype(np.float32)
+    pmesh = mesh_mod.make_mesh((PIPE_STAGES,), ("pod",), dev.type)
+    with specs.use_mesh(pmesh):
+        spec = {"w": specs.sharding_for(ws.shape, ("stage", None, None))}
+    pipe = make_pipeline(pmesh, lambda p, h: torch.tanh(h @ p["w"]), spec,
+                         stage_axis="pod", n_micro=PIPE_MICRO)
+    got = pipe({"w": torch.from_numpy(ws).to(dev)},
+               torch.from_numpy(x).to(dev))
+    ref_out = torch.from_numpy(x).to(dev)
+    for s in range(PIPE_STAGES):
+        ref_out = torch.tanh(ref_out @ torch.from_numpy(ws[s]).to(dev))
+    pipe_err = float((got - ref_out).abs().max())
+    bubble = bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    if not torch.all((got - ref_out).abs() <= 2e-5 + 2e-5 * ref_out.abs()) \
+            or abs(bubble - 3 / 11) > 1e-9:
+        raise AssertionError(f"20c pipeline: err {pipe_err}, bubble {bubble}")
+    return {"mean_err": mean_err, "resid": resid, "ef_ok": ef_ok,
+            "pipe_err": pipe_err, "bubble": bubble}
+
+
+def rank_device(rank: int, form: str):
+    """A spawned rank's card: its own over NCCL, cuda:0 over gloo."""
+    dev = torch.device("cuda", rank if form == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def train_rank(rank: int, world: int, out_dir: str, form: str) -> int:
+    """One rank of phase 20 (``chip_smoke.py --train-rank R N DIR FORM``):
+    the 20a meshes of N ranks; with 4 ranks 20b and 20c, with 2 the
+    trainer (20d). Reads the mesh-free step-1 gradients from
+    DIR/../grads.pt; writes DIR/rank<R>.json."""
+    import datetime
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    dev = rank_device(rank, form)
+    dist.init_process_group(form, init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    tc, model, opt, raws = train20_setup()
+    ref_grads = torch.load(os.path.join(out_dir, "..", "grads.pt"),
+                           mmap=True)
+    out = {}
+    for shape in TRAIN20_MESHES:
+        if int(np.prod(shape)) == world:
+            out[str(shape)] = train20_mesh(model, opt, raws, shape, dev,
+                                           ref_grads)
+            torch.cuda.empty_cache()
+    if world == 4:
+        out["elastic"] = train20_elastic(model, opt, raws, dev, out_dir)
+        out["collectives"] = train20_collectives(rank, world, dev)
+    else:
+        train_mod.reduced_config = train20_config
+        stats = train_mod.train(dataclasses.replace(tc, mesh_shape=(2, 1),
+                                                    device=dev.type))
+        out["trainer"] = stats["losses"]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4992,6 +5388,10 @@ def main():
     t0 = time.perf_counter()
     phase17_trainer(card)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 20: sharded training, {TRAIN20_ARCH} at full width, "
+        f"{TRAIN20_LAYERS} layers, on (data, model) meshes of gloo ranks; "
+        f"elastic restore, the compressed all-reduce and the pipeline")
+    phase20_sharded_training(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -5146,4 +5546,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5]))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                            sys.argv[5]))
     sys.exit(main())

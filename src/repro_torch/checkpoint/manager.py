@@ -9,7 +9,10 @@ place only after fsync (a crash mid-write never corrupts the latest
 checkpoint). Leaves are full arrays; ``restore(device=...)`` puts them on
 a device, and ``like=`` gives the restored tree the nesting of a template
 (``_unflatten`` makes a tuple of every digit-keyed dict, as the
-reference's does).
+reference's does). A sharded tree (DTensor leaves) is saved as its full
+arrays, gathered on every rank and written by global rank 0, so it
+restores on any mesh or none; ``restore(shardings=...)`` places each
+leaf's block on each rank.
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import specs
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _flatten(tree, prefix=""):
@@ -71,8 +77,16 @@ class CheckpointManager:
         """Snapshot to host (device->host copy happens NOW, so training can
         mutate donated buffers), then write in a background thread."""
         self.wait()  # one in-flight save at a time
-        host_flat = {k: _host(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        sharded = any(specs.sharding_of(v) is not None for v in flat.values())
+        host_flat = {k: _host(v) for k, v in flat.items()}
         meta = {"step": int(step), "time": time.time(), **(metadata or {})}
+        sync = block or not self.async_save
+        if sharded and _rank() != 0:
+            # a sharded tree: every rank gathers, global rank 0 writes
+            if sync:
+                _barrier()
+            return
 
         def write():
             tmp = self.dir / f".tmp_step_{step}"
@@ -89,11 +103,13 @@ class CheckpointManager:
             tmp.rename(final)          # atomic commit
             self._gc()
 
-        if self.async_save and not block:
+        if not sync:
             self._thread = threading.Thread(target=self._guard(write), daemon=True)
             self._thread.start()
         else:
             write()
+            if sharded:
+                _barrier()
 
     def _guard(self, fn):
         def run():
@@ -129,11 +145,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, *, device=None,
-                like=None):
+                like=None, shardings=None):
         """Load a checkpoint: (tree, manifest), or (None, None) when there
         is none. Leaves are numpy arrays, or tensors on ``device`` when it
         is given; with ``like`` (a tree of the saved structure) the result
-        takes its nesting: its lists, tuples and digit-keyed dicts."""
+        takes its nesting: its lists, tuples and digit-keyed dicts. With
+        ``shardings`` (a tree of ``specs.NamedSharding`` of the saved
+        structure, on a mesh of any shape: elastic restore) each leaf
+        becomes a DTensor holding this rank's block, on ``device`` (the
+        mesh's device type by default)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -143,6 +163,11 @@ class CheckpointManager:
         with np.load(d / "state.npz") as z:
             flat = {k: z[k] for k in z.files}
         tree = _unflatten(flat)
+        if shardings is not None:
+            tree = _renest(tree, shardings)
+            dev = device or tree_leaves(shardings)[0].mesh.device_type
+            return tree_map(lambda a, sh: specs.distribute(
+                torch.from_numpy(a), sh, dev), tree, shardings), meta
         if like is not None:
             tree = _renest(tree, like)
         if device is not None:
@@ -150,8 +175,22 @@ class CheckpointManager:
         return tree, meta
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    dist.barrier()
+
+
 def _host(v):
-    """A leaf as a host numpy array (a tensor is copied off its device)."""
+    """A leaf as a host numpy array (a tensor is copied off its device; a
+    DTensor's full array is gathered from the ranks first)."""
+    sharding = specs.sharding_of(v)
+    if sharding is not None:
+        v = specs.full_tensor(v.to_local(), sharding)
     if isinstance(v, torch.Tensor):
         if v.dtype == torch.bfloat16:
             raise TypeError("checkpoint leaves must have a numpy dtype; got "

@@ -6,7 +6,8 @@ and the images of a seed are byte-equal in both packages.
 
 The token pipeline is a real input pipeline: deterministic per-step RNG
 (restart-safe: resuming at step k reproduces the same batch), a host-side
-prefetch thread, and the batch moved to the trainer's device.
+prefetch thread, and the batch moved to the trainer's device (each rank's
+rows of it on a mesh).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Iterator
 import numpy as np
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
+
+from repro_torch.sharding import specs
 
 
 class TokenStream:
@@ -51,11 +54,15 @@ class TokenStream:
 
 class Prefetcher:
     """Host-side prefetch: overlaps batch generation with device compute;
-    with ``device``, each batch's arrays become tensors there."""
+    with ``device``, each batch's arrays become tensors there, and with
+    ``sharding`` (a ``specs.NamedSharding`` per key) DTensors holding this
+    rank's block of each."""
 
-    def __init__(self, it: Iterator, depth: int = 2, device=None):
+    def __init__(self, it: Iterator, depth: int = 2, device=None,
+                 sharding=None):
         self.it = it
         self.device = device
+        self.sharding = sharding
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True)
@@ -65,7 +72,11 @@ class Prefetcher:
         for item in self.it:
             if self._stop.is_set():
                 return
-            if self.device is not None:
+            if self.sharding is not None:
+                item = {k: specs.distribute(torch.from_numpy(
+                    np.ascontiguousarray(v)), self.sharding[k], self.device)
+                    for k, v in item.items()}
+            elif self.device is not None:
                 item = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     self.device) for k, v in item.items()}
             self.q.put(item)
@@ -88,12 +99,21 @@ def make_lm_pipeline(vocab: int, global_batch: int, seq_len: int, *,
                      seed: int = 0, start_step: int = 0, prefetch: int = 2,
                      device=None, mesh=None):
     """Batches ``start_step``, ``start_step + 1``, ... of a
-    :class:`TokenStream`, prefetched onto ``device``. A mesh (the
-    reference's data-sharded placement) is not ported."""
+    :class:`TokenStream`, prefetched onto ``device``. With ``mesh`` (a
+    ``DeviceMesh``) each rank gets DTensors of its "batch" rows, the rows
+    the reference's ``NamedSharding`` gives its shard (on the mesh's
+    device type unless ``device`` says)."""
+    sharding = None
     if mesh is not None:
-        raise NotImplementedError(
-            "make_lm_pipeline: sharding a batch over a mesh is not ported "
-            "(ROADMAP queue 1 item 12)")
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"make_lm_pipeline: mesh must be a DeviceMesh, "
+                            f"not {type(mesh).__name__}")
+        device = device or mesh.device_type
+        with specs.use_mesh(mesh):
+            rows = specs.sharding_for((global_batch, seq_len),
+                                      ("batch", None))
+        sharding = {"tokens": rows, "labels": rows}
     stream = TokenStream(vocab, global_batch, seq_len, seed)
 
     def gen():
@@ -102,7 +122,8 @@ def make_lm_pipeline(vocab: int, global_batch: int, seq_len: int, *,
             yield stream.batch_at(step)
             step += 1
 
-    return Prefetcher(gen(), depth=prefetch, device=device)
+    return Prefetcher(gen(), depth=prefetch, device=device,
+                      sharding=sharding)
 
 
 # ----------------------------------------------------------- CIFAR-like task

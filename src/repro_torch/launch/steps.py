@@ -20,6 +20,7 @@ from repro_torch.kernels.ref import mask_value
 from repro_torch.models import encdec
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamW, apply_updates
+from repro_torch.sharding import specs, spmd
 from repro_torch.tree import tree_leaves, tree_map
 
 MOE_AUX_WEIGHT = 0.01
@@ -38,19 +39,34 @@ def cross_entropy(logits, labels):
     return torch.mean(lse - gold)
 
 
-def head_ce_chunk(x_c, head_w, labels_c, vocab: int, tied: bool):
+def head_ce_chunk(x_c, head_w, labels_c, vocab: int, tied: bool,
+                  split: bool = False):
     """CE summed over one sequence chunk without keeping logits alive.
     x_c: (B, C, D); head_w: (D, Vp) or the tied table (Vp, D); labels_c:
-    (B, C). Padded vocab columns are masked at ``mask_value``."""
+    (B, C). Padded vocab columns are masked at ``mask_value``. Inside the
+    sharded step a head split over "model" (``split``: ``spmd.tp_split``)
+    gives the rank's vocab columns and the CE is reduced over the ranks."""
+    if split:
+        x_c = spmd.tp_copy(x_c)
     w = head_w.to(x_c.dtype)
     logits = (x_c @ w.T if tied else x_c @ w).float()
     vp = logits.shape[-1]
-    if vocab < vp:
-        keep = torch.arange(vp, device=logits.device) < vocab
+    lo = spmd.tp_rank() * vp if split else 0
+    if vocab < lo + vp:
+        keep = torch.arange(lo, lo + vp, device=logits.device) < vocab
         logits = torch.where(keep, logits, mask_value(logits.dtype))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
-    return torch.sum(lse - gold)
+    if not split:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+    # vocab over "model" (training): the max, the sum of exponentials and
+    # the label's logit each reduced over the rank's columns, then "model"
+    m = spmd.tp_max(logits.amax(dim=-1))
+    lse = torch.log(spmd.tp_sum(torch.exp(logits - m[..., None]).sum(-1))) + m
+    local = labels_c.long() - lo
+    ok = (local >= 0) & (local < vp)
+    gold = torch.gather(logits, -1, local.clamp(0, vp - 1)[..., None])[..., 0]
+    return torch.sum(lse - spmd.tp_sum(torch.where(ok, gold, 0.0)))
 
 
 def chunked_cross_entropy(features, head_w, labels, vocab: int, tied: bool,
@@ -63,8 +79,11 @@ def chunked_cross_entropy(features, head_w, labels, vocab: int, tied: bool,
     chunk = min(chunk, S)
     n = S // chunk
 
+    split = spmd.tp_split(head_w) is not None
+    chunk_fn = spmd.checkpointed(head_ce_chunk)
+
     def body(x_c, l_c):
-        return checkpoint(head_ce_chunk, x_c, head_w, l_c, vocab, tied,
+        return checkpoint(chunk_fn, x_c, head_w, l_c, vocab, tied, split,
                           use_reentrant=False)
 
     total = torch.zeros((), dtype=torch.float32, device=features.device)
@@ -279,6 +298,189 @@ def init_train_state(model: Model, optimizer: AdamW, gen: torch.Generator,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def train_state_shapes(model: Model, optimizer: AdamW) -> Dict[str, Any]:
+    """The train state's leaves as meta tensors (shapes and dtypes only,
+    ``repro``'s ``jax.eval_shape`` of ``init_train_state``)."""
+    return init_train_state(model, optimizer, torch.Generator(), "meta")
+
+
+def _strip_fsdp(tree):
+    """The logical tree without its "fsdp" (data-axis) factor: ZeRO-1's
+    params, replicated over data and sharded over model only."""
+    if specs._is_logical_leaf(tree):
+        return tuple(None if a == "fsdp" else a for a in tree)
+    return {k: _strip_fsdp(v) for k, v in tree.items()}
+
+
+def train_state_logical(model: Model, zero_stage: int = 3) -> Dict[str, Any]:
+    """zero_stage=3: params and AdamW's m / v sharded over data x model
+    (ZeRO-3; weights gathered per layer). zero_stage=1: params sharded over
+    model only (resident on every data rank); m / v as at 3."""
+    pl = model.param_logical()
+    p_log = pl if zero_stage >= 3 else _strip_fsdp(pl)
+    return {"params": p_log, "opt": {"m": pl, "v": pl, "count": ()},
+            "step": ()}
+
+
+def batch_logical(model: Model, batch_keys) -> Dict[str, Any]:
+    out = {}
+    for k in batch_keys:
+        if k in ("tokens", "labels", "token"):
+            out[k] = ("batch", None)
+        elif k in ("image_embeds", "frames"):
+            out[k] = ("batch", None, None)
+        else:
+            raise KeyError(k)
+    return out
+
+
+# Shape-aware sharding trees (``specs.shardings_for``): a logical axis
+# that does not divide a leaf's dim drops for that leaf. Each takes a tree
+# of tensors (meta tensors do) and gives the same tree of
+# ``specs.NamedSharding`` on the active mesh.
+def state_shardings(model: Model, state_shapes, zero_stage: int = 3):
+    return specs.shardings_for(train_state_logical(model, zero_stage),
+                               state_shapes)
+
+
+def param_shardings(model: Model, params_shapes):
+    return specs.shardings_for(model.param_logical(), params_shapes)
+
+
+def batch_shardings(model: Model, batch_shapes):
+    return specs.shardings_for(batch_logical(model, batch_shapes.keys()),
+                               batch_shapes)
+
+
+def cache_shardings(model: Model, cache_shapes):
+    return specs.shardings_for(model.cache_logical(), cache_shapes)
+
+
+def place(tree, shardings):
+    """A tree of full tensors (the same on every rank) as DTensors that hold
+    each rank's block only (``specs.distribute``; no communication)."""
+    return tree_map(specs.distribute, tree, shardings)
+
+
+# params subtrees stacked along leading layer axes, and how many
+_STACKS = {"layers": 1, "enc_layers": 1, "dec_layers": 1,
+           "super": {"blocks": 2, "cross": 1}}
+
+
+def _plans(model: Model, shardings, keeps):
+    def go(logical, sh, stack):
+        if isinstance(sh, dict):
+            return {k: go(logical[k], v, stack.get(k, 0)
+                          if isinstance(stack, dict) else stack)
+                    for k, v in sh.items()}
+        return spmd.leaf_plan(sh, logical, stack, keeps)
+    return go(model.param_logical(), shardings, _STACKS)
+
+
+def _to_dtensor(t, sh):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, sh.mesh, sh.placements, run_check=False)
+
+
+def _batch_dims(sh) -> tuple:
+    return tuple(i for i, _ in specs.shard_dims(sh))
+
+
+def _microbatches(model: Model, batch, mesh, microbatches: int):
+    """[(the rank's rows of microbatch i, the mesh dims they split
+    over)]. The global batch is cut into microbatches first and each is
+    then sharded over "batch", as ``repro``'s reshape of a sharded batch
+    computes; a batch of DTensors is gathered first where it must be."""
+    sh = {k: specs.sharding_of(v) for k, v in batch.items()}
+    if microbatches == 1 and all(v is not None for v in sh.values()):
+        return [({k: v.to_local() for k, v in batch.items()},
+                 _batch_dims(sh["tokens"]))]
+    full = {k: v if sh[k] is None else
+            specs.full_tensor(v.to_local(), sh[k]) for k, v in batch.items()}
+    size = full["tokens"].shape[0] // microbatches
+    out = []
+    for i in range(microbatches):
+        mb = {k: v[i * size:(i + 1) * size] for k, v in full.items()}
+        with specs.use_mesh(mesh):
+            msh = batch_shardings(model, mb)
+        out.append(({k: specs.local_block(v, msh[k]) for k, v in mb.items()},
+                    _batch_dims(msh["tokens"])))
+    return out
+
+
+def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
+    """``value_and_grad`` on params of DTensors (SPMD: every rank of their
+    mesh calls it alike): ``((loss, metrics), grads)`` with the global
+    loss and "ce" and each gradient as the rank's block of the params'
+    layout. Each rank computes the loss of its rows of every microbatch on
+    weights gathered per layer (``sharding.spmd``), divided by the number
+    of ways the rows split, so the ranks' losses sum to the global mean;
+    the gradients come back summed over the batch's ranks."""
+    def run(params, batch):
+        sh = tree_map(specs.sharding_of, params)
+        mesh = tree_leaves(sh)[0].mesh
+        local = tree_map(lambda t: t.to_local(), params)
+        keeps = spmd.tp_keeps(model.cfg, mesh)
+        plans = _plans(model, sh, keeps)
+        grads, loss, ce, metrics = None, 0.0, 0.0, {}
+        for mb, dims in _microbatches(model, batch, mesh, microbatches):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              local)
+            with spmd.training(mesh, dims, bool(keeps)), \
+                    spmd.regather_saved():
+                n = spmd.batch_split()
+                mloss, metrics = loss_fn(
+                    spmd.lazy_params(leaves, plans, mesh, dims), mb)
+                flat = tree_leaves(leaves)
+                got = torch.autograd.grad(mloss / n, flat, allow_unused=True)
+            by_id = {id(p): torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, got)}
+            mgrads = tree_map(lambda p: by_id[id(p)], leaves)
+            grads = mgrads if grads is None else tree_map(torch.add, grads,
+                                                          mgrads)
+            loss = loss + specs.all_reduce(mloss.detach() / n, mesh, dims)
+            ce = ce + specs.all_reduce(metrics["ce"].detach() / n, mesh, dims)
+        if microbatches > 1:
+            loss, ce = loss / microbatches, ce / microbatches
+            grads = tree_map(lambda g: g / microbatches, grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["ce"] = ce
+        return (loss, metrics), grads
+    return run
+
+
+def sharded_update(optimizer: AdamW, state, grads):
+    """A state of DTensors and ``sharded_value_and_grad``'s gradients ->
+    (the next state, the gradient's global norm): AdamW on the blocks of
+    m / v's layout (under ZeRO-1 the update is gathered back to the
+    params')."""
+    sh = tree_map(specs.sharding_of, state)
+    local = tree_map(lambda t: t.to_local(), state)
+    p_sh, m_sh = sh["params"], sh["opt"]["m"]
+    updates, opt, gnorm = optimizer.update(
+        tree_map(specs.relayout, grads, p_sh, m_sh), local["opt"],
+        tree_map(specs.relayout, local["params"], p_sh, m_sh),
+        shardings=m_sh)
+    params = apply_updates(local["params"], tree_map(
+        specs.relayout, updates, m_sh, p_sh))
+    new = {"params": params, "opt": opt, "step": local["step"] + 1}
+    return tree_map(_to_dtensor, new, sh), gnorm
+
+
+def _sharded_train_step(model: Model, optimizer: AdamW, loss_fn,
+                        microbatches: int):
+    """The train step on a state of DTensors: ``sharded_value_and_grad``,
+    then ``sharded_update``."""
+    grad_fn = sharded_value_and_grad(model, loss_fn, microbatches)
+
+    def train_step(state, batch):
+        (loss, metrics), grads = grad_fn(state["params"], batch)
+        state, gnorm = sharded_update(optimizer, state, grads)
+        return state, {"loss": loss, "grad_norm": gnorm, **metrics}
+
+    return train_step
+
+
 def make_train_step(model: Model, optimizer: AdamW, *,
                     compute_dtype=torch.bfloat16, attn_impl: str = "einsum",
                     remat=True, microbatches: int = 1):
@@ -287,12 +489,21 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     With microbatches > 1 the batch is split along its first axis and the
     gradients (and losses) of the slices are summed in order from zero,
     then divided by ``microbatches``, as ``repro``'s ``lax.scan`` does;
-    the other metrics are the last slice's."""
-    grad_fn = value_and_grad(make_loss_fn(
-        model, compute_dtype=compute_dtype, attn_impl=attn_impl,
-        remat=remat))
+    the other metrics are the last slice's.
+
+    A state of DTensors (``place`` with ``state_shardings``) runs the
+    sharded step on its mesh (``_sharded_train_step``): the batch is then
+    either DTensors (each rank's rows, ``batch_shardings``) or the whole
+    batch on every rank, and the function is ``repro``'s single-device
+    one."""
+    loss_fn = make_loss_fn(model, compute_dtype=compute_dtype,
+                           attn_impl=attn_impl, remat=remat)
+    grad_fn = value_and_grad(loss_fn)
+    sharded = _sharded_train_step(model, optimizer, loss_fn, microbatches)
 
     def train_step(state, batch):
+        if specs.sharding_of(state["step"]) is not None:
+            return sharded(state, batch)
         params = state["params"]
         if microbatches == 1:
             (loss, metrics), grads = grad_fn(params, batch)

@@ -9,12 +9,19 @@ to another device by itself.
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
       --reduced --steps 100 --batch 8 --seq-len 128 --ckpt-dir /tmp/run1 \\
       [--device cpu]
+
+On a mesh, one process per rank (``--mesh-shape D M``: data x model):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --mesh-shape 2 2 ...
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import math
+import os
 import time
 
 import torch
@@ -27,6 +34,7 @@ from repro_torch.models.registry import Model, get_model, reduced_config
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedules import cosine, wsd
 from repro_torch.runtime.fault import StragglerDetector
+from repro_torch.sharding import specs
 
 log = logging.getLogger("repro_torch.train")
 
@@ -76,15 +84,46 @@ def extras_for(model: Model, batch_np, dtype=torch.float32, device=None):
     return out
 
 
+def _mesh_for(tc: TrainConfig, device: torch.device):
+    """The ("data", "model") mesh of ``tc.mesh_shape`` over the process
+    group (made from the environment under ``torchrun`` with PyTorch's
+    default backend; never a fallback to one device), and this rank's
+    device."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(
+                f"train: mesh_shape {tuple(tc.mesh_shape)} needs a process "
+                f"group: torch.distributed.init_process_group in each rank, "
+                f"or torchrun --nproc-per-node N")
+        dist.init_process_group()
+    world, n = dist.get_world_size(), math.prod(tc.mesh_shape)
+    if n != world:
+        raise ValueError(f"train: mesh_shape {tuple(tc.mesh_shape)} has {n} "
+                         f"ranks, the process group {world}")
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_mesh(tc.mesh_shape, ("data", "model")[:len(tc.mesh_shape)],
+                     device.type)
+    return mesh, device
+
+
 def train(tc: TrainConfig) -> dict:
-    if tc.mesh_shape:
-        raise NotImplementedError(
-            f"train: mesh_shape {tuple(tc.mesh_shape)} needs the sharded "
-            f"trainer, not ported (ROADMAP queue 1 item 12)")
+    """Train, on one device, or SPMD on ``tc.mesh_shape`` (every rank of the
+    process group calls it alike; the state is placed by
+    ``steps.state_shardings``, the batch by ``steps.batch_shardings``;
+    rank 0 logs and writes the checkpoints)."""
     device = torch.device(tc.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: --device cuda but CUDA is not available "
                            "(pass --device cpu to train on the CPU)")
+    mesh = None
+    if tc.mesh_shape:
+        mesh, device = _mesh_for(tc, device)
+    lead = mesh is None or not any(mesh.get_coordinate())
     cfg = configs.get_config(tc.arch)
     if tc.reduced:
         cfg = reduced_config(cfg)
@@ -101,34 +140,44 @@ def train(tc: TrainConfig) -> dict:
         attn_impl="einsum", remat=not tc.reduced,
         microbatches=tc.microbatches)
 
-    start = 0
-    state = None
-    if mgr is not None and mgr.latest_step() is not None:
-        state, meta = mgr.restore(device=device)
-        start = meta["step"]
-        log.info("resumed from step %d", start)
-    if state is None:
-        gen = torch.Generator(device).manual_seed(tc.seed)
-        state = steps_mod.init_train_state(model, optimizer, gen, device)
+    with specs.use_mesh(mesh):
+        start = 0
+        state = None
+        # without a mesh every sharding is None and placing is a move
+        if mgr is not None and mgr.latest_step() is not None:
+            state, meta = mgr.restore(shardings=steps_mod.state_shardings(
+                model, steps_mod.train_state_shapes(model, optimizer)),
+                device=device)
+            start = meta["step"]
+            if lead:
+                log.info("resumed from step %d", start)
+        if state is None:
+            gen = torch.Generator(device).manual_seed(tc.seed)
+            state = steps_mod.init_train_state(model, optimizer, gen, device)
+            state = steps_mod.place(state, steps_mod.state_shardings(
+                model, state))
 
-    losses = []
-    for step in range(start, tc.steps):
-        t0 = time.time()
-        raw = stream.batch_at(step)
-        batch = {k: torch.from_numpy(v.copy()).to(device)
-                 for k, v in raw.items()}
-        batch.update(extras_for(model, raw, device=device))
-        state, metrics = step_fn(state, batch)
-        if (step + 1) % tc.log_every == 0 or step == start:
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            log.info("step %d loss %.4f (%.2fs)", step + 1, loss,
-                     time.time() - t0)
-        detector.record(time.time() - t0)
-        if mgr is not None and (step + 1) % tc.checkpoint_every == 0:
-            mgr.save(step + 1, state)
-    if mgr is not None:
-        mgr.save(tc.steps, state, block=True)
+        losses = []
+        for step in range(start, tc.steps):
+            t0 = time.time()
+            raw = stream.batch_at(step)
+            batch = {k: torch.from_numpy(v.copy()).to(device)
+                     for k, v in raw.items()}
+            batch.update(extras_for(model, raw, device=device))
+            batch = steps_mod.place(batch, steps_mod.batch_shardings(
+                model, batch))
+            state, metrics = step_fn(state, batch)
+            if (step + 1) % tc.log_every == 0 or step == start:
+                loss = float(metrics["loss"])
+                losses.append(loss)
+                if lead:
+                    log.info("step %d loss %.4f (%.2fs)", step + 1, loss,
+                             time.time() - t0)
+            detector.record(time.time() - t0)
+            if mgr is not None and (step + 1) % tc.checkpoint_every == 0:
+                mgr.save(step + 1, state)
+        if mgr is not None:
+            mgr.save(tc.steps, state, block=True)
     final_loss = float(metrics["loss"])
     return {"final_loss": final_loss, "losses": losses,
             "stragglers": len(detector.flagged)}

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import specs as _sp
 
 ENC_LEN = 1500          # whisper's 30 s window of encoder frames
 POS_ROWS = 8192         # rows of the decoder's learned position table
@@ -63,6 +64,23 @@ def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
                        "ln2": norm(dec), "mlp": mlp(dec)},
         "final_norm": norm(()),
     }
+
+
+def param_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of every leaf of ``init``'s params, as ``repro``'s."""
+    def attn(causal):
+        return L.attn_logical(_self_dims(cfg, causal))
+    norm, mlp = L.norm_logical("layernorm"), L.mlp_logical(gated=False,
+                                                            bias=True)
+    return {"embed": L.embed_logical(), "pos_dec": (None, "fsdp"),
+            "enc_layers": L.stacked_logical({"ln1": norm, "attn": attn(False),
+                                             "ln2": norm, "mlp": mlp}),
+            "enc_norm": norm,
+            "dec_layers": L.stacked_logical({
+                "ln1": norm, "attn": attn(True), "ln_x": norm,
+                "xattn": attn(False), "ln2": norm, "mlp": mlp}),
+            "final_norm": norm}
+
 
 
 def _sinusoid(s: int, d: int, device=None):
@@ -194,6 +212,15 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
             "xv": torch.zeros(cross_shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
+
+
+def cache_logical(cfg: ArchConfig) -> dict:
+    """Adaptive, as ``repro``'s (``transformer.cache_logical``)."""
+    if cfg.num_kv_heads % max(_sp.axis_size("kv_heads"), 1) == 0:
+        kv = (None, "batch", None, "kv_heads", None)
+    else:
+        kv = (None, "batch", "seq_sp", None, None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": ()}
 
 def _dec_input(params, tokens, positions, compute_dtype):
     """Token embeddings plus the learned positions, clipped at the table's

@@ -211,6 +211,27 @@ def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
     return _logits(params, cfg, x), aux
 
 
+def param_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of every leaf of ``init``'s params, as ``repro``'s."""
+    layer = {
+        "ln1": L.norm_logical(cfg.norm), "ln2": L.norm_logical(cfg.norm),
+        "attn": L.attn_logical(_attn_dims(cfg)),
+        "attn_norm": L.norm_logical("rmsnorm"),
+        "ssm_norm": L.norm_logical("rmsnorm"),
+        "mlp": L.mlp_logical(gated=True),
+        "w_in": ("fsdp", "d_ff"), "w_out": ("d_ff", "fsdp"),
+        "conv": (None, "d_ff"),
+        "w_B": ("fsdp", None), "w_C": ("fsdp", None),
+        "w_dtA": ("fsdp", None), "w_dtB": (None, "d_ff"),
+        "dt_bias": ("d_ff",), "logA": ("d_ff", None), "d_skip": ("d_ff",),
+    }
+    return {"embed": L.embed_logical(),
+            "layers": L.stacked_logical(layer),
+            "final_norm": L.norm_logical(cfg.norm),
+            "unembed": {"w": ("fsdp", "vocab")}}
+
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32,
                device=None):
     """Ring-buffer window KV cache of W = min(window, s_max) rows with each
@@ -229,6 +250,15 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32,
         "conv": torch.zeros((Lr, batch, CONV_K - 1, D), **f32),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def cache_logical(cfg: ArchConfig) -> dict:
+    return {"k": (None, "batch", None, "kv_heads", None),
+            "v": (None, "batch", None, "kv_heads", None),
+            "slot_pos": (None, "batch", None),
+            "h": (None, "batch", "d_ff", None),
+            "conv": (None, "batch", None, None),
+            "pos": ()}
 
 
 def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims, gather=False):

@@ -14,6 +14,11 @@ kv-head slab of each new K/V row into its slab of the pool, attends on its
 own query heads and all-gathers the head outputs before ``wo``
 (``specs.replicate``); everything else runs replicated.
 
+Inside the sharded train step (``sharding.spmd``) the dense decoder's
+attention, MLP and embedding run on the rank's "model" blocks of their
+weights (heads, d_ff, vocab) with a sum over "model" after ``wo``,
+``w_down`` and the lookup; a MoE layer routes the whole batch's tokens.
+
 Where ``repro`` returns a functionally updated cache or page pool
 (``dynamic_update_slice``, ``.at[].set(mode="drop")``), the port writes it
 IN PLACE and returns the same tensor. Rows that JAX would drop (freed
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.core.quantize import page_scale
 from repro_torch.kernels.ref import mask_value
 from repro_torch.sharding import specs as _sp
+from repro_torch.sharding import spmd
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -104,6 +110,13 @@ def norm_init(d: int, lead=(), device=None, kind: str = "rmsnorm"):
             "bias": torch.zeros(shape, device=device)}
 
 
+
+def norm_logical(kind: str):
+    """Logical axes of ``norm_init``'s leaves (``sharding.specs``)."""
+    if kind == "rmsnorm":
+        return {"scale": (None,)}
+    return {"scale": (None,), "bias": (None,)}
+
 def remat(fn, policy):
     """``fn`` checkpointed for training, as ``repro`` wraps a layer's body
     in ``jax.checkpoint``: only its inputs are saved and the body runs
@@ -116,16 +129,26 @@ def remat(fn, policy):
     from torch.utils.checkpoint import checkpoint
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(spmd.checkpointed(fn), *args, use_reentrant=False)
     return run
 
 
 def layer_params(tree, i: int):
     """Layer ``i``'s parameters from a tree whose leaves are stacked along a
-    leading L axis (views, not copies)."""
+    leading L axis (views, not copies; inside the sharded train step the
+    rank's blocks, read per layer: ``sharding.spmd.LazyParams``)."""
+    if isinstance(tree, spmd.LazyParams):
+        return tree.layer(i)
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 
+
+
+def stacked_logical(tree):
+    """A layer's logical tree for its stack: None prepended to every leaf
+    for the leading L axis."""
+    return {k: stacked_logical(v) if isinstance(v, dict) else (None,) + v
+            for k, v in tree.items()}
 
 # ---------------------------------------------------------------- RoPE
 @functools.lru_cache(maxsize=None)
@@ -187,6 +210,14 @@ def attn_init(gen, dims: AttnDims, lead=(), device=None):
     return p
 
 
+
+def attn_logical(dims: AttnDims):
+    p = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+         "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if dims.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    return p
+
 def mlp_init(gen, d_model: int, d_ff: int, lead=(), device=None,
              gated: bool = True, bias: bool = False):
     """MLP weights with leading axes ``lead``: a gate projection when
@@ -202,10 +233,24 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=(), device=None,
     return p
 
 
+
+def mlp_logical(gated: bool = True, bias: bool = False):
+    p = {"w_up": ("fsdp", "d_ff"), "w_down": ("d_ff", "fsdp")}
+    if gated:
+        p["w_gate"] = ("fsdp", "d_ff")
+    if bias:
+        p["b_up"] = ("d_ff",)
+        p["b_down"] = (None,)
+    return p
+
 def embed_init(gen, padded_vocab: int, d_model: int, device=None):
     return {"table": torch.randn((padded_vocab, d_model), generator=gen,
                                  device=device) * 0.02}
 
+
+
+def embed_logical():
+    return {"table": ("vocab", "fsdp")}
 
 # ---------------------------------------------------------------- attention
 def _qkv(params, x, dims: AttnDims, positions):
@@ -299,6 +344,12 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     ``repro``'s context-parallel banded form is the banded one, which is
     what runs here (context parallelism, the mesh form, belongs to the
     training half of ROADMAP queue 1 item 12)."""
+    tp = spmd.tp_split(params["wq"]) is not None
+    if tp:      # training: this rank's heads of the "model" axis
+        x = spmd.tp_copy(x)
+        dims = dataclasses.replace(
+            dims, num_heads=params["wq"].shape[-1] // dims.head_dim,
+            num_kv_heads=params["wk"].shape[-1] // dims.head_dim)
     q, k, v = _qkv(params, x, dims, positions)
     k_pos = positions
     if kv_override is not None:
@@ -316,7 +367,8 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     else:
         out = _sdpa_einsum(q, k, v, positions, k_pos, dims)
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+    out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+    return spmd.tp_sum(out) if tp else out
 
 
 # Sentinel cache position of an INACTIVE (freed / never-admitted) serving
@@ -829,6 +881,12 @@ def mla_init(gen, dims: MLADims, lead=(), device=None):
             "wo": _dense(gen, lead + (H * hd, D), H * hd, device)}
 
 
+
+def mla_logical(dims: MLADims):
+    return {"wq": ("fsdp", "heads"), "wkv_a": ("fsdp", None),
+            "kv_norm": (None,), "wkv_b": (None, "heads"),
+            "wo": ("heads", "fsdp")}
+
 def _mla_wkv_b(params, dims: MLADims, dtype):
     """wkv_b split into its absorbable halves: (wb_k (H, hd, c), which folds
     q_nope into latent space; wb_v (H, c, hd), which expands the latent
@@ -1039,6 +1097,9 @@ def mlp(params, x, act: str = "silu"):
     act(up) @ w_down, where up = x @ w_up; biases are added where the
     params hold them. ``act='gelu'`` is the tanh approximation, which is
     ``jax.nn.gelu``'s default (torch's default is the erf form)."""
+    tp = spmd.tp_split(params["w_up"]) is not None
+    if tp:      # training: this rank's d_ff block of the "model" axis
+        x = spmd.tp_copy(x)
     up = x @ params["w_up"].to(x.dtype)
     if "b_up" in params:
         up = up + params["b_up"].to(x.dtype)
@@ -1047,6 +1108,8 @@ def mlp(params, x, act: str = "silu"):
     else:
         h = gelu(up) if act == "gelu" else silu(up)
     out = h @ params["w_down"].to(x.dtype)
+    if tp:
+        out = spmd.tp_sum(out)
     if "b_down" in params:
         out = out + params["b_down"].to(x.dtype)
     return out
@@ -1073,6 +1136,12 @@ def moe_init(gen, dims: MoEDims, lead=(), device=None):
             "w_down": _dense(gen, lead + (E, F_, D), F_, device)}
 
 
+
+def moe_logical():
+    return {"router": (None, None), "w_gate": ("expert", "fsdp", None),
+            "w_up": ("expert", "fsdp", None),
+            "w_down": ("expert", None, "fsdp")}
+
 # When set to a list, every ``moe`` call appends its routing: a dict of
 # (T, K) ``expert`` indices, the (T, K) bool ``kept`` mask (choices that
 # found room in their expert's capacity), the (T, E) router ``probs`` and
@@ -1095,6 +1164,7 @@ def moe(params, x, dims: MoEDims):
     after it. A dropped choice contributes nothing. The expert products
     are plain batched products, which ``repro`` too leaves to its
     compiler."""
+    x = spmd.gather_rows(x)      # training on a batch-split mesh: all rows
     B, S, D = x.shape
     E, K = dims.num_experts, dims.top_k
     T = B * S
@@ -1146,12 +1216,16 @@ def moe(params, x, dims: MoEDims):
     h = silu(h) * u
     eout = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(x.dtype))
     out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), eout)
-    return out.reshape(B, S, D), {"moe_aux": aux_loss, "moe_z": z_loss}
+    return (spmd.own_rows(out.reshape(B, S, D)),
+            {"moe_aux": aux_loss, "moe_z": z_loss})
 
 
 # ---------------------------------------------------------------- embeddings
 def embed_lookup(params, ids, dtype):
-    return params["table"].to(dtype)[ids]
+    table = params["table"]
+    if spmd.tp_split(table) is not None:    # training: vocab over "model"
+        return spmd.vocab_lookup(table.to(dtype), ids)
+    return table.to(dtype)[ids]
 
 
 def lm_logits(params_embed, x, w_unembed=None, vocab: Optional[int] = None):

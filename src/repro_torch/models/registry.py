@@ -57,6 +57,14 @@ class Model:
                    device=None):
         return self.mod.init_cache(self.cfg, batch, s_max, dtype, device)
 
+    def param_logical(self):
+        """Logical axes of every param leaf (``sharding.specs``)."""
+        return self.mod.param_logical(self.cfg)
+
+    def cache_logical(self):
+        """Logical axes of the dense cache's leaves under the active mesh."""
+        return self.mod.cache_logical(self.cfg)
+
     def forward(self, params, tokens, **kw):
         return self.mod.forward(params, self.cfg, tokens, **kw)
 

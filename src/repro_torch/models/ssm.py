@@ -187,6 +187,27 @@ def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
     return _logits(params, cfg, x), aux
 
 
+def param_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of every leaf of ``init``'s params, as ``repro``'s."""
+    layer = {
+        "ln1": L.norm_logical("layernorm"), "ln2": L.norm_logical("layernorm"),
+        "mu_x": (None,), "mu": (None, None),
+        "lora_A": (None, "fsdp", None), "lora_B": (None, None, "fsdp"),
+        "w0": (None,), "wA": ("fsdp", None), "wB": (None, "fsdp"),
+        "u": ("heads", None),
+        "wr": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
+        "wv": ("fsdp", "heads"), "wg": ("fsdp", "heads"),
+        "wo": ("heads", "fsdp"), "gn_scale": ("heads", None),
+        "cmu_k": (None,), "cmu_r": (None,),
+        "ck": ("fsdp", "d_ff"), "cv": ("d_ff", "fsdp"), "cr": ("fsdp", None),
+    }
+    return {"embed": L.embed_logical(),
+            "layers": L.stacked_logical(layer),
+            "final_norm": L.norm_logical("layernorm"),
+            "unembed": {"w": ("fsdp", "vocab")}}
+
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32,
                device=None):
     """Decode state: the wkv state and the two token-shift carries per
@@ -198,6 +219,12 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32,
             "x_cm": torch.zeros((Lr, batch, D), **f32),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
+
+
+def cache_logical(cfg: ArchConfig) -> dict:
+    return {"S": (None, "batch", "heads", None, None),
+            "x_tm": (None, "batch", None), "x_cm": (None, "batch", None),
+            "pos": ()}
 
 def _run_layers(params, cfg: ArchConfig, x, cache, impl, pos=None):
     """Every layer over x, carrying each layer's state from the cache and

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.models import layers as L
+from repro_torch.sharding import specs as _sp
 
 
 def _check_supported(cfg: ArchConfig):
@@ -97,6 +98,18 @@ def _layer_init(gen, cfg: ArchConfig, lead, device) -> dict:
     return p
 
 
+def _layer_logical(cfg: ArchConfig) -> dict:
+    p = {"ln1": L.norm_logical(cfg.norm),
+         "attn": (L.mla_logical(_mla_dims(cfg)) if _is_mla(cfg)
+                  else L.attn_logical(_attn_dims(cfg))),
+         "ln2": L.norm_logical(cfg.norm)}
+    if cfg.moe:
+        p["moe"] = L.moe_logical()
+    else:
+        p["mlp"] = L.mlp_logical(gated=_gated(cfg), bias=cfg.mlp_bias)
+    return p
+
+
 def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     """Random weights drawn from ``gen`` on ``device`` (same layout and
     scales as ``repro``'s init; the draws themselves differ). A VLM's
@@ -122,6 +135,25 @@ def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
         params["unembed"] = {"w": L._dense(gen, (cfg.d_model, cfg.padded_vocab),
                                            cfg.d_model, device)}
     return params
+
+
+def param_logical(cfg: ArchConfig) -> dict:
+    """Logical axes of every leaf of ``init``'s params (``repro``'s tree:
+    a VLM's blocks carry two stack axes, its cross blocks one)."""
+    out = {"embed": L.embed_logical(),
+           "final_norm": L.norm_logical(cfg.norm)}
+    if cfg.cross_attn_every:
+        out["super"] = {
+            "blocks": L.stacked_logical(L.stacked_logical(
+                _layer_logical(cfg))),
+            "cross": L.stacked_logical({
+                "ln": L.norm_logical(cfg.norm),
+                "attn": L.attn_logical(_cross_dims(cfg)), "gate": ()})}
+    else:
+        out["layers"] = L.stacked_logical(_layer_logical(cfg))
+    if not cfg.tie_embeddings:
+        out["unembed"] = {"w": ("fsdp", "vocab")}
+    return out
 
 
 def _ffn(cfg: ArchConfig, lp, x):
@@ -258,6 +290,18 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def cache_logical(cfg: ArchConfig) -> dict:
+    """Adaptive, as ``repro``'s: kv heads sharded where they divide the
+    active mesh's "kv_heads" size, else the cache's sequence dim."""
+    if _is_mla(cfg):
+        return {"k": (None, "batch", None, None, None), "pos": ()}
+    if cfg.num_kv_heads % max(_sp.axis_size("kv_heads"), 1) == 0:
+        kv = (None, "batch", None, "kv_heads", None)
+    else:
+        kv = (None, "batch", "seq_sp", None, None)
+    return {"k": kv, "v": kv, "pos": ()}
 
 
 def _logits(params, cfg: ArchConfig, x):

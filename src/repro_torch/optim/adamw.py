@@ -37,11 +37,13 @@ class AdamW:
         return torch.tensor(self.learning_rate, dtype=torch.float32,
                             device=count.device)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shardings=None):
         """(updates, new state, the gradient's global norm before
-        clipping)."""
+        clipping). With ``shardings`` (a tree of ``specs.NamedSharding``)
+        the leaves are this rank's blocks and the norm is the whole
+        mesh's."""
         count = state["count"] + 1
-        gn = global_norm(grads)
+        gn = global_norm(grads, shardings)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-12),
                                 max=1.0)
@@ -64,11 +66,26 @@ class AdamW:
         return updates, {"m": m, "v": v, "count": count}, gn
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in ``jax.tree.leaves`` order) of each
-    leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    leaf's fp32 sum of squares. With ``shardings`` each leaf is a rank's
+    block: a block counts on the ranks at coordinate 0 of every mesh dim
+    it is replicated over (so once), and the sum is reduced over the whole
+    mesh."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                              for leaf in tree_leaves(tree)))
+    from torch.distributed.tensor import Shard
+    from repro_torch.sharding import specs
+    total, mesh = 0.0, None
+    for leaf, sh in zip(tree_leaves(tree), tree_leaves(shardings)):
+        mesh = sh.mesh
+        counted = all(isinstance(p, Shard) or mesh.get_local_rank(i) == 0
+                      for i, p in enumerate(sh.placements))
+        sq = torch.sum(torch.square(leaf.float()))
+        total = total + (sq if counted else torch.zeros_like(sq))
+    return torch.sqrt(specs.all_reduce(total, mesh,
+                                       range(mesh.ndim)))
 
 
 def apply_updates(params, updates):

@@ -2,18 +2,26 @@
 names *logical* axes and a rule table maps them onto the axes of a mesh, a
 ``torch.distributed.device_mesh.DeviceMesh`` here.
 
-What the serving path needs is ported: the rule tables, the mesh context
-(``use_mesh`` / ``active_mesh``), the resolution (``resolve``,
-``axis_size``, ``_fit_axes``) and the tensor-parallel serving helpers.
-Tensor parallelism runs SPMD over ``torch.distributed``, one process per
+The rule tables, the mesh context (``use_mesh`` / ``active_mesh``) and
+the resolution (``resolve``, ``axis_size``, ``_fit_axes``) serve both
+halves. Tensor-parallel serving runs SPMD over ``torch.distributed``, one process per
 rank: every rank holds the replicated weights and runs the same engine on
 the same inputs, but holds only its kv-head slab of the page pool, runs
 the attention core on its own query heads (``head_shard_axis``,
 ``head_slab``) and all-gathers the head outputs before the output
 projection (``replicate``). That is the torch form of the reference's
 ``shard_map`` design, and like it keeps every float reduction un-split, so
-tp > 1 serves bit for bit what tp = 1 serves. ``shard``, ``spec_tree`` and
-``shardings_for`` (GSPMD constraints for training) are not ported.
+tp > 1 serves bit for bit what tp = 1 serves.
+
+The training half places arrays on the mesh as DTensors: ``placements``
+turns logical axes into one DTensor ``Placement`` per mesh dim,
+``sharding_for`` / ``spec_tree`` / ``shardings_for`` build
+:class:`NamedSharding` trees (shape-aware through ``_fit_axes``),
+``distribute`` keeps each rank's block of a full tensor and
+``full_tensor`` gathers one back. ``shard`` redistributes a DTensor (the
+reference's sharding constraint); the sharded train step itself lives in
+``sharding.spmd``. Collectives on CUDA tensors over a gloo group go
+through the host, so one code path serves gloo and NCCL.
 
 Outside a mesh context every helper is the identity, so models run
 untouched on one device."""
@@ -21,8 +29,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
-from typing import Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -264,9 +273,10 @@ def _host_staged(x, group) -> bool:
     return x.is_cuda and str(dist.get_backend(group)) == "gloo"
 
 
-def all_gather(x, dim: int, mesh, axis: str = TP_AXIS):
-    """Every rank's ``x`` of ``mesh``'s ``axis`` group, concatenated along
-    ``dim`` in rank order (through the host where the group is gloo's)."""
+def all_gather(x, dim: int, mesh, axis=TP_AXIS):
+    """Every rank's ``x`` of ``mesh``'s ``axis`` group (a mesh dim's name
+    or index), concatenated along ``dim`` in rank order (through the host
+    where the group is gloo's)."""
     import torch.distributed as dist
     group = mesh.get_group(axis)
     staged = _host_staged(x, group)
@@ -312,3 +322,194 @@ def replicate_params(params, mesh):
         else:
             dist.broadcast(leaf, src, group=group)
     return params
+
+
+# ------------------------------------------------------------------ training
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and one DTensor placement per mesh dim: the port's
+    ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    placements: tuple
+
+
+def placements(*logical_axes: Logical) -> tuple:
+    """One DTensor placement per dim of the active mesh: ``Shard(d)`` on
+    each mesh dim that tensor dim ``d``'s logical axis resolves to (a
+    logical axis over two mesh dims, "batch" over ("pod", "data"), shards
+    one tensor dim over both, the outer first), ``Replicate()`` elsewhere.
+    Not divisibility-aware: see :func:`sharding_for`."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = active_mesh()
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(resolve(*logical_axes)):
+        for a in (() if ax is None else (ax,) if isinstance(ax, str)
+                  else ax):
+            i = names.index(a)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {a!r} shards two tensor dims "
+                                 f"of {logical_axes}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def named_sharding(*logical_axes: Logical) -> Optional[NamedSharding]:
+    mesh = active_mesh()
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, placements(*logical_axes))
+
+
+def shard(x, *logical_axes: Logical):
+    """The reference's sharding constraint: identity without a mesh (the
+    rank is then never checked); under one, a rank mismatch raises, a
+    DTensor is redistributed to the fitted placements and a local tensor
+    is returned unchanged (SPMD code already holds its block)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    if x.ndim != len(logical_axes):
+        raise ValueError(f"rank mismatch: array rank {x.ndim} vs "
+                         f"{len(logical_axes)} logical axes")
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements(*_fit_axes(x.shape,
+                                                      logical_axes)))
+
+
+def sharding_for(shape, logical_axes) -> Optional[NamedSharding]:
+    """Shape-aware ``named_sharding`` for one array: logical axes whose
+    mesh size does not divide the dim drop (replicated). None without a
+    mesh."""
+    if active_mesh() is None:
+        return None
+    return named_sharding(*_fit_axes(tuple(shape), logical_axes))
+
+
+def _is_logical_leaf(v) -> bool:
+    return isinstance(v, tuple) and all(
+        isinstance(a, (str, type(None), tuple)) for a in v)
+
+
+def spec_tree(tree_of_logical):
+    """A tree of logical-axis tuples -> the same tree of
+    :class:`NamedSharding` (None without a mesh)."""
+    if _is_logical_leaf(tree_of_logical):
+        return named_sharding(*tree_of_logical)
+    if isinstance(tree_of_logical, dict):
+        return {k: spec_tree(v) for k, v in tree_of_logical.items()}
+    return type(tree_of_logical)(spec_tree(v) for v in tree_of_logical)
+
+
+def shardings_for(tree_of_logical, shapes_tree):
+    """Shape-aware :func:`spec_tree`: one :class:`NamedSharding` per leaf
+    of ``shapes_tree`` (tensors, meta tensors included), its logical axes
+    fitted to that leaf's shape. The result takes ``shapes_tree``'s
+    nesting."""
+    if _is_logical_leaf(tree_of_logical):
+        return sharding_for(shapes_tree.shape, tree_of_logical)
+    if isinstance(shapes_tree, dict):
+        if set(shapes_tree) != set(tree_of_logical):
+            raise ValueError(f"trees differ: {sorted(shapes_tree)} vs "
+                             f"{sorted(tree_of_logical)}")
+        return {k: shardings_for(tree_of_logical[k], v)
+                for k, v in shapes_tree.items()}
+    if len(shapes_tree) != len(tree_of_logical):
+        raise ValueError("trees differ in length")
+    return type(shapes_tree)(shardings_for(lg, v) for lg, v in
+                             zip(tree_of_logical, shapes_tree))
+
+
+def shard_dims(sharding: NamedSharding) -> list:
+    """[(mesh dim, tensor dim)] of every ``Shard`` placement, outer mesh
+    dims first."""
+    from torch.distributed.tensor import Shard
+    return [(i, p.dim) for i, p in enumerate(sharding.placements)
+            if isinstance(p, Shard)]
+
+
+def local_block(full, sharding: NamedSharding):
+    """This rank's block of ``full`` (a view): each ``Shard(d)`` mesh dim,
+    outer first, cuts dim d into equal blocks and keeps the rank's."""
+    out = full
+    for i, d in shard_dims(sharding):
+        n = sharding.mesh.size(i)
+        r = sharding.mesh.get_local_rank(i)
+        size = out.shape[d] // n
+        out = out.narrow(d, r * size, size)
+    return out
+
+
+def distribute(full, sharding: Optional[NamedSharding], device=None):
+    """``full`` (the same on every rank) as a DTensor that holds only this
+    rank's block, copied to ``device`` (``full``'s by default; no
+    communication). A sharding of None gives ``full`` on ``device``."""
+    device = device or full.device
+    if sharding is None:
+        return full.to(device)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        local_block(full, sharding).to(device, copy=True), sharding.mesh,
+        sharding.placements, run_check=False)
+
+
+def sharding_of(x) -> Optional[NamedSharding]:
+    """A DTensor's :class:`NamedSharding` (None for a local tensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return None
+    return NamedSharding(x.device_mesh, tuple(x.placements))
+
+
+def full_tensor(local, sharding: Optional[NamedSharding]):
+    """The full tensor whose rank block is ``local``: gathered over each
+    ``Shard`` mesh dim, inner first (a collective over the mesh)."""
+    if sharding is None:
+        return local
+    out = local
+    for i, d in reversed(shard_dims(sharding)):
+        out = all_gather(out, d, sharding.mesh, i)
+    return out
+
+
+def relayout(local, src: NamedSharding, dst: NamedSharding):
+    """A block under ``src`` as the block under ``dst`` of the same full
+    tensor (gathered, then cut; identity when the two agree)."""
+    if tuple(src.placements) == tuple(dst.placements):
+        return local
+    return local_block(full_tensor(local, src), dst)
+
+
+def reduce_scatter(x, dim: int, mesh, mesh_dim):
+    """``x`` summed over ``mesh``'s ``mesh_dim`` group (name or index), and
+    of that sum this rank's block along ``dim`` (the group's ranks in
+    order); through the host where the group is gloo's."""
+    import torch.distributed as dist
+    group = mesh.get_group(mesh_dim)
+    n = dist.get_world_size(group)
+    staged = _host_staged(x, group)
+    src = (x.detach().to("cpu") if staged else x.detach()).movedim(
+        dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=group)
+    out = out.movedim(0, dim)
+    return out.to(x.device) if staged else out
+
+
+def all_reduce(x, mesh, mesh_dims, op: str = "sum"):
+    """``x`` reduced (``op``: "sum" or "max") over the groups of
+    ``mesh_dims`` (names or indices) in turn; a new tensor, through the
+    host where the group is gloo's."""
+    import torch.distributed as dist
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    out = x
+    for md in mesh_dims:
+        group = mesh.get_group(md)
+        staged = _host_staged(out, group)
+        buf = out.detach().to("cpu", copy=True) if staged else \
+            out.detach().clone()
+        dist.all_reduce(buf, op=red, group=group)
+        out = buf.to(x.device) if staged else buf
+    return out

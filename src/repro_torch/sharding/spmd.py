@@ -1,0 +1,365 @@
+"""SPMD training over a ``("data", "model")`` DeviceMesh (``("pod", "data",
+"model")`` where asked): one process per rank, each holding its block of
+every train-state leaf (``launch.steps.train_state_logical`` placed by
+``sharding.specs``) and its rows of the global batch.
+
+Inside the sharded train step (``launch.steps.make_train_step``) the
+model's code runs on :class:`LazyParams`: a leaf is gathered where the
+model reads it, layer by layer (ZeRO-3's per-layer all-gather), through
+:func:`materialize`, whose backward sums the gradient over the batch's
+mesh dims and keeps the rank's block. While the loss runs, autograd saves
+each gathered weight as its block plus the recipe to gather it again, so
+a rank never holds the whole gathered model (:func:`regather_saved`).
+
+The dense decoder's weights keep their ``"model"`` blocks (heads, kv
+heads, d_ff, vocab; :func:`tp_keeps`), and the layers run tensor-parallel
+on them: :func:`tp_copy` where a replicated activation enters a split
+product (identity forward, sum over "model" backward) and :func:`tp_sum`
+where the split products meet (sum forward, identity backward). The
+residual stream stays replicated over "model". Every other family gathers
+its weights over the whole mesh and splits only the batch; a MoE layer
+gathers the tokens of the whole (micro)batch first (:func:`gather_rows`),
+so its groups, capacity and aux losses are those of one device.
+
+Outside the step nothing here is active and every helper is the
+identity."""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import weakref
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.sharding import specs
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ctx:
+    mesh: object
+    batch_dims: Tuple[int, ...]     # mesh dims the batch rows split over
+    tp: bool                        # dense decoder, "model" > 1
+
+
+_CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
+    "spmd_ctx", default=None)
+
+
+@contextlib.contextmanager
+def training(mesh, batch_dims, tp: bool):
+    token = _CTX.set(_Ctx(mesh, tuple(batch_dims), tp))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+def _ctx() -> Optional[_Ctx]:
+    return _CTX.get()
+
+
+def checkpointed(fn):
+    """``fn`` set to run inside the context active now, also when the
+    backward recomputes it (``torch.utils.checkpoint``) on autograd's
+    device thread, which sees no context of the caller's."""
+    c = _ctx()
+    if c is None:
+        return fn
+
+    def run(*args):
+        token = _CTX.set(c)
+        try:
+            return fn(*args)
+        finally:
+            _CTX.reset(token)
+    return run
+
+
+# ------------------------------------------------------------- collectives
+def _own(x, dim: int, mesh, mesh_dim: int):
+    n = mesh.size(mesh_dim)
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.get_local_rank(mesh_dim) * size, size)
+
+
+class _Materialize(torch.autograd.Function):
+    """Forward: ``local`` gathered along each (mesh dim, tensor dim) of
+    ``gathers`` (inner mesh dims first). Backward: the gradient summed
+    over ``reduce_dims`` (the batch's mesh dims: each rank's rows gave a
+    part) and cut back to the rank's block: a reduce-scatter over each
+    mesh dim that is both gathered and reduced (ZeRO-3's "fsdp" over
+    "data"), an all-reduce over the other reduced ones, a cut over the
+    other gathered ones."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, gathers, reduce_dims):
+        ctx.mesh, ctx.gathers, ctx.reduce_dims = mesh, gathers, reduce_dims
+        out = local
+        for i, d in gathers:
+            out = specs.all_gather(out, d, mesh, i)
+        return out if gathers else out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        gathered = {i for i, _ in ctx.gathers}
+        rest = [i for i in ctx.reduce_dims if i not in gathered]
+        if rest:
+            g = specs.all_reduce(g, ctx.mesh, rest)
+        for i, d in reversed(ctx.gathers):
+            g = (specs.reduce_scatter(g, d, ctx.mesh, i)
+                 if i in ctx.reduce_dims else _own(g, d, ctx.mesh, i))
+        return g.contiguous(), None, None, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return specs.all_reduce(g, ctx.mesh, (specs.TP_AXIS,)), None
+
+
+class _SumTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return specs.all_reduce(x, mesh, (specs.TP_AXIS,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows (dim 0) of every rank of the batch's mesh dims, in the
+    placement's order; backward sums the row gradients over those ranks and
+    keeps the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        out = x
+        for i in reversed(dims):
+            out = specs.all_gather(out, 0, mesh, i)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = specs.all_reduce(g, ctx.mesh, ctx.dims)
+        for i in ctx.dims:
+            g = _own(g, 0, ctx.mesh, i)
+        return g.contiguous(), None, None
+
+
+def tp_split(w) -> Optional[int]:
+    """The dim of a gathered weight that stays split over "model" for the
+    tensor-parallel compute (None: the weight is whole)."""
+    return getattr(w, "_tp_split", None)
+
+
+def tp_copy(x):
+    """A replicated activation entering a product split over "model"."""
+    c = _ctx()
+    return _CopyToTP.apply(x, c.mesh) if c is not None and c.tp else x
+
+
+def tp_sum(x):
+    """The products split over "model", summed on every rank."""
+    c = _ctx()
+    return _SumTP.apply(x, c.mesh) if c is not None and c.tp else x
+
+
+def tp_max(x):
+    """The max over "model" (no gradient: a shift for a stable exp)."""
+    c = _ctx()
+    if c is None or not c.tp:
+        return x
+    return specs.all_reduce(x.detach(), c.mesh, (specs.TP_AXIS,), "max")
+
+
+def tp_rank() -> int:
+    c = _ctx()
+    return 0 if c is None or not c.tp else c.mesh.get_local_rank(
+        specs.TP_AXIS)
+
+
+def vocab_lookup(table, ids):
+    """Embedding lookup in a vocab-split table: the rank's rows, zero for
+    ids it does not hold, summed over "model"."""
+    vl = table.shape[0]
+    local = ids.long() - tp_rank() * vl
+    ok = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)]
+    return tp_sum(torch.where(ok[..., None], rows, 0))
+
+
+def batch_split() -> int:
+    """How many ways the batch rows split (1 outside the step)."""
+    c = _ctx()
+    n = 1
+    if c is not None:
+        for i in c.batch_dims:
+            n *= c.mesh.size(i)
+    return n
+
+
+def gather_rows(x):
+    """Every rank's rows of ``x`` (the whole (micro)batch), identity when
+    the batch is not split."""
+    c = _ctx()
+    if c is None or not c.batch_dims:
+        return x
+    return _GatherRows.apply(x, c.mesh, c.batch_dims)
+
+
+def own_rows(x):
+    """This rank's rows of a whole-batch ``x`` (:func:`gather_rows`)."""
+    c = _ctx()
+    if c is None or not c.batch_dims:
+        return x
+    for i in c.batch_dims:
+        x = _own(x, 0, c.mesh, i)
+    return x
+
+
+# ------------------------------------------------------------ ZeRO-3 params
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one param leaf is read inside the step: ``gathers`` the (mesh
+    dim, tensor dim) pairs gathered, inner mesh dims first, tensor dims
+    counted without the ``stack`` leading layer axes; ``tp_dim`` the dim
+    left split over "model" (None: whole)."""
+    gathers: tuple
+    tp_dim: Optional[int]
+    stack: int
+
+
+def tp_keeps(cfg, mesh) -> frozenset:
+    """The logical axes whose "model" blocks the tensor-parallel compute
+    keeps: the dense decoder's (no MoE, no cross-attention) d_ff and vocab,
+    and its heads and kv heads when both counts divide the "model" size
+    (MLA attention runs whole). Empty for every other family or without a
+    "model" axis above 1."""
+    from repro_torch.configs.base import Family
+    m = specs.tp_degree(mesh)
+    if m <= 1 or cfg.family != Family.DENSE or cfg.moe:
+        return frozenset()
+    keep = {"d_ff", "vocab"}
+    if (not cfg.kv_lora_rank and cfg.num_heads % m == 0
+            and cfg.num_kv_heads % m == 0):
+        keep |= {"heads", "kv_heads"}
+    return frozenset(keep)
+
+
+def leaf_plan(sharding, logical, stack: int, keeps) -> LeafPlan:
+    names = specs.axis_names(sharding.mesh)
+    gathers, tp_dim = [], None
+    for i, d in specs.shard_dims(sharding):
+        if names[i] == specs.TP_AXIS and logical[d] in keeps:
+            tp_dim = d - stack
+        else:
+            gathers.append((i, d - stack))
+    return LeafPlan(tuple(reversed(gathers)), tp_dim, stack)
+
+
+class _Leaf:
+    __slots__ = ("local", "plan", "left")
+
+    def __init__(self, local, plan: LeafPlan, left: int):
+        self.local, self.plan, self.left = local, plan, left
+
+
+class LazyParams(dict):
+    """A param tree whose leaves are this rank's blocks, read through
+    :func:`materialize` on access. ``layer(i)`` (``layers.layer_params``)
+    indexes a layer stack; leaves whose stack axes are all indexed are read
+    whole, anew on each access (a layer body that ``remat`` recomputes
+    gathers them again). A leaf outside the layer stacks is gathered once
+    per loss and kept (the tied embedding table serves the lookup and the
+    head: one gather, one gradient reduction)."""
+
+    def __init__(self, mesh, reduce_dims, tree, kept=None):
+        super().__init__(tree)
+        self.mesh, self.reduce_dims, self.kept = mesh, reduce_dims, kept
+
+    def __getitem__(self, k):
+        v = dict.__getitem__(self, k)
+        if isinstance(v, dict):
+            return LazyParams(self.mesh, self.reduce_dims, v, self.kept)
+        if v.left:
+            raise KeyError(f"{k!r} is a layer stack: index it with "
+                           f"layers.layer_params")
+        if self.kept is None:
+            return materialize(v.local, self.mesh, v.plan, self.reduce_dims)
+        if id(v) not in self.kept:
+            self.kept[id(v)] = materialize(v.local, self.mesh, v.plan,
+                                           self.reduce_dims)
+        return self.kept[id(v)]
+
+    def layer(self, i: int):
+        def index(v):
+            if isinstance(v, dict):
+                return {k: index(x) for k, x in v.items()}
+            return _Leaf(v.local[i], v.plan, v.left - 1)
+        return LazyParams(self.mesh, self.reduce_dims,
+                          {k: index(v) for k, v in dict.items(self)})
+
+
+def lazy_params(params, plans, mesh, reduce_dims) -> LazyParams:
+    """``params`` (this rank's blocks) and their :class:`LeafPlan` tree as
+    :class:`LazyParams`."""
+    def wrap(p, plan):
+        if isinstance(p, dict):
+            return {k: wrap(v, plan[k]) for k, v in p.items()}
+        return _Leaf(p, plan, plan.stack)
+    return LazyParams(mesh, reduce_dims,
+                      {k: wrap(v, plans[k]) for k, v in params.items()}, {})
+
+
+# gathered weight's storage -> (the weight, its block, mesh, plan), while
+# the sharded step's loss runs (regather_saved)
+_GATHERED: dict = {}
+
+
+def materialize(local, mesh, plan: LeafPlan, reduce_dims):
+    """A leaf as the step's compute reads it (gathered per ``plan``,
+    marked with its tensor-parallel dim)."""
+    if not plan.gathers and not reduce_dims:
+        out = local
+    else:
+        out = _Materialize.apply(local, mesh, plan.gathers, reduce_dims)
+    if plan.gathers:
+        ptr = out.untyped_storage().data_ptr()
+        _GATHERED[ptr] = (weakref.ref(out), local, mesh, plan.gathers)
+        weakref.finalize(out, _GATHERED.pop, ptr, None)
+    if plan.tp_dim is not None:
+        out._tp_split = plan.tp_dim
+    return out
+
+
+def _pack(t):
+    entry = _GATHERED.get(t.untyped_storage().data_ptr())
+    if entry is None or entry[0]() is None:
+        return t
+    return (_GATHERED, entry[1:], t.size(), t.stride(), t.storage_offset())
+
+
+def _unpack(saved):
+    if not (isinstance(saved, tuple) and saved[0] is _GATHERED):
+        return saved
+    (local, mesh, gathers), size, stride, offset = saved[1:]
+    full = local.detach()
+    for i, d in gathers:
+        full = specs.all_gather(full, d, mesh, i)
+    return full.as_strided(size, stride, offset)
+
+
+def regather_saved():
+    """While the loss runs: autograd saves a gathered weight as its block
+    and gathers it again in the backward (ZeRO-3), so no rank keeps every
+    layer's gathered weights alive at once."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)

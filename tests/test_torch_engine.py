@@ -325,17 +325,20 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(monkeypatch,
     assert tuple(cpu.cache["k"].shape) == (2, 4, 64, 1, 16)
 
 
-def test_configs_outside_the_slice_name_their_roadmap_item():
-    """Tensor-parallel serving is ported (held in test_torch_tp.py); what
-    is left of parallelism, the training half, raises naming its item
-    before any work starts: the trainer's ``mesh_shape`` and a data
-    pipeline sharded over a mesh."""
+def test_configs_outside_the_slice_name_their_roadmap_item(monkeypatch):
+    """Tensor-parallel serving and sharded training are ported (held in
+    test_torch_tp.py and test_torch_sharded_train.py); what they still
+    refuse raises before any work starts: the trainer's ``mesh_shape``
+    without a process group (it never falls back to one device), and a
+    data pipeline given a mesh that is not a ``DeviceMesh``."""
     from repro_torch.data.synthetic import make_lm_pipeline
     from repro_torch.launch.train import TrainConfig, train
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="needs a process group"):
         train(TrainConfig(arch="codeqwen1.5-7b", mesh_shape=(2, 2),
                           device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         make_lm_pipeline(512, 2, 16, device="cpu", mesh=object())
 
 

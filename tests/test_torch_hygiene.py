@@ -37,7 +37,8 @@ def _sources():
             "runtime/fault.py", "launch/train.py", "tree.py",
             "examples/train_resnet20_cifar.py", "examples/quickstart.py",
             "examples/quantize_ptq.py", "sharding/specs.py",
-            "launch/mesh.py"} <= names
+            "launch/mesh.py", "sharding/spmd.py", "sharding/pipeline.py",
+            "optim/grad_compress.py", "runtime/elastic.py"} <= names
     return files
 
 

@@ -9,7 +9,8 @@ nesting cases, ``tests/test_distributed.py``); ``head_shard_axis`` and
 per rank; ``launch.mesh``. The ranks are one spawn of this file run as a
 script (torch only, one thread each, a file store, a timeout); the test
 process compares what they report. ``shard`` / ``spec_tree`` /
-``shardings_for`` belong to the training half and are not ported."""
+``shardings_for`` (the training half) are held in
+``tests/test_torch_sharded_train.py``."""
 import datetime
 import json
 import os

@@ -5,7 +5,7 @@
   padded vocab masked at ``mask_value``), at rtol 1e-5 (values) and 1e-4
   / atol 1e-6 (gradients), as ``tests/test_steps.py`` holds the reference;
 * ``TokenStream`` batches byte-equal to the reference's, through the
-  prefetcher too; a mesh raises naming ROADMAP item 12;
+  prefetcher too; a mesh that is not a ``DeviceMesh`` raises;
 * from the reference's init, carried across, 3 fp32 train steps
   (``make_optimizer`` of both trainers: minicpm-2b with ``wsd``, the rest
   ``cosine``) for qwen2.5-32b, minicpm-2b, moonshot-v1-16b-a3b (the MoE's
@@ -148,7 +148,7 @@ def test_lm_pipeline_prefetches_onto_the_device():
         np.testing.assert_array_equal(b["tokens"].numpy(),
                                       js.batch_at(step)["tokens"])
     pipe.close()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         tsynth.make_lm_pipeline(512, 4, 16, mesh=object())
 
 
@@ -408,7 +408,9 @@ def test_trainer_wsd_schedule():
 
 
 def test_trainer_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="needs a process group"):
         ttrain.train(ttrain.TrainConfig(mesh_shape=(2,), device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
