@@ -9,7 +9,7 @@ cache and on latent pages, and hymba-1.5b's (32 layers, phase 10's
 weights) host wall and device busy time of one decode tick and one
 64-token first chunk.
 
-    python3 chip_ab.py [--attention] OTHER_TREE
+    python3 chip_ab.py [--attention | --gemm] OTHER_TREE
 
 OTHER_TREE is another checkout of the repository, unpacked with
 ``git archive`` (for example the parent commit's, into a directory that
@@ -24,8 +24,14 @@ runs ``phase2_full_width``, ``phase2_q8_full_width``,
 lines, then one JSON object ``{"ab": [{"tree": ..., "card": ...,
 "kernels": {...}, "serving": {...}, "recurrent": {...}}, ...]}`` with the
 turns in order. With ``--attention`` a worker runs the attention rows
-(K1, K3, K4, K2) and nothing else. Needs CUDA; exits nonzero if any worker
-fails.
+(K1, K3, K4, K2) and nothing else. With ``--gemm`` it runs the GEMM rows
+and nothing else: ``phase2_gemm_full_width`` (K7 in each dataflow and K8
+over a batch-256 ResNet20 forward's 21 GEMMs, and at qwen2.5-32b's wo),
+``phase2_backward_gemms`` (K7's 20 dX and 21 dW GEMMs of a batch-128
+training step) and ``phase16_step_cost`` (that step's host wall, device
+busy time and idle share through K7 and through the plain route), its
+JSON with ``"training_step"`` in place of serving. Needs CUDA; exits
+nonzero if any worker fails.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
+def worker(tree: pathlib.Path, mode: str = "") -> dict:
     sys.path.insert(0, str(tree / "src"))
     import repro_torch  # noqa: F401  (the tree's package, before chip_smoke)
     sys.path.insert(1, str(HERE))
@@ -49,6 +55,13 @@ def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
     card = cs.card_name()
     cs.log(f"worker: {pathlib.Path(repro_torch.__file__).parent} on {card}")
     rows = {}
+    if mode == "--gemm":
+        rows.update({f"matmul[{key}]": f for key, f in
+                     cs.phase2_gemm_full_width().items()})
+        rows.update({f"matmul[{role} resnet20 B={cs.TRAIN_BATCH}]": f
+                     for role, f in cs.phase2_backward_gemms(card).items()})
+        return {"tree": str(tree), "card": card, "kernels": rows,
+                "training_step": cs.phase16_step_cost(card)}
     for name, phase in (("paged_attention", cs.phase2_full_width),
                         ("paged_attention_q8", cs.phase2_q8_full_width),
                         ("paged_attention_latent",
@@ -57,7 +70,7 @@ def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
                      for kind, f in phase().items()})
     rows.update({f"flash_attention[{kind}]": f
                  for kind, f in cs.phase2_flash_full_width().items()})
-    if attention_only:
+    if mode == "--attention":
         return {"tree": str(tree), "card": card, "kernels": rows}
     rows.update({f"{name}[{kind}]": f for (name, kind), f in
                  cs.phase2_scan_full_width().items()})
@@ -96,13 +109,13 @@ def worker(tree: pathlib.Path, attention_only: bool = False) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    attention = "--attention" in args
-    args = [a for a in args if a != "--attention"]
-    if len(args) == 2 and args[0] == "--worker":
-        print("AB " + json.dumps(worker(pathlib.Path(args[1]), attention)),
-              flush=True)
+    modes = [a for a in args if a in ("--attention", "--gemm")]
+    args = [a for a in args if a not in modes]
+    if len(args) == 2 and args[0] == "--worker" and len(modes) < 2:
+        print("AB " + json.dumps(worker(pathlib.Path(args[1]),
+                                        "".join(modes))), flush=True)
         return 0
-    if len(args) != 1:
+    if len(args) != 1 or len(modes) > 1:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -113,7 +126,7 @@ def main() -> int:
     results = []
     for tree in (other, HERE, HERE, other):
         proc = subprocess.run([sys.executable, __file__, "--worker",
-                               str(tree)] + ["--attention"] * attention,
+                               str(tree)] + modes,
                               capture_output=True, text=True)
         lines = proc.stdout.splitlines()
         print("\n".join(ln for ln in lines if not ln.startswith("AB ")),

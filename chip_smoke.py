@@ -27,10 +27,14 @@ before printing any result. Phases, each of which raises on failure:
    systolic GEMM (K7) in its three dataflows and the int8-weight GEMM (K8)
    on the CPU tests' shapes, a K of 5120 (several K-chunks), ResNet20's 21
    im2col GEMMs at batch 1 and 256 (K8 on per-channel int8 weights),
-   qwen2.5-32b's wo at M = 8 and bf16 cases; then both timed over the 21
-   GEMMs of a batch-256 forward, and at wo, and K7 at the gradient GEMMs
-   of phase 16's training step (16e). Every kernel's time and every
-   library call's is its device time under ``torch.profiler``
+   qwen2.5-32b's wo at M = 8, the 41 gradient GEMMs of phase 16's step on
+   the backward's transposed views (dW through the split schedule, dX
+   wider than 64 columns through the wide one: the dataflows, a second
+   launch and K8 on the dequantized operand all bit-equal) and bf16 cases; then both timed over
+   the 21 GEMMs of a batch-256 forward, and at wo, and K7 at the gradient
+   GEMMs of phase 16's training step (16e: a split GEMM's two launches
+   counted and summed, each GEMM's schedule logged). Every kernel's time
+   and every library call's is its device time under ``torch.profiler``
    (``device_times``; where six sessions in a row come back without
    their events, between CUDA events behind a sleep queued on the card,
    logged, and counted at the end); the plain versions' are between CUDA
@@ -351,8 +355,9 @@ LATENT_KERNELS = ("latent_attention_kernel", "merge_kernel")
 # chain per element against the library's blocked fp32 sum); a bf16 output
 # may round one bf16 step apart
 GEMM_TOL, GEMM_BF16_TOL = 1e-4, 2e-2
-# K7's and K8's CUDA kernels, as the profiler names them
-GEMM_KERNEL = "systolic_gemm"
+# K7's and K8's CUDA kernels, as the profiler names them (every one of
+# them: a split GEMM's partials and, named apart, their sum)
+GEMM_KERNEL, SPLIT_SUM_KERNEL = "systolic_gemm", "systolic_gemm_split_sum"
 # phase 8: ResNet20 at batch 1 (the paper's per-frame setting) and 256;
 # 8b: the 10,000-image synthetic test set in batches of 1,000
 RESNET_BATCHES, PTQ_IMAGES, PTQ_BATCH = (1, 256), 10_000, 1_000
@@ -526,7 +531,7 @@ def queued_ms(fn, iters: int) -> float:
     return total / iters
 
 
-def device_times(fns, iters: int, kernel=None) -> list:
+def device_times(fns, iters: int, kernel=None, launched=None) -> list:
     """Per entry of ``fns``, the mean device time in ms of what one call
     launches (``profiled_calls``; no host enqueue delay, which an event
     pair around a tick-sized launch holds). With ``kernel`` (a name, or a
@@ -537,7 +542,9 @@ def device_times(fns, iters: int, kernel=None) -> list:
     set of more than one logs each launch's time); without, everything a
     call launched counts (a library call, which may launch several
     kernels). Where no profiler session of ``fn`` comes back whole, its
-    time is ``queued_ms``', logged and counted in ``FALLBACKS``."""
+    time is ``queued_ms``', logged and counted in ``FALLBACKS``. A list
+    ``launched`` receives, per entry, the count of (named) kernel launches
+    of one call, None where the profiler gave none."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     out = []
     for fn in fns:
@@ -550,6 +557,8 @@ def device_times(fns, iters: int, kernel=None) -> list:
                 f"events behind a queued sleep instead, everything the "
                 f"call launched: {ms:.4f} ms)")
             out.append(ms)
+            if launched is not None:
+                launched.append(None)
             continue
         if names is not None:
             calls = [[(next(k for k in names if k in name), us)
@@ -565,6 +574,8 @@ def device_times(fns, iters: int, kernel=None) -> list:
                 log("    (" + " + ".join(
                     f"{name} {t:.4f}" for (name, _), t in
                     zip(calls[0], each)) + " ms)")
+        if launched is not None:
+            launched.append(len(calls[0]))
         out.append(sum(us for c in calls for _, us in c) / len(calls) / 1e3)
     return out
 
@@ -2579,37 +2590,57 @@ def gemm_cases():
     return cases
 
 
+def gemm_bits_held(label, x, w, errs):
+    """K7 on (x, w) in every dataflow against the plain version (each
+    dataflow's worst error kept in ``errs``): the dataflows give the same
+    bits, and so does a second launch; then K8 on w's per-channel int8
+    form gives K7's bits on the dequantized operand (``errs``'s
+    "quant_matmul" kept too)."""
+    want = ref.matmul(x, w)
+    outs = [mm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
+    for df, got in zip(DATAFLOWS, outs):
+        errs[df] = max(errs[df], gemm_held(f"K7 {df} {label}", got, want))
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError(f"K7 {label}: dataflows differ in bits")
+    if not torch.equal(outs[0], mm.matmul(x, w)):
+        raise AssertionError(f"K7 {label}: a second launch differs in bits")
+    qt = quantize_per_channel(w)
+    w_q, sc = qt.q, qt.scale.reshape(-1)
+    got = qm.quant_matmul(x, w_q, sc)
+    errs["quant_matmul"] = max(errs["quant_matmul"], gemm_held(
+        f"K8 {label}", got, ref.quant_matmul(x, w_q, sc)))
+    if not torch.equal(got, mm.matmul(x, w_q.float() * sc[None, :])):
+        raise AssertionError(f"K8 {label}: not K7's bits on the dequantized "
+                             f"weight")
+
+
 def phase2_gemm_cases():
-    """K7 in every dataflow and K8 against their plain versions: the test
-    shapes, the 21 ResNet20 GEMMs at batch 1 and 256 (K8 on per-channel
-    int8 weights), qwen2.5-32b's wo at M = 8, and bf16 cases. The
-    three dataflows must give the same bits, and K8 the bits of K7 on the
+    """K7 in every dataflow and K8 against their plain versions
+    (``gemm_bits_held``): the test shapes, the 21 ResNet20 GEMMs at batch
+    1 and 256 (K8 on per-channel int8 weights), qwen2.5-32b's wo at M = 8,
+    the 41 gradient GEMMs of a batch-TRAIN_BATCH training step on the
+    backward's transposed views, and bf16 cases. The three dataflows and a
+    second launch must give the same bits, and K8 the bits of K7 on the
     dequantized weight. Returns max |diff| per kernel row."""
     gen = torch.Generator(DEV).manual_seed(20)
     errs = {df: 0.0 for df in DATAFLOWS}
     errs["quant_matmul"] = 0.0
-    worst = {}
-    for label, M, K, N in gemm_cases() + [("lm wo",) + LM_PROJ]:
+    cases = gemm_cases() + [("lm wo",) + LM_PROJ]
+    for label, M, K, N in cases:
         x = rand_on_card(gen, M, K)
-        w, w_q, sc = resnet_weight(gen, K, N)
-        want = ref.matmul(x, w)
-        outs = [mm.matmul(x, w, dataflow=df) for df in DATAFLOWS]
-        for df, got in zip(DATAFLOWS, outs):
-            errs[df] = max(errs[df], gemm_held(f"K7 {df} {label}", got,
-                                               want))
-        if not all(torch.equal(outs[0], o) for o in outs[1:]):
-            raise AssertionError(f"K7 {label}: dataflows differ in bits")
-        got = qm.quant_matmul(x, w_q, sc)
-        err = gemm_held(f"K8 {label}", got, ref.quant_matmul(x, w_q, sc))
-        errs["quant_matmul"] = max(errs["quant_matmul"], err)
-        deq = w_q.float() * sc[None, :]
-        if not torch.equal(got, mm.matmul(x, deq)):
-            raise AssertionError(f"K8 {label}: not K7's bits on the "
-                                 f"dequantized weight")
-        worst[label] = err
-    log(f"  K7 x {len(DATAFLOWS)} dataflows and K8 on {len(worst)} shapes: "
+        gemm_bits_held(label, x, rand_on_card(gen, K, N) * (2.0 / K) ** 0.5,
+                       errs)
+    backward = 0
+    for gemms in backward_gemms(gen, TRAIN_BATCH).values():
+        for label, x, w in gemms:
+            gemm_bits_held(label, x, w, errs)
+            backward += 1
+    log(f"  K7 x {len(DATAFLOWS)} dataflows and K8 on {len(cases)} shapes "
+        f"and the {backward} dW / dX GEMMs of a batch-{TRAIN_BATCH} ResNet20 "
+        f"step (split and wide schedules, the backward's transposed views): "
         f"max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-        + f"; dataflows bit-equal; K8 == K7 on the dequantized weight")
+        + "; dataflows bit-equal; a second launch bit-equal; K8 == K7 on "
+        "the dequantized weight")
     for label, M, K, N in (("test 256x256x256", 256, 256, 256),
                            ("s1b0c2 B=256", 65536, 288, 32)):
         x, (w, w_q, sc) = rand_on_card(gen, M, K), resnet_weight(gen, K, N)
@@ -3904,23 +3935,43 @@ def backward_gemms(gen, batch):
     return out
 
 
+def describe_plan(plan) -> str:
+    """K7's schedule, grid and staging for a GEMM, as ``mm.tile_plan``
+    gives it (an older tree's plan, timed by chip_ab.py, has no schedule
+    field but ``skinny``, and no split)."""
+    schedule = getattr(plan, "schedule",
+                       "skinny" if plan.skinny else "tiled")
+    what = f"{schedule}: {plan.blocks} blocks of {plan.bm}x{plan.bn}"
+    if getattr(plan, "splits", 1) > 1:
+        what += f", {plan.splits} ranges of {plan.kc} rows"
+    elif schedule == "wide":
+        what += f", {plan.group} M-tile(s) each, w resident"
+    else:
+        what += f", {plan.chunks} K-chunk(s)"
+    return what + f", x {'16-byte' if plan.vec_x else '4-byte'} copies"
+
+
 def phase2_backward_gemms(card):
     """Phase 16e, run with phase 2's timings: K7's dX and dW GEMMs of one
     batch-TRAIN_BATCH ResNet20 training step, each group summed: the
     kernel's and ``torch.matmul``'s device time after the L2 flush
-    (``device_times``), the plain version's between events, and the bound
-    (bytes at the HBM rate or fp32 FMAs at the fp32 peak, the larger, per
-    GEMM, summed). Each GEMM held against the plain version. Timed here,
-    early in the run: late in a long run, after phase 16's profiles of
-    whole training steps, the profiler came back with 2 of 10 calls in
+    (``device_times``: every kernel launch of a call, so a split GEMM's
+    partials and their sum, whose launches are counted and must be two),
+    the plain version's between events, and the bound (bytes at the HBM
+    rate or fp32 FMAs at the fp32 peak, the larger, per GEMM, summed).
+    Each GEMM held against the plain version; its schedule logged. Timed
+    here, early in the run: late in a long run, after phase 16's profiles
+    of whole training steps, the profiler came back with 2 of 10 calls in
     session after session. Returns {role: row}."""
     gen = torch.Generator(DEV).manual_seed(16)
     rows = {}
     for role, gemms in backward_gemms(gen, TRAIN_BATCH).items():
         err = max(gemm_held(f"K7 {label}", mm.matmul(x, w),
                             ref.matmul(x, w)) for label, x, w in gemms)
+        launched = []
         ms = device_times([lambda x=x, w=w: mm.matmul(x, w)
-                           for _, x, w in gemms], 10, GEMM_KERNEL)
+                           for _, x, w in gemms], 10,
+                          (SPLIT_SUM_KERNEL, GEMM_KERNEL), launched)
         lib = device_times([lambda x=x, w=w: torch.matmul(x, w)
                             for _, x, w in gemms], 10)
         plain = [time_ms(lambda x=x, w=w: ref.matmul(x, w), 10)
@@ -3928,15 +3979,19 @@ def phase2_backward_gemms(card):
         bounds = [gemm_bound(x.shape[0], x.shape[1], w.shape[1])
                   for _, x, w in gemms]
         log(f"  {role} GEMMs of a batch-{TRAIN_BATCH} step, device ms: K7 | "
-            f"torch.matmul | bound; K7's grid")
+            f"torch.matmul | bound; K7's plan and kernel launches a call")
         for i, (label, x, w) in enumerate(gemms):
             plan = mm.plan_for(x, w, mm.launch_geometry(x, w))
+            want = 2 if getattr(plan, "splits", 1) > 1 else 1
+            if launched[i] not in (None, want):
+                raise AssertionError(f"K7 {label}: {launched[i]} kernel "
+                                     f"launches a call, want {want}")
             log(f"    {label}: {ms[i]:.4f} | {lib[i]:.4f} | "
-                f"{bounds[i][0]:.4f} ({bounds[i][1]}); {plan.blocks} blocks "
-                f"of {plan.bm}x{plan.bn}, {plan.chunks} K-chunk(s), x "
-                f"{'16-byte' if plan.vec_x else '4-byte'} copies")
+                f"{bounds[i][0]:.4f} ({bounds[i][1]}); {describe_plan(plan)}"
+                f"; {launched[i]} launch(es)")
         row = dict(ms=sum(ms), plain_ms=sum(plain), library_ms=sum(lib),
-                   err=err, gemms=len(gemms))
+                   err=err, gemms=len(gemms), launches_per_step=sum(
+                       n for n in launched if n is not None))
         row["bound_ms"], row["bound_by"] = sum_bounds(bounds)
         log(f"  K7 [{role}], {len(gemms)} GEMMs: kernel {row['ms']:.4f} ms | "
             f"plain {row['plain_ms']:.4f} ms | torch.matmul "
@@ -3947,6 +4002,28 @@ def phase2_backward_gemms(card):
         rows[role] = row
     torch.cuda.empty_cache()
     return rows
+
+
+def phase16_step_cost(card, init=None, trainers=None) -> dict:
+    """Phase 16(d): one AdamW step from ``init`` (phase 16's seeded init
+    where None) through K7 and through the plain route (``trainers``, as
+    ``resnet_trainer`` builds them where None): the host wall, the device's
+    busy time and idle share (``host_and_device``). Returns {route:
+    cost}."""
+    if init is None:
+        init = resnet.init(RESNET, torch.Generator(DEV).manual_seed(16), DEV)
+    if trainers is None:
+        trainers = {name: resnet_trainer(route)
+                    for name, route in resnet_routes().items()}
+    cost = {}
+    for name in ("K7", "plain"):
+        opt, step_fn, _ = trainers[name]
+        opt_state = opt.init(init)
+        cost[name] = host_and_device(
+            lambda: step_fn(init, opt_state, 0),
+            f"(d) one training step through {name}, batch {TRAIN_BATCH}",
+            card)
+    return cost
 
 
 def phase16_resnet_training(card):
@@ -4022,14 +4099,7 @@ def phase16_resnet_training(card):
         f"{gap:.3e} (tolerance {TRAIN_TRAJ_TOL}); K7 launched "
         f"{launches} ({sum(launches.values()) // TRAIN_STEPS} a step)")
 
-    cost = {}
-    for name in ("K7", "plain"):
-        opt, step_fn, _ = trainers[name]
-        opt_state = opt.init(init)
-        cost[name] = host_and_device(
-            lambda: step_fn(init, opt_state, 0),
-            f"(d) one training step through {name}, batch {TRAIN_BATCH}",
-            card)
+    cost = phase16_step_cost(card, init, trainers)
 
     folded = resnet.fold_bn(trained["K7"])
     xt, yt = (torch.from_numpy(a).to(DEV)

@@ -7,8 +7,12 @@ On a CUDA tensor :func:`matmul` launches the hand-written Hopper kernel in
 on a CPU tensor it runs the plain version ``ref.matmul``. There is no other
 route and no fallback. The kernel takes ragged M, K and N and strided
 operands, so nothing is padded or copied. :func:`tile_plan` chooses its
-tiles, K-chunks and grid from the shape, in Python, so that the CPU tests
-can check the choice; the kernel checks the plan it is given.
+schedule, tiles, K-chunks, split and grid from the shape, in Python, so
+that the CPU tests can check the choice; the kernel checks the plan it is
+given. A long reduction under a small output (the backward's dW = X^T g)
+is split over blocks into contiguous ranges fixed by the shape, and the
+partial sums are added in a fixed order by a second launch, so the bits
+do not depend on scheduling.
 """
 from __future__ import annotations
 
@@ -35,6 +39,19 @@ MICRO_M = (8, 4, 1)
 # its skinny kernel (M <= SKINNY_M): SK_COLS columns per block, raw w
 # through SK_STAGES ring stages of SK_STAGE_BYTES
 SKINNY_M, SK_COLS, SK_STAGES, SK_STAGE_BYTES = 16, 32, 4, 8192
+# its split schedule (a long reduction under an output of too few tiles to
+# fill the card): the reduction cut into contiguous ranges, at least
+# SPLIT_MIN rows each (but the last), one block per (tile, range), x and w
+# streamed through SPLIT_STAGES ring stages of SPLIT_BK[tm] rows (a range
+# is a multiple of them); fewer than MIN_SPLITS ranges do not pay for the
+# second launch, and its partials of 32 elements fit 48 KB (MAX_SPLITS)
+SPLIT_MIN, MIN_SPLITS, MAX_SPLITS, SPLIT_STAGES = 256, 4, 384, 4
+SPLIT_BK = {1: 64, 4: BK, 8: BK}
+# its wide schedule (a reduction of K <= WIDE_K under an output wider than
+# one N-tile, the backward's dX = g W^T): all of w resident in N-panels of
+# row pitch BN + 4, x's M-tiles double-buffered
+WIDE_K = 64
+SCHEDULES = ("tiled", "skinny", "split", "wide")
 # the grid's y dimension holds N-tiles
 MAX_N = 65535 * TILE_N[-1]
 
@@ -49,16 +66,26 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 
 @dataclass(frozen=True)
 class TilePlan:
-    """How the kernel runs one GEMM. ``skinny``: the M <= 16 schedule
-    (``bn`` columns per block, x resident). Otherwise a block of 256
-    threads owns a ``bm`` x ``bn`` output tile, ``tm`` rows of 4 columns
-    per thread, and sweeps ``group`` tiles (weight-stationary: M-tiles
-    under its resident w; input-stationary: N-tiles under its resident x).
-    ``kc``: the K-chunk the resident operand holds (``chunks`` of them
-    cover K). ``vec_x`` / ``vec_w``: x staged by 16-byte copies, w by
-    vector loads (four consecutive n; skinny: 16 bytes). ``smem``: dynamic
-    shared memory per block in bytes."""
-    skinny: bool
+    """How the kernel runs one GEMM. ``schedule``:
+
+    - ``skinny`` (M <= 16): ``bn`` columns per block, x resident;
+    - ``tiled``: a block of 256 threads owns a ``bm`` x ``bn`` output tile,
+      ``tm`` rows of 4 columns per thread, and sweeps ``group`` tiles
+      (weight-stationary: M-tiles under its resident w; input-stationary:
+      N-tiles under its resident x); ``kc`` is the K-chunk the resident
+      operand holds (``chunks`` of them cover K);
+    - ``split``: the same tiles, one block per (tile, range of ``kc``
+      reduction rows), ``splits`` ranges; grid (tiles, splits); each block
+      writes its partial tile to an f32 (splits, M, N) scratch, and a second
+      launch sums the ranges in order;
+    - ``wide``: all of w (``kc`` >= K rows) resident, each block sweeps
+      ``group`` M-tiles of ``bm`` rows through every N-tile.
+
+    ``vec_x``: x staged by 16-byte copies (along k; ``split``: along m,
+    into a k-major tile); ``vec_w``: w by vector loads (four consecutive n;
+    skinny: 16 bytes). ``smem``: dynamic shared memory per block in
+    bytes."""
+    schedule: str
     bn: int
     tm: int
     bm: int
@@ -69,18 +96,98 @@ class TilePlan:
     vec_w: bool
     smem: int
     grid: tuple
+    splits: int = 1
+
+    @property
+    def skinny(self) -> bool:
+        return self.schedule == "skinny"
 
     @property
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1]
 
     def c_args(self) -> tuple:
-        return (int(self.skinny), self.bn, self.tm, self.kc, self.group,
-                int(self.vec_x), int(self.vec_w))
+        return (SCHEDULES.index(self.schedule), self.bn, self.tm, self.kc,
+                self.group, int(self.vec_x), int(self.vec_w))
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _cost(M, bm, tm, blocks) -> float:
+    """A split or wide plan's shared-memory bytes per SM, relative: the
+    padded rows times what a thread reads per FMA (TM x values and four w
+    values every k for 4 TM FMAs), over the SMs its blocks occupy."""
+    return _cdiv(M, bm) * bm * (tm + 4) / tm / min(blocks, SMS)
+
+
+def _wide_plan(M, K, N, x_bytes, vec_x, vec_w):
+    """The wide schedule, where the reduction is short (K <= WIDE_K) and
+    the output wider than one N-tile, so that the tiled schedule would read
+    x's rows once per N-tile: BN leaves the fewest padded columns (the
+    wider on a tie), TM the least ``_cost``, the larger on a tie; each
+    block sweeps enough M-tiles that the grid is about as many blocks as
+    fit on the card at once. None where the shape is not such or w does
+    not fit."""
+    if K > WIDE_K or N <= TILE_N[-1]:
+        return None
+    kc = _cdiv(max(K, 1), BK) * BK
+    bn = min(TILE_N, key=lambda t: (_cdiv(N, t) * t, -t))
+    panels = 4 * kc * _cdiv(N, bn) * (bn + 4)
+    best = None
+    for tm in MICRO_M if x_bytes == 4 else (1,):
+        bm = tm * THREADS // (bn // 4)
+        smem = panels + 4 * 2 * bm * (kc + 4)
+        if smem > SMEM_MAX:
+            continue
+        mt = _cdiv(M, bm)
+        group = _cdiv(mt, SMS * min(2, SMEM_MAX // smem))
+        plan = TilePlan("wide", bn, tm, bm, kc, 1, group, vec_x, vec_w, smem,
+                        (_cdiv(mt, group), 1))
+        key = (_cost(M, bm, tm, mt), -tm)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best and best[1]
+
+
+def _split_plan(M, K, N, sxm, sxk, x_bytes, x_ptr, vec_w):
+    """The split schedule, where the output has too few tiles to fill the
+    card and the reduction is long: S ranges of ``kc`` rows (a multiple of
+    the stage's SPLIT_BK[tm], at least SPLIT_MIN but the last), as many as
+    keep tiles x S within one wave of two blocks per SM (one where two do
+    not fit in shared memory, or where the reduction's length leaves the
+    second wave thin); the ranges depend on (M, K, N) and the tile alone.
+    TM takes the least ``_cost``, then the fewer padded rows, then the
+    larger TM. None where no split of MIN_SPLITS ranges or more gives more
+    blocks than the tiled schedule's smallest tiles."""
+    bn = next((t for t in TILE_N if N <= t), TILE_N[-1])
+    nt = _cdiv(N, bn)
+    tiled = _cdiv(M, THREADS // (bn // 4)) * nt   # the tiled plan's most
+    if tiled >= FILL:
+        return None
+    vec_x = (x_bytes == 4 and sxm == 1 and sxk % 4 == 0 and M % 4 == 0
+             and x_ptr % 16 == 0)
+    best = None
+    for tm in MICRO_M if x_bytes == 4 else (1,):
+        bm = tm * THREADS // (bn // 4)
+        tiles = _cdiv(M, bm) * nt
+        smem = 4 * SPLIT_STAGES * SPLIT_BK[tm] * (bm + 4 + bn)
+        per_sm = 2 if 2 * smem <= SMEM_MAX - 2048 else 1
+        splits = min(per_sm * SMS // tiles, K // SPLIT_MIN, MAX_SPLITS)
+        if SMS < tiles * splits < 2 * FILL:
+            # a thin second wave: the SMs that hold two blocks set the pace
+            splits = SMS // tiles
+        if splits < MIN_SPLITS or tiles * splits <= tiled:
+            continue
+        kc = _cdiv(_cdiv(K, splits), SPLIT_BK[tm]) * SPLIT_BK[tm]
+        splits = _cdiv(K, kc)
+        plan = TilePlan("split", bn, tm, bm, kc, splits, 1, vec_x, vec_w,
+                        smem, (tiles, splits), splits)
+        key = (_cost(M, bm, tm, tiles * splits), _cdiv(M, bm) * bm, -tm)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best and best[1]
 
 
 def tile_plan(M, K, N, sxm, sxk, swk, swn, *,
@@ -91,20 +198,29 @@ def tile_plan(M, K, N, sxm, sxk, swk, swn, *,
     (swk, swn), element sizes ``x_bytes`` / ``w_bytes`` (w int8: K8) and
     base addresses ``x_ptr`` / ``w_ptr``.
 
-    M <= 16 takes the skinny schedule. Otherwise BN is the smallest tile
-    of ``TILE_N`` that covers N (64 beyond), and of the ``MICRO_M`` choices
-    the plan prefers, in order: a grid that fills the card (at least
-    ``FILL`` blocks), one K-chunk (the resident operand covers K), then the
-    larger TM where the card is filled (a larger micro-tile reads shared
-    memory less per FMA) and the more blocks where it is not (bf16 x, off
-    the timed paths, takes TM = 1 only, which keeps the build short).
-    ``block_m`` / ``block_n`` (the reference's block sizes) set the
+    A short reduction under a wide output takes the wide schedule
+    (``_wide_plan``; not at M <= 16), a long reduction under a small output
+    the split one (``_split_plan``), and else M <= 16 the skinny one; these
+    three are the same for every dataflow. Otherwise BN is the smallest
+    tile of ``TILE_N`` that covers N (64 beyond), and of the ``MICRO_M``
+    choices the plan prefers, in order: a grid that fills the card (at
+    least ``FILL`` blocks), one K-chunk (the resident operand covers K),
+    then the larger TM where the card is filled (a larger micro-tile reads
+    shared memory less per FMA) and the more blocks where it is not (bf16
+    x, off the timed paths, takes TM = 1 only, which keeps the build
+    short). ``block_m`` / ``block_n`` (the reference's block sizes) set the
     weight- / input-stationary sweep, capped so the grid still fills the
     card."""
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}")
     vec_x = (x_bytes == 4 and sxk == 1 and K % 4 == 0 and sxm % 4 == 0
              and x_ptr % 16 == 0)
+    vec_w = (swn == 1 and N % 4 == 0 and swk % 4 == 0
+             and w_ptr % (4 * w_bytes) == 0)
+    plan = ((M > SKINNY_M and _wide_plan(M, K, N, x_bytes, vec_x, vec_w))
+            or _split_plan(M, K, N, sxm, sxk, x_bytes, x_ptr, vec_w))
+    if plan:
+        return plan
     if M <= SKINNY_M:
         kt = SK_STAGE_BYTES // (SK_COLS * w_bytes)
         ring = SK_STAGES * SK_STAGE_BYTES
@@ -112,10 +228,8 @@ def tile_plan(M, K, N, sxm, sxk, swk, swn, *,
                  (SMEM_MAX - ring) // (4 * M) // kt * kt)
         vec_w = (swn == 1 and N % (16 // w_bytes) == 0
                  and (swk * w_bytes) % 16 == 0 and w_ptr % 16 == 0)
-        return TilePlan(True, SK_COLS, 0, M, kc, _cdiv(K, kc), 1, vec_x,
+        return TilePlan("skinny", SK_COLS, 0, M, kc, _cdiv(K, kc), 1, vec_x,
                         vec_w, ring + 4 * M * kc, (_cdiv(N, SK_COLS), 1))
-    vec_w = (swn == 1 and N % 4 == 0 and swk % 4 == 0
-             and w_ptr % (4 * w_bytes) == 0)
     bn = next((t for t in TILE_N if N <= t), TILE_N[-1])
     xres = dataflow == "input_stationary"
     k_all = _cdiv(max(K, 1), BK) * BK
@@ -142,7 +256,7 @@ def tile_plan(M, K, N, sxm, sxk, swk, swn, *,
             group = max(1, min(want, swept, mt * nt // SMS))
         grid = ((mt, _cdiv(nt, group)) if xres
                 else (_cdiv(mt, group), nt))
-        plan = TilePlan(False, bn, tm, bm, kc, _cdiv(K, kc), group, vec_x,
+        plan = TilePlan("tiled", bn, tm, bm, kc, _cdiv(K, kc), group, vec_x,
                         vec_w, smem, grid)
         fills = min(plan.blocks, SMS) >= FILL
         key = (fills, kc >= k_all, tm if fills else plan.blocks, tm)
@@ -195,6 +309,21 @@ def plan_for(x, w, geometry, dataflow="output_stationary", block_m=128,
                      block_m=block_m, block_n=block_n)
 
 
+def scratch(plan, M, N, dataflow, dtype, device):
+    """The f32 scratch the kernel takes beside ``out`` (from the caching
+    allocator; every element it reads it has written first): the split
+    schedule's (splits, M, N) partial sums, or the (M, N) running sum that
+    a weight- or input-stationary tiled plan re-streams between K-chunks
+    when ``out`` is not f32; None where the kernel needs none."""
+    if plan.splits > 1:
+        return torch.empty((plan.splits, M, N), dtype=torch.float32,
+                           device=device)
+    if (plan.schedule == "tiled" and dataflow != "output_stationary"
+            and dtype != torch.float32 and plan.chunks > 1):
+        return torch.empty((M, N), dtype=torch.float32, device=device)
+    return None
+
+
 def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
            block_k: int = 128, dataflow: str = "output_stationary"):
     """x: (M, K) @ w: (K, N) -> (M, N) in x's dtype, fp32 accumulation.
@@ -204,8 +333,10 @@ def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
     are the reference's: on the card :func:`tile_plan` sizes the tile to
     the shape, and ``block_m`` / ``block_n`` set how many M-tiles a
     weight-stationary block (N-tiles an input-stationary block) sweeps
-    under its resident operand; ``block_k`` is accepted for parity. At
-    M <= 16 every dataflow takes the skinny schedule."""
+    under its resident operand; ``block_k`` is accepted for parity. The
+    skinny (M <= 16), split and wide schedules are the same in every
+    dataflow. A split GEMM is two launches (the partial sums, then their
+    sum in order), counted once."""
     check_operands("matmul", x, w)
     if dataflow not in DATAFLOWS:
         raise ValueError(f"unknown dataflow {dataflow!r}")
@@ -223,10 +354,9 @@ def matmul(x, w, *, block_m: int = 128, block_n: int = 128,
     if M == 0 or N == 0:
         return out
     plan = plan_for(x, w, geometry, dataflow, block_m, block_n)
-    acc = out
-    if (dataflow != "output_stationary" and x.dtype != torch.float32
-            and plan.chunks > 1):
-        acc = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    acc = scratch(plan, M, N, dataflow, x.dtype, x.device)
+    if acc is None:
+        acc = out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib()(x.data_ptr(), w.data_ptr(), acc.data_ptr(),

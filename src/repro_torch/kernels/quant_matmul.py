@@ -10,7 +10,8 @@ CPU tensor it runs the plain version ``ref.quant_matmul``. There is no
 other route and no fallback. It runs K7's output-stationary schedule
 (``matmul.tile_plan``), with the weight staged as int8 and dequantized
 into the block's resident f32 tile (the skinny schedule at M <= 16:
-dequantized as it is read).
+dequantized as it is read), or K7's split or wide schedule where the shape
+takes one, so that it gives K7's bits on the dequantized weight.
 """
 from __future__ import annotations
 
@@ -20,13 +21,13 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.matmul import (check_operands, launch_geometry,
-                                        plan_for)
+                                        plan_for, scratch)
 
 # kernel launches: a plain integer, raised by one exactly where the kernel
 # is launched
 LAUNCHES = {"quant_matmul": 0}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_void_p])
 
@@ -77,9 +78,11 @@ def quant_matmul(x, w_q, scales, *, block_m: int = 128, block_n: int = 128,
     if M == 0 or N == 0:
         return out
     plan = plan_for(x, w_q, geometry)
+    part = scratch(plan, M, N, "output_stationary", x.dtype, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _lib()(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
+                     None if part is None else part.data_ptr(),
                      out.data_ptr(), *geometry,
                      int(x.dtype == torch.bfloat16), *plan.c_args(), stream)
     if err:

@@ -342,8 +342,8 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     chunks; the band only for causal windowed self-attention), 'banded' or
     'pallas' (the flash-attention kernel, ``kernels.ops``). Without a mesh
     ``repro``'s context-parallel banded form is the banded one, which is
-    what runs here (context parallelism, the mesh form, belongs to the
-    training half of ROADMAP queue 1 item 12)."""
+    what runs here (context parallelism, the mesh form, is ROADMAP queue 1
+    item 12's context-parallelism bullet)."""
     tp = spmd.tp_split(params["wq"]) is not None
     if tp:      # training: this rank's heads of the "model" axis
         x = spmd.tp_copy(x)

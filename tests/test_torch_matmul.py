@@ -238,7 +238,8 @@ def _plan(m, k, n, dataflow="output_stationary", **kw):
     (100_000, 27, 1000), (64, 100_000, 8)])
 def test_tile_plan_fits_shared_memory(mkn, dataflow, w_bytes):
     """Every plan fits a block's 232,448 bytes of shared memory, its
-    K-chunks cover K, and its grid covers the output."""
+    K-chunks (a split plan's ranges) cover K, and its grid covers the
+    output (a wide plan's blocks sweep M-tiles through every N-panel)."""
     m, k, n = mkn
     p = _plan(m, k, n, dataflow, w_bytes=w_bytes)
     assert p.smem <= tmm.SMEM_MAX == 232_448
@@ -247,7 +248,12 @@ def test_tile_plan_fits_shared_memory(mkn, dataflow, w_bytes):
         assert p.grid == (-(-n // tmm.SK_COLS), 1) and p.bm == m
         return
     assert p.kc % tmm.BK == 0 and p.bm == p.tm * 1024 // p.bn
-    if dataflow == "input_stationary":
+    if p.schedule == "split":
+        tiles = -(-m // p.bm) * -(-n // p.bn)
+        assert p.grid == (tiles, p.splits) and p.chunks == p.splits
+    elif p.schedule == "wide":
+        assert p.grid[0] * p.group * p.bm >= m and p.grid[1] == 1
+    elif dataflow == "input_stationary":
         assert p.grid[0] * p.bm >= m and p.grid[1] * p.group * p.bn >= n
     else:
         assert p.grid[0] * p.group * p.bm >= m and p.grid[1] * p.bn >= n
@@ -455,7 +461,8 @@ def test_tile_plan_at_the_gradient_gemms_of_resnet20_training(mkn):
     W^T reads w's transpose (strides (1, N)), dW = X^T @ g reads x's
     (strides (1, K)), over a reduction of M = 8,192-131,072 rows. Each
     plan fits shared memory, its K-chunks cover the reduction, and a
-    transposed x is staged by 4-byte copies (no 16-byte row runs)."""
+    transposed x is staged by 16-byte copies along its unit-stride axis
+    where its k stride allows (K % 4 == 0: not the stem's 27)."""
     m, k, n = mkn
     dx = tmm.tile_plan(m, n, k, n, 1, 1, n)          # g (m, n) @ w.t()
     dw = tmm.tile_plan(k, m, n, 1, k, n, 1)          # x.t() (k, m) @ g
@@ -463,8 +470,119 @@ def test_tile_plan_at_the_gradient_gemms_of_resnet20_training(mkn):
         assert plan.smem <= tmm.SMEM_MAX
         assert plan.kc * plan.chunks >= reduction
         assert plan.kc % tmm.BK == 0 or plan.skinny
-    assert not dw.vec_x and not dx.vec_w
+    assert dw.vec_x == (k % 4 == 0) and not dx.vec_w
     assert dw.grid[0] == -(-k // dw.bm)
+
+
+def _dw_plan(m, k, n, **kw):
+    """The plan of dW = X^T g for a conv GEMM (m, k, n) of the forward."""
+    return tmm.tile_plan(k, m, n, 1, k, n, 1, **kw)
+
+
+def _dx_plan(m, k, n, **kw):
+    """The plan of dX = g W^T for a conv GEMM (m, k, n) of the forward."""
+    return tmm.tile_plan(m, n, k, n, 1, 1, n, **kw)
+
+
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_split_plan_at_the_dw_gemms_of_resnet20_training(mkn):
+    """Every dW GEMM of a batch-128 step splits its reduction: the ranges
+    are multiples of BK of at least SPLIT_MIN rows (but the last), cover
+    the reduction exactly, and fill the card in one wave (of at most two
+    blocks per SM), or are as many as the reduction's length allows; the
+    plan fits shared memory, and the scratch is (splits, M, N) fp32."""
+    m, k, n = mkn
+    p = _dw_plan(m, k, n)
+    assert p.schedule == "split" and p.splits >= tmm.MIN_SPLITS
+    assert p.kc % tmm.BK == 0 and p.kc >= tmm.SPLIT_MIN
+    assert (p.splits - 1) * p.kc < m <= p.splits * p.kc
+    assert (tmm.FILL <= p.blocks <= 2 * tmm.SMS
+            or p.splits == m // tmm.SPLIT_MIN)
+    assert p.smem <= tmm.SMEM_MAX and p.group == 1
+    part = tmm.scratch(p, k, n, "output_stationary", torch.float32, "cpu")
+    assert tuple(part.shape) == (p.splits, k, n)
+    assert part.dtype == torch.float32
+
+
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_wide_plan_at_the_dx_gemms_of_resnet20_training(mkn):
+    """A dX GEMM whose output is wider than one N-tile (K > 64) keeps all
+    of W^T resident (N-panels of pitch BN + 4) with room for two x tiles,
+    covers its rows with blocks that sweep M-tiles, and fills the card; a
+    narrower one is one N-tile of the tiled schedule, which reads g's rows
+    once as it is."""
+    m, k, n = mkn
+    p = _dx_plan(m, k, n)
+    if k <= 64:
+        assert p.schedule == "tiled" and p.grid[1] == 1 and p.chunks == 1
+        return
+    assert p.schedule == "wide" and p.kc >= n and p.kc % tmm.BK == 0
+    panels = 4 * p.kc * -(-k // p.bn) * (p.bn + 4)
+    assert p.smem == panels + 4 * 2 * p.bm * (p.kc + 4) <= tmm.SMEM_MAX
+    assert p.grid[1] == 1 and p.grid[0] * p.group * p.bm >= m
+    assert min(-(-m // p.bm), tmm.SMS) >= tmm.FILL // 2
+    assert tmm.scratch(p, m, k, "output_stationary", torch.float32,
+                       "cpu") is None
+
+
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_backward_plans_equal_across_dataflows_and_int8(mkn):
+    """The split (dW) and wide (dX) plans depend on the shape alone: every
+    dataflow and an int8 weight (K8) get the same one, so they give the
+    same bits."""
+    m, k, n = mkn
+    for plan_of in (_dw_plan, _dx_plan):
+        want = plan_of(m, k, n)
+        if want.schedule == "tiled":
+            continue
+        for kw in [dict(dataflow=df) for df in DATAFLOWS[1:]] + [
+                dict(w_bytes=1)]:
+            assert plan_of(m, k, n, **kw) == want, (plan_of.__name__, kw)
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS + ("quant",))
+def test_forward_plans_keep_one_range(dataflow):
+    """No GEMM of a ResNet20 forward, at batch 256 or 1, splits its
+    reduction or takes the wide schedule: the forward path's plans, bits
+    and times stay those of the tiled schedule."""
+    from repro_torch.configs.resnet20_cifar import CONFIG
+    from repro_torch.models import resnet
+    kw = (dict(w_bytes=1) if dataflow == "quant"
+          else dict(dataflow=dataflow))
+    for batch in (256, 1):
+        for _, m, k, n in resnet.conv_layer_shapes(CONFIG, batch):
+            p = _plan(m, k, n, **kw)
+            assert p.schedule == "tiled" and p.splits == 1, (m, k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", TRAIN_B128)
+def test_backward_gemm_bits_on_card(card, mkn):
+    """dW (the split schedule) and dX (wide where K > 64) at a batch-128
+    step's shapes, on the backward's transposed views: within the tolerance
+    of the plain version, the same bits when run again, in every dataflow,
+    and from K8 on an int8 operand against K7 on its dequantized form."""
+    m, k, n = mkn
+    gen = torch.Generator(card).manual_seed(2)
+    x = torch.randn(m, k, device=card, generator=gen)
+    w = torch.randn(k, n, device=card, generator=gen)
+    g = torch.randn(m, n, device=card, generator=gen)
+    q = torch.randint(-127, 127, (m, n), device=card, dtype=torch.int8,
+                      generator=gen)
+    sc = torch.rand(n, device=card, generator=gen) * 0.1 + 0.01
+    wq = torch.randint(-127, 127, (k, n), device=card, dtype=torch.int8,
+                       generator=gen)
+    wsc = torch.rand(k, device=card, generator=gen) * 0.1 + 0.01
+    cases = [(x.t(), g, q, sc), (g, w.t(), wq.t(), wsc)]
+    for a, b, bq, bsc in cases[:1] if k == 27 else cases:
+        got = tmm.matmul(a, b)
+        want = tref.matmul(a, b)
+        torch.testing.assert_close(got, want, **_card_tol(want))
+        assert torch.equal(got, tmm.matmul(a, b))
+        assert all(torch.equal(got, tmm.matmul(a, b, dataflow=df))
+                   for df in DATAFLOWS[1:])
+        assert torch.equal(tqm.quant_matmul(a, bq, bsc),
+                           tmm.matmul(a, bq.float() * bsc[None, :]))
 
 
 @pytest.mark.gpu
