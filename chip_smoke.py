@@ -225,6 +225,19 @@ before printing any result. Phases, each of which raises on failure:
    (20c) the compressed all-reduce and the GPipe pipeline on CUDA tensors
    over 4 ranks, to ``tests/test_distributed.py``'s bounds; (20d) the
    trainer at mesh_shape (2, 1), its losses equal to 20a's (2, 1) run.
+21. the dry run against the card, TF32 off: (21a) minicpm-2b at full
+   width cut to 2 layers, a train step at B 8 x S 1024 in fp32, and
+   (21b) qwen2.5-32b cut to 4 layers, the lockstep decode at B 8 over a
+   dense bf16 cache of 4096 rows with bf16 serve params; each predicted
+   on fake tensors over a one-rank fake mesh (``launch.dryrun``), then
+   the same ``build_gate`` step run on a one-rank NCCL mesh: the
+   predicted footprint above the arguments against
+   ``max_memory_allocated`` above what was resident (``FOOTPRINT_REL``),
+   the dot FLOPs counted on the card equal to the prediction and to
+   ``torch.profiler``'s ``with_flops`` op by op, the device time and the
+   compute and memory terms at the data sheet's peaks. (The
+   production-mesh dry run takes longer than this script can spend:
+   ``python -m repro_torch.launch.dryrun``, PERF.md.)
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
@@ -5330,6 +5343,166 @@ def train_rank(rank: int, world: int, out_dir: str, form: str) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 21
+DRY_TRAIN = ("minicpm-2b", 2, 8, 1024)       # phase 20's cut: arch, layers, B, S
+DRY_DECODE = (ARCH, LAYERS, SLOTS, 4096)     # phase 4's cut, a 4096-row cache
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+# the prediction counts every storage the step's ops make; the card also
+# holds what a CUDA kernel allocates for itself and the caching
+# allocator's rounding (512-byte blocks), neither of which is an op's
+# output: the measured memory above what was resident is held to the
+# predicted memory above the arguments within 2 % of that prediction plus
+# 8 MiB (measured on an H100: 21a +0.000 GiB of 24.032, 21b +0.001 GiB of
+# 0.075, whose 0.071 GiB of temporaries the bound is well inside)
+FOOTPRINT_REL = 0.02
+FOOTPRINT_SLACK = 8 * 2**20
+# dot products the profiler computes FLOPs for (``with_flops``)
+PROFILER_DOTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+                 "aten::conv2d")
+
+
+def profiled_flops(fn, label) -> dict:
+    """{op name: FLOPs} of one call of ``fn`` under ``torch.profiler``'s
+    ``with_flops`` (a session without events is run again)."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {e.key: int(e.flops) for e in prof.key_averages() if e.flops}
+        if got:
+            return got
+        log(f"  (profiler session {attempt + 1} of {label} without flops; "
+            f"again)")
+        time.sleep(0.05 * 2 ** attempt)
+    raise AssertionError(f"{label}: no profiler session with flops")
+
+
+def dry_run_against_card(label, model, shape, card, compute_dtype, remat,
+                         peak) -> dict:
+    """The dry run's prediction of one step (fake tensors on a one-rank
+    fake mesh), then the same ``build_gate`` step on the card on a
+    one-rank NCCL mesh from an in-process store: its memory above what
+    was resident before it, its dot FLOPs counted on the card and under
+    ``torch.profiler``, its device time and its compute and memory terms
+    at ``peak`` and 3.35 TB/s."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, hlo_stats
+    t0 = time.perf_counter()
+    with dryrun.fake_mesh((1, 1)) as (mesh, _), \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        step, args = dryrun.build_gate(model, shape, mesh, remat=remat,
+                                       compute_dtype=compute_dtype)
+        cost, mem, _, _ = dryrun.count_step(step, args)
+        del step, args
+    pred_s = time.perf_counter() - t0
+    fp = dryrun.footprint(mem)
+    pred_above = fp - mem["argument_bytes"]
+    bound = FOOTPRINT_REL * pred_above + FOOTPRINT_SLACK
+    specs.check_serve_group(1, "cuda")
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), "cuda")
+        step, args = dryrun.build_gate(model, shape, mesh, device="cuda",
+                                       remat=remat,
+                                       compute_dtype=compute_dtype)
+        step(*args)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = step(*args)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - before
+        del out
+        counter = hlo_stats.OpCounter()
+        with counter:
+            step(*args)
+        flops = profiled_flops(lambda: step(*args), label)
+        times = host_and_device(lambda: step(*args), label, card)
+        del step, args
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    log(f"  {label}: predicted footprint {fp / 2**30:.3f} GiB (argument "
+        f"{mem['argument_bytes'] / 2**30:.3f} + temp "
+        f"{mem['temp_bytes'] / 2**30:.3f} + output "
+        f"{mem['output_bytes'] / 2**30:.3f} - alias "
+        f"{mem['alias_bytes'] / 2**30:.3f}), {pred_above / 2**30:.3f} GiB "
+        f"above the arguments; on the card max_memory_allocated "
+        f"{above / 2**30:.3f} GiB above what was resident (diff "
+        f"{(above - pred_above) / 2**20:+.3f} MiB, bound "
+        f"{bound / 2**20:.3f}); prediction took {pred_s:.1f} s "
+        f"({card})")
+    if abs(above - pred_above) > bound:
+        raise AssertionError(f"{label}: the card's footprint above the "
+                             f"resident {above} B is not the predicted "
+                             f"{pred_above} B within {bound:.0f} B")
+    if int(counter.dot_flops) != int(cost["dot_flops"]):
+        raise AssertionError(f"{label}: dot FLOPs counted on the card "
+                             f"{counter.dot_flops} differ from the "
+                             f"prediction {cost['dot_flops']}")
+    prof_dots = {k: v for k, v in flops.items() if k in PROFILER_DOTS}
+    mine = {f"aten::{k}": v for k, v in counter.by_op.items()}
+    rest = {k: v for k, v in flops.items() if k not in PROFILER_DOTS}
+    log(f"  {label}: dot FLOPs counted {int(cost['dot_flops']):,} (fake "
+        f"prediction = the card's own count; by op {mine}); torch.profiler "
+        f"with_flops: dots {prof_dots}, elementwise {rest}")
+    if prof_dots != mine:
+        differ = sorted(k for k in set(prof_dots) | set(mine)
+                        if prof_dots.get(k) != mine.get(k))
+        raise AssertionError(f"{label}: the profiler's dot FLOPs differ "
+                             f"from the count at {differ}: {prof_dots} "
+                             f"against {mine}")
+    compute_ms = cost["dot_flops"] / peak * 1e3
+    memory_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"  {label}: device busy {times['busy_ms']:.3f} ms a step (host "
+        f"wall {times['wall_ms']:.3f}); compute term {compute_ms:.4f} ms "
+        f"(dot FLOPs at {peak / 1e12:.0f} TFLOP/s), memory term "
+        f"{memory_ms:.4f} ms ({cost['bytes'] / 1e9:.3f} GB of op inputs "
+        f"and outputs, unfused, at 3.35 TB/s); the step's share of the "
+        f"compute term {compute_ms / times['busy_ms']:.1%} of its busy time "
+        f"({card})")
+    return dict(footprint=fp, pred_above=pred_above, above=above,
+                dot_flops=cost["dot_flops"], busy_ms=times["busy_ms"],
+                compute_ms=compute_ms, memory_ms=memory_ms)
+
+
+def phase21_dry_run(card):
+    """21a: minicpm-2b at full width cut to 2 layers (phase 20's cut), a
+    train step at B 8 x S 1024 in fp32; 21b: qwen2.5-32b at full width cut
+    to 4 layers (phase 4's cut), the lockstep decode step at B 8 over a
+    dense bf16 cache of 4096 rows with bf16 serve params. Each predicted
+    by the dry run, then run on the card (``dry_run_against_card``)."""
+    t21 = time.perf_counter()
+    arch, layers, B, S = DRY_TRAIN
+    model = get_model(dataclasses.replace(configs.get_config(arch),
+                                          num_layers=layers))
+    dry_run_against_card(
+        f"21a {arch} ({layers} layers) train B {B} x S {S} fp32", model,
+        configs.ShapeConfig("train", S, B, "train"), card, torch.float32,
+        False, FP32_FLOPS)
+    arch, layers, B, S = DRY_DECODE
+    model = get_model(dataclasses.replace(configs.get_config(arch),
+                                          num_layers=layers))
+    dry_run_against_card(
+        f"21b {arch} ({layers} layers) decode B {B} over {S} rows, bf16",
+        model, configs.ShapeConfig("decode", S, B, "decode"), card,
+        torch.bfloat16, False, BF16_FLOPS)
+    from repro_torch.launch import dryrun
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    slack = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    log(f"  the card's memory outside the caching allocator "
+        f"{outside / 2**30:.3f} GiB, the allocator's cached and unused "
+        f"{slack / 2**30:.3f} GiB: the dry run's reserve "
+        f"{dryrun.RESERVE_GIB} GiB leaves a budget of "
+        f"{dryrun.hbm_budget() / 2**30:.3f} GiB of "
+        f"{total / 2**30:.3f} ({card})")
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5462,6 +5635,9 @@ def main():
         f"{TRAIN20_LAYERS} layers, on (data, model) meshes of gloo ranks; "
         f"elastic restore, the compressed all-reduce and the pipeline")
     phase20_sharded_training(card)
+    log("phase 21: the dry run against the card (minicpm-2b train, "
+        "qwen2.5-32b decode)")
+    phase21_dry_run(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),

@@ -1,6 +1,9 @@
 """Config registry: ``get_config(name)`` / ``list_archs()`` (the port's own
 copy of ``repro.configs``; arch ids and values are identical)."""
-from repro_torch.configs.base import ArchConfig, Family, MoEConfig
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES_BY_NAME, ArchConfig,
+                                     Family, MoEConfig, ShapeConfig,
+                                     TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
 
 from repro_torch.configs import (moonshot_v1_16b_a3b, dbrx_132b,
                                  whisper_large_v3, minicpm_2b, command_r_35b,
@@ -13,7 +16,10 @@ for _m in (moonshot_v1_16b_a3b, dbrx_132b, whisper_large_v3, minicpm_2b,
            hymba_1_5b, rwkv6_7b, llama_3_2_vision_11b):
     _ARCHS[_m.CONFIG.name] = _m.CONFIG
 
-__all__ = ["ArchConfig", "Family", "MoEConfig", "get_config", "list_archs"]
+__all__ = ["ALL_SHAPES", "SHAPES_BY_NAME", "ArchConfig", "Family",
+           "MoEConfig", "ShapeConfig", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K", "cells", "get_config", "get_shape",
+           "list_archs"]
 
 
 def list_archs():
@@ -24,3 +30,20 @@ def get_config(name: str) -> ArchConfig:
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return _ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+def cells(include_skips: bool = False):
+    """All (arch, shape, skipped) cells; skips excluded unless
+    include_skips."""
+    out = []
+    for a in list_archs():
+        cfg = _ARCHS[a]
+        for s in ALL_SHAPES:
+            skipped = s.name in cfg.skip_shapes
+            if include_skips or not skipped:
+                out.append((cfg, s, skipped))
+    return out

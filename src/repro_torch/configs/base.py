@@ -1,6 +1,7 @@
 """Architecture config dataclasses, copied from ``repro.configs.base`` so the
 port never imports the JAX package. Field names, defaults and the derived
-quantities (``head_dim``, ``padded_vocab``, parameter counts) are kept
+quantities (``head_dim``, ``padded_vocab``, parameter counts) and the four
+input shapes (``ShapeConfig``) are kept
 identical: a config built here describes the same network as its ``repro``
 twin, which is what lets the equivalence tests bridge weights between them.
 """
@@ -29,6 +30,30 @@ class MemoryStrategy(str, enum.Enum):
     DUAL_CLOCK = "dual_clock"            # + movement/compute overlap (double buffering)
     ULTRA_RAM = "ultra_ram"              # + large local budget (fewer partitions)
     COMPILER_LARGE_LOCAL = "compiler_large_local"  # + whole-layer residency planning
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (seq_len x global_batch)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +154,16 @@ class ArchConfig:
             layers += (self.num_layers // self.cross_attn_every
                        * self._attn_params())
         return emb + unemb + layers + self.d_model
+
+    def active_params(self) -> int:
+        """Activated params per token (= total for dense; routed top-k for
+        MoE)."""
+        if not self.moe:
+            return self.total_params()
+        dense_layer = (self._attn_params() + 2 * self.d_model
+                       + self.d_model * self.moe.num_experts)
+        active_ffn = self.moe.top_k * self._ffn_params()
+        layers = self.num_layers * (dense_layer + active_ffn)
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
+                                                else 2)
+        return emb + layers + self.d_model

@@ -124,16 +124,30 @@ def head_weight(model: Model, params):
     return params["embed"]["table"], True
 
 
+def _scan_kw(model: Model, scan_impl: Optional[str]) -> dict:
+    """``scan_impl`` for the recurrent families, where one is given."""
+    if scan_impl is None or model.cfg.family not in (Family.SSM,
+                                                     Family.HYBRID):
+        return {}
+    return {"scan_impl": scan_impl}
+
+
 def make_prefill(model: Model, *, compute_dtype=torch.bfloat16,
-                 attn_impl: str = "chunked", return_cache: bool = False,
-                 s_max: int = 0, cache_dtype=torch.float32):
+                 attn_impl: str = "chunked", batch_chunks: int = 1,
+                 return_cache: bool = False, s_max: int = 0,
+                 cache_dtype=torch.float32, scan_impl: Optional[str] = None,
+                 sharded: bool = False):
     """Prefill step builder.
 
     Default: ``prefill(params, batch) -> (B, 1, Vp)`` float32 last-position
     logits of a full-sequence forward (``attn_impl`` as in
     ``layers.attention``); the padded vocab columns are not masked, as in
-    ``repro``. (``repro``'s ``batch_chunks`` slicing has no caller in the
-    port yet.)
+    ``repro``. ``batch_chunks`` > 1 runs the batch in that many sequential
+    slices of its rows (bounding the activations, as microbatches do in
+    training) and concatenates their logits. ``scan_impl`` as in
+    ``make_decode_step``. ``sharded=True`` builds the step for params of
+    DTensors (``place`` with ``param_shardings``), run on their mesh
+    (``_sharded_prefill``).
 
     ``return_cache=True``: the scan anchor. ``prefill(params, batch) ->
     (last_logits, cache)`` teacher-forces the prompt through
@@ -162,15 +176,28 @@ def make_prefill(model: Model, *, compute_dtype=torch.bfloat16,
             return logits, cache
         return prefill_cache
 
-    def prefill(params, batch):
+    def one(params, batch):
         feats, _ = model.forward(params, batch["tokens"],
                                  compute_dtype=compute_dtype,
                                  attn_impl=attn_impl, return_features=True,
+                                 **_scan_kw(model, scan_impl),
                                  **_batch_extras(batch))
         w, tied = head_weight(model, params)
         last = feats[:, -1:]
         wd = w.to(last.dtype)
-        return (last @ wd.T if tied else last @ wd).float()
+        return spmd.tp_gather((last @ wd.T if tied else last @ wd).float(),
+                              w)
+
+    if sharded:
+        return _sharded_prefill(model, one, batch_chunks)
+
+    def prefill(params, batch):
+        if batch_chunks == 1:
+            return one(params, batch)
+        size = batch["tokens"].shape[0] // batch_chunks
+        return torch.cat([one(params, {k: v[i * size:(i + 1) * size]
+                                       for k, v in batch.items()})
+                          for i in range(batch_chunks)])
     return prefill
 
 
@@ -227,12 +254,19 @@ def make_prefill_chunk_paged(model: Model, *, compute_dtype=torch.bfloat16,
 
 
 def make_decode_step(model: Model, *, compute_dtype=torch.bfloat16,
-                     paged_attn_impl: Optional[str] = None):
+                     paged_attn_impl: Optional[str] = None,
+                     scan_impl: Optional[str] = None, sharded: bool = False):
     """One-token decode against the serving cache, updated in place.
     ``paged_attn_impl`` ('kernel' | 'einsum') selects the paged read path;
     None keeps the model's default (the masked-einsum reference). A dense
-    cache ignores it."""
-    extra = {}
+    cache ignores it. ``scan_impl`` picks a recurrent family's scan
+    ('scan': the plain recurrence; None keeps the model's 'auto').
+
+    ``sharded=True`` builds the step for params and a dense cache with a
+    scalar pos of DTensors (``place`` with ``param_shardings`` /
+    ``cache_shardings``): the lockstep decode run on their mesh
+    (``_sharded_decode``), the cache's blocks written in place."""
+    extra = _scan_kw(model, scan_impl)
     if paged_attn_impl is not None:
         extra["paged_attn_impl"] = paged_attn_impl
 
@@ -240,16 +274,14 @@ def make_decode_step(model: Model, *, compute_dtype=torch.bfloat16,
         return model.decode_step(params, batch["token"], cache,
                                  compute_dtype=compute_dtype, **extra,
                                  **_batch_extras(batch))
-    return decode
+    return _sharded_decode(model, decode) if sharded else decode
 
 
 # ------------------------------------------------------------------ train
 def _train_kw(model: Model) -> dict:
     """The recurrent families train through their plain scans: K5 and K6
     have no backward (``repro``'s Pallas scans have none either)."""
-    if model.cfg.family in (Family.SSM, Family.HYBRID):
-        return {"scan_impl": "scan"}
-    return {}
+    return _scan_kw(model, "scan")
 
 
 def make_loss_fn(model: Model, *, compute_dtype=torch.bfloat16,
@@ -391,21 +423,94 @@ def _microbatches(model: Model, batch, mesh, microbatches: int):
     over)]. The global batch is cut into microbatches first and each is
     then sharded over "batch", as ``repro``'s reshape of a sharded batch
     computes; a batch of DTensors is gathered first where it must be."""
+    ids = "tokens" if "tokens" in batch else "token"
     sh = {k: specs.sharding_of(v) for k, v in batch.items()}
     if microbatches == 1 and all(v is not None for v in sh.values()):
         return [({k: v.to_local() for k, v in batch.items()},
-                 _batch_dims(sh["tokens"]))]
+                 _batch_dims(sh[ids]))]
     full = {k: v if sh[k] is None else
             specs.full_tensor(v.to_local(), sh[k]) for k, v in batch.items()}
-    size = full["tokens"].shape[0] // microbatches
+    size = full[ids].shape[0] // microbatches
     out = []
     for i in range(microbatches):
         mb = {k: v[i * size:(i + 1) * size] for k, v in full.items()}
         with specs.use_mesh(mesh):
             msh = batch_shardings(model, mb)
         out.append(({k: specs.local_block(v, msh[k]) for k, v in mb.items()},
-                    _batch_dims(msh["tokens"])))
+                    _batch_dims(msh[ids])))
     return out
+
+
+def _local_params(model: Model, params):
+    """(mesh, the logical axes the tensor-parallel compute keeps, this
+    rank's blocks, their ``spmd.LeafPlan`` tree): params of DTensors as
+    the sharded steps read them."""
+    sh = tree_map(specs.sharding_of, params)
+    mesh = tree_leaves(sh)[0].mesh
+    keeps = spmd.tp_keeps(model.cfg, mesh)
+    return (mesh, keeps, tree_map(lambda t: t.to_local(), params),
+            _plans(model, sh, keeps))
+
+
+def _sharded_prefill(model: Model, one, batch_chunks: int):
+    """The prefill on params of DTensors (SPMD, no autograd): each rank
+    runs its rows of each of the ``batch_chunks`` slices of the global
+    batch on weights gathered per layer (the dense decoder's heads, d_ff
+    and vocab over "model"), and the logits of every row are gathered to
+    every rank: ``(B, 1, Vp)``, equal to the mesh-free step's within fp32
+    sum order."""
+    def run(params, batch):
+        mesh, keeps, local, plans = _local_params(model, params)
+        outs = []
+        for mb, dims in _microbatches(model, batch, mesh, batch_chunks):
+            with spmd.training(mesh, dims, bool(keeps)):
+                outs.append(spmd.gather_rows(one(
+                    spmd.lazy_params(local, plans, mesh, dims), mb)))
+        return torch.cat(outs)
+    return run
+
+
+def _sharded_decode(model: Model, decode):
+    """The lockstep decode on params and a dense cache of DTensors (SPMD,
+    no autograd): each rank runs its batch rows against its block of the
+    cache, the dense decoder's heads over "model" with the cache's kv
+    heads. A cache leaf split over a mesh dim that the compute needs whole
+    (a sequence over "model"; a recurrent family's heads or channels) is
+    gathered one layer at a time and its block written back
+    (:class:`spmd.GatheredStack`). Returns (the logits of every row on
+    every rank, ``(B, 1, Vp)``, the cache written in place)."""
+    def run(params, cache, batch):
+        mesh, keeps, local_params, plans = _local_params(model, params)
+        ((mb, dims),) = _microbatches(model, batch, mesh, 1)
+        with specs.use_mesh(mesh):
+            logical = model.cache_logical()
+        names = specs.axis_names(mesh)
+        local, stacks = {}, []
+        for k, v in cache.items():
+            sh = specs.sharding_of(v)
+            if sh is None:
+                local[k] = v
+                continue
+            loc = v.to_local()
+            gathers = [(i, d) for i, d in specs.shard_dims(sh)
+                       if i not in dims and not (
+                           names[i] == specs.TP_AXIS
+                           and logical[k][d] in keeps)]
+            if gathers:
+                loc = spmd.GatheredStack(loc, mesh, gathers)
+                stacks.append(loc)
+            local[k] = loc
+        with spmd.training(mesh, dims, bool(keeps)):
+            logits, local = decode(spmd.lazy_params(
+                local_params, plans, mesh, dims), local, mb)
+            for st in stacks:
+                st.flush()
+            logits = spmd.gather_rows(logits)
+        sh = specs.sharding_of(cache["pos"])
+        cache["pos"] = (local["pos"] if sh is None
+                        else _to_dtensor(local["pos"], sh))
+        return logits, cache
+    return run
 
 
 def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
@@ -417,11 +522,7 @@ def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
     of ways the rows split, so the ranks' losses sum to the global mean;
     the gradients come back summed over the batch's ranks."""
     def run(params, batch):
-        sh = tree_map(specs.sharding_of, params)
-        mesh = tree_leaves(sh)[0].mesh
-        local = tree_map(lambda t: t.to_local(), params)
-        keeps = spmd.tp_keeps(model.cfg, mesh)
-        plans = _plans(model, sh, keeps)
+        mesh, keeps, local, plans = _local_params(model, params)
         grads, loss, ce, metrics = None, 0.0, 0.0, {}
         for mb, dims in _microbatches(model, batch, mesh, microbatches):
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),

@@ -94,6 +94,13 @@ def _norm(x, p):
     return L.apply_norm(x, p, "layernorm")
 
 
+def _enc_layer(cfg: ArchConfig, lp, x, positions, attn_impl: str):
+    """One encoder layer: self-attention (not causal), then the GELU MLP."""
+    x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]),
+                        _self_dims(cfg, False), positions, impl=attn_impl)
+    return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"]), act="gelu")
+
+
 def encode(params, cfg: ArchConfig, frames, *, compute_dtype=torch.float32,
            attn_impl: str = "einsum", remat=False):
     """frames: (B, S_enc, D) precomputed frame embeddings -> the encoder's
@@ -104,13 +111,9 @@ def encode(params, cfg: ArchConfig, frames, *, compute_dtype=torch.float32,
     x = (frames.to(compute_dtype)
          + _sinusoid(S, cfg.d_model, frames.device).to(compute_dtype))
     positions = torch.arange(S, device=frames.device).expand(B, S)
-    dims = _self_dims(cfg, False)
 
-    def body(lp, x):
-        x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]), dims, positions,
-                            impl=attn_impl)
-        return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"]), act="gelu")
-    body = L.remat(body, remat)
+    body = L.remat(lambda lp, x: _enc_layer(cfg, lp, x, positions,
+                                            attn_impl), remat)
     for i in range(cfg.encoder_layers):
         x = body(L.layer_params(params["enc_layers"], i), x)
     return _norm(x, params["enc_norm"])
@@ -153,6 +156,27 @@ def _enc_positions(batch: int, n: int, device):
     return torch.arange(n, device=device).expand(batch, n)
 
 
+def _dec_layer(cfg: ArchConfig, lp, x, positions, enc_out, enc_pos,
+               attn_impl: str):
+    """One decoder layer over the full sequence: causal self-attention,
+    cross-attention to ``enc_out`` through this layer's cross K/V, then
+    the MLP."""
+    x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]),
+                        _self_dims(cfg, True), positions, impl=attn_impl)
+    xk, xv = _cross_kv(lp["xattn"], enc_out, cfg)
+    return _mlp(lp, _cross(cfg, lp, x, positions, xk, xv, enc_pos))
+
+
+def _decode_layer(cfg: ArchConfig, lp, x, ck, cv, xk, xv, pos, positions,
+                  enc_pos):
+    """One decoder layer's decode against its dense self-attention cache
+    ck / cv (written in place) and its cross K/V xk / xv."""
+    out = L.attention_decode(lp["attn"], _norm(x, lp["ln1"]),
+                             _self_dims(cfg, True), ck, cv, pos,
+                             positions)[0]
+    return _mlp(lp, _cross(cfg, lp, x + out, positions, xk, xv, enc_pos))
+
+
 def forward(params, cfg: ArchConfig, tokens, *, frames=None,
             compute_dtype=torch.float32, attn_impl: str = "einsum",
             remat=False, return_features: bool = False):
@@ -175,14 +199,8 @@ def forward(params, cfg: ArchConfig, tokens, *, frames=None,
     x = (L.embed_lookup(params["embed"], tokens, compute_dtype)
          + pos_emb.to(compute_dtype)[None])
     positions = torch.arange(S, device=dev).expand(B, S)
-    dims = _self_dims(cfg, True)
-
-    def body(lp, x):
-        x = x + L.attention(lp["attn"], _norm(x, lp["ln1"]), dims, positions,
-                            impl=attn_impl)
-        xk, xv = _cross_kv(lp["xattn"], enc_out, cfg)
-        return _mlp(lp, _cross(cfg, lp, x, positions, xk, xv, enc_pos))
-    body = L.remat(body, remat)
+    body = L.remat(lambda lp, x: _dec_layer(cfg, lp, x, positions, enc_out,
+                                            enc_pos, attn_impl), remat)
     for i in range(cfg.num_layers):
         x = body(L.layer_params(params["dec_layers"], i), x)
     zero = torch.zeros((), device=dev)
@@ -258,14 +276,17 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, *,
     return _logits(params, cfg, x[:, -1:]), cache
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, *,
+def decode_step(params, cfg: ArchConfig, token, cache, *, frames=None,
                 compute_dtype=torch.float32, paged_attn_impl: str = "einsum"):
     """token: (B, 1). Returns (logits (B, 1, Vp) float32, cache with pos
     advanced by one), the cache written in place. ``cache["pos"]`` is a
     scalar or a (B,) per-slot vector. With a "block_tables" leaf the
     self-attention K/V are (L, P, page_size, KV, hd) page pools read
     through the paged-attention kernel (``paged_attn_impl='kernel'``) or
-    the masked-einsum reference; the cross K/V stay dense per slot."""
+    the masked-einsum reference; the cross K/V stay dense per slot.
+    ``frames`` is not read: the cache holds the cross K/V (``repro``'s
+    step takes the batch's frames and ignores them alike)."""
+    del frames
     B = token.shape[0]
     dev = token.device
     pos = cache["pos"]
@@ -276,14 +297,14 @@ def decode_step(params, cfg: ArchConfig, token, cache, *,
     dims = _self_dims(cfg, True)
     for i in range(cfg.num_layers):
         lp = L.layer_params(params["dec_layers"], i)
-        h = _norm(x, lp["ln1"])
-        if bt is not None:
-            out = L.attention_decode_paged(
-                lp["attn"], h, dims, cache["k"][i], cache["v"][i], bt, pos,
-                positions, impl=paged_attn_impl)[0]
-        else:
-            out = L.attention_decode(lp["attn"], h, dims, cache["k"][i],
-                                     cache["v"][i], pos, positions)[0]
+        if bt is None:
+            x = _decode_layer(cfg, lp, x, cache["k"][i], cache["v"][i],
+                              cache["xk"][i], cache["xv"][i], pos, positions,
+                              enc_pos)
+            continue
+        out = L.attention_decode_paged(
+            lp["attn"], _norm(x, lp["ln1"]), dims, cache["k"][i],
+            cache["v"][i], bt, pos, positions, impl=paged_attn_impl)[0]
         x = _mlp(lp, _cross(cfg, lp, x + out, positions, cache["xk"][i],
                             cache["xv"][i], enc_pos))
     cache["pos"] = pos + 1

@@ -160,9 +160,13 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     sits at INACTIVE_POS = 2^30, where it moves the angle by whole radians,
     and an MoE layer still routes that slot's row. Computed once per
     (head_dim, theta, device), on the CPU, and moved; callers only read
-    it."""
-    e = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
-    return (1.0 / theta ** e.double()).float().to(device)
+    it. It is a real tensor even when first asked for under a dispatch
+    mode (the dry run's fake tensors and counters), so the cache holds no
+    fake tensor and counts nothing."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        e = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        return (1.0 / theta ** e.double()).float().to(device)
 
 
 def apply_rope(x, positions, theta: float):
@@ -253,23 +257,23 @@ def embed_logical():
     return {"table": ("vocab", "fsdp")}
 
 # ---------------------------------------------------------------- attention
-def _qkv(params, x, dims: AttnDims, positions):
+def _proj(params, x, name: str, heads: int, dims: AttnDims, positions):
+    """One of the q / k / v projections, (B, S, heads, hd), RoPE'd for q
+    and k."""
     B, S, _ = x.shape
-    H, KV, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    y = x @ params["w" + name].to(x.dtype)
     if dims.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
-    if dims.rope_theta > 0:
-        q = apply_rope(q, positions, dims.rope_theta)
-        k = apply_rope(k, positions, dims.rope_theta)
-    return q, k, v
+        y = y + params["b" + name].to(x.dtype)
+    y = y.reshape(B, S, heads, dims.head_dim)
+    if dims.rope_theta > 0 and name != "v":
+        y = apply_rope(y, positions, dims.rope_theta)
+    return y
+
+
+def _qkv(params, x, dims: AttnDims, positions):
+    return tuple(_proj(params, x, n, h, dims, positions) for n, h in
+                 (("q", dims.num_heads), ("k", dims.num_kv_heads),
+                  ("v", dims.num_kv_heads)))
 
 
 def _mask_bias(q_pos, k_pos, window: int, causal: bool):
@@ -300,16 +304,23 @@ def _sdpa_einsum(q, k, v, q_pos, k_pos, dims: AttnDims):
     return torch.einsum("bhqs,bshe->bqhe", probs, v)
 
 
+def _chunk_fn(q):
+    """``_sdpa_einsum`` for one chunk: checkpointed where autograd records
+    it, as ``repro`` checkpoints each chunk, so the backward keeps only a
+    chunk's inputs and computes its scores again."""
+    return remat(_sdpa_einsum, torch.is_grad_enabled() and q.requires_grad)
+
+
 def _sdpa_chunked(q, k, v, q_pos, k_pos, dims: AttnDims, q_chunk: int = 1024):
     """``_sdpa_einsum`` over query chunks of about ``q_chunk`` rows, which
-    bounds live memory to O(q_chunk * Sk). ``repro`` checkpoints each chunk
-    for its backward pass; without autograd a loop is the whole of it."""
+    bounds live memory to O(q_chunk * Sk)."""
     B, Sq, H, hd = q.shape
     n_chunks = max(1, Sq // q_chunk)
     q_chunk = Sq // n_chunks
     qs = q.reshape(B, n_chunks, q_chunk, H, hd)
     qp = q_pos.reshape(B, n_chunks, q_chunk)
-    return torch.cat([_sdpa_einsum(qs[:, c], k, v, qp[:, c], k_pos, dims)
+    fn = _chunk_fn(q)
+    return torch.cat([fn(qs[:, c], k, v, qp[:, c], k_pos, dims)
                       for c in range(n_chunks)], dim=1)
 
 
@@ -322,6 +333,7 @@ def _sdpa_banded(q, k, v, dims: AttnDims, q_chunk: int = 1024):
     n_chunks = max(1, Sq // q_chunk)
     q_chunk = Sq // n_chunks
     dev = q.device
+    fn = _chunk_fn(q)
     outs = []
     for ci in range(n_chunks):
         qs = ci * q_chunk
@@ -329,8 +341,8 @@ def _sdpa_banded(q, k, v, dims: AttnDims, q_chunk: int = 1024):
         ke = qs + q_chunk
         q_pos = torch.arange(qs, qs + q_chunk, device=dev).expand(B, q_chunk)
         k_pos = torch.arange(ks, ke, device=dev).expand(B, ke - ks)
-        outs.append(_sdpa_einsum(q[:, qs:qs + q_chunk], k[:, ks:ke],
-                                 v[:, ks:ke], q_pos, k_pos, dims))
+        outs.append(fn(q[:, qs:qs + q_chunk], k[:, ks:ke], v[:, ks:ke],
+                       q_pos, k_pos, dims))
     return torch.cat(outs, dim=1)
 
 
@@ -344,15 +356,13 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     ``repro``'s context-parallel banded form is the banded one, which is
     what runs here (context parallelism, the mesh form, is ROADMAP queue 1
     item 12's context-parallelism bullet)."""
-    tp = spmd.tp_split(params["wq"]) is not None
-    if tp:      # training: this rank's heads of the "model" axis
-        x = spmd.tp_copy(x)
-        dims = dataclasses.replace(
-            dims, num_heads=params["wq"].shape[-1] // dims.head_dim,
-            num_kv_heads=params["wk"].shape[-1] // dims.head_dim)
-    q, k, v = _qkv(params, x, dims, positions)
-    k_pos = positions
-    if kv_override is not None:
+    params, x, dims, tp = _read_heads(params, x, dims,
+                                      kv_override is None)
+    if kv_override is None:
+        q, k, v = _qkv(params, x, dims, positions)
+        k_pos = positions
+    else:       # cross-attention: x gives the queries only
+        q = _proj(params, x, "q", dims.num_heads, dims, positions)
         k, v, k_pos = kv_override
     if impl == "banded" or (impl == "chunked" and dims.window > 0
                             and dims.causal and kv_override is None):
@@ -369,6 +379,26 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     B, S, H, hd = out.shape
     out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
     return spmd.tp_sum(out) if tp else out
+
+
+def _read_heads(params, x, dims: AttnDims, self_kv: bool = True):
+    """(the weights an attention call reads, each read once, x, dims, tp?).
+    Inside the sharded step a read gathers the weight, so each is read
+    once, and the key / value weights only where x gives the keys
+    (``self_kv``). With the heads over "model" (the sharded dense decoder)
+    x enters the rank's heads (``spmd.tp_copy``) and ``dims`` counts the
+    rank's heads."""
+    names = ("wq", "bq", "wo") + (("wk", "wv", "bk", "bv") if self_kv
+                                   else ())
+    params = {k: params[k] for k in names if k in params}
+    tp = spmd.tp_split(params["wq"]) is not None
+    if tp:
+        x = spmd.tp_copy(x)
+        dims = dataclasses.replace(
+            dims, num_heads=params["wq"].shape[-1] // dims.head_dim,
+            num_kv_heads=(params["wk"].shape[-1] // dims.head_dim
+                          if self_kv else dims.num_kv_heads))
+    return params, x, dims, tp
 
 
 # Sentinel cache position of an INACTIVE (freed / never-admitted) serving
@@ -452,7 +482,10 @@ def attention_decode(params, x, dims: AttnDims, cache_k, cache_v, cache_pos,
     cache_pos: a (B,) tensor of per-slot positions (the serving engine) or
     a scalar (the lockstep scan prefill). The new K/V row is written at
     each slot's position, then rows at positions <= cache_pos (and inside
-    the window) are attended. Returns (out, cache_k, cache_v)."""
+    the window) are attended. Returns (out, cache_k, cache_v). In the
+    sharded serving step with heads over "model" the cache holds this
+    rank's kv heads and the projections its heads."""
+    params, x, dims, tp = _read_heads(params, x, dims)
     q, k, v = _qkv(params, x, dims, positions)
     B, S_max, KV, hd = cache_k.shape
     G = dims.num_heads // KV
@@ -468,7 +501,8 @@ def attention_decode(params, x, dims: AttnDims, cache_k, cache_v, cache_pos,
                                 mask_pos, k_positions, dims.window, hd)
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, dims.num_heads * hd)
-    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+    out = out @ params["wo"].to(x.dtype)
+    return (spmd.tp_sum(out) if tp else out), cache_k, cache_v
 
 
 def attention_prefill_chunk(params, x, dims: AttnDims, cache_k, cache_v,
@@ -1097,10 +1131,11 @@ def mlp(params, x, act: str = "silu"):
     act(up) @ w_down, where up = x @ w_up; biases are added where the
     params hold them. ``act='gelu'`` is the tanh approximation, which is
     ``jax.nn.gelu``'s default (torch's default is the erf form)."""
-    tp = spmd.tp_split(params["w_up"]) is not None
+    w_up = params["w_up"]       # read once: a read gathers it when sharded
+    tp = spmd.tp_split(w_up) is not None
     if tp:      # training: this rank's d_ff block of the "model" axis
         x = spmd.tp_copy(x)
-    up = x @ params["w_up"].to(x.dtype)
+    up = x @ w_up.to(x.dtype)
     if "b_up" in params:
         up = up + params["b_up"].to(x.dtype)
     if "w_gate" in params:
@@ -1231,10 +1266,9 @@ def embed_lookup(params, ids, dtype):
 def lm_logits(params_embed, x, w_unembed=None, vocab: Optional[int] = None):
     """x: (B,S,D) -> (B,S,V_padded), padding columns masked. Uses the tied
     embedding table if w_unembed is None."""
-    if w_unembed is None:
-        logits = x @ params_embed["table"].to(x.dtype).T
-    else:
-        logits = x @ w_unembed.to(x.dtype)
+    w = params_embed["table"] if w_unembed is None else w_unembed
+    wd = w.to(x.dtype)
+    logits = spmd.tp_gather(x @ (wd.T if w_unembed is None else wd), w)
     vp = logits.shape[-1]
     if vocab is not None and vocab < vp:
         keep = torch.arange(vp, device=x.device) < vocab

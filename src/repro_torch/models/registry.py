@@ -26,7 +26,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, Family, MoEConfig
+from repro_torch.configs.base import (ArchConfig, Family, MoEConfig,
+                                     ShapeConfig)
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.encdec import ENC_LEN
 from repro_torch.models.layers import INACTIVE_POS
@@ -100,6 +101,26 @@ class Model:
             return {"frames": torch.zeros((batch, ENC_LEN, cfg.d_model),
                                           dtype=dtype, device=device)}
         return {}
+
+    def input_specs(self, shape: ShapeConfig, dtype=torch.bfloat16,
+                    device="meta") -> dict:
+        """Every model input of a shape cell as tensors without data (on
+        the ``meta`` device, or fake tensors when a ``FakeTensorMode`` is
+        active and ``device`` is a real one), with ``repro``'s keys, shapes
+        and dtypes: int32 ``tokens`` / ``labels`` (B, S) for train,
+        ``tokens`` for prefill, ``token`` (B, 1) for decode, plus the
+        frontend stubs of ``extra_inputs`` in ``dtype``."""
+        B, S = shape.global_batch, shape.seq_len
+        ids = dict(dtype=torch.int32, device=device)
+        if shape.kind == "train":
+            specs = {"tokens": torch.empty((B, S), **ids),
+                     "labels": torch.empty((B, S), **ids)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": torch.empty((B, S), **ids)}
+        else:       # decode: one new token against a cache of length S
+            specs = {"token": torch.empty((B, 1), **ids)}
+        specs.update(self.extra_inputs(B, dtype, device))
+        return specs
 
 
 def get_model(cfg: ArchConfig) -> Model:

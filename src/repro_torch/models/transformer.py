@@ -22,8 +22,6 @@ projects through its own wk / wv on every call, as ``repro`` does.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.configs.base import ArchConfig, Family
@@ -192,26 +190,44 @@ def _image(cfg: ArchConfig, image_embeds, compute_dtype):
     return image_embeds.to(compute_dtype)
 
 
-def _layer_loop(params, cfg: ArchConfig, x, layer_fn, img=None,
-                cross_fn=None):
+def _super_apply(cfg: ArchConfig, sp, x, img, block_fn):
+    """One VLM super-layer: ``block_fn(i, lp, x) -> x`` over its
+    cross_attn_every decoder blocks (i the block's index in the
+    super-layer), then its cross block. Every VLM path runs its
+    super-layers through this body, and so do the dry run's probes."""
+    for i in range(cfg.cross_attn_every):
+        x = block_fn(i, L.layer_params(sp["blocks"], i), x)
+    return _cross_apply(cfg, sp["cross"], x, img)
+
+
+def _layer_loop(params, cfg: ArchConfig, x, layer_fn, img=None):
     """Every layer in order: ``layer_fn(li, lp, x) -> x`` with li the flat
     layer index (a cache's leading axis stays (L, ...): layer li of a VLM
     is block li % per of super-layer li // per, and its slice of the cache
-    is a view, as ``repro`` views it as (n_super, per, ...)); a VLM's cross
-    block (``cross_fn``, :func:`_cross_apply` by default) follows each
-    super-layer."""
+    is a view, as ``repro`` views it as (n_super, per, ...)); a VLM runs
+    :func:`_super_apply`, its cross block after each super-layer."""
     if not cfg.cross_attn_every:
         for i in range(cfg.num_layers):
             x = layer_fn(i, L.layer_params(params["layers"], i), x)
         return x
     per = cfg.cross_attn_every
-    cross_fn = cross_fn or functools.partial(_cross_apply, cfg)
     for s in range(cfg.num_layers // per):
-        sp = L.layer_params(params["super"], s)
-        for i in range(per):
-            x = layer_fn(s * per + i, L.layer_params(sp["blocks"], i), x)
-        x = cross_fn(sp["cross"], x, img)
+        x = _super_apply(cfg, L.layer_params(params["super"], s), x, img,
+                         lambda i, lp, x, base=s * per:
+                         layer_fn(base + i, lp, x))
     return x
+
+
+def _layer_apply(cfg: ArchConfig, lp, x, positions, attn_impl: str):
+    """One decoder layer over the full sequence: (x, the MoE's aux losses
+    or None)."""
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
+    if _is_mla(cfg):
+        x = x + _mla_full_attention(cfg, lp["attn"], h, positions)
+    else:
+        x = x + L.attention(lp["attn"], h, _attn_dims(cfg), positions,
+                            impl=attn_impl)
+    return _ffn(cfg, lp, x)
 
 
 def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
@@ -223,32 +239,26 @@ def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
     stack always runs its absorbed chunk form; cross blocks always the
     einsum). ``aux`` holds the MoE losses summed over layers, zero for a
     family without experts. ``remat`` (``layers.remat``) checkpoints each
-    layer's body and each cross block for training."""
+    layer's body for training, and a VLM's whole super-layer around its
+    checkpointed layers, as ``repro`` nests them (so a super-layer's
+    layers run forward three times in a training step, as there)."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    dims = _attn_dims(cfg)
-    mla = _is_mla(cfg)
     auxes = []
+    body = L.remat(lambda lp, x: _layer_apply(cfg, lp, x, positions,
+                                              attn_impl), remat)
+    if cfg.cross_attn_every:
+        img = _image(cfg, image_embeds, compute_dtype)
 
-    def body(lp, x):
-        h = L.apply_norm(x, lp["ln1"], cfg.norm)
-        if mla:
-            x = x + _mla_full_attention(cfg, lp["attn"], h, positions)
-        else:
-            x = x + L.attention(lp["attn"], h, dims, positions,
-                                impl=attn_impl)
-        return _ffn(cfg, lp, x)
-    body = L.remat(body, remat)
-
-    def layer(_, lp, x):
-        x, aux = body(lp, x)
-        auxes.append(aux)
-        return x
-
-    x = _layer_loop(params, cfg, x, layer,
-                    _image(cfg, image_embeds, compute_dtype),
-                    L.remat(functools.partial(_cross_apply, cfg), remat))
+        super_body = L.remat(lambda sp, x: _super_apply(
+            cfg, sp, x, img, lambda _, lp, x: body(lp, x)[0]), remat)
+        for s in range(cfg.num_layers // cfg.cross_attn_every):
+            x = super_body(L.layer_params(params["super"], s), x)
+    else:
+        for i in range(cfg.num_layers):
+            x, aux = body(L.layer_params(params["layers"], i), x)
+            auxes.append(aux)
     if cfg.moe:
         aux = {key: torch.stack([a[key] for a in auxes]).sum()
                for key in ("moe_aux", "moe_z")}

@@ -19,9 +19,12 @@ turns logical axes into one DTensor ``Placement`` per mesh dim,
 :class:`NamedSharding` trees (shape-aware through ``_fit_axes``),
 ``distribute`` keeps each rank's block of a full tensor and
 ``full_tensor`` gathers one back. ``shard`` redistributes a DTensor (the
-reference's sharding constraint); the sharded train step itself lives in
+reference's sharding constraint); the sharded steps themselves live in
 ``sharding.spmd``. Collectives on CUDA tensors over a gloo group go
-through the host, so one code path serves gloo and NCCL.
+through the host, so one code path serves gloo and NCCL. The three
+collectives a step runs (``all_gather``, ``reduce_scatter``,
+``all_reduce``) report what they move to ``COLLECTIVES`` while the dry run
+records them (``launch.hlo_stats.collectives``).
 
 Outside a mesh context every helper is the identity, so models run
 untouched on one device."""
@@ -267,6 +270,20 @@ def serve_mesh(tp: int, device_type: str = "cuda"):
                             mesh_dim_names=(REPLICA_AXIS, TP_AXIS))[TP_AXIS]
 
 
+# while ``launch.hlo_stats.collectives`` records: the list that every
+# collective below appends its (kind, result bytes, group size) to
+COLLECTIVES: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "collectives", default=None)
+
+
+def _record(kind: str, result, group) -> None:
+    records = COLLECTIVES.get()
+    if records is not None:
+        import torch.distributed as dist
+        records.append((kind, result.numel() * result.element_size(),
+                        dist.get_world_size(group)))
+
+
 def _host_staged(x, group) -> bool:
     """gloo moves host memory: a CUDA tensor goes through the host."""
     import torch.distributed as dist
@@ -284,6 +301,7 @@ def all_gather(x, dim: int, mesh, axis=TP_AXIS):
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
+    _record("all-gather", out, group)
     return out.to(x.device) if staged else out
 
 
@@ -494,6 +512,7 @@ def reduce_scatter(x, dim: int, mesh, mesh_dim):
         dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=group)
+    _record("reduce-scatter", out, group)
     out = out.movedim(0, dim)
     return out.to(x.device) if staged else out
 
@@ -511,5 +530,6 @@ def all_reduce(x, mesh, mesh_dims, op: str = "sum"):
         buf = out.detach().to("cpu", copy=True) if staged else \
             out.detach().clone()
         dist.all_reduce(buf, op=red, group=group)
+        _record("all-reduce", buf, group)
         out = buf.to(x.device) if staged else buf
     return out

@@ -21,6 +21,13 @@ its weights over the whole mesh and splits only the batch; a MoE layer
 gathers the tokens of the whole (micro)batch first (:func:`gather_rows`),
 so its groups, capacity and aux losses are those of one device.
 
+The sharded serving steps (``launch.steps``' prefill and lockstep decode
+on params and a dense cache of DTensors) run in the same context without
+autograd: a vocab-split head is gathered back to whole logits
+(:func:`tp_gather`), and a cache leaf split over a mesh dim that the
+compute needs whole is read one layer at a time through
+:class:`GatheredStack`.
+
 Outside the step nothing here is active and every helper is the
 identity."""
 from __future__ import annotations
@@ -49,6 +56,9 @@ _CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def training(mesh, batch_dims, tp: bool):
+    """The sharded step's context (training, and the serving steps too):
+    its mesh, the mesh dims its batch rows split over, and whether the
+    dense decoder runs tensor-parallel."""
     token = _CTX.set(_Ctx(mesh, tuple(batch_dims), tp))
     try:
         yield
@@ -179,6 +189,16 @@ def tp_max(x):
     if c is None or not c.tp:
         return x
     return specs.all_reduce(x.detach(), c.mesh, (specs.TP_AXIS,), "max")
+
+
+def tp_gather(x, w, dim: int = -1):
+    """The products of a weight ``w`` split over "model" along its output
+    columns (a vocab-split head), gathered along ``dim`` on every rank;
+    identity for a whole ``w``. Serving only: no gradient."""
+    c = _ctx()
+    if c is None or not c.tp or tp_split(w) is None:
+        return x
+    return specs.all_gather(x, dim, c.mesh, specs.TP_AXIS)
 
 
 def tp_rank() -> int:
@@ -320,8 +340,9 @@ def lazy_params(params, plans, mesh, reduce_dims) -> LazyParams:
                       {k: wrap(v, plans[k]) for k, v in params.items()}, {})
 
 
-# gathered weight's storage -> (the weight, its block, mesh, plan), while
-# the sharded step's loss runs (regather_saved)
+# id of a gathered weight's storage (the same Python object while the
+# storage lives, for real and fake tensors alike) -> (the weight, its
+# block, mesh, plan), while the sharded step's loss runs (regather_saved)
 _GATHERED: dict = {}
 
 
@@ -333,16 +354,16 @@ def materialize(local, mesh, plan: LeafPlan, reduce_dims):
     else:
         out = _Materialize.apply(local, mesh, plan.gathers, reduce_dims)
     if plan.gathers:
-        ptr = out.untyped_storage().data_ptr()
-        _GATHERED[ptr] = (weakref.ref(out), local, mesh, plan.gathers)
-        weakref.finalize(out, _GATHERED.pop, ptr, None)
+        key = id(out.untyped_storage())
+        _GATHERED[key] = (weakref.ref(out), local, mesh, plan.gathers)
+        weakref.finalize(out, _GATHERED.pop, key, None)
     if plan.tp_dim is not None:
         out._tp_split = plan.tp_dim
     return out
 
 
 def _pack(t):
-    entry = _GATHERED.get(t.untyped_storage().data_ptr())
+    entry = _GATHERED.get(id(t.untyped_storage()))
     if entry is None or entry[0]() is None:
         return t
     return (_GATHERED, entry[1:], t.size(), t.stride(), t.storage_offset())
@@ -363,3 +384,46 @@ def regather_saved():
     and gathers it again in the backward (ZeRO-3), so no rank keeps every
     layer's gathered weights alive at once."""
     return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+# ------------------------------------------------------------ serving caches
+class GatheredStack:
+    """A serving cache leaf stacked along layers, (L, ...), whose rank
+    block is split over mesh dims the step's compute needs whole (a
+    sequence split over "model", heads of a family that runs them whole):
+    ``stack[i]`` is layer i gathered over ``gathers`` ((mesh dim, leaf
+    dim) pairs, outer first), the same tensor until another layer is read;
+    then, or at ``flush``, the rank's block of it is written back in
+    place, so the model's in-place writes land in the rank's block. One
+    layer is gathered at a time."""
+
+    def __init__(self, local, mesh, gathers):
+        self.local, self.mesh, self.gathers = local, mesh, tuple(gathers)
+        self._open = None
+
+    @property
+    def shape(self):
+        s = list(self.local.shape)
+        for i, d in self.gathers:
+            s[d] *= self.mesh.size(i)
+        return torch.Size(s)
+
+    def __getitem__(self, i: int):
+        if self._open is not None:
+            if self._open[0] == i:
+                return self._open[1]
+            self.flush()
+        full = self.local[i]
+        for md, d in reversed(self.gathers):
+            full = specs.all_gather(full, d - 1, self.mesh, md)
+        self._open = (i, full)
+        return full
+
+    def flush(self):
+        if self._open is None:
+            return
+        i, own = self._open
+        for md, d in self.gathers:
+            own = _own(own, d - 1, self.mesh, md)
+        self.local[i].copy_(own)
+        self._open = None
