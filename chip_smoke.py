@@ -238,6 +238,20 @@ before printing any result. Phases, each of which raises on failure:
    compute and memory terms at the data sheet's peaks. (The
    production-mesh dry run takes longer than this script can spend:
    ``python -m repro_torch.launch.dryrun``, PERF.md.)
+22. the sequence over "model", after phase 21, TF32 off: (22a)
+   qwen2.5-32b at full width cut to 2 layers, fp32, mesh-free here and
+   then on (1, 3) ranks (``chip_smoke.py --cp-rank``, gloo on cuda:0
+   with one card; 40 heads over 8 kv heads divide no 3, so the rows and
+   the cache's sequence run context-parallel): a sharded prefill of 8 x
+   3072 rows and 16 greedy lockstep decode steps over a cache of 3072
+   rows holding 2040 (flash decode, the steps crossing from rank 1's
+   rows into rank 2's): logits within CP_TOL, tokens equal, the rows the
+   steps wrote equal in each rank's block; each rank's collective bytes a
+   decode step beside what a gather of each layer's K and V would move,
+   its wall and device busy a step; (22b) hymba-1.5b cut to 2 layers,
+   its prefill of 2 x 4096 through the banded form at (1, 2) (each
+   rank's chunks and a halo from its neighbour) within CP_TOL of
+   mesh-free.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
@@ -409,6 +423,7 @@ RECURRENT_TOL = 1e-3
 # compared on its first 2 layers; hymba resolves it at HYMBA_LAYERS
 CHECK_LAYERS = {RWKV: 2, HYMBA: HYMBA_LAYERS}
 DEV = torch.device("cuda")
+T_START = time.perf_counter()           # the whole script's clock
 
 
 def log(msg):
@@ -5503,6 +5518,279 @@ def phase21_dry_run(card):
     log(f"  phase 21 took {time.perf_counter() - t21:.1f} s ({card})")
 
 
+# ------------------------------------------------------------ phase 22
+# the sequence over "model": qwen2.5-32b at full width cut to CP_LAYERS
+# layers, fp32, on CP_MESH gloo ranks (40 heads over 8 kv heads divide no
+# 3: the context-parallel form of the rows and the cache), a sharded
+# prefill of CP_PREFILL rows and CP_STEPS lockstep decode steps over a
+# cache of its CP_PREFILL[1] rows holding the first CP_PROMPT (the steps
+# cross row 2048, from rank 1's block into rank 2's); hymba-1.5b cut to
+# CP_LAYERS layers through the banded form at CP_HYMBA_MESH over
+# CP_HYMBA rows
+CP_LAYERS = 2
+CP_MESH, CP_PREFILL, CP_PROMPT, CP_STEPS = (1, 3), (8, 3072), 2040, 16
+CP_CHUNK = 1020                  # the mesh-free cache's prefill chunks
+CP_HYMBA_MESH, CP_HYMBA = (1, 2), (2, 4096)
+CP_TOL = 1e-4                    # the CPU tests' SERVE_TOL
+CP_TIMEOUT = 300
+CP_PROFILED = 8                  # decode steps under torch.profiler
+
+
+def cp_model(arch):
+    return get_model(dataclasses.replace(configs.get_config(arch),
+                                         num_layers=CP_LAYERS))
+
+
+def cp_params(model, dev):
+    return model.init(torch.Generator(dev).manual_seed(0), dev)
+
+
+def cp_tokens(vocab, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape).astype(np.int32))
+
+
+def phase22_sequence_split(card):
+    """22a: qwen2.5-32b (CP_LAYERS layers, fp32) mesh-free here: the
+    prefill's logits over CP_PREFILL rows, then a cache of CP_PREFILL[1]
+    rows prefilled to CP_PROMPT and CP_STEPS greedy decode steps; the same
+    on CP_MESH spawned ranks (``chip_smoke.py --cp-rank``), the rows and
+    the cache's sequence split over "model": logits within CP_TOL, tokens
+    equal, the rows the steps wrote equal in each rank's block; each
+    rank's collective bytes a decode step beside the per-layer cache
+    gather's, its wall and device busy a step. 22b: hymba-1.5b's prefill
+    through the banded form at CP_HYMBA_MESH within CP_TOL of mesh-free."""
+    t22 = time.perf_counter()
+    f32 = dict(compute_dtype=torch.float32)
+    model = cp_model(ARCH)
+    cfg = model.cfg
+    B, S = CP_PREFILL
+    with tempfile.TemporaryDirectory() as d:
+        with torch.no_grad():
+            params = cp_params(model, DEV)
+            tokens = cp_tokens(cfg.vocab_size, CP_PREFILL, 22)
+            toks = tokens.to(DEV)
+            ref = steps.make_prefill(model, attn_impl="chunked", **f32)(
+                params, {"tokens": toks})
+            cache = model.init_cache(B, S, torch.float32, device=DEV)
+            for a in range(0, CP_PROMPT, CP_CHUNK):
+                _, cache = model.prefill_chunk(
+                    params, toks[:, a:a + CP_CHUNK], cache,
+                    attn_impl="einsum", first=a == 0, **f32)
+            start = {k: v.cpu() for k, v in cache.items()}
+            decode = steps.make_decode_step(model, **f32)
+            tok, dec_logits, dec_tokens = toks[:, CP_PROMPT:CP_PROMPT + 1], \
+                [], []
+            for _ in range(CP_STEPS):
+                out, cache = decode(params, cache, {"token": tok})
+                tok = out[:, -1].argmax(-1, keepdim=True).int()
+                dec_logits.append(out.cpu())
+                dec_tokens.append(tok[:, 0].tolist())
+            rows = slice(CP_PROMPT, CP_PROMPT + CP_STEPS)
+            torch.save({"tokens": tokens, "prefill": ref.cpu(),
+                        "cache": start, "logits": dec_logits,
+                        "tokens_out": dec_tokens,
+                        "rows": {k: cache[k][:, :, rows].cpu()
+                                 for k in ("k", "v")}},
+                       os.path.join(d, "qwen.pt"))
+        del params, cache, ref, start
+        torch.cuda.empty_cache()
+        gather = 2 * cfg.num_layers * B * S * cfg.num_kv_heads \
+            * cfg.head_dim * 4
+        log(f"  22a {ARCH} ({CP_LAYERS} layers, fp32) mesh-free: prefill "
+            f"{B} x {S}, a cache of {S} rows to {CP_PROMPT}, {CP_STEPS} "
+            f"greedy steps; spawning {int(np.prod(CP_MESH))} ranks at "
+            f"{CP_MESH} ({time.perf_counter() - t22:.1f} s so far)")
+        t0 = time.perf_counter()
+        run = os.path.join(d, "qwen")
+        os.mkdir(run)
+        form, ranks = spawn_ranks(int(np.prod(CP_MESH)), run, "--cp-rank",
+                                  CP_TIMEOUT)
+        for r, got in enumerate(ranks):
+            if not (got["prefill_err"] < CP_TOL and got["logits_err"] < CP_TOL
+                    and got["rows_err"] < CP_TOL
+                    and got["tokens"] == dec_tokens):
+                raise AssertionError(f"22a rank {r}: {got}")
+        log(f"  22a {CP_MESH} ({form}"
+            + (", all on cuda:0, the collectives staged through the host"
+               if form == "gloo" else "")
+            + f", {time.perf_counter() - t0:.1f} s): prefill logits within "
+            f"{max(g['prefill_err'] for g in ranks):.3e}, decode logits "
+            f"within {max(g['logits_err'] for g in ranks):.3e} (bound "
+            f"{CP_TOL}), greedy tokens equal over {CP_STEPS} steps, the "
+            f"written rows within {max(g['rows_err'] for g in ranks):.3e}")
+        for r, got in enumerate(ranks):
+            log(f"  22a rank {r}: prefill wall {got['prefill_s']:.3f} s, "
+                f"collectives {got['prefill_coll']}; a decode step's "
+                f"collectives {got['step_coll']} B, where a gather of "
+                f"each layer's K and V would have moved {gather:,} B; "
+                f"decode wall a step {got['walls']} s; over the last "
+                f"{CP_PROFILED} steps {got['busy'] * 1e3:.3f} ms device "
+                f"busy a step of {got['wall'] * 1e3:.3f} ms wall "
+                f"({card})")
+
+        t0 = time.perf_counter()
+        model = cp_model(HYMBA)
+        kw = dict(attn_impl="banded", scan_impl="scan", **f32)
+        with torch.no_grad():
+            params = cp_params(model, DEV)
+            tokens = cp_tokens(model.cfg.vocab_size, CP_HYMBA, 23)
+            ref = steps.make_prefill(model, **kw)(params,
+                                                  {"tokens": tokens.to(DEV)})
+            torch.save({"tokens": tokens, "prefill": ref.cpu()},
+                       os.path.join(d, "hymba.pt"))
+        del params, ref
+        torch.cuda.empty_cache()
+        run = os.path.join(d, "hymba")
+        os.mkdir(run)
+        form, ranks = spawn_ranks(int(np.prod(CP_HYMBA_MESH)), run,
+                                  "--cp-rank", CP_TIMEOUT)
+        for r, got in enumerate(ranks):
+            if not got["err"] < CP_TOL or not got["permutes"]:
+                raise AssertionError(f"22b rank {r}: {got}")
+        log(f"  22b {HYMBA} ({CP_LAYERS} layers, fp32) prefill {CP_HYMBA[0]}"
+            f" x {CP_HYMBA[1]} through the banded form at {CP_HYMBA_MESH} "
+            f"({form}, {time.perf_counter() - t0:.1f} s): logits within "
+            f"{max(g['err'] for g in ranks):.3e} of mesh-free (bound "
+            f"{CP_TOL}); rank 0's collectives {ranks[0]['coll']} B, "
+            f"prefill wall {[round(g['wall'], 3) for g in ranks]} s")
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s ({card})")
+
+
+def cp_qwen_rank(dev, out_dir):
+    """22a on this rank (CP_MESH): the sharded prefill and the greedy
+    decode over the rank's block of the cache, held to the mesh-free run
+    in DIR/../qwen.pt."""
+    from repro_torch.launch import hlo_stats
+    ref = torch.load(os.path.join(out_dir, "..", "qwen.pt"), mmap=True)
+    f32 = dict(compute_dtype=torch.float32)
+    model = cp_model(ARCH)
+    mesh = mesh_mod.make_mesh(CP_MESH, ("data", "model"), dev.type)
+    out = {}
+    with torch.no_grad():
+        params = cp_params(model, dev)
+        with specs.use_mesh(mesh):
+            p = steps.place(params, steps.param_shardings(model, params))
+        del params
+        torch.cuda.empty_cache()
+        tokens = ref["tokens"].to(dev)
+        with specs.use_mesh(mesh):
+            b = steps.place({"tokens": tokens}, steps.batch_shardings(
+                model, {"tokens": tokens}))
+        prefill = steps.make_prefill(model, attn_impl="chunked",
+                                     sharded=True, **f32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with hlo_stats.collectives() as records:
+            logits = prefill(p, b)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_coll"] = hlo_stats.collective_bytes(records)
+        out["prefill_err"] = float((logits.cpu() - ref["prefill"]).abs()
+                                   .max())
+        del logits
+        with specs.use_mesh(mesh):
+            sh = steps.cache_shardings(model, ref["cache"])
+        c = {k: specs.distribute(v, sh[k], dev)
+             for k, v in ref["cache"].items()}
+        decode = steps.make_decode_step(model, sharded=True, **f32)
+        tok, err, toks, walls = tokens[:, CP_PROMPT:CP_PROMPT + 1], 0.0, \
+            [], []
+        prof = contextlib.nullcontext()
+        for i in range(CP_STEPS):
+            with specs.use_mesh(mesh):
+                bt = steps.place({"token": tok}, steps.batch_shardings(
+                    model, {"token": tok}))
+            if i == CP_STEPS - CP_PROFILED:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hlo_stats.collectives() as records:
+                logits, c = decode(p, c, bt)
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t0, 4))
+            if i == 0:
+                out["step_coll"] = hlo_stats.collective_bytes(records)
+            err = max(err, float((logits.cpu() - ref["logits"][i]).abs()
+                                 .max()))
+            tok = logits[:, -1].argmax(-1, keepdim=True).int()
+            toks.append(tok[:, 0].tolist())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_prof
+        prof.__exit__(None, None, None)
+        busy = step_breakdown(prof, wall)["busy"]
+        rows_err = 0.0
+        for k in ("k", "v"):
+            own = c[k].to_local()
+            s_loc = own.shape[2]
+            lo = mesh.get_local_rank("model") * s_loc
+            for j in range(CP_STEPS):
+                row = CP_PROMPT + j
+                if lo <= row < lo + s_loc:
+                    rows_err = max(rows_err, float(
+                        (own[:, :, row - lo].cpu() - ref["rows"][k][:, :, j])
+                        .abs().max()))
+    out.update({"logits_err": err, "tokens": toks, "walls": walls,
+                "rows_err": rows_err, "busy": busy / CP_PROFILED,
+                "wall": wall / CP_PROFILED})
+    return out
+
+
+def cp_hymba_rank(dev, out_dir):
+    """22b on this rank (CP_HYMBA_MESH): hymba's sharded prefill through
+    the banded form, held to DIR/../hymba.pt."""
+    from repro_torch.launch import hlo_stats
+    ref = torch.load(os.path.join(out_dir, "..", "hymba.pt"))
+    model = cp_model(HYMBA)
+    mesh = mesh_mod.make_mesh(CP_HYMBA_MESH, ("data", "model"), dev.type)
+    with torch.no_grad():
+        params = cp_params(model, dev)
+        tokens = ref["tokens"].to(dev)
+        with specs.use_mesh(mesh):
+            p = steps.place(params, steps.param_shardings(model, params))
+            b = steps.place({"tokens": tokens}, steps.batch_shardings(
+                model, {"tokens": tokens}))
+        del params
+        prefill = steps.make_prefill(model, attn_impl="banded",
+                                     scan_impl="scan", sharded=True,
+                                     compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with hlo_stats.collectives() as records:
+            logits = prefill(p, b)
+        torch.cuda.synchronize()
+    return {"err": float((logits.cpu() - ref["prefill"]).abs().max()),
+            "wall": time.perf_counter() - t0,
+            "coll": hlo_stats.collective_bytes(records),
+            "permutes": sum(1 for kind, _, _ in records
+                            if kind == "collective-permute")}
+
+
+def cp_rank(rank: int, world: int, out_dir: str, form: str) -> int:
+    """One rank of phase 22 (``chip_smoke.py --cp-rank R N DIR FORM``):
+    22a with CP_MESH's ranks, 22b with CP_HYMBA_MESH's; writes
+    DIR/rank<R>.json."""
+    import datetime
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(rank, form)
+    dist.init_process_group(form, init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    out = (cp_qwen_rank(dev, out_dir) if world == int(np.prod(CP_MESH))
+           else cp_hymba_rank(dev, out_dir))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5638,6 +5926,10 @@ def main():
     log("phase 21: the dry run against the card (minicpm-2b train, "
         "qwen2.5-32b decode)")
     phase21_dry_run(card)
+    log(f"phase 22: the sequence over \"model\": {ARCH} at full width, "
+        f"{CP_LAYERS} layers, prefill and flash decode at {CP_MESH}; "
+        f"{HYMBA}'s banded form at {CP_HYMBA_MESH}")
+    phase22_sequence_split(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -5781,6 +6073,8 @@ def main():
                 "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
     log(f"device times the profiler could not give, timed between events "
         f"instead: {len(FALLBACKS)}")
+    log(f"the whole script took {time.perf_counter() - T_START:.1f} s "
+        f"({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5795,4 +6089,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:
         sys.exit(train_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                             sys.argv[5]))
+    if sys.argv[1:2] == ["--cp-rank"]:
+        sys.exit(cp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5]))
     sys.exit(main())

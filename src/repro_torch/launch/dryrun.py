@@ -172,9 +172,10 @@ def footprint(m) -> int:
 # ------------------------------------------------------------ probes
 def _compute_block(t, sh, logical, mesh, dims, keeps):
     """This rank's block of a whole probe argument as the sharded step's
-    compute reads it: its rows over the batch's mesh dims and, for the
-    dense decoder, its "model" dims of kept logical axes; every other
-    split gathered back (recorded as the step's gathers are)."""
+    compute reads it: its rows over the batch's mesh dims and its "model"
+    dims of kept logical axes (the dense decoder's, and "seq_sp" where the
+    step keeps the rank's rows); every other split gathered back
+    (recorded as the step's gathers are)."""
     if sh is None:
         return t
     names = specs.axis_names(mesh)
@@ -220,17 +221,24 @@ def run_probe(pr, model, mesh, rules):
             return spmd.lazy_params(leaves, plans, mesh, dims)
         return spmd.materialize(leaves, mesh, plans, dims)
 
-    def block(a, sh, lg):
+    def block(a, sh, lg, kept):
         if isinstance(a, dict):
-            return {k: block(a[k], sh[k], lg[k]) for k in a}
-        return _compute_block(a, sh, lg, mesh, dims, keeps)
+            return {k: block(a[k], sh[k], lg[k], kept) for k in a}
+        return _compute_block(a, sh, lg, mesh, dims, kept)
 
-    rest = [block(a, sh, lg) for a, sh, lg in
-            zip(pr.args[2:], shs[2:], pr.shardings[2:])]
-    x = block(pr.args[0], shs[0], pr.shardings[0])
+    # the step's rows over "model": the dense decoder's residual (sp) and
+    # a self-attention cache's sequence (the lockstep decode's flash form)
+    sp = spmd.seq_split(model.cfg, mesh, pr.args[0].shape[1])
+    cp = any(spmd.cp_cache_dims(pr.shardings[j], shs[j])
+             for j in pr.cache_args)
+    seq = keeps | {"seq_sp"}
+    rest = [block(a, sh, lg, seq if j in pr.cache_args and cp else keeps)
+            for j, (a, sh, lg) in enumerate(
+                zip(pr.args[2:], shs[2:], pr.shardings[2:]), 2)]
+    x = block(pr.args[0], shs[0], pr.shardings[0], seq if sp else keeps)
     counter = hlo_stats.OpCounter()
     with hlo_stats.collectives() as records, \
-            spmd.training(mesh, dims, bool(keeps)):
+            spmd.training(mesh, dims, bool(keeps), sp=sp, cp_cache=cp):
         with counter:
             if getattr(pr.fn, "takes_view", False):
                 pr.fn(x, lp, *rest, view=view)

@@ -11,7 +11,7 @@ without the memory it would take.
     tensor storages (``LiveBytes``);
   * ``collective_bytes``: per-rank bytes per collective kind, by
     ``repro``'s rule, from the records of ``sharding/specs.py``'s
-    ``all_gather`` / ``reduce_scatter`` / ``all_reduce``.
+    ``all_gather`` / ``reduce_scatter`` / ``all_reduce`` / ``shift``.
 """
 from __future__ import annotations
 
@@ -241,15 +241,15 @@ def memory_stats(tracker: LiveBytes) -> Dict[str, int]:
 
 
 # ------------------------------------------------------------ collectives
-_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "collective-permute")
 
 
 @contextlib.contextmanager
 def collectives():
     """Record, while active, every collective that ``sharding/specs.py``'s
-    ``all_gather``, ``reduce_scatter`` and ``all_reduce`` run: yields the
-    list their (kind, result bytes, group size) records are appended
-    to."""
+    ``all_gather``, ``reduce_scatter``, ``all_reduce`` and ``shift`` run:
+    yields the list their (kind, result bytes, group size) records are
+    appended to."""
     from repro_torch.sharding import specs
     records: list = []
     token = specs.COLLECTIVES.set(records)
@@ -262,9 +262,10 @@ def collectives():
 def collective_bytes(records: Iterable) -> Dict[str, int]:
     """PER-RANK bytes per collective kind, ``repro``'s rule:
 
-      all-gather     : the result's bytes (what a rank receives)
-      reduce-scatter : the operand's bytes = the result's times the group
-      all-reduce     : the result's bytes
+      all-gather         : the result's bytes (what a rank receives)
+      reduce-scatter     : the operand's bytes = the result's times the group
+      all-reduce         : the result's bytes
+      collective-permute : the result's bytes (= the operand's)
 
     plus ``total``, their sum. Every kind that ran has a key."""
     out: Dict[str, int] = defaultdict(int)

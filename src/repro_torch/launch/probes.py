@@ -33,6 +33,9 @@ class Probe:
     fn: Callable
     args: tuple             # tensors without data (fake or meta)
     shardings: Optional[tuple]   # logical-axis trees matching args
+    # the args that are a self-attention K / V cache: the sharded decode
+    # keeps their sequence's "model" block (flash decode)
+    cache_args: tuple = ()
 
 
 # params subtrees of one layer slice and their leading stack axes left
@@ -124,9 +127,12 @@ def probes_for(model: Model, shape: ShapeConfig, *,
         return _grad_wrap(fwd, remat) if kind == "train" else fwd
 
     # positions are made from the rows a call is given (a rank of the
-    # sharded runner holds its own rows)
+    # sharded runner holds its own rows; with the dense decoder's rows
+    # over "model", its block of the sequence: ``spmd.seq_rows``)
     def seq_positions(x, n):
-        return torch.arange(n, device=x.device).expand(x.shape[0], n)
+        lo, hi = spmd.seq_rows(x.shape[1]) if n == x.shape[1] else (0, n)
+        return torch.arange(lo, hi, device=x.device).expand(x.shape[0],
+                                                            hi - lo)
 
     pos = _const(S - 1)
 
@@ -140,7 +146,7 @@ def probes_for(model: Model, shape: ShapeConfig, *,
         if kind in ("train", "prefill"):
             def fwd(x, lp):
                 return transformer._layer_apply(cfg, lp, x,
-                                                seq_positions(x, S),
+                                                seq_positions(x, x.shape[1]),
                                                 attn_impl)[0]
             probes.append(Probe("layer", mult(cfg.num_layers), wrap(fwd),
                                 (x_(B, S), lp), (X_LOGICAL, lp_log)))
@@ -167,7 +173,7 @@ def probes_for(model: Model, shape: ShapeConfig, *,
                     (x_(B, 1), lp,
                      torch.empty((B, S, kv, hd), dtype=cd, device=device),
                      torch.empty((B, S, kv, hd), dtype=cd, device=device)),
-                    (X_LOGICAL, lp_log, kv_log, kv_log)))
+                    (X_LOGICAL, lp_log, kv_log, kv_log), (2, 3)))
 
     elif cfg.family == Family.VLM:
         sp = _layer_params(model, "super", device)
@@ -203,7 +209,7 @@ def probes_for(model: Model, shape: ShapeConfig, *,
                  torch.empty((per, B, S, kv, hd), dtype=cd, device=device),
                  torch.empty((per, B, S, kv, hd), dtype=cd, device=device),
                  img),
-                (X_LOGICAL, sp_log, kv_log, kv_log, img_log)))
+                (X_LOGICAL, sp_log, kv_log, kv_log, img_log), (2, 3)))
 
     elif cfg.family == Family.ENCDEC:
         enc_lp = _layer_params(model, "enc_layers", device)
@@ -242,7 +248,8 @@ def probes_for(model: Model, shape: ShapeConfig, *,
                  torch.empty((B, S, kv, hd), dtype=cd, device=device),
                  torch.empty((B, Se, kv, hd), dtype=cd, device=device),
                  torch.empty((B, Se, kv, hd), dtype=cd, device=device)),
-                (X_LOGICAL, dec_log, kv_log, kv_log, xkv_log, xkv_log)))
+                (X_LOGICAL, dec_log, kv_log, kv_log, xkv_log, xkv_log),
+                (2, 3)))
 
     elif cfg.family == Family.SSM:
         lp = _layer_params(model, "layers", device)
@@ -320,9 +327,12 @@ def probes_for(model: Model, shape: ShapeConfig, *,
 
                 def body(x, ww):
                     ww = view(ww)
-                    return _steps.head_ce_chunk(
-                        x, ww, labels_c, vocab, tied,
-                        spmd.tp_split(ww) is not None)
+                    split = spmd.tp_split(ww) is not None
+                    labels = labels_c
+                    if spmd.sp_on() and not split:     # the rank's rows
+                        labels = labels[:, slice(*spmd.seq_rows(x.shape[1]))]
+                    return _steps.head_ce_chunk(x, ww, labels, vocab, tied,
+                                                split)
                 out = checkpoint(spmd.checkpointed(body), x_c, w,
                                  use_reentrant=False)
                 return torch.autograd.grad(out, (x_c, w))

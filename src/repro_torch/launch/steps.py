@@ -45,13 +45,15 @@ def head_ce_chunk(x_c, head_w, labels_c, vocab: int, tied: bool,
     x_c: (B, C, D); head_w: (D, Vp) or the tied table (Vp, D); labels_c:
     (B, C). Padded vocab columns are masked at ``mask_value``. Inside the
     sharded step a head split over "model" (``split``: ``spmd.tp_split``)
-    gives the rank's vocab columns and the CE is reduced over the ranks."""
+    gives the rank's vocab columns and the CE is reduced over the ranks;
+    with the rows over "model" (``spmd.sp_on``) x_c is the rank's rows,
+    gathered first, and ``labels_c`` those of every rank in rank order."""
     if split:
-        x_c = spmd.tp_copy(x_c)
+        x_c = spmd.sp_gather(x_c) if spmd.sp_on() else spmd.tp_copy(x_c)
     w = head_w.to(x_c.dtype)
     logits = (x_c @ w.T if tied else x_c @ w).float()
     vp = logits.shape[-1]
-    lo = spmd.tp_rank() * vp if split else 0
+    lo = spmd.model_rank() * vp if split else 0
     if vocab < lo + vp:
         keep = torch.arange(lo, lo + vp, device=logits.device) < vocab
         logits = torch.where(keep, logits, mask_value(logits.dtype))
@@ -74,24 +76,41 @@ def chunked_cross_entropy(features, head_w, labels, vocab: int, tied: bool,
     """Never materializes (B, S, V) logits: S in chunks, each chunk's body
     checkpointed (its logits recomputed in the backward, as ``repro``'s
     ``nothing_saveable`` remat does), the chunk sums added in order, then
-    divided by B * S."""
-    B, S, D = features.shape
-    chunk = min(chunk, S)
-    n = S // chunk
+    divided by B * S.
 
+    Inside the sharded step with the rows over "model" (``spmd.sp_on``)
+    ``features`` are the rank's S / M rows and ``labels`` all S: the
+    chunks are of the rank's rows, a vocab-split head gathers each
+    chunk's rows of every rank (their labels taken in the same order),
+    and a whole head's sums of the rank's rows are added over "model", so
+    each rank's loss is the mean over every row."""
+    B, n, D = features.shape
+    S = labels.shape[1]
+    sp = spmd.sp_on()
+    ways = S // n if sp else 1
+    chunk = max(1, min(chunk, S) // ways)
     split = spmd.tp_split(head_w) is not None
     chunk_fn = spmd.checkpointed(head_ce_chunk)
+    lo = spmd.seq_rows(n)[0]
 
-    def body(x_c, l_c):
-        return checkpoint(chunk_fn, x_c, head_w, l_c, vocab, tied, split,
-                          use_reentrant=False)
+    def body(a, b):
+        if not sp:
+            l_c = labels[:, a:b]
+        elif split:
+            l_c = torch.cat([labels[:, r * n + a:r * n + b]
+                             for r in range(ways)], dim=1)
+        else:
+            l_c = labels[:, lo + a:lo + b]
+        return checkpoint(chunk_fn, features[:, a:b], head_w, l_c, vocab,
+                          tied, split, use_reentrant=False)
 
     total = torch.zeros((), dtype=torch.float32, device=features.device)
-    for i in range(n):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        total = total + body(features[:, sl], labels[:, sl])
-    if S - n * chunk:
-        total = total + body(features[:, n * chunk:], labels[:, n * chunk:])
+    for a in range(0, n - n % chunk, chunk):
+        total = total + body(a, a + chunk)
+    if n % chunk:
+        total = total + body(n - n % chunk, n)
+    if sp and not split:
+        total = spmd.tp_sum(total)
     return total / (B * S)
 
 
@@ -184,6 +203,8 @@ def make_prefill(model: Model, *, compute_dtype=torch.bfloat16,
                                  **_batch_extras(batch))
         w, tied = head_weight(model, params)
         last = feats[:, -1:]
+        if spmd.sp_on():    # the last row is the last "model" rank's
+            last = spmd.sp_gather(last)[:, -1:]
         wd = w.to(last.dtype)
         return spmd.tp_gather((last @ wd.T if tied else last @ wd).float(),
                               w)
@@ -456,14 +477,16 @@ def _sharded_prefill(model: Model, one, batch_chunks: int):
     """The prefill on params of DTensors (SPMD, no autograd): each rank
     runs its rows of each of the ``batch_chunks`` slices of the global
     batch on weights gathered per layer (the dense decoder's heads, d_ff
-    and vocab over "model"), and the logits of every row are gathered to
-    every rank: ``(B, 1, Vp)``, equal to the mesh-free step's within fp32
-    sum order."""
+    and vocab over "model", its residual on the rank's rows of the
+    sequence where ``spmd.seq_split`` says so), and the logits of every
+    row are gathered to every rank: ``(B, 1, Vp)``, equal to the mesh-free
+    step's within fp32 sum order."""
     def run(params, batch):
         mesh, keeps, local, plans = _local_params(model, params)
+        sp = spmd.seq_split(model.cfg, mesh, batch["tokens"].shape[1])
         outs = []
         for mb, dims in _microbatches(model, batch, mesh, batch_chunks):
-            with spmd.training(mesh, dims, bool(keeps)):
+            with spmd.training(mesh, dims, bool(keeps), sp=sp):
                 outs.append(spmd.gather_rows(one(
                     spmd.lazy_params(local, plans, mesh, dims), mb)))
         return torch.cat(outs)
@@ -474,9 +497,12 @@ def _sharded_decode(model: Model, decode):
     """The lockstep decode on params and a dense cache of DTensors (SPMD,
     no autograd): each rank runs its batch rows against its block of the
     cache, the dense decoder's heads over "model" with the cache's kv
-    heads. A cache leaf split over a mesh dim that the compute needs whole
-    (a sequence over "model"; a recurrent family's heads or channels) is
-    gathered one layer at a time and its block written back
+    heads. A self-attention K / V leaf whose sequence is split over
+    "model" stays the rank's block, and the attention runs as flash
+    decode over it (``layers.attention_decode``, ``spmd.cp_cache``). A
+    leaf split over a mesh dim that the compute needs whole (whisper's
+    cross K / V ``xk`` / ``xv``; a recurrent family's heads or channels)
+    is gathered one layer at a time and its block written back
     (:class:`spmd.GatheredStack`). Returns (the logits of every row on
     every rank, ``(B, 1, Vp)``, the cache written in place)."""
     def run(params, cache, batch):
@@ -485,22 +511,25 @@ def _sharded_decode(model: Model, decode):
         with specs.use_mesh(mesh):
             logical = model.cache_logical()
         names = specs.axis_names(mesh)
-        local, stacks = {}, []
+        local, stacks, cp = {}, [], False
         for k, v in cache.items():
             sh = specs.sharding_of(v)
             if sh is None:
                 local[k] = v
                 continue
             loc = v.to_local()
+            seq = (spmd.cp_cache_dims(logical[k], sh) if k in ("k", "v")
+                   else ())
+            cp = cp or bool(seq)
             gathers = [(i, d) for i, d in specs.shard_dims(sh)
-                       if i not in dims and not (
-                           names[i] == specs.TP_AXIS
-                           and logical[k][d] in keeps)]
+                       if d not in seq and i not in dims
+                       and not (names[i] == specs.TP_AXIS
+                                and logical[k][d] in keeps)]
             if gathers:
                 loc = spmd.GatheredStack(loc, mesh, gathers)
                 stacks.append(loc)
             local[k] = loc
-        with spmd.training(mesh, dims, bool(keeps)):
+        with spmd.training(mesh, dims, bool(keeps), cp_cache=cp):
             logits, local = decode(spmd.lazy_params(
                 local_params, plans, mesh, dims), local, mb)
             for st in stacks:
@@ -519,15 +548,19 @@ def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
     loss and "ce" and each gradient as the rank's block of the params'
     layout. Each rank computes the loss of its rows of every microbatch on
     weights gathered per layer (``sharding.spmd``), divided by the number
-    of ways the rows split, so the ranks' losses sum to the global mean;
-    the gradients come back summed over the batch's ranks."""
+    of ways the batch rows split, so the ranks' losses sum to the global
+    mean; the gradients come back summed over the batch's ranks. The
+    dense decoder keeps its residual on the rank's rows of the sequence
+    where ``spmd.seq_split`` says so; its loss, summed over "model" in the
+    chunked CE, is then every row's on each "model" rank."""
     def run(params, batch):
         mesh, keeps, local, plans = _local_params(model, params)
         grads, loss, ce, metrics = None, 0.0, 0.0, {}
         for mb, dims in _microbatches(model, batch, mesh, microbatches):
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               local)
-            with spmd.training(mesh, dims, bool(keeps)), \
+            sp = spmd.seq_split(model.cfg, mesh, mb["tokens"].shape[1])
+            with spmd.training(mesh, dims, bool(keeps), sp=sp), \
                     spmd.regather_saved():
                 n = spmd.batch_split()
                 mloss, metrics = loss_fn(

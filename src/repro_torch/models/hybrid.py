@@ -15,6 +15,14 @@ associative scan in ``jax.lax.associative_scan``'s order, and 'auto' (every
 entry point's default) the kernel on the card and, on the CPU, what
 ``repro`` runs: 'assoc' in a prefill chunk, 'scan' in decode and the
 forward.
+
+Inside the sharded steps on a "model" axis above 1 the full-sequence
+attention's band ('banded', or 'chunked' with the window) runs as
+``repro``'s context-parallel form (``layers._sdpa_banded_cp``): each rank
+attends its own whole query chunks against its K / V rows and a halo of
+the previous rank's last ``window`` rows, and the output rows are
+gathered back to the replicated residual the SSM branch reads; where
+``repro`` falls back to the mesh-free band, so does the port.
 """
 from __future__ import annotations
 

@@ -14,10 +14,17 @@ kv-head slab of each new K/V row into its slab of the pool, attends on its
 own query heads and all-gathers the head outputs before ``wo``
 (``specs.replicate``); everything else runs replicated.
 
-Inside the sharded train step (``sharding.spmd``) the dense decoder's
+Inside the sharded steps (``sharding.spmd``) the dense decoder's
 attention, MLP and embedding run on the rank's "model" blocks of their
-weights (heads, d_ff, vocab) with a sum over "model" after ``wo``,
-``w_down`` and the lookup; a MoE layer routes the whole batch's tokens.
+weights (heads, d_ff, vocab). With more than one row its residual keeps
+the rank's rows of the sequence: the rows are gathered before a split
+product and its sums reduce-scattered back, and attention whose heads
+do not divide "model" runs the rank's query rows against every rank's
+K / V rows. A MoE layer routes the whole batch's tokens. The lockstep
+decode over a cache whose sequence is split over "model" runs flash
+decode (each rank's partial softmax, merged); a windowed attention runs
+the banded form over each rank's chunks with a halo from its
+neighbour.
 
 Where ``repro`` returns a functionally updated cache or page pool
 (``dynamic_update_slice``, ``.at[].set(mode="drop")``), the port writes it
@@ -346,28 +353,95 @@ def _sdpa_banded(q, k, v, dims: AttnDims, q_chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
+def _sdpa_banded_cp(q, k, v, dims: AttnDims, q_chunk: int = 1024):
+    """``repro``'s context-parallel banded form on a replicated q, k, v
+    (B, S, ., hd): each "model" rank attends its own whole query chunks
+    (``spmd.sp_own``) against its own K/V rows and the previous rank's
+    last ``window`` rows (``spmd.halo``), and the output rows are gathered
+    back (``spmd.sp_replicate``). Where ``repro`` falls back (no "model"
+    axis above 1, chunks not dividing it, fewer rows than window + chunk,
+    a halo wider than a rank's rows) it is ``_sdpa_banded``."""
+    B, S, H, hd = q.shape
+    n_seq = spmd.model_ways()
+    n_chunks = max(1, S // q_chunk)
+    C = S // n_chunks
+    W = dims.window
+    if (n_seq <= 1 or n_chunks % n_seq or S < W + C or S != n_chunks * C
+            or W > C * (n_chunks // n_seq)):
+        return _sdpa_banded(q, k, v, dims, q_chunk)
+    out = _banded_rows(spmd.sp_own(q), spmd.sp_own(k), spmd.sp_own(v), dims,
+                       C, S)
+    return spmd.sp_replicate(out)
+
+
+def _banded_rows(q, k, v, dims: AttnDims, C: int, S: int):
+    """The banded form on a rank's rows (B, S / M, ., hd), whole chunks of
+    C rows: chunk i attends the band of its rows and the W before them,
+    read from [halo, own rows]; a halo row before position 0 (rank 0's
+    zeros) sits at the sentinel S + W + 1, which the causal mask drops."""
+    B, n = q.shape[:2]
+    W = dims.window
+    ci0 = spmd.model_rank() * (n // C)
+    k_ext = torch.cat([spmd.halo(k, W), k], dim=1)   # rows [lo - W, hi)
+    v_ext = torch.cat([spmd.halo(v, W), v], dim=1)
+    dev = q.device
+    fn = _chunk_fn(q)
+    outs = []
+    for i in range(n // C):
+        ci = ci0 + i
+        q_pos = (ci * C + torch.arange(C, device=dev)).expand(B, C)
+        raw = (ci0 * C - W) + i * C + torch.arange(W + C, device=dev)
+        k_pos = torch.where(raw >= 0, raw, S + W + 1).expand(B, W + C)
+        outs.append(fn(q[:, i * C:(i + 1) * C],
+                       k_ext[:, i * C:i * C + W + C],
+                       v_ext[:, i * C:i * C + W + C], q_pos, k_pos, dims))
+    return torch.cat(outs, dim=1)
+
+
 def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
               kv_override=None):
     """Full-sequence self-attention, or cross-attention when
     ``kv_override=(k, v, k_pos)`` gives the keys, values and key
     positions. ``impl``: 'einsum' (the reference), 'chunked' (query
     chunks; the band only for causal windowed self-attention), 'banded' or
-    'pallas' (the flash-attention kernel, ``kernels.ops``). Without a mesh
-    ``repro``'s context-parallel banded form is the banded one, which is
-    what runs here (context parallelism, the mesh form, is ROADMAP queue 1
-    item 12's context-parallelism bullet)."""
-    params, x, dims, tp = _read_heads(params, x, dims,
-                                      kv_override is None)
-    if kv_override is None:
+    'pallas' (the flash-attention kernel, ``kernels.ops``). The band runs
+    as ``repro``'s context-parallel form (:func:`_sdpa_banded_cp`), which
+    is the mesh-free banded one outside a "model" axis above 1.
+
+    Inside the sharded step with the residual's rows over "model"
+    (``spmd.sp_on``; x and ``positions`` the rank's rows): with the heads
+    over "model" the rows are gathered before the rank's column-parallel
+    projections and ``wo``'s partial products reduce-scattered back onto
+    the rank's rows (sequence parallelism); otherwise the rank's query
+    rows attend every rank's K / V rows, gathered along the sequence
+    (context parallelism), and ``wo`` needs no collective.
+    Cross-attention gathers the rows and keeps the rank's after. Without
+    ``sp`` the heads over "model" take the replicated x and sum after
+    ``wo``."""
+    self_kv = kv_override is None
+    params, x, dims, tp = _read_heads(params, x, dims, self_kv)
+    sp = spmd.sp_on()
+    cp = sp and self_kv and not tp
+    if sp and not cp:
+        x, positions = spmd.sp_gather(x), spmd.full_positions(positions)
+    elif tp:
+        x = spmd.tp_copy(x)
+    if self_kv:
         q, k, v = _qkv(params, x, dims, positions)
         k_pos = positions
+        if cp:
+            k, v = spmd.sp_gather(k), spmd.sp_gather(v)
+            k_pos = spmd.full_positions(positions)
     else:       # cross-attention: x gives the queries only
         q = _proj(params, x, "q", dims.num_heads, dims, positions)
         k, v, k_pos = kv_override
-    if impl == "banded" or (impl == "chunked" and dims.window > 0
-                            and dims.causal and kv_override is None):
+    band = impl == "banded" or (impl == "chunked" and dims.window > 0
+                                and dims.causal and self_kv)
+    if band and not (cp or tp):
+        out = _sdpa_banded_cp(q, k, v, dims)
+    elif band and tp:           # the rank's heads: no halo across them
         out = _sdpa_banded(q, k, v, dims)
-    elif impl == "chunked":
+    elif impl in ("chunked", "banded"):
         out = _sdpa_chunked(q, k, v, positions, k_pos, dims)
     elif impl == "pallas":
         from repro_torch.kernels import ops as kops
@@ -378,6 +452,8 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
         out = _sdpa_einsum(q, k, v, positions, k_pos, dims)
     B, S, H, hd = out.shape
     out = out.reshape(B, S, H * hd) @ params["wo"].to(x.dtype)
+    if sp and not cp:
+        return spmd.sp_scatter(out) if tp else spmd.sp_narrow(out)
     return spmd.tp_sum(out) if tp else out
 
 
@@ -386,14 +462,12 @@ def _read_heads(params, x, dims: AttnDims, self_kv: bool = True):
     Inside the sharded step a read gathers the weight, so each is read
     once, and the key / value weights only where x gives the keys
     (``self_kv``). With the heads over "model" (the sharded dense decoder)
-    x enters the rank's heads (``spmd.tp_copy``) and ``dims`` counts the
-    rank's heads."""
+    ``dims`` counts the rank's heads; the caller moves x into them."""
     names = ("wq", "bq", "wo") + (("wk", "wv", "bk", "bv") if self_kv
                                    else ())
     params = {k: params[k] for k in names if k in params}
     tp = spmd.tp_split(params["wq"]) is not None
     if tp:
-        x = spmd.tp_copy(x)
         dims = dataclasses.replace(
             dims, num_heads=params["wq"].shape[-1] // dims.head_dim,
             num_kv_heads=(params["wk"].shape[-1] // dims.head_dim
@@ -439,9 +513,11 @@ def decode_positions(pos, batch: int):
 
 
 def _decode_sdpa_local(q, ck, cv, cache_pos, k_positions, window, hd):
-    """Partial-softmax decode attention: q (B,1,KV,G,hd); ck/cv
-    (B,S,KV,hd); k_positions (B,S); cache_pos (B,1). Returns
-    (l (B,KV,G,1), acc (B,KV,G,1,hd))."""
+    """Partial-softmax decode attention over a cache slice: q
+    (B,1,KV,G,hd); ck/cv (B,S,KV,hd); k_positions (B,S) or (1,S) global;
+    cache_pos (B,1) or a scalar. Returns (m (B,KV,G,1), l (B,KV,G,1), acc
+    (B,KV,G,1,hd)), the statistics a flash-decode merge combines
+    (``spmd.cp_merge``)."""
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, ck.to(q.dtype)
                           ).float() / math.sqrt(hd)
     valid = k_positions <= cache_pos
@@ -454,7 +530,7 @@ def _decode_sdpa_local(q, ck, cv, cache_pos, k_positions, window, hd):
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(q.dtype),
                        cv.to(q.dtype)).float()
-    return l, acc
+    return m, l, acc
 
 
 def _write_row(cache, rows, cache_pos):
@@ -484,25 +560,53 @@ def attention_decode(params, x, dims: AttnDims, cache_k, cache_v, cache_pos,
     each slot's position, then rows at positions <= cache_pos (and inside
     the window) are attended. Returns (out, cache_k, cache_v). In the
     sharded serving step with heads over "model" the cache holds this
-    rank's kv heads and the projections its heads."""
+    rank's kv heads and the projections its heads; with the cache's
+    sequence over "model" (``spmd.cp_cache``, a scalar position) it holds
+    the rank's rows, and the attention runs as flash decode
+    (:func:`_decode_cp`)."""
     params, x, dims, tp = _read_heads(params, x, dims)
+    if tp:
+        x = spmd.tp_copy(x)
     q, k, v = _qkv(params, x, dims, positions)
     B, S_max, KV, hd = cache_k.shape
     G = dims.num_heads // KV
-    if cache_pos.dim() == 0:
-        cache_pos = int(cache_pos)
-        mask_pos = cache_pos
+    qg = q.reshape(B, 1, KV, G, hd)
+    if cache_pos.dim() == 0 and spmd.cp_cache():
+        out = _decode_cp(qg, k, v, cache_k, cache_v, int(cache_pos), dims)
     else:
-        mask_pos = cache_pos.long()[:, None]
-    _write_row(cache_k, k[:, 0], cache_pos)
-    _write_row(cache_v, v[:, 0], cache_pos)
-    k_positions = torch.arange(S_max, device=x.device)[None, :]
-    l, acc = _decode_sdpa_local(q.reshape(B, 1, KV, G, hd), cache_k, cache_v,
-                                mask_pos, k_positions, dims.window, hd)
-    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, dims.num_heads * hd)
+        if cache_pos.dim() == 0:
+            cache_pos = int(cache_pos)
+            mask_pos = cache_pos
+        else:
+            mask_pos = cache_pos.long()[:, None]
+        _write_row(cache_k, k[:, 0], cache_pos)
+        _write_row(cache_v, v[:, 0], cache_pos)
+        k_positions = torch.arange(S_max, device=x.device)[None, :]
+        _, l, acc = _decode_sdpa_local(qg, cache_k, cache_v, mask_pos,
+                                       k_positions, dims.window, hd)
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(
+        B, 1, dims.num_heads * hd)
     out = out @ params["wo"].to(x.dtype)
     return (spmd.tp_sum(out) if tp else out), cache_k, cache_v
+
+
+def _decode_cp(qg, k, v, cache_k, cache_v, pos: int, dims: AttnDims):
+    """``repro``'s context-parallel decode: the rank holds rows [r * s_loc,
+    (r + 1) * s_loc) of the cache's sequence. Only the rank that owns
+    ``pos`` writes the new row (at its clipped local index), each rank's
+    partial softmax runs over its own rows at their global positions, and
+    ``spmd.cp_merge`` combines them. Returns (B, KV, G, 1, hd) fp32."""
+    s_loc = cache_k.shape[1]
+    lo = spmd.model_rank() * s_loc
+    rel = pos - lo
+    if 0 <= rel < s_loc:
+        cache_k[:, rel] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, rel] = v[:, 0].to(cache_v.dtype)
+    k_positions = lo + torch.arange(s_loc, device=qg.device)[None, :]
+    m, l, acc = _decode_sdpa_local(qg, cache_k, cache_v, pos, k_positions,
+                                   dims.window, qg.shape[-1])
+    return spmd.cp_merge(m, l, acc)
 
 
 def attention_prefill_chunk(params, x, dims: AttnDims, cache_k, cache_v,
@@ -764,7 +868,7 @@ def attention_decode_paged(params, x, dims: AttnDims, pool_k, pool_v,
             view_v = dequant_paged_view(view_v, phys, v_scale, ps, q.dtype)
         k_positions = torch.where(
             ok, torch.arange(n_rows, device=x.device)[None, :], INACTIVE_POS)
-        l, acc = _decode_sdpa_local(qg, view_k, view_v, pos[:, None],
+        _, l, acc = _decode_sdpa_local(qg, view_k, view_v, pos[:, None],
                                        k_positions, dims.window, hd)
         out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
         out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, KV * G * hd)
@@ -999,8 +1103,8 @@ def mla_attention_decode(params, x, dims: MLADims, cache_c, cache_pos,
     _write_row(cache_c, rows[:, 0], cache_pos)
     qg = q.reshape(B, 1, 1, H, dims.latent_dim)              # KV=1, G=H
     k_positions = torch.arange(cache_c.shape[1], device=x.device)[None, :]
-    l, acc = _decode_sdpa_local(qg, cache_c, cache_c[..., :c], mask_pos,
-                                k_positions, 0, dims.scale_dim)
+    _, l, acc = _decode_sdpa_local(qg, cache_c, cache_c[..., :c], mask_pos,
+                                   k_positions, 0, dims.scale_dim)
     out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
     attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, c)
     return _mla_out(params, attn, dims, x), cache_c
@@ -1069,8 +1173,8 @@ def mla_attention_decode_paged(params, x, dims: MLADims, pool_c,
         view = pool_c.reshape(P * ps, 1, dims.latent_dim)[phys]
         k_positions = torch.where(
             ok, torch.arange(n_rows, device=x.device)[None, :], INACTIVE_POS)
-        l, acc = _decode_sdpa_local(qg, view, view[..., :c], pos[:, None],
-                                    k_positions, 0, dims.scale_dim)
+        _, l, acc = _decode_sdpa_local(qg, view, view[..., :c], pos[:, None],
+                                       k_positions, 0, dims.scale_dim)
         out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
         attn = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, c)
     return _mla_out(params, attn, dims, x), pool_c
@@ -1133,8 +1237,9 @@ def mlp(params, x, act: str = "silu"):
     ``jax.nn.gelu``'s default (torch's default is the erf form)."""
     w_up = params["w_up"]       # read once: a read gathers it when sharded
     tp = spmd.tp_split(w_up) is not None
-    if tp:      # training: this rank's d_ff block of the "model" axis
-        x = spmd.tp_copy(x)
+    sp = tp and spmd.sp_on()
+    if tp:      # this rank's d_ff block of the "model" axis (every row)
+        x = spmd.sp_gather(x) if sp else spmd.tp_copy(x)
     up = x @ w_up.to(x.dtype)
     if "b_up" in params:
         up = up + params["b_up"].to(x.dtype)
@@ -1143,8 +1248,8 @@ def mlp(params, x, act: str = "silu"):
     else:
         h = gelu(up) if act == "gelu" else silu(up)
     out = h @ params["w_down"].to(x.dtype)
-    if tp:
-        out = spmd.tp_sum(out)
+    if tp:      # the d_ff blocks' sums, onto the rank's rows under sp
+        out = spmd.sp_scatter(out) if sp else spmd.tp_sum(out)
     if "b_down" in params:
         out = out + params["b_down"].to(x.dtype)
     return out
@@ -1257,15 +1362,24 @@ def moe(params, x, dims: MoEDims):
 
 # ---------------------------------------------------------------- embeddings
 def embed_lookup(params, ids, dtype):
+    """The rows of ``ids`` (B, S); inside the sharded step with the
+    residual's rows over "model" (``spmd.sp_on``) the rank's rows of the
+    sequence."""
     table = params["table"]
     if spmd.tp_split(table) is not None:    # training: vocab over "model"
         return spmd.vocab_lookup(table.to(dtype), ids)
+    if spmd.sp_on():
+        ids = ids[:, slice(*spmd.seq_rows(ids.shape[1] // spmd.model_ways()))]
     return table.to(dtype)[ids]
 
 
 def lm_logits(params_embed, x, w_unembed=None, vocab: Optional[int] = None):
     """x: (B,S,D) -> (B,S,V_padded), padding columns masked. Uses the tied
-    embedding table if w_unembed is None."""
+    embedding table if w_unembed is None. Inside the sharded step with the
+    residual's rows over "model" x is the rank's rows, gathered first, so
+    every rank gets the logits of every row."""
+    if spmd.sp_on():
+        x = spmd.sp_gather(x)
     w = params_embed["table"] if w_unembed is None else w_unembed
     wd = w.to(x.dtype)
     logits = spmd.tp_gather(x @ (wd.T if w_unembed is None else wd), w)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.models import layers as L
 from repro_torch.sharding import specs as _sp
+from repro_torch.sharding import spmd
 
 
 def _check_supported(cfg: ArchConfig):
@@ -241,10 +242,14 @@ def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
     family without experts. ``remat`` (``layers.remat``) checkpoints each
     layer's body for training, and a VLM's whole super-layer around its
     checkpointed layers, as ``repro`` nests them (so a super-layer's
-    layers run forward three times in a training step, as there)."""
+    layers run forward three times in a training step, as there). Inside
+    the sharded step with the rows over "model" (``spmd.sp_on``, the
+    dense decoder) the residual, the final norm and the features are the
+    rank's rows, where ``repro`` shards them over "seq_sp"."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    lo, hi = spmd.seq_rows(x.shape[1])    # the rank's rows under sp
+    positions = torch.arange(lo, hi, device=tokens.device).expand(B, hi - lo)
     auxes = []
     body = L.remat(lambda lp, x: _layer_apply(cfg, lp, x, positions,
                                               attn_impl), remat)
@@ -275,12 +280,15 @@ def _mla_full_attention(cfg: ArchConfig, lp_attn, h, positions):
     sequence against a transient latent cache, in the absorbed order every
     serving path uses."""
     dims = _mla_dims(cfg)
+    sp = spmd.sp_on()       # the rank's rows: every row's, then its own
+    if sp:
+        h, positions = spmd.sp_gather(h), spmd.full_positions(positions)
     B, S, _ = h.shape
     cache_c = torch.zeros((B, S, 1, dims.latent_dim), dtype=h.dtype,
                           device=h.device)
     out, _ = L.mla_attention_prefill_chunk(lp_attn, h, dims, cache_c, 0,
                                            positions)
-    return out
+    return spmd.sp_narrow(out) if sp else out
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,

@@ -21,10 +21,10 @@ turns logical axes into one DTensor ``Placement`` per mesh dim,
 ``full_tensor`` gathers one back. ``shard`` redistributes a DTensor (the
 reference's sharding constraint); the sharded steps themselves live in
 ``sharding.spmd``. Collectives on CUDA tensors over a gloo group go
-through the host, so one code path serves gloo and NCCL. The three
-collectives a step runs (``all_gather``, ``reduce_scatter``,
-``all_reduce``) report what they move to ``COLLECTIVES`` while the dry run
-records them (``launch.hlo_stats.collectives``).
+through the host, so one code path serves gloo and NCCL. The collectives
+a step runs (``all_gather``, ``reduce_scatter``, ``all_reduce`` and the
+neighbour send ``shift``) report what they move to ``COLLECTIVES`` while
+the dry run records them (``launch.hlo_stats.collectives``).
 
 Outside a mesh context every helper is the identity, so models run
 untouched on one device."""
@@ -533,3 +533,29 @@ def all_reduce(x, mesh, mesh_dims, op: str = "sum"):
         _record("all-reduce", buf, group)
         out = buf.to(x.device) if staged else buf
     return out
+
+
+def shift(x, mesh, axis=TP_AXIS, step: int = 1):
+    """The neighbour send of ``ppermute`` with ``perm = [(s, s + 1)]``: rank
+    r of ``mesh``'s ``axis`` group gets rank r - 1's ``x`` and rank 0 gets
+    zeros (``step=-1``: rank r + 1's, the last rank zeros); point to
+    point, through the host where the group is gloo's."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    r = mesh.get_local_rank(axis)
+    staged = _host_staged(x, group)
+    src = (x.detach().cpu() if staged else x.detach()).contiguous()
+    out = torch.zeros_like(src)
+    ops = []
+    if 0 <= r + step < n:
+        ops.append(dist.P2POp(dist.isend, src,
+                              dist.get_global_rank(group, r + step), group))
+    if 0 <= r - step < n:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, r - step), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    _record("collective-permute", out, group)
+    return out.to(x.device) if staged else out

@@ -6,27 +6,42 @@ every train-state leaf (``launch.steps.train_state_logical`` placed by
 Inside the sharded train step (``launch.steps.make_train_step``) the
 model's code runs on :class:`LazyParams`: a leaf is gathered where the
 model reads it, layer by layer (ZeRO-3's per-layer all-gather), through
-:func:`materialize`, whose backward sums the gradient over the batch's
-mesh dims and keeps the rank's block. While the loss runs, autograd saves
-each gathered weight as its block plus the recipe to gather it again, so
-a rank never holds the whole gathered model (:func:`regather_saved`).
+:func:`materialize`, whose backward sums the gradient over the mesh dims
+whose ranks each gave a part (:func:`reduce_dims_of`) and keeps the
+rank's block. While the loss runs, autograd saves each gathered weight as
+its block plus the recipe to gather it again, so a rank never holds the
+whole gathered model (:func:`regather_saved`).
 
 The dense decoder's weights keep their ``"model"`` blocks (heads, kv
 heads, d_ff, vocab; :func:`tp_keeps`), and the layers run tensor-parallel
-on them: :func:`tp_copy` where a replicated activation enters a split
-product (identity forward, sum over "model" backward) and :func:`tp_sum`
-where the split products meet (sum forward, identity backward). The
-residual stream stays replicated over "model". Every other family gathers
-its weights over the whole mesh and splits only the batch; a MoE layer
-gathers the tokens of the whole (micro)batch first (:func:`gather_rows`),
-so its groups, capacity and aux losses are those of one device.
+on them. With more than one row dividing "model" (:func:`seq_split`, the
+step's ``sp``) its residual keeps the rank's rows of the sequence between
+layers, where ``repro`` shards it over "seq_sp": the rows are gathered
+before a split product (:func:`sp_gather`: heads, d_ff, the vocab head)
+and the split products reduce-scattered back onto the rank's rows
+(:func:`sp_scatter`: after ``wo``, ``w_down`` and the vocab lookup).
+Attention whose heads do not divide "model" runs the rank's query rows
+against every rank's K / V rows (context parallelism), and every weight
+the rows reach whole sums its gradient over "model" too. Without ``sp``
+(one row, or rows not dividing "model") the residual stays replicated
+over "model": :func:`tp_copy` where it enters a split product (identity
+forward, sum over "model" backward) and :func:`tp_sum` where the split
+products meet. Every other family gathers its weights over the whole
+mesh, splits only the batch and keeps the residual replicated; a
+windowed attention there runs the banded form over each "model" rank's
+own chunks (:func:`sp_own`, :func:`halo`, :func:`sp_replicate`); a MoE
+layer gathers the tokens of the whole (micro)batch first
+(:func:`gather_rows`), so its groups, capacity and aux losses are those
+of one device.
 
 The sharded serving steps (``launch.steps``' prefill and lockstep decode
 on params and a dense cache of DTensors) run in the same context without
 autograd: a vocab-split head is gathered back to whole logits
-(:func:`tp_gather`), and a cache leaf split over a mesh dim that the
-compute needs whole is read one layer at a time through
-:class:`GatheredStack`.
+(:func:`tp_gather`); a self-attention cache whose sequence is split over
+"model" stays the rank's block and the attention runs as flash decode,
+each rank's partial softmax merged by :func:`cp_merge` (the step's
+``cp_cache``); another cache leaf split over a mesh dim that the compute
+needs whole is read one layer at a time through :class:`GatheredStack`.
 
 Outside the step nothing here is active and every helper is the
 identity."""
@@ -48,6 +63,8 @@ class _Ctx:
     mesh: object
     batch_dims: Tuple[int, ...]     # mesh dims the batch rows split over
     tp: bool                        # dense decoder, "model" > 1
+    sp: bool = False                # the residual's rows split over "model"
+    cp_cache: bool = False          # the K/V cache's sequence over "model"
 
 
 _CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
@@ -55,11 +72,15 @@ _CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def training(mesh, batch_dims, tp: bool):
+def training(mesh, batch_dims, tp: bool, sp: bool = False,
+             cp_cache: bool = False):
     """The sharded step's context (training, and the serving steps too):
-    its mesh, the mesh dims its batch rows split over, and whether the
-    dense decoder runs tensor-parallel."""
-    token = _CTX.set(_Ctx(mesh, tuple(batch_dims), tp))
+    its mesh, the mesh dims its batch rows split over, whether the dense
+    decoder runs tensor-parallel, whether its residual keeps the rank's
+    rows between layers (``sp``, :func:`seq_split`) and whether the dense
+    K/V cache holds the rank's block of the sequence (``cp_cache``: the
+    lockstep decode's flash-decode form)."""
+    token = _CTX.set(_Ctx(mesh, tuple(batch_dims), tp, sp, cp_cache))
     try:
         yield
     finally:
@@ -88,7 +109,9 @@ def checkpointed(fn):
 
 
 # ------------------------------------------------------------- collectives
-def _own(x, dim: int, mesh, mesh_dim: int):
+def _own(x, dim: int, mesh, mesh_dim):
+    if isinstance(mesh_dim, str):
+        mesh_dim = specs.axis_names(mesh).index(mesh_dim)
     n = mesh.size(mesh_dim)
     size = x.shape[dim] // n
     return x.narrow(dim, mesh.get_local_rank(mesh_dim) * size, size)
@@ -201,20 +224,15 @@ def tp_gather(x, w, dim: int = -1):
     return specs.all_gather(x, dim, c.mesh, specs.TP_AXIS)
 
 
-def tp_rank() -> int:
-    c = _ctx()
-    return 0 if c is None or not c.tp else c.mesh.get_local_rank(
-        specs.TP_AXIS)
-
-
 def vocab_lookup(table, ids):
     """Embedding lookup in a vocab-split table: the rank's rows, zero for
-    ids it does not hold, summed over "model"."""
+    ids it does not hold, summed over "model" (under :func:`sp_on`
+    reduce-scattered onto the rank's rows of the sequence)."""
     vl = table.shape[0]
-    local = ids.long() - tp_rank() * vl
+    local = ids.long() - model_rank() * vl
     ok = (local >= 0) & (local < vl)
-    rows = table[local.clamp(0, vl - 1)]
-    return tp_sum(torch.where(ok[..., None], rows, 0))
+    rows = torch.where(ok[..., None], table[local.clamp(0, vl - 1)], 0)
+    return sp_scatter(rows) if sp_on() else tp_sum(rows)
 
 
 def batch_split() -> int:
@@ -244,6 +262,193 @@ def own_rows(x):
     for i in c.batch_dims:
         x = _own(x, 0, c.mesh, i)
     return x
+
+
+# ---------------------------------------------------- rows over "model"
+# Inside a step whose residual keeps the rank's rows of the sequence
+# (``sp``), a (B, S, ...) activation on a rank holds rows
+# [r * S / M, (r + 1) * S / M) of "model" rank r of M. Two pairs of
+# functions move rows. ``sp_gather`` / ``sp_scatter`` border a split
+# compute (heads, d_ff or vocab over "model", or a rank's own query rows),
+# whose gradients are the ranks' parts and are summed where they meet, as
+# every weight that the rows reach whole is summed over "model" too
+# (:func:`reduce_dims_of`). ``sp_own`` / ``sp_replicate`` border a
+# compute on the rank's rows inside a replicated one (the banded form's
+# chunks of a replicated residual), whose gradients are whole on every
+# rank. ``halo`` is the banded form's neighbour send.
+class _GatherSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return specs.all_gather(x, dim, mesh, specs.TP_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (specs.reduce_scatter(g, ctx.dim, ctx.mesh, specs.TP_AXIS)
+                .contiguous(), None, None)
+
+
+class _ScatterSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return specs.reduce_scatter(x, dim, mesh, specs.TP_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return specs.all_gather(g, ctx.dim, ctx.mesh, specs.TP_AXIS), None, \
+            None
+
+
+class _OwnSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _own(x, dim, mesh, specs.TP_AXIS).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return specs.all_gather(g, ctx.dim, ctx.mesh, specs.TP_AXIS), None, \
+            None
+
+
+class _ReplicateSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return specs.all_gather(x, dim, mesh, specs.TP_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_own(g, ctx.dim, ctx.mesh, specs.TP_AXIS).contiguous(), None,
+                None)
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, width):
+        ctx.mesh, ctx.shape = mesh, x.shape
+        return specs.shift(x[:, x.shape[1] - width:], mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out[:, ctx.shape[1] - g.shape[1]:] = specs.shift(g, ctx.mesh,
+                                                         step=-1)
+        return out, None, None
+
+
+def model_ways() -> int:
+    """The "model" size inside the step (1 outside it)."""
+    c = _ctx()
+    return 1 if c is None else specs.tp_degree(c.mesh)
+
+
+def model_rank() -> int:
+    """This rank's index along "model" (0 outside the step)."""
+    c = _ctx()
+    if c is None or model_ways() <= 1:
+        return 0
+    return c.mesh.get_local_rank(specs.TP_AXIS)
+
+
+def sp_on() -> bool:
+    c = _ctx()
+    return c is not None and c.sp
+
+
+def cp_cache() -> bool:
+    c = _ctx()
+    return c is not None and c.cp_cache
+
+
+def seq_split(cfg, mesh, seq_len: int) -> bool:
+    """Whether the residual keeps the rank's rows between layers, decided
+    as ``_fit_axes`` decides "seq_sp": the dense decoder only (the family
+    :func:`tp_keeps` covers), "model" > 1, more than one row and the rows
+    dividing "model"; otherwise the residual stays replicated."""
+    m = specs.tp_degree(mesh)
+    return bool(tp_keeps(cfg, mesh)) and seq_len > 1 and seq_len % m == 0
+
+
+def cp_cache_dims(logical, sharding) -> tuple:
+    """The dims of a self-attention K / V cache leaf (its logical axes and
+    sharding) that lie along "seq_sp" on "model": the sequence that the
+    lockstep decode keeps as the rank's block and reads by flash decode
+    (the step's ``cp_cache``). Empty where the sequence is whole."""
+    names = specs.axis_names(sharding.mesh)
+    return tuple(d for i, d in specs.shard_dims(sharding)
+                 if names[i] == specs.TP_AXIS and logical[d] == "seq_sp")
+
+
+def seq_rows(n: int) -> Tuple[int, int]:
+    """The global row range [lo, hi) of a rank's ``n`` rows: its block
+    under :func:`sp_on`, all of them otherwise."""
+    lo = model_rank() * n if sp_on() else 0
+    return lo, lo + n
+
+
+def full_positions(positions):
+    """(B, S) positions of every rank's rows, from the rank's (B, S / M)
+    contiguous ones (identity without :func:`sp_on`)."""
+    if not sp_on():
+        return positions
+    n = positions.shape[1]
+    base = positions[:, :1] - seq_rows(n)[0]
+    return base + torch.arange(n * model_ways(), device=positions.device)
+
+
+def sp_gather(x, dim: int = 1):
+    """Every rank's rows along ``dim`` (an all-gather over "model"); the
+    backward reduce-scatters the ranks' gradient parts."""
+    return _GatherSP.apply(x, _ctx().mesh, dim)
+
+
+def sp_scatter(x, dim: int = 1):
+    """Partial sums over "model" reduce-scattered onto the rank's rows
+    along ``dim``; the backward all-gathers."""
+    return _ScatterSP.apply(x, _ctx().mesh, dim)
+
+
+def sp_own(x, dim: int = 1):
+    """The rank's rows along ``dim`` of a replicated tensor; the backward
+    all-gathers (the replicated tensor's gradient is whole)."""
+    return _OwnSP.apply(x, _ctx().mesh, dim)
+
+
+def sp_replicate(x, dim: int = 1):
+    """Every rank's rows along ``dim``, for a replicated compute after it
+    (:func:`sp_own`'s inverse); the backward keeps the rank's rows."""
+    return _ReplicateSP.apply(x, _ctx().mesh, dim)
+
+
+def sp_narrow(x, dim: int = 1):
+    """The rank's rows along ``dim`` of a tensor that every rank computed
+    whole from :func:`sp_gather`'s rows (MLA attention, cross-attention):
+    a plain narrow, whose backward leaves zeros elsewhere, so the
+    gradients stay the ranks' parts."""
+    n = x.shape[dim] // model_ways()
+    return x.narrow(dim, model_rank() * n, n)
+
+
+def halo(x, width: int):
+    """The previous "model" rank's last ``width`` rows (dim 1) of ``x``,
+    zeros on rank 0 (``specs.shift``); the backward sends the gradient
+    back."""
+    return _Halo.apply(x, _ctx().mesh, width)
+
+
+def cp_merge(m, l, acc):
+    """``repro``'s flash-decode merge of every "model" rank's partial
+    softmax over its rows: m_g = max m, corr = exp(m - m_g), l_g = sum l *
+    corr, acc_g = sum acc * corr, then acc_g / max(l_g, 1e-30). One max
+    and two sum all-reduces; no gradient (serving)."""
+    mesh, axes = _ctx().mesh, (specs.TP_AXIS,)
+    m_g = specs.all_reduce(m, mesh, axes, "max")
+    corr = torch.exp(m - m_g)
+    l_g = specs.all_reduce(l * corr, mesh, axes)
+    acc_g = specs.all_reduce(acc * corr[..., None], mesh, axes)
+    return acc_g / torch.clamp_min(l_g, 1e-30)[..., None]
 
 
 # ------------------------------------------------------------ ZeRO-3 params
@@ -346,9 +551,22 @@ def lazy_params(params, plans, mesh, reduce_dims) -> LazyParams:
 _GATHERED: dict = {}
 
 
+def reduce_dims_of(plan: LeafPlan, mesh, reduce_dims) -> tuple:
+    """The mesh dims a leaf's gradient is summed over: the batch's, and
+    under :func:`sp_on` "model" too where the leaf is read whole (not
+    kept: each rank's rows give a part)."""
+    c = _ctx()
+    if c is None or not c.sp or plan.tp_dim is not None:
+        return tuple(reduce_dims)
+    i = specs.axis_names(mesh).index(specs.TP_AXIS)
+    return tuple(reduce_dims) + ((i,) if i not in reduce_dims else ())
+
+
 def materialize(local, mesh, plan: LeafPlan, reduce_dims):
     """A leaf as the step's compute reads it (gathered per ``plan``,
-    marked with its tensor-parallel dim)."""
+    marked with its tensor-parallel dim); its gradient summed over
+    :func:`reduce_dims_of`."""
+    reduce_dims = reduce_dims_of(plan, mesh, reduce_dims)
     if not plan.gathers and not reduce_dims:
         out = local
     else:
@@ -389,9 +607,10 @@ def regather_saved():
 # ------------------------------------------------------------ serving caches
 class GatheredStack:
     """A serving cache leaf stacked along layers, (L, ...), whose rank
-    block is split over mesh dims the step's compute needs whole (a
-    sequence split over "model", heads of a family that runs them whole):
-    ``stack[i]`` is layer i gathered over ``gathers`` ((mesh dim, leaf
+    block is split over mesh dims the step's compute needs whole (an
+    encoder-decoder's cross K / V, heads or channels of a family that runs
+    them whole; not a self-attention K / V sequence over "model", which
+    flash decode reads as the rank's block): ``stack[i]`` is layer i gathered over ``gathers`` ((mesh dim, leaf
     dim) pairs, outer first), the same tensor until another layer is read;
     then, or at ``flush``, the rank's block of it is written back in
     place, so the model's in-place writes land in the rank's block. One

@@ -22,7 +22,8 @@ configs it needs and the sharded serving steps, against ``repro``:
   elementwise count of a two-op function by hand;
 * (d) on a fake (2, 2) mesh a ZeRO-3 dense train step's all-gather and
   reduce-scatter bytes equal those worked out from ``state_shardings``
-  and the weights the step reads; the per-kind rule;
+  and the weights the step reads, plus those of its rows over "model";
+  the per-kind rule;
 * (e) memory: the fake count of a reduced train step equals the same
   tracker on the real CPU run key by key; ``argument_bytes`` is the
   state's and the batch's bytes per rank; a budget below the one-slice
@@ -324,9 +325,10 @@ def test_collective_rule():
     got = hlo_stats.collective_bytes([("all-gather", 100, 4),
                                       ("reduce-scatter", 10, 4),
                                       ("all-reduce", 7, 2),
-                                      ("all-gather", 1, 2)])
+                                      ("all-gather", 1, 2),
+                                      ("collective-permute", 5, 4)])
     assert got == {"all-gather": 101, "reduce-scatter": 40,
-                   "all-reduce": 7, "total": 148}
+                   "all-reduce": 7, "collective-permute": 5, "total": 153}
 
 
 def _fake_group(world):
@@ -337,18 +339,25 @@ def _fake_group(world):
                             world_size=world)
 
 
-def test_zero3_collectives_from_the_shardings(monkeypatch):
+def _zero3_collectives(monkeypatch, model, shape):
+    """A ZeRO-3 train step of ``model`` on a fake (2, 2) mesh: its
+    collective bytes by kind, and the all-gather and reduce-scatter bytes
+    of ZeRO-3 worked out from the weights it reads. A leaf's gradient is
+    summed over the batch's mesh dims and, the residual's rows being
+    split over "model" (the dense decoder, S dividing 2), over "model"
+    too where the rank does not keep the leaf's "model" block."""
     import torch.distributed as dist
-    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.sharding import spmd
-    model = _tmodel(FAMILIES[0])
-    _, shape = _shapes("train", B=8)
     reads, regathers = [], []
     materialize, unpack = spmd.materialize, spmd._unpack
 
     def log_read(local, mesh, plan, dims):
+        tp = mesh.mesh_dim_names.index("model")
+        summed = tuple(dims) + ((tp,) if plan.tp_dim is None
+                                and tp not in dims else ())
         reads.append((local.numel() * local.element_size(), plan.gathers,
-                      tuple(dims), mesh))
+                      summed, mesh))
         return materialize(local, mesh, plan, dims)
 
     def log_unpack(saved):
@@ -381,8 +390,55 @@ def test_zero3_collectives_from_the_shardings(monkeypatch):
             size *= mesh.size(i)
             gather += size
     assert reads and regathers
-    assert coll["all-gather"] == gather
-    assert coll["reduce-scatter"] == scatter
+    return coll, gather, scatter
+
+
+def _row_bytes(cfg, shape, heads_split):
+    """The bytes per rank of the rows over "model" in a bf16 train step
+    on a (2, 2) mesh, from the shapes: x, a (B / 2, S, D) activation of
+    every row; kv, a K or V of every row. Forward: the vocab lookup's
+    reduce-scatter; each layer's attention gathers x and reduce-scatters
+    after wo with the heads split, else gathers K and V; each MLP
+    gathers x and reduce-scatters after w_down; the vocab-split CE head
+    gathers x, again when its checkpointed chunk reruns in the backward.
+    Backward: each gather's gradient is reduce-scattered and each
+    scatter's all-gathered."""
+    L, b = cfg.num_layers, 2
+    rows = shape.global_batch // 2 * shape.seq_len
+    x, kv = rows * cfg.d_model * b, rows * cfg.num_kv_heads * cfg.head_dim * b
+    attn_gather = x if heads_split else 2 * kv
+    attn_scatter = x if heads_split else 0
+    fwd_gather = L * (attn_gather + x) + x
+    fwd_scatter = x + L * (attn_scatter + x)
+    return {"all-gather": fwd_gather + x + fwd_scatter,
+            "reduce-scatter": fwd_scatter + fwd_gather}
+
+
+def _check_zero3(monkeypatch, over):
+    model = _tmodel(FAMILIES[0], **over)
+    cfg = model.cfg
+    _, shape = _shapes("train", B=8)
+    heads_split = cfg.num_heads % 2 == 0 and cfg.num_kv_heads % 2 == 0
+    assert heads_split == bool(over)
+    coll, gather, scatter = _zero3_collectives(monkeypatch, model, shape)
+    rows = _row_bytes(cfg, shape, heads_split)
+    assert coll["all-gather"] == gather + rows["all-gather"]
+    assert coll["reduce-scatter"] == scatter + rows["reduce-scatter"]
+
+
+def test_zero3_collectives_from_the_shardings(monkeypatch):
+    """ZeRO-3's all-gather and reduce-scatter bytes, worked out from the
+    reads, plus those of the rows over "model", worked out from the
+    shapes; reduced qwen's one kv head keeps the heads whole
+    (context-parallel attention)."""
+    _check_zero3(monkeypatch, {})
+
+
+def test_zero3_collectives_with_the_heads_over_model(monkeypatch):
+    """The same with two kv heads, which put the heads over "model"
+    (sequence parallelism: x gathered before attention, wo's sums
+    reduce-scattered)."""
+    _check_zero3(monkeypatch, {"num_kv_heads": 2})
 
 
 # ------------------------------------------------------------------ (e)
@@ -543,7 +599,7 @@ def test_prefill_batch_chunks_equal_the_reference(arch):
 
 # serving cases on the gloo ranks: (name, arch, overrides); kv heads 2 put
 # the dense decoder's heads over "model" at (1, 2), kv heads 1 its cache's
-# sequence (gathered a layer at a time)
+# sequence (the rank's block, read by flash decode)
 SERVE_CASES = (("dense_tp", "qwen2.5-32b", {"num_kv_heads": 2}),
                ("dense_seq", "qwen2.5-32b", {}),
                ("moe", "dbrx-132b", {}), ("vlm", "llama-3.2-vision-11b", {}),

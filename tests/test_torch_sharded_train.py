@@ -15,8 +15,9 @@
   ``repro``'s jitted single-device step, step-1 gradients within 1e-5 of
   each leaf's largest magnitude; at (1, 2) the dense decoder runs
   tensor-parallel: the ranks read wq / wk / wv / wo / w_up / w_gate /
-  w_down and the vocab on their "model" blocks, and the forward sums over
-  "model" after the lookup, every ``wo`` and every ``w_down``;
+  w_down and the vocab on their "model" blocks, and the forward
+  reduce-scatters over "model" onto the rank's rows of the sequence
+  after the lookup, every ``wo`` and every ``w_down``;
 * one (2, 1) case within 1e-3 of mesh-free for each of reduced dbrx-132b
   (also with 2 microbatches), rwkv6-7b, hymba-1.5b, whisper-large-v3 and
   llama-3.2-vision-11b; ZeRO-1 once;
@@ -129,7 +130,8 @@ def _on_mesh(model, opt, full, batch, shape, zero_stage=3, microbatches=1,
 
 def _tp_trace(model, opt, out_dir):
     """At (1, 2): the shapes and "model" dims the forward reads its weights
-    with, and the widths of the forward's sums over "model"."""
+    with, and the shapes of the forward's reduce-scatters over "model"
+    onto the rank's rows (the residual keeps them: ``spmd.seq_split``)."""
     from repro_torch.launch import mesh as mesh_mod, steps
     from repro_torch.sharding import specs, spmd
     full = _init(model, opt, out_dir)
@@ -138,19 +140,21 @@ def _tp_trace(model, opt, out_dir):
         params = steps.place(full["params"], steps.param_shardings(
             model, full["params"]))
     read, sums = [], []
-    materialize, apply = spmd.materialize, spmd._SumTP.apply
+    materialize, apply = spmd.materialize, spmd._ScatterSP.apply
 
     def traced_materialize(local, mesh, plan, reduce_dims):
         out = materialize(local, mesh, plan, reduce_dims)
         read.append([list(out.shape), plan.tp_dim])
         return out
 
-    def traced_sum(x, m):
+    def traced_scatter(x, m, dim):
         sums.append(list(x.shape))
-        return apply(x, m)
-    spmd.materialize, spmd._SumTP.apply = traced_materialize, traced_sum
+        return apply(x, m, dim)
+    spmd.materialize, spmd._ScatterSP.apply = (traced_materialize,
+                                                traced_scatter)
+    sp = spmd.seq_split(model.cfg, mesh, BATCH[1])
     try:
-        with torch.no_grad(), spmd.training(mesh, (), True):
+        with torch.no_grad(), spmd.training(mesh, (), True, sp=sp):
             steps.make_loss_fn(model, compute_dtype=torch.float32,
                                remat=False)(
                 spmd.lazy_params(_locals(params), steps._plans(
@@ -158,8 +162,8 @@ def _tp_trace(model, opt, out_dir):
                                                              mesh)),
                     mesh, ()), _batch(model))
     finally:
-        spmd.materialize, spmd._SumTP.apply = materialize, apply
-    return {"read": read, "sums": sums}
+        spmd.materialize, spmd._ScatterSP.apply = materialize, apply
+    return {"read": read, "sums": sums, "sp": sp}
 
 
 def _locals(tree):
@@ -464,9 +468,11 @@ def test_zero1_keeps_params_whole_over_data(spawned):
 
 def test_dense_decoder_runs_tensor_parallel(spawned):
     """At (1, 2): the ranks read the attention, MLP and vocab weights on
-    their "model" blocks, and the forward sums over "model" once after the
-    lookup and after each layer's wo and w_down (2 layers: 5 d_model-wide
-    sums), plus the CE's vocab reductions."""
+    their "model" blocks, and the forward reduce-scatters over "model"
+    onto the rank's rows of the sequence once after the lookup and after
+    each layer's wo and w_down (2 layers: 5 d_model-wide reduce-scatters
+    of every row), where the residual was replicated and these were
+    all-reduces; the CE's vocab reductions stay all-reduces."""
     from repro_torch import configs
     from repro_torch.models.registry import reduced_config
     cfg = reduced_config(configs.get_config(ARCH))
@@ -481,8 +487,10 @@ def test_dense_decoder_runs_tensor_parallel(spawned):
                            ((D, V // 2), 1),       # the untied head
                            ((V // 2, D), 0)):      # the embedding table
             assert [list(shape), dim] in read, (shape, dim, read)
+        assert r["tp"]["sp"]
         wide = [s for s in r["tp"]["sums"] if s[-1] == D]
         assert len(wide) == 1 + 2 * cfg.num_layers, r["tp"]["sums"]
+        assert all(s[:2] == list(BATCH) for s in wide), wide
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
