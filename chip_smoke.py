@@ -252,6 +252,21 @@ before printing any result. Phases, each of which raises on failure:
    its prefill of 2 x 4096 through the banded form at (1, 2) (each
    rank's chunks and a halo from its neighbour) within CP_TOL of
    mesh-free.
+23. the MoE family over the mesh, after phase 22, TF32 off, fp32, gloo
+   ranks on cuda:0 as phase 22's (``chip_smoke.py --ep-rank``): (23a)
+   moonshot-v1-16b-a3b at full width cut to 2 layers, one sharded train
+   step of 4 x 512 at (1, 2) (32 of 64 experts a rank, 16 heads over 16
+   kv heads over "model", the rows split): each rank computes the
+   mesh-free step-1 loss and gradients in turn and keeps its blocks; the
+   sharded loss within TRAIN20_TOL, its gradient blocks within
+   GRAD20_TOL of each leaf's largest; (23b) dbrx-132b at full width cut
+   to 1 layer, params over "model" only (the serving rules): a sharded
+   prefill of 8 x 512 at (2, 2) (4,096 tokens: 16 of 32 dispatch groups
+   and 8 of 16 experts a rank, 48 heads over 8 kv heads over "model")
+   and 8 greedy lockstep decode steps, logits within CP_TOL of
+   mesh-free's, tokens equal. Each leg prints each rank's MoE forward
+   dot FLOPs (``torch.profiler``'s ``with_flops``) beside mesh-free's,
+   its collective bytes by kind, its wall and device busy.
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
@@ -5791,6 +5806,355 @@ def cp_rank(rank: int, world: int, out_dir: str, form: str) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 23
+# the MoE family over the mesh, fp32, TF32 off, ranks spawned as phase
+# 22's (gloo on cuda:0 with one card): (23a) moonshot-v1-16b-a3b at full
+# width cut to EP_TRAIN_LAYERS layers, one sharded train step at
+# EP_TRAIN_MESH on EP_TRAIN_BATCH (64 experts: 32 a rank; 16 heads over
+# 16 kv heads over "model"; the rows over "model"); (23b) dbrx-132b at full
+# width cut to EP_SERVE_LAYERS layer, the params placed by the serving
+# rules (over "model" only), a sharded prefill of EP_PREFILL at
+# EP_SERVE_MESH (the global 4,096 tokens: 32 groups, 16 a data rank; 16
+# experts: 8 a rank; 48 heads over 8 kv heads over "model") and
+# EP_STEPS greedy lockstep decode steps (one token a row: one group,
+# every rank's rows gathered)
+EP_TRAIN_ARCH, EP_TRAIN_LAYERS = "moonshot-v1-16b-a3b", 2
+EP_TRAIN_MESH, EP_TRAIN_BATCH = (1, 2), (4, 512)
+EP_SERVE_LAYERS, EP_SERVE_MESH, EP_PREFILL, EP_STEPS = 1, (2, 2), (8, 512), 8
+EP_TIMEOUT = 400
+EP_SCOPE = "moe"                 # the profiler range around layers.moe
+
+
+def ep_model(arch, layers):
+    return get_model(dataclasses.replace(configs.get_config(arch),
+                                         num_layers=layers))
+
+
+@contextlib.contextmanager
+def moe_scoped():
+    """Every ``layers.moe`` call inside a profiler range named EP_SCOPE."""
+    moe = layers_mod.moe
+
+    def scoped(*args, **kw):
+        with torch.profiler.record_function(EP_SCOPE):
+            return moe(*args, **kw)
+    layers_mod.moe = scoped
+    try:
+        yield
+    finally:
+        layers_mod.moe = moe
+
+
+def moe_profiled(fn):
+    """(``fn()``, its profile with FLOPs, the dot FLOPs that
+    ``torch.profiler``'s ``with_flops`` gives the ops under EP_SCOPE: the
+    MoE layers' forward; a backward runs on autograd's thread, outside)."""
+    from torch.profiler import ProfilerActivity, profile
+    with moe_scoped(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA],
+                               with_flops=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    flops = 0
+    for e in prof.events():
+        if e.flops and e.name in PROFILER_DOTS:
+            p = e.cpu_parent
+            while p is not None and p.name != EP_SCOPE:
+                p = p.cpu_parent
+            flops += int(e.flops) if p is not None else 0
+    return out, prof, flops
+
+
+def one_rank_at_a_time(fn):
+    """``fn()`` on each rank in turn (a barrier after each), so that only
+    one rank at a time holds the whole model it cuts its blocks from."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def zero_blocks(placed):
+    """Zeros of each DTensor's block, as DTensors of its placement."""
+    from torch.distributed.tensor import DTensor
+    return {k: zero_blocks(v) if isinstance(v, dict) else DTensor.from_local(
+        torch.zeros_like(v.to_local()), v.device_mesh, v.placements,
+        run_check=False) for k, v in placed.items()}
+
+
+def phase23_moe_mesh(card):
+    """23a: EP_TRAIN_ARCH on EP_TRAIN_MESH spawned ranks (``chip_smoke.py
+    --ep-rank``): each computes the mesh-free step-1 loss and gradients in
+    turn (keeping its blocks), then the sharded train step: its loss
+    within TRAIN20_TOL, its step-1 gradient blocks within GRAD20_TOL of
+    each leaf's largest, the aux losses beside mesh-free's. 23b: dbrx-132b
+    mesh-free here (the prefill's logits, a cache prefilled with the
+    prompt, EP_STEPS greedy decode steps), then on EP_SERVE_MESH ranks:
+    the sharded prefill's and decode's logits within CP_TOL, tokens
+    equal. Each leg prints each rank's MoE forward dot FLOPs (the
+    profiler's ``with_flops``) against mesh-free's, its collective bytes
+    by kind, its wall and device busy."""
+    t23 = time.perf_counter()
+    f32 = dict(compute_dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run = os.path.join(d, "train")
+        os.mkdir(run)
+        form, ranks = spawn_ranks(int(np.prod(EP_TRAIN_MESH)), run,
+                                  "--ep-rank", EP_TIMEOUT)
+        for r, got in enumerate(ranks):
+            if not (got["loss_diff"] < TRAIN20_TOL
+                    and got["grad_err"] < GRAD20_TOL):
+                raise AssertionError(f"23a rank {r}: {got}")
+        log(f"  23a {EP_TRAIN_ARCH} ({EP_TRAIN_LAYERS} layers, "
+            f"{ranks[0]['params'] / 1e9:.3f} B params, fp32) one train step"
+            f" of {EP_TRAIN_BATCH[0]} x {EP_TRAIN_BATCH[1]} at "
+            f"{EP_TRAIN_MESH} ({form}"
+            + (", all on cuda:0, the collectives staged through the host"
+               if form == "gloo" else "")
+            + f", {time.perf_counter() - t0:.1f} s): loss "
+            f"{ranks[0]['loss']:.6f} against mesh-free "
+            f"{ranks[0]['ref_loss']:.6f} (diff "
+            f"{max(g['loss_diff'] for g in ranks):.3e}, bound "
+            f"{TRAIN20_TOL}); step-1 gradients within "
+            f"{max(g['grad_err'] for g in ranks):.3e} of each leaf's "
+            f"largest (bound {GRAD20_TOL}; router, w_gate, w_up, w_down: "
+            f"{ranks[0]['moe_err']}); moe_aux / moe_z within "
+            f"{max(g['aux_diff'] for g in ranks):.3e} of mesh-free's")
+        for r, got in enumerate(ranks):
+            log(f"  23a rank {r}: keeps {got['keeps']}, {got['experts']} "
+                f"experts; MoE forward dot FLOPs {got['moe_flops']:,} "
+                f"against mesh-free's {got['ref_moe_flops']:,} "
+                f"({got['moe_flops'] / max(got['ref_moe_flops'], 1):.4f}); "
+                f"collectives {got['coll']} B; the step (gradients under "
+                f"the profiler) {got['wall']:.3f} s wall, "
+                f"{got['busy']:.3f} s device busy; peak memory "
+                f"{got['peak_gib']:.2f} GiB ({card})")
+
+        t0 = time.perf_counter()
+        model = ep_model(DBRX, EP_SERVE_LAYERS)
+        cfg = model.cfg
+        B, S = EP_PREFILL
+        with torch.no_grad():
+            params = cp_params(model, DEV)
+            tokens = cp_tokens(cfg.vocab_size, EP_PREFILL, 24)
+            toks = tokens.to(DEV)
+            ref, _, ref_flops = moe_profiled(lambda: steps.make_prefill(
+                model, attn_impl="einsum", **f32)(params, {"tokens": toks}))
+            cache = model.init_cache(B, S + EP_STEPS, torch.float32,
+                                     device=DEV)
+            _, cache = model.prefill_chunk(params, toks, cache,
+                                           attn_impl="einsum", first=True,
+                                           **f32)
+            start = {k: v.cpu() for k, v in cache.items()}
+            decode = steps.make_decode_step(model, **f32)
+            first = ref[:, -1].argmax(-1, keepdim=True).int()
+            tok, dec_logits, dec_tokens = first, [], []
+            for i in range(EP_STEPS):
+                (out, cache), _, flops = moe_profiled(
+                    lambda: decode(params, cache, {"token": tok}))
+                tok = out[:, -1].argmax(-1, keepdim=True).int()
+                dec_logits.append(out.cpu())
+                dec_tokens.append(tok[:, 0].tolist())
+            torch.save({"tokens": tokens, "prefill": ref.cpu(),
+                        "cache": start, "first": first.cpu(),
+                        "logits": dec_logits, "tokens_out": dec_tokens},
+                       os.path.join(d, "dbrx.pt"))
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        del params, cache, ref, start
+        torch.cuda.empty_cache()
+        log(f"  23b {DBRX} ({EP_SERVE_LAYERS} layer, {n_params / 1e9:.3f} B "
+            f"params, fp32) mesh-free: prefill {B} x {S} (MoE forward dot "
+            f"FLOPs {ref_flops:,}), {EP_STEPS} greedy decode steps (the "
+            f"last's MoE {flops:,}); spawning {int(np.prod(EP_SERVE_MESH))} "
+            f"ranks at {EP_SERVE_MESH} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        run = os.path.join(d, "serve")
+        os.mkdir(run)
+        form, ranks = spawn_ranks(int(np.prod(EP_SERVE_MESH)), run,
+                                  "--ep-rank", EP_TIMEOUT)
+        for r, got in enumerate(ranks):
+            if not (got["prefill_err"] < CP_TOL and got["logits_err"] < CP_TOL
+                    and got["tokens"] == dec_tokens):
+                raise AssertionError(f"23b rank {r}: {got}")
+        log(f"  23b {EP_SERVE_MESH} ({form}, {time.perf_counter() - t0:.1f} "
+            f"s): prefill logits within "
+            f"{max(g['prefill_err'] for g in ranks):.3e}, decode logits "
+            f"within {max(g['logits_err'] for g in ranks):.3e} (bound "
+            f"{CP_TOL}), greedy tokens equal over {EP_STEPS} steps")
+        for r, got in enumerate(ranks):
+            log(f"  23b rank {r}: keeps {got['keeps']}, {got['experts']} "
+                f"experts, routed {got['routed']} tokens of {B * S}; "
+                f"prefill MoE forward dot FLOPs {got['moe_flops']:,} "
+                f"against mesh-free's {ref_flops:,} "
+                f"({got['moe_flops'] / max(ref_flops, 1):.4f}), collectives "
+                f"{got['prefill_coll']} B, {got['prefill_s']:.3f} s wall "
+                f"(under the profiler), {got['prefill_busy']:.3f} s busy; "
+                f"a decode step's MoE {got['step_flops']:,} against "
+                f"{flops:,}, collectives {got['step_coll']} B, wall "
+                f"{got['walls']} s, the last step {got['busy'] * 1e3:.3f} "
+                f"ms busy ({card})")
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s ({card})")
+
+
+def ep_train_rank(dev, out_dir):
+    """23a on this rank: the mesh-free step-1 loss and gradients (one rank
+    at a time; the rank keeps its blocks), then the sharded step."""
+    from repro_torch.launch import hlo_stats
+    from repro_torch.sharding import spmd
+    model = ep_model(EP_TRAIN_ARCH, EP_TRAIN_LAYERS)
+    opt = AdamW(learning_rate=1e-3)
+    mesh = mesh_mod.make_mesh(EP_TRAIN_MESH, ("data", "model"), dev.type)
+    toks = cp_tokens(model.cfg.vocab_size, EP_TRAIN_BATCH, 23)
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}
+    loss_fn = steps.make_loss_fn(model, compute_dtype=torch.float32,
+                                 remat=False)
+    with specs.use_mesh(mesh):
+        sh = steps.state_shardings(model, steps.train_state_shapes(model,
+                                                                   opt))
+        pbatch = steps.place(batch, steps.batch_shardings(model, batch))
+
+    def setup():
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        ((loss, metrics), grads), _, flops = moe_profiled(
+            lambda: steps.value_and_grad(loss_fn)(params, batch))
+        blocks = {n: specs.local_block(g, s).clone() for (n, g), (_, s) in
+                  zip(named_leaves(grads), named_leaves(sh["params"]))}
+        del grads
+        n = sum(t.numel() for t in tree_leaves(params))
+        placed = steps.place(params, sh["params"])
+        del params
+        return (float(loss), {k: float(metrics[k])
+                              for k in ("moe_aux", "moe_z")}, flops, blocks,
+                placed, n)
+    ref_loss, ref_aux, ref_flops, ref, placed, n = one_rank_at_a_time(setup)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    state = {"params": placed,
+             "opt": {"m": zero_blocks(placed), "v": zero_blocks(placed),
+                     "count": specs.distribute(zero, sh["opt"]["count"])},
+             "step": specs.distribute(zero, sh["step"])}
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with hlo_stats.collectives() as records:
+        ((loss, metrics), got), prof, flops = moe_profiled(
+            lambda: steps.sharded_value_and_grad(model, loss_fn)(
+                state["params"], pbatch))
+    wall = time.perf_counter() - t0
+    err, moe_err = 0.0, {}
+    for name, g in named_leaves(got):
+        want = ref[name]
+        e = float((g - want).abs().max() / want.abs().max())
+        err = max(err, e)
+        if name.split("/")[-1] in ("router", "w_gate", "w_up", "w_down"):
+            moe_err[name.split("/")[-1]] = float(f"{e:.3e}")
+    state, _ = steps.sharded_update(opt, state, got)
+    torch.cuda.synchronize()
+    return {"params": n, "loss": float(loss), "ref_loss": ref_loss,
+            "loss_diff": abs(float(loss) - ref_loss), "grad_err": err,
+            "moe_err": moe_err,
+            "aux_diff": max(abs(float(metrics[k]) - ref_aux[k])
+                            for k in ref_aux),
+            "keeps": sorted(spmd.tp_keeps(model.cfg, mesh)),
+            "experts": placed["layers"]["moe"]["w_gate"].to_local().shape[1],
+            "moe_flops": flops, "ref_moe_flops": ref_flops,
+            "coll": hlo_stats.collective_bytes(records), "wall": wall,
+            "busy": step_breakdown(prof, wall)["busy"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def ep_serve_rank(dev, out_dir):
+    """23b on this rank: the params placed one rank at a time, the sharded
+    prefill and EP_STEPS lockstep decode steps against DIR/../dbrx.pt."""
+    from repro_torch.launch import hlo_stats
+    from repro_torch.sharding import spmd
+    ref = torch.load(os.path.join(out_dir, "..", "dbrx.pt"))
+    f32 = dict(compute_dtype=torch.float32)
+    model = ep_model(DBRX, EP_SERVE_LAYERS)
+    mesh = mesh_mod.make_mesh(EP_SERVE_MESH, ("data", "model"), dev.type)
+    with specs.use_mesh(mesh, specs.SERVE_RULES):
+        psh = steps.param_shardings(model, model.init(torch.Generator(),
+                                                      "meta"))
+    p = one_rank_at_a_time(lambda: steps.place(cp_params(model, dev), psh))
+    out = {"keeps": sorted(spmd.tp_keeps(model.cfg, mesh)),
+           "experts": p["layers"]["moe"]["w_gate"].to_local().shape[1]}
+    with torch.no_grad():
+        tokens = ref["tokens"].to(dev)
+        with specs.use_mesh(mesh):
+            b = steps.place({"tokens": tokens}, steps.batch_shardings(
+                model, {"tokens": tokens}))
+        prefill = steps.make_prefill(model, attn_impl="einsum", sharded=True,
+                                     **f32)
+        layers_mod.MOE_TRACE = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with hlo_stats.collectives() as records:
+            logits, prof, flops = moe_profiled(lambda: prefill(p, b))
+        out["prefill_s"] = time.perf_counter() - t0
+        out["routed"] = [t["kept"].shape[0] for t in layers_mod.MOE_TRACE]
+        layers_mod.MOE_TRACE = None
+        out.update(prefill_coll=hlo_stats.collective_bytes(records),
+                   moe_flops=flops,
+                   prefill_busy=step_breakdown(prof, out["prefill_s"])["busy"],
+                   prefill_err=float((logits.cpu() - ref["prefill"]).abs()
+                                     .max()))
+        with specs.use_mesh(mesh):
+            csh = steps.cache_shardings(model, ref["cache"])
+        c = {k: specs.distribute(v, csh[k], dev)
+             for k, v in ref["cache"].items()}
+        decode = steps.make_decode_step(model, sharded=True, **f32)
+        tok, err, toks, walls = ref["first"].to(dev), 0.0, [], []
+        for i in range(EP_STEPS):
+            with specs.use_mesh(mesh):
+                bt = steps.place({"token": tok}, steps.batch_shardings(
+                    model, {"token": tok}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hlo_stats.collectives() as records:
+                if i == EP_STEPS - 1:
+                    (logits, c), prof, flops = moe_profiled(
+                        lambda: decode(p, c, bt))
+                else:
+                    logits, c = decode(p, c, bt)
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t0, 4))
+            if i == 0:
+                out["step_coll"] = hlo_stats.collective_bytes(records)
+            err = max(err, float((logits.cpu() - ref["logits"][i]).abs()
+                                 .max()))
+            tok = logits[:, -1].argmax(-1, keepdim=True).int()
+            toks.append(tok[:, 0].tolist())
+    out.update(logits_err=err, tokens=toks, walls=walls, step_flops=flops,
+               busy=step_breakdown(prof, walls[-1])["busy"])
+    return out
+
+
+def ep_rank(rank: int, world: int, out_dir: str, form: str) -> int:
+    """One rank of phase 23 (``chip_smoke.py --ep-rank R N DIR FORM``): 23a
+    with EP_TRAIN_MESH's ranks, 23b with EP_SERVE_MESH's; writes
+    DIR/rank<R>.json."""
+    import datetime
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(rank, form)
+    dist.init_process_group(form, init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    out = (ep_train_rank(dev, out_dir)
+           if world == int(np.prod(EP_TRAIN_MESH))
+           else ep_serve_rank(dev, out_dir))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5930,6 +6294,11 @@ def main():
         f"{CP_LAYERS} layers, prefill and flash decode at {CP_MESH}; "
         f"{HYMBA}'s banded form at {CP_HYMBA_MESH}")
     phase22_sequence_split(card)
+    log(f"phase 23: the MoE family over the mesh: {EP_TRAIN_ARCH} at full "
+        f"width, {EP_TRAIN_LAYERS} layers, a sharded train step at "
+        f"{EP_TRAIN_MESH}; {DBRX}, {EP_SERVE_LAYERS} layer, prefill and "
+        f"decode at {EP_SERVE_MESH}")
+    phase23_moe_mesh(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -6091,5 +6460,8 @@ if __name__ == "__main__":
                             sys.argv[5]))
     if sys.argv[1:2] == ["--cp-rank"]:
         sys.exit(cp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5]))
+    if sys.argv[1:2] == ["--ep-rank"]:
+        sys.exit(ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5]))
     sys.exit(main())

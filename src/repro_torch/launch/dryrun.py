@@ -173,8 +173,8 @@ def footprint(m) -> int:
 def _compute_block(t, sh, logical, mesh, dims, keeps):
     """This rank's block of a whole probe argument as the sharded step's
     compute reads it: its rows over the batch's mesh dims and its "model"
-    dims of kept logical axes (the dense decoder's, and "seq_sp" where the
-    step keeps the rank's rows); every other split gathered back
+    dims of kept logical axes (the dense and MoE decoders', and "seq_sp"
+    where the step keeps the rank's rows); every other split gathered back
     (recorded as the step's gathers are)."""
     if sh is None:
         return t
@@ -226,7 +226,7 @@ def run_probe(pr, model, mesh, rules):
             return {k: block(a[k], sh[k], lg[k], kept) for k in a}
         return _compute_block(a, sh, lg, mesh, dims, kept)
 
-    # the step's rows over "model": the dense decoder's residual (sp) and
+    # the step's rows over "model": the dense / MoE residual (sp) and
     # a self-attention cache's sequence (the lockstep decode's flash form)
     sp = spmd.seq_split(model.cfg, mesh, pr.args[0].shape[1])
     cp = any(spmd.cp_cache_dims(pr.shardings[j], shs[j])

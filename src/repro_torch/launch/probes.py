@@ -127,7 +127,7 @@ def probes_for(model: Model, shape: ShapeConfig, *,
         return _grad_wrap(fwd, remat) if kind == "train" else fwd
 
     # positions are made from the rows a call is given (a rank of the
-    # sharded runner holds its own rows; with the dense decoder's rows
+    # sharded runner holds its own rows; with the dense / MoE rows
     # over "model", its block of the sequence: ``spmd.seq_rows``)
     def seq_positions(x, n):
         lo, hi = spmd.seq_rows(x.shape[1]) if n == x.shape[1] else (0, n)

@@ -476,11 +476,13 @@ def _local_params(model: Model, params):
 def _sharded_prefill(model: Model, one, batch_chunks: int):
     """The prefill on params of DTensors (SPMD, no autograd): each rank
     runs its rows of each of the ``batch_chunks`` slices of the global
-    batch on weights gathered per layer (the dense decoder's heads, d_ff
-    and vocab over "model", its residual on the rank's rows of the
-    sequence where ``spmd.seq_split`` says so), and the logits of every
-    row are gathered to every rank: ``(B, 1, Vp)``, equal to the mesh-free
-    step's within fp32 sum order."""
+    batch on weights gathered per layer (the dense and MoE decoders'
+    heads, d_ff, experts and vocab over "model" where ``spmd.tp_keeps``
+    keeps them, the residual on the rank's rows of the sequence where
+    ``spmd.seq_split`` says so, a MoE layer's own dispatch groups where
+    they divide the batch's ranks), and the logits of every row are
+    gathered to every rank: ``(B, 1, Vp)``, equal to the mesh-free step's
+    within fp32 sum order."""
     def run(params, batch):
         mesh, keeps, local, plans = _local_params(model, params)
         sp = spmd.seq_split(model.cfg, mesh, batch["tokens"].shape[1])
@@ -496,8 +498,10 @@ def _sharded_prefill(model: Model, one, batch_chunks: int):
 def _sharded_decode(model: Model, decode):
     """The lockstep decode on params and a dense cache of DTensors (SPMD,
     no autograd): each rank runs its batch rows against its block of the
-    cache, the dense decoder's heads over "model" with the cache's kv
-    heads. A self-attention K / V leaf whose sequence is split over
+    cache, the dense and MoE decoders' heads over "model" with the
+    cache's kv heads and a MoE layer's experts over "model" (one token a
+    row: its one dispatch group gathers every rank's rows). A
+    self-attention K / V leaf whose sequence is split over
     "model" stays the rank's block, and the attention runs as flash
     decode over it (``layers.attention_decode``, ``spmd.cp_cache``). A
     leaf split over a mesh dim that the compute needs whole (whisper's
@@ -550,9 +554,11 @@ def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
     weights gathered per layer (``sharding.spmd``), divided by the number
     of ways the batch rows split, so the ranks' losses sum to the global
     mean; the gradients come back summed over the batch's ranks. The
-    dense decoder keeps its residual on the rank's rows of the sequence
-    where ``spmd.seq_split`` says so; its loss, summed over "model" in the
-    chunked CE, is then every row's on each "model" rank."""
+    dense and MoE decoders keep their residual on the rank's rows of the
+    sequence where ``spmd.seq_split`` says so; the loss, summed over
+    "model" in the chunked CE, is then every row's on each "model" rank,
+    and a MoE layer's aux losses, reduced over the batch's ranks where
+    its groups split, are the global ones on every rank."""
     def run(params, batch):
         mesh, keeps, local, plans = _local_params(model, params)
         grads, loss, ce, metrics = None, 0.0, 0.0, {}

@@ -14,13 +14,15 @@ kv-head slab of each new K/V row into its slab of the pool, attends on its
 own query heads and all-gathers the head outputs before ``wo``
 (``specs.replicate``); everything else runs replicated.
 
-Inside the sharded steps (``sharding.spmd``) the dense decoder's
-attention, MLP and embedding run on the rank's "model" blocks of their
-weights (heads, d_ff, vocab). With more than one row its residual keeps
-the rank's rows of the sequence: the rows are gathered before a split
-product and its sums reduce-scattered back, and attention whose heads
-do not divide "model" runs the rank's query rows against every rank's
-K / V rows. A MoE layer routes the whole batch's tokens. The lockstep
+Inside the sharded steps (``sharding.spmd``) the dense and MoE
+decoders' attention, MLP, experts and embedding run on the rank's
+"model" blocks of their weights (heads, d_ff, experts, vocab). With more
+than one row the residual keeps the rank's rows of the sequence: the
+rows are gathered before a split product and its sums reduce-scattered
+back, and attention whose heads do not divide "model" runs the rank's
+query rows against every rank's K / V rows. A MoE layer routes the
+rank's own dispatch groups where they divide the batch's ranks, else
+the whole batch's tokens (:func:`moe`). The lockstep
 decode over a cache whose sequence is split over "model" runs flash
 decode (each rank's partial softmax, merged); a windowed attention runs
 the banded form over each rank's chunks with a halo from its
@@ -1303,11 +1305,33 @@ def moe(params, x, dims: MoEDims):
     (inactive slots and padding included) can take capacity from the rows
     after it. A dropped choice contributes nothing. The expert products
     are plain batched products, which ``repro`` too leaves to its
-    compiler."""
-    x = spmd.gather_rows(x)      # training on a batch-split mesh: all rows
+    compiler.
+
+    Inside the sharded step (``sharding.spmd``) the layer takes
+    ``repro``'s layout. With the residual's rows over "model"
+    (``spmd.sp_on``) the rank's rows of the sequence are gathered first.
+    Where the dispatch groups divide the batch's ranks
+    (``spmd.moe_groups_split``) the rank routes its own groups, which are
+    whole, so routing, slots and capacity are the mesh-free ones of those
+    groups, and the aux and z losses' means over every token are sums over
+    the batch's ranks; otherwise every rank's rows are gathered and the
+    rank's kept at the end. With the experts over "model" (the weights'
+    ``spmd.tp_split``) the rank dispatches to, runs and combines its own
+    experts only, and the combine's partial sums are reduce-scattered onto
+    the rank's rows (``spmd.sp_scatter``) or summed (``spmd.tp_sum``). The
+    routing statistics are whole on every "model" rank: under ``sp_on``
+    their gradient is sent once (``spmd.tp_once``), where every other
+    gradient of the gathered rows is the rank's part."""
+    sp = spmd.sp_on()
+    if sp:                       # every row of the rank's sequences
+        x = spmd.sp_gather(x)
+    split = spmd.moe_groups_split(x.shape[0] * x.shape[1], dims.group_size)
+    if not split:                # every rank's rows (all the groups)
+        x = spmd.gather_rows(x)
     B, S, D = x.shape
     E, K = dims.num_experts, dims.top_k
     T = B * S
+    n = spmd.batch_split() if split else 1
     xt = x.reshape(T, D)
     logits = xt.float() @ params["router"].float()                  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -1318,13 +1342,19 @@ def moe(params, x, dims: MoEDims):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 
-    # Switch-style load balance and router z-loss
-    me = probs.mean(0)
-    ce = F.one_hot(expert_idx[:, 0], E).float().mean(0)
-    aux_loss = E * torch.sum(me * ce)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    # Switch-style load balance and router z-loss: means over every token
+    top1 = F.one_hot(expert_idx[:, 0], E).float()
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if split:
+        me = spmd.batch_sum(probs.sum(0)) / (T * n)
+        ce = spmd.batch_sum(top1.sum(0)) / (T * n)
+        z_loss = spmd.batch_sum(lse2.sum()) / (T * n)
+    else:
+        me, ce, z_loss = probs.mean(0), top1.mean(0), torch.mean(lse2)
+    aux_loss = spmd.tp_once(E * torch.sum(me * ce))
+    z_loss = spmd.tp_once(z_loss)
 
-    G = max(1, T // dims.group_size)
+    G = max(1, T * n // dims.group_size) // n     # the rank's groups
     Sg = T // G
     cap = max(1, int(math.ceil(Sg * K / E * dims.capacity_factor)))
     xg = xt.reshape(G, Sg, D)
@@ -1342,6 +1372,13 @@ def moe(params, x, dims: MoEDims):
         MOE_TRACE.append({"expert": expert_idx, "kept": keep.reshape(T, K),
                           "probs": probs, "cap": cap})
 
+    w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
+    ep = spmd.tp_split(w_gate) is not None
+    if ep:                       # the rank's experts [lo, lo + E / M)
+        lo = spmd.model_rank() * w_gate.shape[0]
+        eo = eo[..., lo:lo + w_gate.shape[0]]
+        if not sp:               # a replicated x: its gradient summed
+            xg, gate_g = spmd.tp_copy(xg), spmd.tp_copy(gate_g)
     # dispatch / combine one-hots (G, Sg, K, E, cap) folded over K; a slot
     # past cap has no one-hot column, as jax.nn.one_hot gives none
     slot_oh = (slot[..., None] == torch.arange(cap, device=x.device))
@@ -1351,13 +1388,19 @@ def moe(params, x, dims: MoEDims):
     comb = (kec * gate_g[..., None, None]).sum(2)
 
     ein = torch.einsum("gsec,gsd->egcd", disp, xg)             # (E,G,cap,D)
-    h = torch.einsum("egcd,edf->egcf", ein, params["w_gate"].to(x.dtype))
-    u = torch.einsum("egcd,edf->egcf", ein, params["w_up"].to(x.dtype))
+    h = torch.einsum("egcd,edf->egcf", ein, w_gate.to(x.dtype))
+    u = torch.einsum("egcd,edf->egcf", ein, w_up.to(x.dtype))
     h = silu(h) * u
-    eout = torch.einsum("egcf,efd->egcd", h, params["w_down"].to(x.dtype))
+    eout = torch.einsum("egcf,efd->egcd", h, w_down.to(x.dtype))
     out = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), eout)
-    return (spmd.own_rows(out.reshape(B, S, D)),
-            {"moe_aux": aux_loss, "moe_z": z_loss})
+    out = out.reshape(B, S, D)
+    if not split:
+        out = spmd.own_rows(out)
+    if ep:                       # the experts' partial sums
+        out = spmd.sp_scatter(out) if sp else spmd.tp_sum(out)
+    elif sp:
+        out = spmd.sp_narrow(out)
+    return out, {"moe_aux": aux_loss, "moe_z": z_loss}
 
 
 # ---------------------------------------------------------------- embeddings

@@ -244,8 +244,9 @@ def forward(params, cfg: ArchConfig, tokens, *, image_embeds=None,
     checkpointed layers, as ``repro`` nests them (so a super-layer's
     layers run forward three times in a training step, as there). Inside
     the sharded step with the rows over "model" (``spmd.sp_on``, the
-    dense decoder) the residual, the final norm and the features are the
-    rank's rows, where ``repro`` shards them over "seq_sp"."""
+    dense and MoE decoders) the residual, the final norm and the features
+    are the rank's rows, where ``repro`` shards them over "seq_sp"; the
+    MoE's aux losses are the global ones on every rank."""
     B, S = tokens.shape
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
     lo, hi = spmd.seq_rows(x.shape[1])    # the rank's rows under sp

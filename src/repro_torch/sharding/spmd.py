@@ -12,27 +12,30 @@ rank's block. While the loss runs, autograd saves each gathered weight as
 its block plus the recipe to gather it again, so a rank never holds the
 whole gathered model (:func:`regather_saved`).
 
-The dense decoder's weights keep their ``"model"`` blocks (heads, kv
-heads, d_ff, vocab; :func:`tp_keeps`), and the layers run tensor-parallel
-on them. With more than one row dividing "model" (:func:`seq_split`, the
-step's ``sp``) its residual keeps the rank's rows of the sequence between
-layers, where ``repro`` shards it over "seq_sp": the rows are gathered
-before a split product (:func:`sp_gather`: heads, d_ff, the vocab head)
-and the split products reduce-scattered back onto the rank's rows
-(:func:`sp_scatter`: after ``wo``, ``w_down`` and the vocab lookup).
+The dense decoder's and the MoE decoder's weights keep their ``"model"``
+blocks (heads, kv heads, d_ff, vocab, experts; :func:`tp_keeps`), and the
+layers run tensor-parallel on them. With more than one row dividing
+"model" (:func:`seq_split`, the step's ``sp``) the residual keeps the
+rank's rows of the sequence between layers, where ``repro`` shards it
+over "seq_sp": the rows are gathered before a split product
+(:func:`sp_gather`: heads, d_ff, experts, the vocab head) and the split
+products reduce-scattered back onto the rank's rows (:func:`sp_scatter`:
+after ``wo``, ``w_down``, the experts' combine and the vocab lookup).
 Attention whose heads do not divide "model" runs the rank's query rows
 against every rank's K / V rows (context parallelism), and every weight
 the rows reach whole sums its gradient over "model" too. Without ``sp``
 (one row, or rows not dividing "model") the residual stays replicated
 over "model": :func:`tp_copy` where it enters a split product (identity
 forward, sum over "model" backward) and :func:`tp_sum` where the split
-products meet. Every other family gathers its weights over the whole
+products meet. A MoE layer routes the rank's own dispatch groups where
+they divide the batch's ranks (:func:`moe_groups_split`; its aux
+statistics summed over those ranks, :func:`batch_sum`), else the groups
+of the whole (micro)batch (:func:`gather_rows`); its routing statistics,
+whole on every "model" rank, send their gradient once
+(:func:`tp_once`). Every other family gathers its weights over the whole
 mesh, splits only the batch and keeps the residual replicated; a
 windowed attention there runs the banded form over each "model" rank's
-own chunks (:func:`sp_own`, :func:`halo`, :func:`sp_replicate`); a MoE
-layer gathers the tokens of the whole (micro)batch first
-(:func:`gather_rows`), so its groups, capacity and aux losses are those
-of one device.
+own chunks (:func:`sp_own`, :func:`halo`, :func:`sp_replicate`).
 
 The sharded serving steps (``launch.steps``' prefill and lockstep decode
 on params and a dense cache of DTensors) run in the same context without
@@ -62,7 +65,7 @@ from repro_torch.sharding import specs
 class _Ctx:
     mesh: object
     batch_dims: Tuple[int, ...]     # mesh dims the batch rows split over
-    tp: bool                        # dense decoder, "model" > 1
+    tp: bool                        # dense / MoE decoder, "model" > 1
     sp: bool = False                # the residual's rows split over "model"
     cp_cache: bool = False          # the K/V cache's sequence over "model"
 
@@ -76,10 +79,10 @@ def training(mesh, batch_dims, tp: bool, sp: bool = False,
              cp_cache: bool = False):
     """The sharded step's context (training, and the serving steps too):
     its mesh, the mesh dims its batch rows split over, whether the dense
-    decoder runs tensor-parallel, whether its residual keeps the rank's
-    rows between layers (``sp``, :func:`seq_split`) and whether the dense
-    K/V cache holds the rank's block of the sequence (``cp_cache``: the
-    lockstep decode's flash-decode form)."""
+    or MoE decoder runs tensor-parallel, whether its residual keeps the
+    rank's rows between layers (``sp``, :func:`seq_split`) and whether the
+    dense K/V cache holds the rank's block of the sequence (``cp_cache``:
+    the lockstep decode's flash-decode form)."""
     token = _CTX.set(_Ctx(mesh, tuple(batch_dims), tp, sp, cp_cache))
     try:
         yield
@@ -167,6 +170,28 @@ class _SumTP(torch.autograd.Function):
         return g, None
 
 
+class _OnceTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.first = mesh.get_local_rank(specs.TP_AXIS) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+class _SumBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return specs.all_reduce(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return specs.all_reduce(g, ctx.mesh, ctx.dims), None, None
+
+
 class _GatherRows(torch.autograd.Function):
     """Rows (dim 0) of every rank of the batch's mesh dims, in the
     placement's order; backward sums the row gradients over those ranks and
@@ -206,6 +231,16 @@ def tp_sum(x):
     return _SumTP.apply(x, c.mesh) if c is not None and c.tp else x
 
 
+def tp_once(x):
+    """A value computed whole on every "model" rank from rows whose
+    gradients are the ranks' parts (the MoE's routing statistics under
+    :func:`sp_on`): identity forward; the backward keeps the gradient on
+    "model" rank 0 and gives zeros elsewhere, so it is counted once where
+    the parts are summed."""
+    c = _ctx()
+    return _OnceTP.apply(x, c.mesh) if c is not None and c.sp else x
+
+
 def tp_max(x):
     """The max over "model" (no gradient: a shift for a stable exp)."""
     c = _ctx()
@@ -243,6 +278,27 @@ def batch_split() -> int:
         for i in c.batch_dims:
             n *= c.mesh.size(i)
     return n
+
+
+def batch_sum(x):
+    """``x`` summed over the batch's ranks (an all-reduce; identity when
+    the batch is not split). Every rank's loss reads the sum, each at 1 /
+    ``batch_split`` of the global loss, so the backward all-reduces too."""
+    c = _ctx()
+    if c is None or not c.batch_dims:
+        return x
+    return _SumBatch.apply(x, c.mesh, c.batch_dims)
+
+
+def moe_groups_split(tokens: int, group_size: int) -> bool:
+    """Whether a MoE call on the rank's ``tokens`` routes only its own
+    dispatch groups, as ``repro`` shards its (G, Sg, D) groups over
+    "batch" where ``_fit_axes`` lets it: the batch split n > 1 divides G =
+    max(1, T // group_size) of the global T = ``tokens`` * n. The rank
+    then holds G / n whole groups of ``repro``'s Sg and capacity;
+    otherwise the call gathers every rank's rows (:func:`gather_rows`)."""
+    n = batch_split()
+    return n > 1 and max(1, tokens * n // group_size) % n == 0
 
 
 def gather_rows(x):
@@ -364,9 +420,10 @@ def cp_cache() -> bool:
 
 def seq_split(cfg, mesh, seq_len: int) -> bool:
     """Whether the residual keeps the rank's rows between layers, decided
-    as ``_fit_axes`` decides "seq_sp": the dense decoder only (the family
-    :func:`tp_keeps` covers), "model" > 1, more than one row and the rows
-    dividing "model"; otherwise the residual stays replicated."""
+    as ``_fit_axes`` decides "seq_sp": the dense and MoE decoders only
+    (the families :func:`tp_keeps` covers), "model" > 1, more than one row
+    and the rows dividing "model"; otherwise the residual stays
+    replicated."""
     m = specs.tp_degree(mesh)
     return bool(tp_keeps(cfg, mesh)) and seq_len > 1 and seq_len % m == 0
 
@@ -465,15 +522,23 @@ class LeafPlan:
 
 def tp_keeps(cfg, mesh) -> frozenset:
     """The logical axes whose "model" blocks the tensor-parallel compute
-    keeps: the dense decoder's (no MoE, no cross-attention) d_ff and vocab,
-    and its heads and kv heads when both counts divide the "model" size
-    (MLA attention runs whole). Empty for every other family or without a
-    "model" axis above 1."""
+    keeps: the dense decoder's d_ff and vocab, the MoE decoder's vocab and
+    its experts when their count divides the "model" size, and either's
+    heads and kv heads when both counts divide it (MLA attention runs
+    whole). A dim that does not divide stays gathered, as ``_fit_axes``
+    leaves it whole. Empty for every other family or without a "model"
+    axis above 1."""
     from repro_torch.configs.base import Family
     m = specs.tp_degree(mesh)
-    if m <= 1 or cfg.family != Family.DENSE or cfg.moe:
+    if m <= 1:
         return frozenset()
-    keep = {"d_ff", "vocab"}
+    if cfg.family == Family.DENSE and not cfg.moe:
+        keep = {"d_ff", "vocab"}
+    elif cfg.family == Family.MOE and cfg.moe:
+        keep = {"vocab"} | ({"expert"} if cfg.moe.num_experts % m == 0
+                            else set())
+    else:
+        return frozenset()
     if (not cfg.kv_lora_rank and cfg.num_heads % m == 0
             and cfg.num_kv_heads % m == 0):
         keep |= {"heads", "kv_heads"}
