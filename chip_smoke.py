@@ -100,20 +100,20 @@ before printing any result. Phases, each of which raises on failure:
    (8b) int8 PTQ over 10,000 synthetic images in batches of 1,000: fp32
    against 16-bit fixed point and int8, then every conv GEMM through K8
    on the int8 weights against the dequant-on-load forward.
-9. rwkv6-7b at full width, 16 of its 32 layers (cut from full depth so
-   that phase 20 fits the script's time): the
+9. rwkv6-7b at full width, 8 of its 32 layers (cut from full depth so
+   that phases 20-24 fit the script's time): the
    forward on (2, 512) tokens through K5 against the plain recurrence,
    one prefill chunk plus 8 decode steps through K5 ('auto') against
    'scan' (logits, state leaves, greedy tokens), then the 16 requests of
    phases 4-5 on the dense cache (rwkv has nothing to page), K5 launched
-   once per layer per chunk and per tick (the (B, T) of every launch
+   once per layer per chunk and per tick (the (B, T, H) of every launch
    counted and printed).
-10. hymba-1.5b at full width, 8 of its 32 layers (cut from full depth,
+10. hymba-1.5b at full width, 4 of its 32 layers (cut from full depth,
    as phase 9): the same
    forward and step comparisons through K6, then the 16 requests plus 4
    of 1,100-1,500 tokens (s_max 2048, so the 1024-row ring wraps) on the
    dense ring and on the paged ring (pages of 16 rows), every selective
-   scan through K6 (its launches by (B, T) printed) and every first
+   scan through K6 (its launches by (B, T, D) printed) and every first
    chunk's attention through K2; the two caches' streams equal.
 11. run right after phase 5, on its qwen2.5-32b weights, every engine
    on fp32 pages of 16, so K1 carries every decode tick and chunk (its
@@ -216,8 +216,9 @@ before printing any result. Phases, each of which raises on failure:
    2 layers (0.405 B params, 4.86 GB of params, m and v), fp32, no remat,
    the trainer's data and optimizer; ranks are processes (``chip_smoke.py
    --train-rank``: one card each over NCCL where there are enough, else
-   all on cuda:0 over gloo, every collective staged through the host).
-   (20a) 3 steps mesh-free, then on (2, 1), (1, 2) and (2, 2) from the
+   all on cuda:0 over gloo, every collective staged through the host; the
+   2 and the 4 ranks run at once, so their walls share the host).
+   (20a) 2 steps mesh-free, then on (2, 1), (1, 2) and (2, 2) from the
    same initial state: losses within TRAIN20_TOL, step-1 gradients within
    GRAD20_TOL of each leaf's largest, each rank's resident share of the
    state and its peak memory; (20b) saved after a step on (2, 2),
@@ -267,11 +268,32 @@ before printing any result. Phases, each of which raises on failure:
    mesh-free's, tokens equal. Each leg prints each rank's MoE forward
    dot FLOPs (``torch.profiler``'s ``with_flops``) beside mesh-free's,
    its collective bytes by kind, its wall and device busy.
+24. the recurrent families over the mesh, after phase 23, TF32 off,
+   fp32: (24a) K5 at rwkv6-7b's width (64 heads of 64) and K6 at
+   hymba-1.5b's (1600 channels, state 16), a one-request 64-token chunk
+   and an 8-slot tick, on every rank's slab at 2, 4 and 16 "model" ranks
+   (32 / 16 / 4 heads, 800 / 400 / 100 channels), each launched alone
+   and bit-equal to the same heads' or channels' y and state of the
+   whole launch, rank 0's slab timed beside the whole launch and the
+   bound; (24b) rwkv6-7b, then hymba-1.5b, at full width cut to 2
+   layers, at (1, 2) (``chip_smoke.py --rec-rank``, gloo on cuda:0 with
+   one card): a sharded prefill of 4 x 256 (the rows and the heads or
+   channels over "model") and 8 greedy lockstep decode steps over the
+   rank's block of the state, logits within CP_TOL of mesh-free's, tokens
+   equal, no cache leaf gathered; each rank's K5 / K6 launches by (B, T,
+   heads or channels), collective bytes by kind, a decode step's wall
+   and device busy, and the state bytes a step no longer gathers; (24c)
+   one sharded train step of rwkv6-7b (2 layers) on 2 x 256 at (1, 2)
+   (plain scan: K5 has no backward): the fp32 loss within TRAIN20_TOL of
+   mesh-free's, the step-1 gradients in float64 (``launch.witness``)
+   within GRAD20_TOL of mesh-free's, and in fp32 about as far from
+   float64's as mesh-free's fp32 ones are (REC_FP32_SPREAD).
 
 The recurrent phases perturb the leaves ``repro``'s init leaves constant
 (rwkv's u, mu, mu_x, lora_B, wB; hymba's logA) with seeded noise, so the
 decay, the bonus and the per-channel A depend on the data. Each serving
-path (3b's forward, 4, 4b, 5, 7, 9, 10, 11, 18, 19b, 19c), each forward of phases 8,
+path (3b's forward, 4, 4b, 5, 7, 9, 10, 11, 18, 19b, 19c, 24b), each
+forward of phases 8,
 8b, 9 and 10 and phase 16's training runs run with the kernels' launch
 counts set to 0 just before and read just after, and every serving run requires that no prefill
 chunk failed (the engine catches a chunk that raises and fails its job);
@@ -413,8 +435,8 @@ RECURRENT_NOISE = {
     RWKV: {"u": 0.1, "mu": 0.1, "mu_x": 0.1, "lora_B": 0.01, "wB": 0.01},
     HYMBA: {"logA": 0.5},
 }
-# depth cut so that phase 20 fits the script's time (of 32 layers each)
-RWKV_LAYERS, HYMBA_LAYERS = 16, 8
+# depth cut so that phases 20-24 fit the script's time (of 32 layers each)
+RWKV_LAYERS, HYMBA_LAYERS = 8, 4
 HYMBA_S_MAX = 2048                       # the ring (1024 rows) wraps
 # K5 / K6 at full width: (B, T) of the forward, a decode tick and a
 # 64-token chunk of 8 slots, and a chunk and a tick of one request (the
@@ -442,6 +464,8 @@ T_START = time.perf_counter()           # the whole script's clock
 
 
 def log(msg):
+    if msg.startswith("phase "):    # each phase's start on the script's clock
+        msg += f" [{time.perf_counter() - T_START:.1f} s in]"
     print(msg, flush=True)
 
 
@@ -3271,9 +3295,9 @@ def tick_and_chunk(engine, prompt, card, label) -> dict:
 
 def scan_shapes_of(fn, hist):
     """``fn`` (``ls.wkv6`` or ``ls.selective_scan``) that also counts the
-    (B, T) of each call in ``hist``."""
+    (B, T, heads or channels) of each call in ``hist``."""
     def counted(*args, **kwargs):
-        key = tuple(args[0].shape[:2])
+        key = tuple(args[0].shape[:3])
         hist[key] = hist.get(key, 0) + 1
         return fn(*args, **kwargs)
     return counted
@@ -3330,7 +3354,7 @@ def serve_recurrent(engine, prompts, card, label):
     if sum(hist.values()) != want:
         raise AssertionError(f"{label}: {sum(hist.values())} {kernel} calls "
                              f"counted by shape, {want} launches")
-    log(f"  {kernel} launches by (B, T): " + ", ".join(
+    log(f"  {kernel} launches by (B, T, heads or channels): " + ", ".join(
         f"{key}: {n}" for key, n in sorted(hist.items(),
                                            key=lambda kv: -kv[1])))
     tick_and_chunk(engine, prompts[0], card, label)
@@ -4810,35 +4834,65 @@ def phase19b_tp1(model, params, prompts, card, phase4):
     return pool
 
 
-def spawn_ranks(world, out_dir, flag, timeout):
-    """``chip_smoke.py FLAG R WORLD DIR FORM`` as ``world`` processes (FORM
-    NCCL with a card each where there are enough, else gloo on cuda:0);
-    fails if one fails or the timeout passes. Returns (FORM, each rank's
-    DIR/rank<R>.json)."""
+def start_ranks(world, out_dir, flag):
+    """Starts ``chip_smoke.py FLAG R WORLD DIR FORM`` as ``world``
+    processes (FORM NCCL with a card each where there are enough, else
+    gloo on cuda:0); ``wait_ranks`` takes what this returns."""
     form = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    procs = [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__).resolve()), flag,
-         str(r), str(world), str(out_dir), form])
-        for r in range(world)]
+    return {"flag": flag, "form": form, "out_dir": out_dir,
+            "t0": time.perf_counter(), "procs": [subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()), flag,
+                 str(r), str(world), str(out_dir), form])
+                for r in range(world)]}
+
+
+def wait_ranks(groups, timeout):
+    """Waits for every process of ``groups`` (``start_ranks``' results,
+    running at once); fails if one fails or the timeout passes. Returns,
+    for each group, (FORM, each rank's DIR/rank<R>.json, the seconds from
+    its start to its last process's end)."""
+    procs = [p for g in groups for p in g["procs"]]
     deadline = time.monotonic() + timeout
+    took = {}
+
+    def ended():
+        for i, g in enumerate(groups):
+            if i not in took and all(p.poll() is not None
+                                     for p in g["procs"]):
+                took[i] = time.perf_counter() - g["t0"]
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
                 break
             if time.monotonic() > deadline:
-                raise AssertionError(f"{flag}: {world} ranks still running "
-                                     f"after {timeout} s")
+                raise AssertionError(
+                    f"{[g['flag'] for g in groups]}: ranks still running "
+                    f"after {timeout} s")
+            ended()
             time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
-    if bad:
-        raise AssertionError(f"{flag}: ranks failed {bad}")
-    return form, [json.loads((pathlib.Path(out_dir) / f"rank{r}.json")
-                             .read_text()) for r in range(world)]
+    ended()
+    for g in groups:
+        bad = [(r, p.returncode) for r, p in enumerate(g["procs"])
+               if p.returncode]
+        if bad:
+            raise AssertionError(f"{g['flag']}: ranks failed {bad}")
+    return [(g["form"], [json.loads((pathlib.Path(g["out_dir"])
+                                     / f"rank{r}.json").read_text())
+                         for r in range(len(g["procs"]))], took[i])
+            for i, g in enumerate(groups)]
+
+
+def spawn_ranks(world, out_dir, flag, timeout):
+    """One group of ``start_ranks``, waited for: (FORM, each rank's
+    DIR/rank<R>.json)."""
+    form, ranks, _ = wait_ranks([start_ranks(world, out_dir, flag)],
+                                timeout)[0]
+    return form, ranks
 
 
 def phase19c_tp2(card, p_reqs, q8_reqs, pool_bytes):
@@ -5009,7 +5063,7 @@ def tp_rank(rank: int, world: int, out_dir: str, form: str) -> int:
 # are processes (one card each over NCCL where there are enough, else all
 # on cuda:0 over gloo, every collective staged through the host)
 TRAIN20_ARCH, TRAIN20_LAYERS, TRAIN20_BATCH = "minicpm-2b", 2, (8, 128)
-TRAIN20_STEPS = 3
+TRAIN20_STEPS = 2          # a (2, 1) step takes 10-12 s of the script
 TRAIN20_MESHES = ((2, 1), (1, 2), (2, 2))
 ELASTIC_MESHES = ((2, 2), (4, 1), (1, 4))
 TRAIN20_TOL = 1e-3          # the reference's sharded-vs-single loss bound
@@ -5089,17 +5143,19 @@ def phase20_sharded_training(card):
             torch.cuda.empty_cache()
             log(f"  20a mesh-free: losses {losses}, step wall "
                 f"{[round(t, 4) for t in times]} s ({card})")
-            ranks = {}
+            # both groups at once (their step walls then share the host)
+            groups = []
             for world in (2, 4):
-                t0 = time.perf_counter()
                 run = os.path.join(d, f"world{world}")
                 os.mkdir(run)
-                form, ranks[world] = spawn_ranks(
-                    world, run, "--train-rank", TRAIN20_TIMEOUT)
+                groups.append(start_ranks(world, run, "--train-rank"))
+            ranks = {}
+            for world, (form, ranks[world], took) in zip(
+                    (2, 4), wait_ranks(groups, TRAIN20_TIMEOUT)):
                 log(f"  {world} ranks ({form}"
                     + (", all on cuda:0, the collectives staged through "
                        "the host" if form == "gloo" else "") + f") took "
-                    f"{time.perf_counter() - t0:.1f} s")
+                    f"{took:.1f} s, the 2 and 4 ranks running at once")
     finally:
         torch.use_deterministic_algorithms(False)
     meshes = {}
@@ -5128,7 +5184,8 @@ def phase20_sharded_training(card):
                 f"{[round(g['resident'], 4) for g in got]}, peak memory "
                 f"{[round(g['peak_gib'], 2) for g in got]} GiB ({card})")
             prof = got[0]["profile"]
-            log(f"  20a {shape} rank 0's step 3 under torch.profiler: "
+            log(f"  20a {shape} rank 0's step {TRAIN20_STEPS} under "
+                f"torch.profiler: "
                 f"{prof['wall']:.3f} s wall, device busy {prof['busy']:.3f} s "
                 f"(idle {1 - prof['busy'] / prof['wall']:.1%}); host self "
                 f"time in copies {prof['copies']:.3f} s, in the weight "
@@ -5574,7 +5631,8 @@ def phase22_sequence_split(card):
     equal, the rows the steps wrote equal in each rank's block; each
     rank's collective bytes a decode step beside the per-layer cache
     gather's, its wall and device busy a step. 22b: hymba-1.5b's prefill
-    through the banded form at CP_HYMBA_MESH within CP_TOL of mesh-free."""
+    through the banded form at CP_HYMBA_MESH within CP_TOL of mesh-free,
+    its ranks running beside 22a's."""
     t22 = time.perf_counter()
     f32 = dict(compute_dtype=torch.float32)
     model = cp_model(ARCH)
@@ -5612,15 +5670,30 @@ def phase22_sequence_split(card):
         torch.cuda.empty_cache()
         gather = 2 * cfg.num_layers * B * S * cfg.num_kv_heads \
             * cfg.head_dim * 4
+        model = cp_model(HYMBA)
+        kw = dict(attn_impl="banded", scan_impl="scan", **f32)
+        with torch.no_grad():
+            params = cp_params(model, DEV)
+            tokens = cp_tokens(model.cfg.vocab_size, CP_HYMBA, 23)
+            ref = steps.make_prefill(model, **kw)(params,
+                                                  {"tokens": tokens.to(DEV)})
+            torch.save({"tokens": tokens, "prefill": ref.cpu()},
+                       os.path.join(d, "hymba.pt"))
+        del params, ref
+        torch.cuda.empty_cache()
         log(f"  22a {ARCH} ({CP_LAYERS} layers, fp32) mesh-free: prefill "
             f"{B} x {S}, a cache of {S} rows to {CP_PROMPT}, {CP_STEPS} "
-            f"greedy steps; spawning {int(np.prod(CP_MESH))} ranks at "
-            f"{CP_MESH} ({time.perf_counter() - t22:.1f} s so far)")
-        t0 = time.perf_counter()
-        run = os.path.join(d, "qwen")
-        os.mkdir(run)
-        form, ranks = spawn_ranks(int(np.prod(CP_MESH)), run, "--cp-rank",
-                                  CP_TIMEOUT)
+            f"greedy steps; 22b's mesh-free prefill; spawning "
+            f"{int(np.prod(CP_MESH))} ranks at {CP_MESH} and "
+            f"{int(np.prod(CP_HYMBA_MESH))} at {CP_HYMBA_MESH} at once "
+            f"({time.perf_counter() - t22:.1f} s so far)")
+        groups = []
+        for name, mesh in (("qwen", CP_MESH), ("hymba", CP_HYMBA_MESH)):
+            run = os.path.join(d, name)
+            os.mkdir(run)
+            groups.append(start_ranks(int(np.prod(mesh)), run, "--cp-rank"))
+        (form, ranks, took), (hform, hranks, htook) = wait_ranks(groups,
+                                                                 CP_TIMEOUT)
         for r, got in enumerate(ranks):
             if not (got["prefill_err"] < CP_TOL and got["logits_err"] < CP_TOL
                     and got["rows_err"] < CP_TOL
@@ -5629,7 +5702,7 @@ def phase22_sequence_split(card):
         log(f"  22a {CP_MESH} ({form}"
             + (", all on cuda:0, the collectives staged through the host"
                if form == "gloo" else "")
-            + f", {time.perf_counter() - t0:.1f} s): prefill logits within "
+            + f", {took:.1f} s): prefill logits within "
             f"{max(g['prefill_err'] for g in ranks):.3e}, decode logits "
             f"within {max(g['logits_err'] for g in ranks):.3e} (bound "
             f"{CP_TOL}), greedy tokens equal over {CP_STEPS} steps, the "
@@ -5643,116 +5716,49 @@ def phase22_sequence_split(card):
                 f"{CP_PROFILED} steps {got['busy'] * 1e3:.3f} ms device "
                 f"busy a step of {got['wall'] * 1e3:.3f} ms wall "
                 f"({card})")
-
-        t0 = time.perf_counter()
-        model = cp_model(HYMBA)
-        kw = dict(attn_impl="banded", scan_impl="scan", **f32)
-        with torch.no_grad():
-            params = cp_params(model, DEV)
-            tokens = cp_tokens(model.cfg.vocab_size, CP_HYMBA, 23)
-            ref = steps.make_prefill(model, **kw)(params,
-                                                  {"tokens": tokens.to(DEV)})
-            torch.save({"tokens": tokens, "prefill": ref.cpu()},
-                       os.path.join(d, "hymba.pt"))
-        del params, ref
-        torch.cuda.empty_cache()
-        run = os.path.join(d, "hymba")
-        os.mkdir(run)
-        form, ranks = spawn_ranks(int(np.prod(CP_HYMBA_MESH)), run,
-                                  "--cp-rank", CP_TIMEOUT)
-        for r, got in enumerate(ranks):
+        for r, got in enumerate(hranks):
             if not got["err"] < CP_TOL or not got["permutes"]:
                 raise AssertionError(f"22b rank {r}: {got}")
         log(f"  22b {HYMBA} ({CP_LAYERS} layers, fp32) prefill {CP_HYMBA[0]}"
             f" x {CP_HYMBA[1]} through the banded form at {CP_HYMBA_MESH} "
-            f"({form}, {time.perf_counter() - t0:.1f} s): logits within "
-            f"{max(g['err'] for g in ranks):.3e} of mesh-free (bound "
-            f"{CP_TOL}); rank 0's collectives {ranks[0]['coll']} B, "
-            f"prefill wall {[round(g['wall'], 3) for g in ranks]} s")
+            f"({hform}, {htook:.1f} s, beside 22a's ranks): logits within "
+            f"{max(g['err'] for g in hranks):.3e} of mesh-free (bound "
+            f"{CP_TOL}); rank 0's collectives {hranks[0]['coll']} B, "
+            f"prefill wall {[round(g['wall'], 3) for g in hranks]} s")
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s ({card})")
 
 
 def cp_qwen_rank(dev, out_dir):
     """22a on this rank (CP_MESH): the sharded prefill and the greedy
-    decode over the rank's block of the cache, held to the mesh-free run
-    in DIR/../qwen.pt."""
-    from repro_torch.launch import hlo_stats
+    decode over the rank's block of the cache (``sharded_serve``), held to
+    the mesh-free run in DIR/../qwen.pt, and the rows the steps wrote in
+    the rank's block."""
     ref = torch.load(os.path.join(out_dir, "..", "qwen.pt"), mmap=True)
-    f32 = dict(compute_dtype=torch.float32)
     model = cp_model(ARCH)
     mesh = mesh_mod.make_mesh(CP_MESH, ("data", "model"), dev.type)
-    out = {}
     with torch.no_grad():
         params = cp_params(model, dev)
         with specs.use_mesh(mesh):
             p = steps.place(params, steps.param_shardings(model, params))
         del params
         torch.cuda.empty_cache()
-        tokens = ref["tokens"].to(dev)
-        with specs.use_mesh(mesh):
-            b = steps.place({"tokens": tokens}, steps.batch_shardings(
-                model, {"tokens": tokens}))
-        prefill = steps.make_prefill(model, attn_impl="chunked",
-                                     sharded=True, **f32)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with hlo_stats.collectives() as records:
-            logits = prefill(p, b)
-        torch.cuda.synchronize()
-        out["prefill_s"] = time.perf_counter() - t0
-        out["prefill_coll"] = hlo_stats.collective_bytes(records)
-        out["prefill_err"] = float((logits.cpu() - ref["prefill"]).abs()
-                                   .max())
-        del logits
-        with specs.use_mesh(mesh):
-            sh = steps.cache_shardings(model, ref["cache"])
-        c = {k: specs.distribute(v, sh[k], dev)
-             for k, v in ref["cache"].items()}
-        decode = steps.make_decode_step(model, sharded=True, **f32)
-        tok, err, toks, walls = tokens[:, CP_PROMPT:CP_PROMPT + 1], 0.0, \
-            [], []
-        prof = contextlib.nullcontext()
-        for i in range(CP_STEPS):
-            with specs.use_mesh(mesh):
-                bt = steps.place({"token": tok}, steps.batch_shardings(
-                    model, {"token": tok}))
-            if i == CP_STEPS - CP_PROFILED:
-                prof = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA])
-                prof.__enter__()
-                t_prof = time.perf_counter()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with hlo_stats.collectives() as records:
-                logits, c = decode(p, c, bt)
-            torch.cuda.synchronize()
-            walls.append(round(time.perf_counter() - t0, 4))
-            if i == 0:
-                out["step_coll"] = hlo_stats.collective_bytes(records)
-            err = max(err, float((logits.cpu() - ref["logits"][i]).abs()
-                                 .max()))
-            tok = logits[:, -1].argmax(-1, keepdim=True).int()
-            toks.append(tok[:, 0].tolist())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_prof
-        prof.__exit__(None, None, None)
-        busy = step_breakdown(prof, wall)["busy"]
-        rows_err = 0.0
-        for k in ("k", "v"):
-            own = c[k].to_local()
-            s_loc = own.shape[2]
-            lo = mesh.get_local_rank("model") * s_loc
-            for j in range(CP_STEPS):
-                row = CP_PROMPT + j
-                if lo <= row < lo + s_loc:
-                    rows_err = max(rows_err, float(
-                        (own[:, :, row - lo].cpu() - ref["rows"][k][:, :, j])
-                        .abs().max()))
-    out.update({"logits_err": err, "tokens": toks, "walls": walls,
-                "rows_err": rows_err, "busy": busy / CP_PROFILED,
-                "wall": wall / CP_PROFILED})
-    return out
+    prefill = steps.make_prefill(model, attn_impl="chunked", sharded=True,
+                                 compute_dtype=torch.float32)
+    first = ref["tokens"][:, CP_PROMPT:CP_PROMPT + 1].to(dev)
+    out, c = sharded_serve(model, mesh, p, ref, prefill, first, CP_STEPS,
+                           CP_PROFILED)
+    rows_err = 0.0
+    for k in ("k", "v"):
+        own = c[k].to_local()
+        s_loc = own.shape[2]
+        lo = mesh.get_local_rank("model") * s_loc
+        for j in range(CP_STEPS):
+            row = CP_PROMPT + j
+            if lo <= row < lo + s_loc:
+                rows_err = max(rows_err, float(
+                    (own[:, :, row - lo].cpu() - ref["rows"][k][:, :, j])
+                    .abs().max()))
+    return dict(out, rows_err=rows_err)
 
 
 def cp_hymba_rank(dev, out_dir):
@@ -5886,6 +5892,200 @@ def zero_blocks(placed):
         run_check=False) for k, v in placed.items()}
 
 
+def profiled_call(fn):
+    """(``fn()``, its profile (host and device), no FLOPs): the plain
+    form of ``moe_profiled``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof, None
+
+
+def sharded_serve(model, mesh, p, ref, prefill, first, n_steps, profiled,
+                  run=None):
+    """Phases 22-24's serving leg on this rank, the params ``p`` placed on
+    ``mesh``: ``prefill`` (a sharded prefill step) of ref["tokens"] held
+    to ref["prefill"], under ``run`` where given (``fn -> (fn(), profile,
+    FLOPs)``: its device busy and FLOPs kept); then ``n_steps`` greedy
+    lockstep decode steps from the token ``first`` over ref["cache"]
+    (placed by the cache shardings), held to ref["logits"], the last
+    ``profiled`` of them under ``run`` (default ``profiled_call``).
+    Returns ({prefill_s, prefill_coll, prefill_err, [prefill_busy,
+    prefill_flops], step_coll (the first step's collective bytes),
+    logits_err, tokens, walls, busy and wall a profiled step, step_flops
+    (the profiled steps'), }, the cache after the steps)."""
+    from repro_torch.launch import hlo_stats
+    dev = first.device
+    out = {}
+    with torch.no_grad():
+        tokens = ref["tokens"].to(dev)
+        with specs.use_mesh(mesh):
+            b = steps.place({"tokens": tokens}, steps.batch_shardings(
+                model, {"tokens": tokens}))
+            csh = steps.cache_shardings(model, ref["cache"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with hlo_stats.collectives() as records:
+            if run is None:
+                logits = prefill(p, b)
+                torch.cuda.synchronize()
+            else:
+                logits, prof, flops = run(lambda: prefill(p, b))
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_coll"] = hlo_stats.collective_bytes(records)
+        out["prefill_err"] = float((logits.cpu() - ref["prefill"]).abs()
+                                   .max())
+        if run is not None:
+            out["prefill_busy"] = step_breakdown(prof, out["prefill_s"])[
+                "busy"]
+            out["prefill_flops"] = flops
+        del logits
+        cache = {k: specs.distribute(v, csh[k], dev)
+                 for k, v in ref["cache"].items()}
+        decode = steps.make_decode_step(model, sharded=True,
+                                        compute_dtype=torch.float32)
+        now = {"tok": first, "cache": cache, "err": 0.0}
+        toks, walls = [], []
+
+        def step(i):
+            tok = now["tok"]
+            with specs.use_mesh(mesh):
+                bt = steps.place({"token": tok}, steps.batch_shardings(
+                    model, {"token": tok}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hlo_stats.collectives() as records:
+                logits, now["cache"] = decode(p, now["cache"], bt)
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t0, 4))
+            if i == 0:
+                out["step_coll"] = hlo_stats.collective_bytes(records)
+            now["err"] = max(now["err"], float(
+                (logits.cpu() - ref["logits"][i]).abs().max()))
+            now["tok"] = logits[:, -1].argmax(-1, keepdim=True).int()
+            toks.append(now["tok"][:, 0].tolist())
+        for i in range(n_steps - profiled):
+            step(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, prof, flops = (run or profiled_call)(
+            lambda: [step(i) for i in range(n_steps - profiled, n_steps)])
+        wall = time.perf_counter() - t0
+    out.update(logits_err=now["err"], tokens=toks, walls=walls,
+               step_flops=flops,
+               busy=step_breakdown(prof, wall)["busy"] / profiled,
+               wall=wall / profiled)
+    return out, now["cache"]
+
+
+def sharded_train(model, mesh, batch, make_params, run=None,
+                  float64=False):
+    """Phases 23-24's train leg on this rank: the mesh-free step-1 loss,
+    metrics and gradients of ``make_params()`` on ``batch`` (one rank at
+    a time; the rank keeps its blocks), then one sharded train step from
+    the same params, its gradients under ``run`` where given (``fn ->
+    (fn(), profile, FLOPs)``: the FLOPs of both runs and the step's busy
+    kept). With ``float64`` both step-1 gradients are also taken under
+    ``witness.float64``. Returns {params (count), loss, ref_loss,
+    loss_diff, metrics, ref_metrics, errs: {leaf: {fp32 (of the mesh-free
+    fp32 block's largest), and with ``float64`` float64, fp32_truth and
+    free_truth (the sharded and mesh-free fp32 blocks against the float64
+    mesh-free one), each of the float64 block's largest}}, zero (the
+    leaves whose gradient is zero in both), flops, ref_flops, coll, wall,
+    busy, peak_gib}, and the placed params after the update."""
+    from repro_torch.launch import hlo_stats, witness
+    dev = batch["tokens"].device
+    run = run or (lambda fn: (fn(), None, None))
+    opt = AdamW(learning_rate=1e-3)
+    loss_fn = steps.make_loss_fn(model, compute_dtype=torch.float32,
+                                 remat=False)
+    loss64 = steps.make_loss_fn(model, compute_dtype=torch.float64,
+                                remat=False)
+    with specs.use_mesh(mesh):
+        sh = steps.state_shardings(model, steps.train_state_shapes(model,
+                                                                   opt))
+        pbatch = steps.place(batch, steps.batch_shardings(model, batch))
+
+    def blocks(grads):
+        return {n: specs.local_block(g, s).clone() for (n, g), (_, s) in
+                zip(named_leaves(grads), named_leaves(sh["params"]))}
+
+    def setup():
+        params = make_params()
+        ((loss, metrics), grads), _, flops = run(
+            lambda: steps.value_and_grad(loss_fn)(params, batch))
+        ref = {"loss": float(loss), "flops": flops, "grads": blocks(grads),
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "params": sum(t.numel() for t in tree_leaves(params))}
+        del grads
+        if float64:
+            with witness.float64():
+                p64 = witness.to_float64(params)
+                ref["grads64"] = blocks(steps.value_and_grad(loss64)(
+                    p64, batch)[1])
+                ref["placed64"] = steps.place(p64, sh["params"])
+            del p64
+        ref["placed"] = steps.place(params, sh["params"])
+        return ref
+    ref = one_rank_at_a_time(setup)
+    placed = ref["placed"]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    state = {"params": placed,
+             "opt": {"m": zero_blocks(placed), "v": zero_blocks(placed),
+                     "count": specs.distribute(zero, sh["opt"]["count"])},
+             "step": specs.distribute(zero, sh["step"])}
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with hlo_stats.collectives() as records:
+        ((loss, metrics), grads), prof, flops = run(
+            lambda: steps.sharded_value_and_grad(model, loss_fn)(
+                state["params"], pbatch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def rel(a, b, big):       # in the wider of the two dtypes
+        return float((a - b).abs().max()) / big
+    errs, zeros = {}, []
+    got = dict(named_leaves(grads))
+    for name, g in got.items():
+        want = ref["grads"][name]
+        big = float(want.abs().max())
+        if big == 0 and float(g.abs().max()) == 0:
+            zeros.append(name)
+        errs[name] = {"fp32": rel(g, want, max(big, 1e-30))}
+    if float64:
+        with witness.float64():
+            _, got64 = steps.sharded_value_and_grad(model, loss64)(
+                ref.pop("placed64"), pbatch)
+        for name, g64 in named_leaves(got64):
+            want64 = ref["grads64"][name]
+            big = max(float(want64.abs().max()), 1e-300)
+            errs[name].update(
+                float64=rel(g64, want64, big),
+                fp32_truth=rel(got[name], want64, big),
+                free_truth=rel(ref["grads"][name], want64, big))
+        del got64
+    ref = {k: ref[k] for k in ("params", "loss", "metrics", "flops")}
+    del got
+    torch.cuda.empty_cache()
+    state, _ = steps.sharded_update(opt, state, grads)
+    torch.cuda.synchronize()
+    return {"params": ref["params"], "loss": float(loss),
+            "ref_loss": ref["loss"],
+            "loss_diff": abs(float(loss) - ref["loss"]),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "ref_metrics": ref["metrics"], "errs": errs, "zero": zeros,
+            "flops": flops, "ref_flops": ref["flops"],
+            "coll": hlo_stats.collective_bytes(records), "wall": wall,
+            "busy": None if prof is None else step_breakdown(prof, wall)[
+                "busy"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}, \
+        state["params"]
+
+
 def phase23_moe_mesh(card):
     """23a: EP_TRAIN_ARCH on EP_TRAIN_MESH spawned ranks (``chip_smoke.py
     --ep-rank``): each computes the mesh-free step-1 loss and gradients in
@@ -6003,134 +6203,59 @@ def phase23_moe_mesh(card):
 
 def ep_train_rank(dev, out_dir):
     """23a on this rank: the mesh-free step-1 loss and gradients (one rank
-    at a time; the rank keeps its blocks), then the sharded step."""
-    from repro_torch.launch import hlo_stats
+    at a time; the rank keeps its blocks), then the sharded step
+    (``sharded_train``), the MoE layers' forward FLOPs of both counted."""
     from repro_torch.sharding import spmd
     model = ep_model(EP_TRAIN_ARCH, EP_TRAIN_LAYERS)
-    opt = AdamW(learning_rate=1e-3)
     mesh = mesh_mod.make_mesh(EP_TRAIN_MESH, ("data", "model"), dev.type)
     toks = cp_tokens(model.cfg.vocab_size, EP_TRAIN_BATCH, 23)
     batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}
-    loss_fn = steps.make_loss_fn(model, compute_dtype=torch.float32,
-                                 remat=False)
-    with specs.use_mesh(mesh):
-        sh = steps.state_shardings(model, steps.train_state_shapes(model,
-                                                                   opt))
-        pbatch = steps.place(batch, steps.batch_shardings(model, batch))
-
-    def setup():
-        params = model.init(torch.Generator(dev).manual_seed(0), dev)
-        ((loss, metrics), grads), _, flops = moe_profiled(
-            lambda: steps.value_and_grad(loss_fn)(params, batch))
-        blocks = {n: specs.local_block(g, s).clone() for (n, g), (_, s) in
-                  zip(named_leaves(grads), named_leaves(sh["params"]))}
-        del grads
-        n = sum(t.numel() for t in tree_leaves(params))
-        placed = steps.place(params, sh["params"])
-        del params
-        return (float(loss), {k: float(metrics[k])
-                              for k in ("moe_aux", "moe_z")}, flops, blocks,
-                placed, n)
-    ref_loss, ref_aux, ref_flops, ref, placed, n = one_rank_at_a_time(setup)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    state = {"params": placed,
-             "opt": {"m": zero_blocks(placed), "v": zero_blocks(placed),
-                     "count": specs.distribute(zero, sh["opt"]["count"])},
-             "step": specs.distribute(zero, sh["step"])}
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with hlo_stats.collectives() as records:
-        ((loss, metrics), got), prof, flops = moe_profiled(
-            lambda: steps.sharded_value_and_grad(model, loss_fn)(
-                state["params"], pbatch))
-    wall = time.perf_counter() - t0
-    err, moe_err = 0.0, {}
-    for name, g in named_leaves(got):
-        want = ref[name]
-        e = float((g - want).abs().max() / want.abs().max())
-        err = max(err, e)
-        if name.split("/")[-1] in ("router", "w_gate", "w_up", "w_down"):
-            moe_err[name.split("/")[-1]] = float(f"{e:.3e}")
-    state, _ = steps.sharded_update(opt, state, got)
-    torch.cuda.synchronize()
-    return {"params": n, "loss": float(loss), "ref_loss": ref_loss,
-            "loss_diff": abs(float(loss) - ref_loss), "grad_err": err,
-            "moe_err": moe_err,
-            "aux_diff": max(abs(float(metrics[k]) - ref_aux[k])
-                            for k in ref_aux),
-            "keeps": sorted(spmd.tp_keeps(model.cfg, mesh)),
-            "experts": placed["layers"]["moe"]["w_gate"].to_local().shape[1],
-            "moe_flops": flops, "ref_moe_flops": ref_flops,
-            "coll": hlo_stats.collective_bytes(records), "wall": wall,
-            "busy": step_breakdown(prof, wall)["busy"],
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    out, placed = sharded_train(
+        model, mesh, batch,
+        lambda: model.init(torch.Generator(dev).manual_seed(0), dev),
+        run=moe_profiled)
+    errs = {name: e["fp32"] for name, e in out.pop("errs").items()}
+    return dict(
+        out, grad_err=max(errs.values()),
+        moe_err={name.split("/")[-1]: float(f"{e:.3e}")
+                 for name, e in errs.items() if name.split("/")[-1] in
+                 ("router", "w_gate", "w_up", "w_down")},
+        aux_diff=max(abs(out["metrics"][k] - out["ref_metrics"][k])
+                     for k in ("moe_aux", "moe_z")),
+        keeps=sorted(spmd.tp_keeps(model.cfg, mesh)),
+        experts=placed["layers"]["moe"]["w_gate"].to_local().shape[1],
+        moe_flops=out["flops"], ref_moe_flops=out["ref_flops"])
 
 
 def ep_serve_rank(dev, out_dir):
     """23b on this rank: the params placed one rank at a time, the sharded
-    prefill and EP_STEPS lockstep decode steps against DIR/../dbrx.pt."""
-    from repro_torch.launch import hlo_stats
+    prefill and EP_STEPS lockstep decode steps against DIR/../dbrx.pt
+    (``sharded_serve``), the MoE layers' forward FLOPs of the prefill and
+    the last step counted, the tokens each MoE layer routed."""
     from repro_torch.sharding import spmd
     ref = torch.load(os.path.join(out_dir, "..", "dbrx.pt"))
-    f32 = dict(compute_dtype=torch.float32)
     model = ep_model(DBRX, EP_SERVE_LAYERS)
     mesh = mesh_mod.make_mesh(EP_SERVE_MESH, ("data", "model"), dev.type)
     with specs.use_mesh(mesh, specs.SERVE_RULES):
         psh = steps.param_shardings(model, model.init(torch.Generator(),
                                                       "meta"))
     p = one_rank_at_a_time(lambda: steps.place(cp_params(model, dev), psh))
-    out = {"keeps": sorted(spmd.tp_keeps(model.cfg, mesh)),
-           "experts": p["layers"]["moe"]["w_gate"].to_local().shape[1]}
-    with torch.no_grad():
-        tokens = ref["tokens"].to(dev)
-        with specs.use_mesh(mesh):
-            b = steps.place({"tokens": tokens}, steps.batch_shardings(
-                model, {"tokens": tokens}))
-        prefill = steps.make_prefill(model, attn_impl="einsum", sharded=True,
-                                     **f32)
+    prefill = steps.make_prefill(model, attn_impl="einsum", sharded=True,
+                                 compute_dtype=torch.float32)
+    routed = []
+
+    def traced(p, b):
         layers_mod.MOE_TRACE = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with hlo_stats.collectives() as records:
-            logits, prof, flops = moe_profiled(lambda: prefill(p, b))
-        out["prefill_s"] = time.perf_counter() - t0
-        out["routed"] = [t["kept"].shape[0] for t in layers_mod.MOE_TRACE]
-        layers_mod.MOE_TRACE = None
-        out.update(prefill_coll=hlo_stats.collective_bytes(records),
-                   moe_flops=flops,
-                   prefill_busy=step_breakdown(prof, out["prefill_s"])["busy"],
-                   prefill_err=float((logits.cpu() - ref["prefill"]).abs()
-                                     .max()))
-        with specs.use_mesh(mesh):
-            csh = steps.cache_shardings(model, ref["cache"])
-        c = {k: specs.distribute(v, csh[k], dev)
-             for k, v in ref["cache"].items()}
-        decode = steps.make_decode_step(model, sharded=True, **f32)
-        tok, err, toks, walls = ref["first"].to(dev), 0.0, [], []
-        for i in range(EP_STEPS):
-            with specs.use_mesh(mesh):
-                bt = steps.place({"token": tok}, steps.batch_shardings(
-                    model, {"token": tok}))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with hlo_stats.collectives() as records:
-                if i == EP_STEPS - 1:
-                    (logits, c), prof, flops = moe_profiled(
-                        lambda: decode(p, c, bt))
-                else:
-                    logits, c = decode(p, c, bt)
-            torch.cuda.synchronize()
-            walls.append(round(time.perf_counter() - t0, 4))
-            if i == 0:
-                out["step_coll"] = hlo_stats.collective_bytes(records)
-            err = max(err, float((logits.cpu() - ref["logits"][i]).abs()
-                                 .max()))
-            tok = logits[:, -1].argmax(-1, keepdim=True).int()
-            toks.append(tok[:, 0].tolist())
-    out.update(logits_err=err, tokens=toks, walls=walls, step_flops=flops,
-               busy=step_breakdown(prof, walls[-1])["busy"])
-    return out
+        try:
+            return prefill(p, b)
+        finally:
+            routed.extend(t["kept"].shape[0] for t in layers_mod.MOE_TRACE)
+            layers_mod.MOE_TRACE = None
+    out, _ = sharded_serve(model, mesh, p, ref, traced, ref["first"].to(dev),
+                           EP_STEPS, 1, run=moe_profiled)
+    return dict(out, keeps=sorted(spmd.tp_keeps(model.cfg, mesh)),
+                experts=p["layers"]["moe"]["w_gate"].to_local().shape[1],
+                routed=routed, moe_flops=out["prefill_flops"])
 
 
 def ep_rank(rank: int, world: int, out_dir: str, form: str) -> int:
@@ -6148,6 +6273,338 @@ def ep_rank(rank: int, world: int, out_dir: str, form: str) -> int:
     out = (ep_train_rank(dev, out_dir)
            if world == int(np.prod(EP_TRAIN_MESH))
            else ep_serve_rank(dev, out_dir))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# ------------------------------------------------------------ phase 24
+# the recurrent families over the mesh, fp32, TF32 off: (24a) K5 at
+# rwkv6-7b's width and K6 at hymba-1.5b's on each rank's slab at every
+# "model" size of SLAB_WAYS, in this process, at SLAB_SHAPES' (B, T);
+# (24b) rwkv6-7b, then hymba-1.5b, at full width cut to REC_LAYERS
+# layers (noise on the constant leaves, as phases 9 and 10), a sharded
+# prefill of REC_PREFILL and REC_STEPS greedy lockstep decode steps at
+# REC_MESH: the heads (rwkv6) or channels (hymba) over "model", the rows
+# too in the prefill; (24c) one sharded train step of rwkv6-7b (its
+# REC_LAYERS, the same noise) on REC_TRAIN_BATCH at REC_MESH. 24b and 24c
+# run in one spawn of REC_MESH's ranks (gloo on cuda:0 with one card)
+SLAB_WAYS = (2, 4, 16)
+SLAB_SHAPES = {"chunk": (1, 64), "tick": (SLOTS, 1)}
+REC_LAYERS, REC_MESH, REC_PREFILL, REC_STEPS = 2, (1, 2), (4, 256), 8
+REC_TRAIN_BATCH = (2, 256)
+# 24c's step-1 gradients are held in float64 (``launch.witness``) to
+# GRAD20_TOL; in fp32 rwkv6's sit from float64's by more than that, the
+# mesh-free ones too (its gradients are ill-conditioned: a relative
+# 2^-24 on every weight moves them by as much, ``rwkv_rounding.py
+# --grads``), so the sharded fp32 ones are held to sit no farther from
+# float64's than GRAD20_TOL or REC_FP32_SPREAD times the mesh-free fp32
+# ones' distance, whichever is larger
+REC_FP32_SPREAD = 2
+# the leaves a split compute reads in part, or whose gradient crosses the
+# rows over "model", printed by name
+REC_NAMED = ("mu_x", "mu", "lora_A", "lora_B", "w0", "wA", "wB", "u",
+             "gn_scale", "cr", "wr", "wo", "ck", "cv", "cmu_k", "cmu_r")
+REC_PROFILED = 4                 # decode steps under torch.profiler
+REC_TIMEOUT = 400
+
+
+def scan_slab(name, args, lo, n):
+    """A rank's contiguous slab of a K5 / K6 launch's inputs: its heads
+    [lo, lo + n) of r, k, v, w, u, s0 (K5) or its channels of x, dt, a,
+    h0 with b and c whole (K6)."""
+    if name == "wkv6":
+        r, k, v, w, u, s0 = args
+        return [t[:, :, lo:lo + n].contiguous() for t in (r, k, v, w)] + [
+            u[lo:lo + n].contiguous(), s0[:, lo:lo + n].contiguous()]
+    x, dt, b, c, a, h0 = args
+    return [x[..., lo:lo + n].contiguous(), dt[..., lo:lo + n].contiguous(),
+            b, c, a[lo:lo + n].contiguous(), h0[:, lo:lo + n].contiguous()]
+
+
+def scan_cut(name, out, lo, n):
+    """The same heads / channels of a whole launch's (y, final state)."""
+    y, state = out
+    if name == "wkv6":
+        return y[:, :, lo:lo + n], state[:, lo:lo + n]
+    return y[..., lo:lo + n], state[:, lo:lo + n]
+
+
+def phase24a_slabs(card):
+    """K5 at rwkv6-7b's width (64 heads of 64) and K6 at hymba-1.5b's (1600
+    channels, state 16) at each of SLAB_SHAPES: every rank's slab at each
+    "model" size of SLAB_WAYS (H / M heads, D / M channels, contiguous)
+    launched alone must equal the same heads' or channels' y and final
+    state of the whole launch bit for bit; rank 0's slab against its plain
+    version (KERNEL_TOL), its device time beside the whole launch's and
+    the slab's bound. Returns {(kernel, shape, M): {err, ms, plain_ms,
+    bound_ms, bound_by}} (M = 1: the whole launch)."""
+    rwkv, hymba = configs.get_config(RWKV), configs.get_config(HYMBA)
+    out = {}
+    for kind, (B, T) in SLAB_SHAPES.items():
+        for name, W, N, case, fn, plain, bound in (
+                ("wkv6", rwkv.num_heads, rwkv.head_dim, wkv_case, ls.wkv6,
+                 ref.wkv6, wkv_bound),
+                ("selective_scan", hymba.d_model, hymba.ssm_state,
+                 sscan_case, ls.selective_scan, ref.selective_scan,
+                 sscan_bound)):
+            args = case(240, B, T, W, N)
+            whole = fn(*args)
+            for ways in (1,) + SLAB_WAYS:
+                n = W // ways
+                slabs = [scan_slab(name, args, r * n, n) for r in range(ways)]
+                for r, sa in enumerate(slabs):
+                    got = fn(*sa)
+                    if not all(torch.equal(g, w) for g, w in zip(
+                            got, scan_cut(name, whole, r * n, n))):
+                        raise AssertionError(f"24a {name}[{kind}] rank {r} "
+                                             f"of {ways}: its slab differs "
+                                             f"from the whole launch's")
+                err = scan_held(f"24a {name}[{kind}] {ways} ways, rank 0's "
+                                f"slab ({n} of {W})", fn(*slabs[0]),
+                                plain(*slabs[0]))
+                ms = device_ms(lambda: fn(*slabs[0]), 30, SCAN_KERNELS[name])
+                plain_ms = time_ms(lambda: plain(*slabs[0]), 3)
+                bms, by = bound(B, T, n, N)
+                out[(name, kind, ways)] = dict(err=err, ms=ms,
+                                               plain_ms=plain_ms,
+                                               bound_ms=bms, bound_by=by)
+            log(f"  24a {name}[{kind}] B={B} T={T}: every slab at "
+                f"{SLAB_WAYS} ways bit-equal to the whole launch's; "
+                "device ms (bound ms) whole / " + " / ".join(
+                    f"{W // m} {'heads' if name == 'wkv6' else 'channels'}"
+                    for m in SLAB_WAYS) + ": " + " / ".join(
+                    f"{out[(name, kind, m)]['ms']:.4f} "
+                    f"({out[(name, kind, m)]['bound_ms']:.4f})"
+                    for m in (1,) + SLAB_WAYS) + f" ({card})")
+            del args, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def rec_model(arch, layers=REC_LAYERS):
+    return get_model(dataclasses.replace(configs.get_config(arch),
+                                         num_layers=layers))
+
+
+def rec_params(model, arch, dev):
+    """The seed-0 init with phases 9 / 10's noise on the constant leaves,
+    and for rwkv6 on the channel mix's token-shift mix too (at zero the
+    shift, which reads the previous rank's last row, changes nothing), on
+    ``dev``."""
+    params = perturb_recurrent(cp_params(model, dev), arch, 24)
+    if arch == RWKV:
+        gen = torch.Generator(DEV).manual_seed(240)
+        for key in ("cmu_k", "cmu_r"):
+            leaf = params["layers"][key]
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen,
+                                        device=leaf.device))
+    return params
+
+
+def rec_state_bytes(cfg, B) -> int:
+    """The recurrent state a sharded decode step would gather, one layer
+    at a time, if the compute needed it whole (the layout before the
+    heads / channels over "model"): rwkv6's S, hymba's h, fp32."""
+    per = (cfg.num_heads * cfg.head_dim ** 2 if cfg.family.value == "ssm"
+           else cfg.d_model * cfg.ssm_state)
+    return cfg.num_layers * B * per * 4
+
+
+def phase24_recurrent_mesh(card):
+    """24a in this process; 24b's mesh-free references here (the prefill's
+    logits, a cache prefilled with the prompt, REC_STEPS greedy decode
+    steps); then 24b and 24c on REC_MESH spawned ranks (``chip_smoke.py
+    --rec-rank``). Returns (24a's rows, the ranks' scan launches summed
+    {kernel: n})."""
+    t24 = time.perf_counter()
+    slab_rows = phase24a_slabs(card)
+    log(f"  24a took {time.perf_counter() - t24:.1f} s")
+    f32 = dict(compute_dtype=torch.float32)
+    B, S = REC_PREFILL
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for arch in (RWKV, HYMBA):
+            model = rec_model(arch)
+            with torch.no_grad():
+                params = rec_params(model, arch, DEV)
+                tokens = cp_tokens(model.cfg.vocab_size, REC_PREFILL, 25)
+                toks = tokens.to(DEV)
+                ref_logits = steps.make_prefill(model, **f32)(
+                    params, {"tokens": toks})
+                cache = model.init_cache(B, S + REC_STEPS, torch.float32,
+                                         device=DEV)
+                _, cache = model.prefill_chunk(params, toks, cache,
+                                               first=True, **f32)
+                start = {k: v.to("cpu", copy=True) for k, v in cache.items()}
+                decode = steps.make_decode_step(model, **f32)
+                tok = ref_logits[:, -1].argmax(-1, keepdim=True).int()
+                first, logits, toks_out = tok.cpu(), [], []
+                for _ in range(REC_STEPS):
+                    out, cache = decode(params, cache, {"token": tok})
+                    tok = out[:, -1].argmax(-1, keepdim=True).int()
+                    logits.append(out.cpu())
+                    toks_out.append(tok[:, 0].tolist())
+                torch.save({"tokens": tokens, "prefill": ref_logits.cpu(),
+                            "cache": start, "first": first,
+                            "logits": logits, "tokens_out": toks_out},
+                           os.path.join(d, f"{arch}.pt"))
+            del params, cache, ref_logits, start
+            torch.cuda.empty_cache()
+        log(f"  24b mesh-free {RWKV} and {HYMBA} ({REC_LAYERS} layers, fp32): "
+            f"prefill {B} x {S}, a cache prefilled with it, {REC_STEPS} "
+            f"greedy decode steps ({time.perf_counter() - t0:.1f} s); "
+            f"spawning {int(np.prod(REC_MESH))} ranks at {REC_MESH}")
+        t0 = time.perf_counter()
+        run = os.path.join(d, "ranks")
+        os.mkdir(run)
+        form, ranks = spawn_ranks(int(np.prod(REC_MESH)), run, "--rec-rank",
+                                  REC_TIMEOUT)
+    launched = {"wkv6": 0, "selective_scan": 0}
+    for arch in (RWKV, HYMBA):
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            if not (got["prefill_err"] < CP_TOL and got["logits_err"] < CP_TOL
+                    and got["tokens"] == got["ref_tokens"]
+                    and got["stacks"] == 0):
+                raise AssertionError(f"24b {arch} rank {r}: {got}")
+            for kernel, n in got["launches"].items():
+                launched[kernel] += n
+        log(f"  24b {arch} ({REC_LAYERS} layers, fp32) at {REC_MESH} ({form}"
+            + (", all on cuda:0, the collectives staged through the host"
+               if form == "gloo" else "")
+            + f"): prefill logits within "
+            f"{max(g[arch]['prefill_err'] for g in ranks):.3e}, decode "
+            f"logits within {max(g[arch]['logits_err'] for g in ranks):.3e} "
+            f"(bound {CP_TOL}), greedy tokens equal over {REC_STEPS} steps; "
+            f"no cache leaf gathered; a decode step no longer gathers "
+            f"{rec_state_bytes(rec_model(arch).cfg, B):,} B of state")
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            log(f"  24b {arch} rank {r}: state block {got['state_block']}, "
+                f"keeps {got['keeps']}; scan launches by (B, T, heads or "
+                f"channels) {got['shapes']}; prefill {got['prefill_s']:.3f} s "
+                f"wall, collectives {got['prefill_coll']}; a decode step's "
+                f"collectives {got['step_coll']} B, wall {got['walls']} s, "
+                f"over the last {REC_PROFILED} steps "
+                f"{got['busy'] * 1e3:.3f} ms device busy a step of "
+                f"{got['wall'] * 1e3:.3f} ms wall ({card})")
+    for r, rank in enumerate(ranks):
+        got = rank["train"]
+        if not (got["loss_diff"] < TRAIN20_TOL
+                and got["float64"] < GRAD20_TOL
+                and got["fp32_truth"] <= max(
+                    GRAD20_TOL, REC_FP32_SPREAD * got["free_truth"])):
+            raise AssertionError(f"24c rank {r}: {got}")
+    got = ranks[0]["train"]
+
+    def most(key):
+        return f"{max(g['train'][key] for g in ranks):.3e}"
+    log(f"  24c {RWKV} ({REC_LAYERS} layers, {got['params'] / 1e9:.3f} B "
+        f"params) one train step of {REC_TRAIN_BATCH[0]} x "
+        f"{REC_TRAIN_BATCH[1]} at {REC_MESH}: fp32 loss {got['loss']:.6f} "
+        f"against mesh-free {got['ref_loss']:.6f} (diff {most('loss_diff')}"
+        f", bound {TRAIN20_TOL}); step-1 gradients, of each leaf's largest: "
+        f"in float64 within {most('float64')} of mesh-free's (bound "
+        f"{GRAD20_TOL}; rank 0's worst {got['worst']['float64']}; the named "
+        f"leaves {got['named']}); in fp32 within {most('fp32_truth')} of "
+        f"float64's, mesh-free's fp32 within {most('free_truth')} (bound "
+        f"the larger of {GRAD20_TOL} and {REC_FP32_SPREAD} x the latter), "
+        f"sharded fp32 against mesh-free fp32 {most('fp32')} (rank 0's "
+        f"worst {got['worst']['fp32']}; of float64's "
+        f"{got['worst']['fp32_truth']} / {got['worst']['free_truth']}); "
+        f"exactly zero on both: "
+        f"{got['zero']}; collectives {got['coll']} B; the fp32 gradients "
+        f"{[round(g['train']['wall'], 3) for g in ranks]} s wall")
+    log(f"  24b / 24c ranks took {time.perf_counter() - t0:.1f} s; phase 24 "
+        f"took {time.perf_counter() - t24:.1f} s ({card})")
+    return slab_rows, launched
+
+
+def rec_serve_rank(arch, dev, out_dir):
+    """24b on this rank: the sharded prefill and REC_STEPS lockstep decode
+    steps from the mesh-free cache in DIR/../ARCH.pt (``sharded_serve``),
+    the scan launches counted from 0 over both with their shapes, and the
+    cache leaves gathered a layer at a time (``GatheredStack``)
+    counted."""
+    from repro_torch.sharding import spmd
+    ref_ = torch.load(os.path.join(out_dir, "..", f"{arch}.pt"))
+    model = rec_model(arch)
+    mesh = mesh_mod.make_mesh(REC_MESH, ("data", "model"), dev.type)
+    stacks = [0]
+    gathered = spmd.GatheredStack
+
+    class Counted(gathered):
+        def __init__(self, *args):
+            stacks[0] += 1
+            super().__init__(*args)
+    hist = {}
+    kernel = scan_kernel(arch)
+    scan = getattr(ls, kernel)
+    with torch.no_grad():
+        params = rec_params(model, arch, dev)
+        with specs.use_mesh(mesh):
+            p = steps.place(params, steps.param_shardings(model, params))
+        del params
+        torch.cuda.empty_cache()
+    prefill = steps.make_prefill(model, sharded=True,
+                                 compute_dtype=torch.float32)
+    ls.reset_launches()
+    spmd.GatheredStack = Counted
+    setattr(ls, kernel, scan_shapes_of(scan, hist))
+    try:
+        out, c = sharded_serve(model, mesh, p, ref_, prefill,
+                               ref_["first"].to(dev), REC_STEPS,
+                               REC_PROFILED)
+    finally:
+        spmd.GatheredStack = gathered
+        setattr(ls, kernel, scan)
+    key = "S" if arch == RWKV else "h"
+    return dict(out, keeps=sorted(spmd.tp_keeps(model.cfg, mesh)),
+                ref_tokens=ref_["tokens_out"], launches=dict(ls.LAUNCHES),
+                shapes={str(k): n for k, n in hist.items()},
+                stacks=stacks[0], state_block=list(c[key].to_local().shape))
+
+
+def rec_train_rank(dev):
+    """24c on this rank: the mesh-free step-1 loss and gradients (one rank
+    at a time; the rank keeps its blocks), then one sharded train step,
+    both step-1 gradients also in float64 (``sharded_train``)."""
+    model = rec_model(RWKV)
+    mesh = mesh_mod.make_mesh(REC_MESH, ("data", "model"), dev.type)
+    toks = cp_tokens(model.cfg.vocab_size, REC_TRAIN_BATCH, 26)
+    batch = {"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}
+    out, _ = sharded_train(model, mesh, batch,
+                           lambda: rec_params(model, RWKV, dev),
+                           float64=True)
+    errs = out.pop("errs")
+    worst = {key: max(errs, key=lambda n: errs[n][key])
+             for key in ("float64", "fp32_truth", "free_truth", "fp32")}
+    return dict(out, **{key: errs[n][key] for key, n in worst.items()},
+                worst=worst, named={
+                    n.split("/")[-1]: float(f"{e['float64']:.3e}")
+                    for n, e in errs.items()
+                    if n.split("/")[-1] in REC_NAMED})
+
+
+def rec_rank(rank: int, world: int, out_dir: str, form: str) -> int:
+    """One rank of phase 24 (``chip_smoke.py --rec-rank R N DIR FORM``):
+    24b for rwkv6-7b and hymba-1.5b, then 24c; writes DIR/rank<R>.json."""
+    import datetime
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(rank, form)
+    dist.init_process_group(form, init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    out = {}
+    for arch in (RWKV, HYMBA):
+        out[arch] = rec_serve_rank(arch, dev, out_dir)
+        torch.cuda.empty_cache()
+    out["train"] = rec_train_rank(dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -6299,6 +6756,11 @@ def main():
         f"{EP_TRAIN_MESH}; {DBRX}, {EP_SERVE_LAYERS} layer, prefill and "
         f"decode at {EP_SERVE_MESH}")
     phase23_moe_mesh(card)
+    log(f"phase 24: the recurrent families over the mesh: K5 / K6 on each "
+        f"rank's slab; {RWKV} and {HYMBA} at full width, {REC_LAYERS} "
+        f"layers, prefill and decode at {REC_MESH}; a {RWKV} train step "
+        f"(fp32 and float64)")
+    rec_slabs, rec_launches = phase24_recurrent_mesh(card)
 
     kernels = []
     paged_rows = (("", "paged_attention.cu", 52, launches),
@@ -6440,6 +6902,21 @@ def main():
                 "max_abs_err": f["err"], "ms": f["ms"],
                 "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                 "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    # K5 and K6 on a rank's slab (24a: the tick's shape, REC_MESH's heads
+    # or channels), launched by 24b's ranks (their prefills and ticks)
+    ways = REC_MESH[1]
+    for name, line in (("wkv6", 30), ("selective_scan", 105)):
+        f = rec_slabs[(name, "tick", ways)]
+        kernels.append({
+            "name": f"{name}[slab]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+            "replaces": f"src/repro/kernels/linear_scan.py:{line}",
+            "launches": rec_launches[name],
+            "max_abs_err": max(rec_slabs[(name, k, m)]["err"]
+                               for k in SLAB_SHAPES for m in SLAB_WAYS),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": None})
     log(f"device times the profiler could not give, timed between events "
         f"instead: {len(FALLBACKS)}")
     log(f"the whole script took {time.perf_counter() - T_START:.1f} s "
@@ -6464,4 +6941,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ep-rank"]:
         sys.exit(ep_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5]))
+    if sys.argv[1:2] == ["--rec-rank"]:
+        sys.exit(rec_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5]))
     sys.exit(main())

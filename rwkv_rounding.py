@@ -2,7 +2,7 @@
 """How the rwkv6 stack grows the rounding of its wkv recurrence, on the CPU.
 
     python3 rwkv_rounding.py [--layers 2 4 8] [--seed 0] [--tokens 64]
-        [--d-model 64 --heads 4 --head-dim 16 --d-ff 128]
+        [--d-model 64 --heads 4 --head-dim 16 --d-ff 128] [--grads]
 
 The reduced rwkv6-7b (``reduced_config``, at the widths given: by default
 its own, d_model 64 and 4 heads of 16) with the most layers asked for, of
@@ -23,7 +23,15 @@ For each depth it prints, as a share of the largest fp32 logit, the
 largest logit difference of each pair. If the stack amplifies every
 rounding alike, the three differences grow at the same rate with depth,
 and the kernel's order is no further from float64 than the reference's.
-Exits 0; it checks nothing.
+With ``--grads`` it also prints, for the step-1 gradients of the training
+loss (``launch.steps.make_loss_fn``, the plain recurrence), each as the
+largest share of a leaf's largest float64 gradient, beside that leaf:
+how far the fp32 gradients sit from float64's (``launch.witness``), and
+how far the float64 gradients move when every weight is multiplied by
+1 + 2^-24 N(0, 1), about what rounding it to fp32 does. The second is the
+gradients' conditioning: two fp32 computations of them whose sums run in
+other orders (a step split over ranks against one that is not) can be
+that far apart with neither wrong. Exits 0; it checks nothing.
 """
 from __future__ import annotations
 
@@ -99,6 +107,42 @@ def logits(model, params, toks, wkv):
     return lg[..., :model.cfg.vocab_size].double()
 
 
+def grad_conditioning(model, params, toks):
+    """The step-1 gradients of the training loss
+    (``launch.steps.make_loss_fn``, the plain recurrence): ((how far the
+    fp32 gradients sit from float64's, the leaf), (how far the float64
+    gradients move when every weight is multiplied by 1 + 2^-24 N(0, 1),
+    the leaf)), each the largest over the leaves as a share of the leaf's
+    largest float64 gradient."""
+    from repro_torch.launch import steps, witness
+    from repro_torch.tree import tree_map
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def named(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [kv for k in sorted(tree)
+                    for kv in named(tree[k], f"{prefix}{k}/")]
+        return [(prefix[:-1], tree)]
+
+    def grads(p, dtype):
+        loss_fn = steps.make_loss_fn(model, compute_dtype=dtype, remat=False)
+        return named(steps.value_and_grad(loss_fn)(p, batch)[1])
+
+    def worst(got, want):
+        return max(((a.double() - b).abs().max().item()
+                    / max(b.abs().max().item(), 1e-300), name)
+                   for (name, a), (_, b) in zip(got, want))
+    g32 = grads(params, torch.float32)
+    gen = torch.Generator().manual_seed(5)
+    with witness.float64():
+        p64 = witness.to_float64(params)
+        g64 = grads(p64, torch.float64)
+        moved = grads(tree_map(lambda w: w * (1 + 2.0 ** -24 * torch.randn(
+            w.shape, generator=gen, dtype=torch.float64)), p64),
+            torch.float64)
+    return worst(g32, g64), worst(moved, g64)
+
+
 class _Ref:
     """``ref`` with its wkv6 replaced."""
 
@@ -118,6 +162,7 @@ def main() -> int:
     ap.add_argument("--heads", type=int, default=4)
     ap.add_argument("--head-dim", type=int, default=16)
     ap.add_argument("--d-ff", type=int, default=128)
+    ap.add_argument("--grads", action="store_true")
     args = ap.parse_args()
     cfg = reduced_config(configs.get_config(RWKV),
                          num_layers=max(args.layers), d_model=args.d_model,
@@ -148,6 +193,10 @@ def main() -> int:
                    (order - f64).abs().max().item() / scale,
                "kernel_order_vs_fp32":
                    (order - f32).abs().max().item() / scale}
+        if args.grads:
+            ((row["grads_fp32_vs_float64"], row["grads_fp32_leaf"]),
+             (row["grads_moved_by_rounding"], row["grads_moved_leaf"])) = \
+                grad_conditioning(cut, params, toks)
         rows.append(row)
         print(json.dumps(row), flush=True)
     return 0

@@ -280,7 +280,8 @@ def probes_for(model: Model, shape: ShapeConfig, *,
         kv, hd, Nst = cfg.num_kv_heads, cfg.head_dim, cfg.ssm_state
         if kind in ("train", "prefill"):
             def fwd(x, lp):
-                return hybrid._layer_apply(cfg, lp, x, seq_positions(x, S),
+                return hybrid._layer_apply(cfg, lp, x,
+                                           seq_positions(x, x.shape[1]),
                                            attn_impl, "scan")
             probes.append(Probe("layer", mult(cfg.num_layers), wrap(fwd),
                                 (x_(B, S), lp), (X_LOGICAL, lp_log)))

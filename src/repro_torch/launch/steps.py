@@ -476,11 +476,12 @@ def _local_params(model: Model, params):
 def _sharded_prefill(model: Model, one, batch_chunks: int):
     """The prefill on params of DTensors (SPMD, no autograd): each rank
     runs its rows of each of the ``batch_chunks`` slices of the global
-    batch on weights gathered per layer (the dense and MoE decoders'
-    heads, d_ff, experts and vocab over "model" where ``spmd.tp_keeps``
-    keeps them, the residual on the rank's rows of the sequence where
-    ``spmd.seq_split`` says so, a MoE layer's own dispatch groups where
-    they divide the batch's ranks), and the logits of every row are
+    batch on weights gathered per layer (the dense, MoE and recurrent
+    decoders' heads, d_ff, experts, mamba channels and vocab over "model"
+    where ``spmd.tp_keeps`` keeps them, the residual on the rank's rows of
+    the sequence where ``spmd.seq_split`` says so, a MoE layer's own
+    dispatch groups where they divide the batch's ranks), and the logits
+    of every row are
     gathered to every rank: ``(B, 1, Vp)``, equal to the mesh-free step's
     within fp32 sum order."""
     def run(params, batch):
@@ -504,9 +505,12 @@ def _sharded_decode(model: Model, decode):
     self-attention K / V leaf whose sequence is split over
     "model" stays the rank's block, and the attention runs as flash
     decode over it (``layers.attention_decode``, ``spmd.cp_cache``). A
-    leaf split over a mesh dim that the compute needs whole (whisper's
-    cross K / V ``xk`` / ``xv``; a recurrent family's heads or channels)
-    is gathered one layer at a time and its block written back
+    recurrent state split over the heads or channels that the rank runs
+    (rwkv6's ``S`` over "heads", hymba's ``h`` over "d_ff": kept by
+    ``spmd.tp_keeps``) stays the rank's block too: K5 / K6 read it and
+    the new state is written into it in place. A leaf split over a mesh
+    dim that the compute needs whole (whisper's cross K / V ``xk`` /
+    ``xv``) is gathered one layer at a time and its block written back
     (:class:`spmd.GatheredStack`). Returns (the logits of every row on
     every rank, ``(B, 1, Vp)``, the cache written in place)."""
     def run(params, cache, batch):
@@ -554,9 +558,10 @@ def sharded_value_and_grad(model: Model, loss_fn, microbatches: int = 1):
     weights gathered per layer (``sharding.spmd``), divided by the number
     of ways the batch rows split, so the ranks' losses sum to the global
     mean; the gradients come back summed over the batch's ranks. The
-    dense and MoE decoders keep their residual on the rank's rows of the
-    sequence where ``spmd.seq_split`` says so; the loss, summed over
-    "model" in the chunked CE, is then every row's on each "model" rank,
+    dense, MoE and recurrent decoders keep their residual on the rank's
+    rows of the sequence where ``spmd.seq_split`` says so; the loss,
+    summed over "model" in the chunked CE, is then every row's on each
+    "model" rank,
     and a MoE layer's aux losses, reduced over the batch's ranks where
     its groups split, are the global ones on every rank."""
     def run(params, batch):

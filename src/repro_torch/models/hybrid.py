@@ -16,13 +16,23 @@ entry point's default) the kernel on the card and, on the CPU, what
 ``repro`` runs: 'assoc' in a prefill chunk, 'scan' in decode and the
 forward.
 
-Inside the sharded steps on a "model" axis above 1 the full-sequence
-attention's band ('banded', or 'chunked' with the window) runs as
-``repro``'s context-parallel form (``layers._sdpa_banded_cp``): each rank
-attends its own whole query chunks against its K / V rows and a halo of
-the previous rank's last ``window`` rows, and the output rows are
-gathered back to the replicated residual the SSM branch reads; where
-``repro`` falls back to the mesh-free band, so does the port.
+Inside the sharded steps (``sharding.spmd``) "d_ff" over "model"
+(``spmd.tp_keeps``) splits both the MLP and the mamba channels: a rank
+runs its D / M channels (its columns of w_in, conv and w_dtB, its rows of
+w_out, its entries of dt_bias, logA, d_skip and of the state ``h``: the
+selective scan, K6 on the card, on the rank's slab) and its MLP block;
+w_dtA, w_B and w_C contract over the split channels and their products
+are summed over "model". The attention's heads go over "model" only where
+both head counts divide it; otherwise it runs whole. With the residual's
+rows over "model" (``spmd.sp_on``) the mamba branch gathers every row
+(the scan needs them all) and reduce-scatters w_out's sums back, and the
+attention runs the rank's query rows, its band ('banded', or 'chunked'
+with the window) on the rank's own K / V rows and a halo of the previous
+rank's last ``window`` rows (``layers._banded_rows``) where ``repro``'s
+context-parallel form applies. On a replicated residual the band runs
+``layers._sdpa_banded_cp``: each rank's own chunks, gathered back.
+Outside the step every helper is the identity and the results do not
+move by a bit.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import mask_value
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd
 
 DT_RANK = 64
 CONV_K = 4
@@ -137,25 +148,56 @@ def _ssm_scan_assoc(xin, dt, B_t, C_t, A, h0):
 
 def _mamba_branch(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
     """impl: 'scan', 'assoc', 'pallas' or 'auto' (the kernel on the card,
-    'scan' on the CPU)."""
-    Bsz, T, D = x.shape
+    'scan' on the CPU).
+
+    Inside the sharded step with the channels over "model"
+    (``spmd.tp_split`` of w_in) the rank runs its channels; w_dtA, w_B and
+    w_C are read at the rank's rows (``spmd.tp_narrow``) and their products
+    summed over "model" in one all-reduce, whose backward all-reduces too
+    (every rank's channels read the sums); w_out's rows give a partial
+    sum. Given a state, the conv carry (whole over "model" in the cache)
+    is read at the rank's channels and the new one gathered back
+    (``spmd.tp_gather``).
+    Without the rows over "model" x enters through ``spmd.tp_copy``; under
+    ``spmd.sp_on`` every row is gathered first and w_out's sums
+    reduce-scattered back."""
+    sp = spmd.sp_on()
+    w_in = lp["w_in"]       # read once: a read gathers it when sharded
+    split = spmd.tp_split(w_in) is not None
+    if sp:
+        x = spmd.sp_gather(x)
+    elif split:
+        x = spmd.tp_copy(x)
+    Bsz, T, _ = x.shape
     impl = L.resolve_scan_impl(impl, x, "scan")
-    xin = x @ lp["w_in"].to(x.dtype)
+    xin = x @ w_in.to(x.dtype)
+    D = xin.shape[-1]       # the rank's channels when split
     # depthwise causal conv over time (kernel CONV_K)
     conv_w = lp["conv"].to(x.dtype)                           # (K, D)
-    tail = (state["conv"].to(x.dtype) if state is not None
-            else torch.zeros((Bsz, CONV_K - 1, D), dtype=x.dtype,
-                             device=x.device))
+    if state is None:
+        tail = torch.zeros((Bsz, CONV_K - 1, D), dtype=x.dtype,
+                           device=x.device)
+    else:
+        tail = state["conv"].to(x.dtype)
+        if split:
+            tail = tail.narrow(2, spmd.model_rank() * D, D)
     xpad = torch.cat([tail, xin], dim=1)
     xc = L.silu(sum(xpad[:, i:i + T] * conv_w[i] for i in range(CONV_K)))
 
     xf = xc.float()
+    if split:
+        rows = [spmd.tp_narrow(lp[k].float(), 0, D)
+                for k in ("w_dtA", "w_B", "w_C")]
+        sums = spmd.tp_copy(spmd.tp_sum(xf @ torch.cat(rows, dim=1)))
+        dt_a, B_t, C_t = (t.contiguous() for t in sums.split(
+            [DT_RANK, cfg.ssm_state, cfg.ssm_state], dim=-1))
+    else:
+        dt_a = xf @ lp["w_dtA"].float()
+        B_t = xf @ lp["w_B"].float()
+        C_t = xf @ lp["w_C"].float()
     # F.softplus is the identity above 20, where jax's logaddexp(x, 0)
     # differs from x by less than fp32 resolves
-    dt = F.softplus((xf @ lp["w_dtA"].float()) @ lp["w_dtB"].float()
-                    + lp["dt_bias"])
-    B_t = xf @ lp["w_B"].float()
-    C_t = xf @ lp["w_C"].float()
+    dt = F.softplus(dt_a @ lp["w_dtB"].float() + lp["dt_bias"])
     A = -torch.exp(lp["logA"].float())
     h0 = (state["h"].float() if state is not None
           else torch.zeros((Bsz, D, cfg.ssm_state), dtype=torch.float32,
@@ -171,7 +213,14 @@ def _mamba_branch(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
                          f"'pallas', got {impl!r}")
     y = y + lp["d_skip"].float() * xf
     out = y.to(x.dtype) @ lp["w_out"].to(x.dtype)
-    return out, {"h": h, "conv": xpad[:, -(CONV_K - 1):].float()}
+    if sp:
+        out = spmd.sp_scatter(out) if split else spmd.sp_narrow(out)
+    elif split:
+        out = spmd.tp_sum(out)
+    conv = xpad[:, -(CONV_K - 1):].float()
+    if state is not None:   # the cache's carry is whole over "model"
+        conv = spmd.tp_gather(conv, w_in, 2)
+    return out, {"h": h, "conv": conv}
 
 
 def _combine_branches(cfg: ArchConfig, lp, x, a, s):
@@ -204,10 +253,12 @@ def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.float32,
     ``layers.attention``'s ('pallas': the flash kernel with the window).
     ``remat`` checkpoints each layer (``layers.remat``); training runs the
     plain scan (``scan_impl="scan"``): K6 has no backward, as ``repro``'s
-    has none."""
-    B, S = tokens.shape
+    has none. Inside the sharded step with the rows over "model"
+    (``spmd.sp_on``) the residual and the features are the rank's rows."""
+    B = tokens.shape[0]
     x = L.embed_lookup(params["embed"], tokens, compute_dtype)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    lo, hi = spmd.seq_rows(x.shape[1])    # the rank's rows under sp
+    positions = torch.arange(lo, hi, device=tokens.device).expand(B, hi - lo)
     body = L.remat(lambda lp, x: _layer_apply(cfg, lp, x, positions,
                                               attn_impl, scan_impl), remat)
     for i in range(cfg.num_layers):
@@ -269,7 +320,7 @@ def cache_logical(cfg: ArchConfig) -> dict:
             "pos": ()}
 
 
-def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims, gather=False):
+def _ring_sdpa(wo, h, q, ck, cv, valid, dims: L.AttnDims, gather=False):
     """Masked attention over a ring or key view: q (B, Sq, H, hd); ck/cv
     (B, S, KV, hd); valid (B, S) (one query, shared mask) or (B, Sq, S).
     Shared by the dense ring, the paged ring and the prefill chunk.
@@ -290,7 +341,7 @@ def _ring_sdpa(lp, h, q, ck, cv, valid, dims: L.AttnDims, gather=False):
                        ).reshape(B, Sq, KV * G * hd)
     if gather:
         out = L._sp.replicate(out)
-    return out @ lp["attn"]["wo"].to(h.dtype)
+    return out @ wo.to(h.dtype)
 
 
 def _window_valid(spos, mask_pos, window: int):
@@ -301,9 +352,14 @@ def _window_attn_decode(lp, h, cfg: ArchConfig, ck, cv, slot_pos, pos,
                         positions):
     """Decode attention over the dense ring, written in place. ``pos`` is a
     scalar (lockstep) or a (B,) per-slot vector; a vector's INACTIVE slots
-    write nothing, so a finished request's ring stays bit-stable."""
-    dims = _attn_dims(cfg)
-    q, k, v = L._qkv(lp["attn"], h, dims, positions)
+    write nothing, so a finished request's ring stays bit-stable. Inside
+    the sharded decode with the heads over "model" the ring holds the
+    rank's kv heads: the rank writes and attends its heads, and wo's rows
+    give a partial sum (``spmd.tp_sum``)."""
+    params, h, dims, tp = L._read_heads(lp["attn"], h, _attn_dims(cfg))
+    if tp:
+        h = spmd.tp_copy(h)
+    q, k, v = L._qkv(params, h, dims, positions)
     W = ck.shape[1]
     if pos.dim() == 1:
         act = pos < L.INACTIVE_POS
@@ -321,7 +377,8 @@ def _window_attn_decode(lp, h, cfg: ArchConfig, ck, cv, slot_pos, pos,
         slot_pos[:, slot] = pos
         mask_pos = pos
     valid = _window_valid(slot_pos, mask_pos, cfg.window)
-    return _ring_sdpa(lp, h, q, ck, cv, valid, dims)
+    out = _ring_sdpa(params["wo"], h, q, ck, cv, valid, dims)
+    return spmd.tp_sum(out) if tp else out
 
 
 def _window_attn_decode_paged(lp, h, cfg: ArchConfig, pool_k, pool_v,
@@ -356,7 +413,7 @@ def _window_attn_decode_paged(lp, h, cfg: ArchConfig, pool_k, pool_v,
     view_v = pool_v.reshape(-1, KV, hd)[phys]
     spos = torch.where(ok, pool_spos.reshape(-1)[phys], -1)
     valid = _window_valid(spos, pos[:, None], cfg.window)
-    return _ring_sdpa(lp, h, q, view_k, view_v, valid, dims,
+    return _ring_sdpa(lp["attn"]["wo"], h, q, view_k, view_v, valid, dims,
                       gather=tp_mesh is not None)
 
 
@@ -384,7 +441,7 @@ def _window_attn_prefill_chunk(lp, h, cfg: ArchConfig, ck, cv, slot_pos,
         qp = positions.long()[:, :, None]
         valid = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp)
                  & (kp[:, None, :] > qp - cfg.window))           # (B,C,W+C)
-        out = _ring_sdpa(lp, h, q, keys, vals, valid, dims)
+        out = _ring_sdpa(lp["attn"]["wo"], h, q, keys, vals, valid, dims)
     nw = min(C, W)
     tail_pos = positions[:, C - nw:]
     ridx = (tail_pos % W).long()

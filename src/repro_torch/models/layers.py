@@ -14,15 +14,16 @@ kv-head slab of each new K/V row into its slab of the pool, attends on its
 own query heads and all-gathers the head outputs before ``wo``
 (``specs.replicate``); everything else runs replicated.
 
-Inside the sharded steps (``sharding.spmd``) the dense and MoE
-decoders' attention, MLP, experts and embedding run on the rank's
-"model" blocks of their weights (heads, d_ff, experts, vocab). With more
-than one row the residual keeps the rank's rows of the sequence: the
-rows are gathered before a split product and its sums reduce-scattered
-back, and attention whose heads do not divide "model" runs the rank's
-query rows against every rank's K / V rows. A MoE layer routes the
-rank's own dispatch groups where they divide the batch's ranks, else
-the whole batch's tokens (:func:`moe`). The lockstep
+Inside the sharded steps (``sharding.spmd``) the dense, MoE and
+recurrent decoders' attention, MLP, experts and embedding run on the
+rank's "model" blocks of their weights (heads, d_ff, experts, vocab).
+With more than one row the residual keeps the rank's rows of the
+sequence: the rows are gathered before a split product and its sums
+reduce-scattered back, and attention whose heads do not divide "model"
+runs the rank's query rows against every rank's K / V rows (a band that
+``repro``'s context-parallel form covers: its own rows and a halo). A
+MoE layer routes the rank's own dispatch groups where they divide the
+batch's ranks, else the whole batch's tokens (:func:`moe`). The lockstep
 decode over a cache whose sequence is split over "model" runs flash
 decode (each rank's partial softmax, merged); a windowed attention runs
 the banded form over each rank's chunks with a halo from its
@@ -363,17 +364,27 @@ def _sdpa_banded_cp(q, k, v, dims: AttnDims, q_chunk: int = 1024):
     back (``spmd.sp_replicate``). Where ``repro`` falls back (no "model"
     axis above 1, chunks not dividing it, fewer rows than window + chunk,
     a halo wider than a rank's rows) it is ``_sdpa_banded``."""
-    B, S, H, hd = q.shape
-    n_seq = spmd.model_ways()
-    n_chunks = max(1, S // q_chunk)
-    C = S // n_chunks
-    W = dims.window
-    if (n_seq <= 1 or n_chunks % n_seq or S < W + C or S != n_chunks * C
-            or W > C * (n_chunks // n_seq)):
+    S = q.shape[1]
+    C = _band_chunk(S, dims.window, q_chunk)
+    if not C:
         return _sdpa_banded(q, k, v, dims, q_chunk)
     out = _banded_rows(spmd.sp_own(q), spmd.sp_own(k), spmd.sp_own(v), dims,
                        C, S)
     return spmd.sp_replicate(out)
+
+
+def _band_chunk(S: int, W: int, q_chunk: int = 1024) -> int:
+    """The chunk rows C of ``repro``'s context-parallel banded form over a
+    sequence of S rows split over "model", or 0 where it falls back: no
+    "model" axis above 1, chunks not dividing it, fewer rows than W + C,
+    or a halo of W rows wider than a rank's."""
+    n_seq = spmd.model_ways()
+    n_chunks = max(1, S // q_chunk)
+    C = S // n_chunks
+    if (n_seq <= 1 or n_chunks % n_seq or S < W + C or S != n_chunks * C
+            or W > C * (n_chunks // n_seq)):
+        return 0
+    return C
 
 
 def _banded_rows(q, k, v, dims: AttnDims, C: int, S: int):
@@ -416,7 +427,9 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     projections and ``wo``'s partial products reduce-scattered back onto
     the rank's rows (sequence parallelism); otherwise the rank's query
     rows attend every rank's K / V rows, gathered along the sequence
-    (context parallelism), and ``wo`` needs no collective.
+    (context parallelism; a band that ``repro``'s context-parallel form
+    covers reads only the rank's K / V rows and the previous rank's last
+    ``window``, :func:`_banded_rows`), and ``wo`` needs no collective.
     Cross-attention gathers the rows and keeps the rank's after. Without
     ``sp`` the heads over "model" take the replicated x and sum after
     ``wo``."""
@@ -424,6 +437,11 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     params, x, dims, tp = _read_heads(params, x, dims, self_kv)
     sp = spmd.sp_on()
     cp = sp and self_kv and not tp
+    band = impl == "banded" or (impl == "chunked" and dims.window > 0
+                                and dims.causal and self_kv)
+    # the context-parallel band: the rank's rows and a halo, no gather
+    own_band = cp and band and _band_chunk(x.shape[1] * spmd.model_ways(),
+                                           dims.window)
     if sp and not cp:
         x, positions = spmd.sp_gather(x), spmd.full_positions(positions)
     elif tp:
@@ -431,15 +449,16 @@ def attention(params, x, dims: AttnDims, positions, impl: str = "einsum",
     if self_kv:
         q, k, v = _qkv(params, x, dims, positions)
         k_pos = positions
-        if cp:
+        if cp and not own_band:
             k, v = spmd.sp_gather(k), spmd.sp_gather(v)
             k_pos = spmd.full_positions(positions)
     else:       # cross-attention: x gives the queries only
         q = _proj(params, x, "q", dims.num_heads, dims, positions)
         k, v, k_pos = kv_override
-    band = impl == "banded" or (impl == "chunked" and dims.window > 0
-                                and dims.causal and self_kv)
-    if band and not (cp or tp):
+    if own_band:
+        out = _banded_rows(q, k, v, dims, own_band, q.shape[1]
+                           * spmd.model_ways())
+    elif band and not (cp or tp):
         out = _sdpa_banded_cp(q, k, v, dims)
     elif band and tp:           # the rank's heads: no halo across them
         out = _sdpa_banded(q, k, v, dims)

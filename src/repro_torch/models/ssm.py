@@ -15,6 +15,17 @@ The wkv recurrence runs through ``scan_impl``: 'pallas' is
 recurrence ``kernels.ref.wkv6``, and 'auto' (every entry point's default)
 the kernel on the card and 'scan' on the CPU, which is what ``repro`` runs
 in its serving steps.
+
+Inside the sharded steps (``sharding.spmd``) with the heads and d_ff over
+"model" (``spmd.tp_keeps``) a rank runs its H / M time-mix heads (its
+columns of wr / wk / wv / wg, rows of wo, its heads of u, gn_scale and
+the state ``S``: the wkv scan, K5 on the card, on the rank's slab) and its
+d_ff columns of the channel mix; the DDLerp and decay LoRAs and ``cr``
+run whole. With the residual's rows over "model" (``spmd.sp_on``) the
+time mix gathers every row first (the scan needs them all) and
+reduce-scatters wo's partial sums back; the channel mix shifts in the
+previous rank's last row (``spmd.halo``). Outside the step every helper
+is the identity and the results do not move by a bit.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd
 
 LORA_R = 32
 DECAY_R = 64
@@ -42,6 +54,13 @@ def _shift_from(x, state, key):
     if state is None or key not in state:
         return _shift(x)
     return torch.cat([state[key].to(x.dtype)[:, None], x[:, :-1]], dim=1)
+
+
+def _shift_rows(x):
+    """Token shift on the rank's rows of the sequence (``spmd.sp_on``, a
+    stateless forward): row 0 is the previous "model" rank's last row,
+    zeros on rank 0 (``spmd.halo``)."""
+    return torch.cat([spmd.halo(x, 1), x[:, :-1]], dim=1)
 
 
 def init(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
@@ -103,19 +122,38 @@ def _ddlerp(lp, x, xprev):
 
 
 def _time_mix(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
-    """impl: 'scan' (``ref.wkv6``), 'pallas' (``ops.wkv6``) or 'auto'."""
+    """impl: 'scan' (``ref.wkv6``), 'pallas' (``ops.wkv6``) or 'auto'.
+
+    Inside the sharded step with the heads over "model" (``spmd.tp_split``
+    of wr) the rank runs its heads: r, k, v and g from its columns, the
+    decay computed whole and cut to its heads (``spmd.tp_narrow``), the
+    scan and the group norm on them, and wo's rows give a partial sum.
+    Without the rows over "model" the DDLerp outputs enter the split
+    products through ``spmd.tp_copy``, so the LoRAs' gradients are whole;
+    under ``spmd.sp_on`` the rank's rows are gathered first and wo's sums
+    reduce-scattered back."""
+    sp = spmd.sp_on()
+    if sp:
+        x = spmd.sp_gather(x)
     B, T, D = x.shape
-    H, N = cfg.num_heads, cfg.head_dim
+    N = cfg.head_dim
+    wr = lp["wr"]           # read once: a read gathers it when sharded
+    split = spmd.tp_split(wr) is not None
+    H = wr.shape[-1] // N   # the rank's heads when split
     impl = L.resolve_scan_impl(impl, x, "scan")
     xprev = _shift_from(x, state, "x_tm")
     x_r, x_k, x_v, x_w, x_g = _ddlerp(lp, x, xprev).unbind(0)
-    r = (x_r @ lp["wr"].to(x.dtype)).reshape(B, T, H, N)
+    if split and not sp:
+        x_r, x_k, x_v, x_g = (spmd.tp_copy(t) for t in (x_r, x_k, x_v, x_g))
+    r = (x_r @ wr.to(x.dtype)).reshape(B, T, H, N)
     k = (x_k @ lp["wk"].to(x.dtype)).reshape(B, T, H, N)
     v = (x_v @ lp["wv"].to(x.dtype)).reshape(B, T, H, N)
     g = L.silu(x_g @ lp["wg"].to(x.dtype))
     dec = (lp["w0"].float()
            + torch.tanh(x_w.float() @ lp["wA"].float()) @ lp["wB"].float())
-    w = torch.exp(-torch.exp(dec)).reshape(B, T, H, N).to(x.dtype)
+    w = torch.exp(-torch.exp(dec)).reshape(B, T, cfg.num_heads, N).to(x.dtype)
+    if split:               # K5 reads a contiguous slab
+        w = spmd.tp_narrow(w, 2, H).contiguous()
 
     S0 = (state["S"].float() if state is not None
           else torch.zeros((B, H, N, N), dtype=torch.float32,
@@ -135,18 +173,39 @@ def _time_mix(lp, x, cfg: ArchConfig, state, impl: str = "scan"):
     yc = y - mu
     var = torch.mean(yc * yc, dim=-1, keepdim=True)
     y = yc * torch.rsqrt(var + 1e-5) * lp["gn_scale"].float()[None, None]
-    y = y.reshape(B, T, D).to(x.dtype) * g
+    y = y.reshape(B, T, H * N).to(x.dtype) * g
     out = y @ lp["wo"].to(x.dtype)
+    if sp:
+        out = spmd.sp_scatter(out) if split else spmd.sp_narrow(out)
+    elif split:
+        out = spmd.tp_sum(out)
     return out, {"S": S, "x_tm": x[:, -1].float()}
 
 
 def _channel_mix(lp, x, state):
-    xx = _shift_from(x, state, "x_cm") - x
+    """Inside the sharded step with d_ff over "model" (``spmd.tp_split`` of
+    ck) the rank's columns of ck and rows of cv give a partial sum,
+    reduced before the gate r (cr read whole; the rank's rows under
+    ``spmd.sp_on``) multiplies it; only xk enters the split product
+    (``spmd.tp_copy``, or the rows gathered under ``sp_on``)."""
+    sp = spmd.sp_on()
+    xx = (_shift_rows(x) if sp else _shift_from(x, state, "x_cm")) - x
     xk = x + xx * lp["cmu_k"].to(x.dtype)
     xr = x + xx * lp["cmu_r"].to(x.dtype)
-    k = torch.square(F.relu(xk @ lp["ck"].to(x.dtype)))
+    ck = lp["ck"]
+    split = spmd.tp_split(ck) is not None
+    if sp:
+        xk = spmd.sp_gather(xk)
+    elif split:
+        xk = spmd.tp_copy(xk)
+    k = torch.square(F.relu(xk @ ck.to(x.dtype)))
+    kv = k @ lp["cv"].to(x.dtype)
+    if sp:
+        kv = spmd.sp_scatter(kv) if split else spmd.sp_narrow(kv)
+    elif split:
+        kv = spmd.tp_sum(kv)
     r = L.sigmoid(xr @ lp["cr"].to(x.dtype))
-    return r * (k @ lp["cv"].to(x.dtype)), {"x_cm": x[:, -1].float()}
+    return r * kv, {"x_cm": x[:, -1].float()}
 
 
 def _layer_apply(cfg: ArchConfig, lp, x, state, impl):

@@ -12,30 +12,39 @@ rank's block. While the loss runs, autograd saves each gathered weight as
 its block plus the recipe to gather it again, so a rank never holds the
 whole gathered model (:func:`regather_saved`).
 
-The dense decoder's and the MoE decoder's weights keep their ``"model"``
-blocks (heads, kv heads, d_ff, vocab, experts; :func:`tp_keeps`), and the
-layers run tensor-parallel on them. With more than one row dividing
+The dense, MoE and recurrent families' weights keep their ``"model"``
+blocks (heads, kv heads, d_ff, vocab, experts; rwkv6's time-mix heads and
+channel-mix d_ff, hymba's mamba channels, which share "d_ff" with its
+MLP; :func:`tp_keeps`), and the layers run tensor-parallel on them: K5 /
+K6 run on the rank's heads or channels. With more than one row dividing
 "model" (:func:`seq_split`, the step's ``sp``) the residual keeps the
 rank's rows of the sequence between layers, where ``repro`` shards it
 over "seq_sp": the rows are gathered before a split product
-(:func:`sp_gather`: heads, d_ff, experts, the vocab head) and the split
-products reduce-scattered back onto the rank's rows (:func:`sp_scatter`:
-after ``wo``, ``w_down``, the experts' combine and the vocab lookup).
-Attention whose heads do not divide "model" runs the rank's query rows
-against every rank's K / V rows (context parallelism), and every weight
+(:func:`sp_gather`: heads, d_ff, experts, the vocab head, and every
+recurrence, which needs each row) and the split products reduce-scattered
+back onto the rank's rows (:func:`sp_scatter`: after ``wo``, ``w_down``,
+the experts' combine, rwkv6's ``cv``, hymba's ``w_out`` and the vocab
+lookup). A token shift on the rank's rows reads the previous rank's last
+row (:func:`halo`). Attention whose heads do not divide "model" runs the
+rank's query rows against every rank's K / V rows (context parallelism;
+a band that fits reads only the rank's rows and a halo), and every weight
 the rows reach whole sums its gradient over "model" too. Without ``sp``
 (one row, or rows not dividing "model") the residual stays replicated
 over "model": :func:`tp_copy` where it enters a split product (identity
 forward, sum over "model" backward) and :func:`tp_sum` where the split
-products meet. A MoE layer routes the rank's own dispatch groups where
+products meet; a tensor whole on every rank that a split compute reads
+in part (rwkv6's decay, hymba's ``w_B`` rows) is cut by
+:func:`tp_narrow`. A MoE layer routes the rank's own dispatch groups where
 they divide the batch's ranks (:func:`moe_groups_split`; its aux
 statistics summed over those ranks, :func:`batch_sum`), else the groups
 of the whole (micro)batch (:func:`gather_rows`); its routing statistics,
 whole on every "model" rank, send their gradient once
-(:func:`tp_once`). Every other family gathers its weights over the whole
-mesh, splits only the batch and keeps the residual replicated; a
-windowed attention there runs the banded form over each "model" rank's
-own chunks (:func:`sp_own`, :func:`halo`, :func:`sp_replicate`).
+(:func:`tp_once`). The encoder-decoder and the VLM gather their weights
+over the whole mesh, split only the batch and keep the residual
+replicated. A windowed attention on a replicated residual (hymba's,
+where its rows do not divide "model") runs the banded form over each
+"model" rank's own chunks (:func:`sp_own`, :func:`halo`,
+:func:`sp_replicate`).
 
 The sharded serving steps (``launch.steps``' prefill and lockstep decode
 on params and a dense cache of DTensors) run in the same context without
@@ -43,8 +52,10 @@ autograd: a vocab-split head is gathered back to whole logits
 (:func:`tp_gather`); a self-attention cache whose sequence is split over
 "model" stays the rank's block and the attention runs as flash decode,
 each rank's partial softmax merged by :func:`cp_merge` (the step's
-``cp_cache``); another cache leaf split over a mesh dim that the compute
-needs whole is read one layer at a time through :class:`GatheredStack`.
+``cp_cache``); a recurrent state split over the heads or channels the
+rank runs (rwkv6's ``S``, hymba's ``h``) stays the rank's block; another
+cache leaf split over a mesh dim that the compute needs whole is read one
+layer at a time through :class:`GatheredStack`.
 
 Outside the step nothing here is active and every helper is the
 identity."""
@@ -65,7 +76,7 @@ from repro_torch.sharding import specs
 class _Ctx:
     mesh: object
     batch_dims: Tuple[int, ...]     # mesh dims the batch rows split over
-    tp: bool                        # dense / MoE decoder, "model" > 1
+    tp: bool                        # tp_keeps keeps a block, "model" > 1
     sp: bool = False                # the residual's rows split over "model"
     cp_cache: bool = False          # the K/V cache's sequence over "model"
 
@@ -78,8 +89,8 @@ _CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
 def training(mesh, batch_dims, tp: bool, sp: bool = False,
              cp_cache: bool = False):
     """The sharded step's context (training, and the serving steps too):
-    its mesh, the mesh dims its batch rows split over, whether the dense
-    or MoE decoder runs tensor-parallel, whether its residual keeps the
+    its mesh, the mesh dims its batch rows split over, whether the family
+    runs tensor-parallel (:func:`tp_keeps`), whether its residual keeps the
     rank's rows between layers (``sp``, :func:`seq_split`) and whether the
     dense K/V cache holds the rank's block of the sequence (``cp_cache``:
     the lockstep decode's flash-decode form)."""
@@ -241,6 +252,22 @@ def tp_once(x):
     return _OnceTP.apply(x, c.mesh) if c is not None and c.sp else x
 
 
+def tp_narrow(x, dim: int, n: int):
+    """The rank's ``n`` entries along ``dim`` of a tensor whole on every
+    "model" rank that a compute split over "model" reads in part (rwkv6's
+    decay before the rank's heads, hymba's ``w_B`` / ``w_C`` / ``w_dtA``
+    rows at the rank's channels): under :func:`sp_on` a plain narrow, whose
+    gradient stays the rank's part (summed where the rows were gathered or
+    the leaf is read, :func:`reduce_dims_of`); otherwise through
+    :func:`tp_copy`, so its gradient is whole on every rank."""
+    c = _ctx()
+    if c is None or not c.tp:
+        return x
+    if not c.sp:
+        x = _CopyToTP.apply(x, c.mesh)
+    return x.narrow(dim, model_rank() * n, n)
+
+
 def tp_max(x):
     """The max over "model" (no gradient: a shift for a stable exp)."""
     c = _ctx()
@@ -251,8 +278,9 @@ def tp_max(x):
 
 def tp_gather(x, w, dim: int = -1):
     """The products of a weight ``w`` split over "model" along its output
-    columns (a vocab-split head), gathered along ``dim`` on every rank;
-    identity for a whole ``w``. Serving only: no gradient."""
+    columns (a vocab-split head, hymba's conv carry from ``w_in``),
+    gathered along ``dim`` on every rank; identity for a whole ``w``.
+    Serving only: no gradient."""
     c = _ctx()
     if c is None or not c.tp or tp_split(w) is None:
         return x
@@ -420,10 +448,10 @@ def cp_cache() -> bool:
 
 def seq_split(cfg, mesh, seq_len: int) -> bool:
     """Whether the residual keeps the rank's rows between layers, decided
-    as ``_fit_axes`` decides "seq_sp": the dense and MoE decoders only
-    (the families :func:`tp_keeps` covers), "model" > 1, more than one row
-    and the rows dividing "model"; otherwise the residual stays
-    replicated."""
+    as ``_fit_axes`` decides "seq_sp": the families :func:`tp_keeps`
+    covers (the dense, MoE, rwkv6 and hymba decoders), "model" > 1, more
+    than one row and the rows dividing "model"; otherwise the residual
+    stays replicated."""
     m = specs.tp_degree(mesh)
     return bool(tp_keeps(cfg, mesh)) and seq_len > 1 and seq_len % m == 0
 
@@ -523,11 +551,13 @@ class LeafPlan:
 def tp_keeps(cfg, mesh) -> frozenset:
     """The logical axes whose "model" blocks the tensor-parallel compute
     keeps: the dense decoder's d_ff and vocab, the MoE decoder's vocab and
-    its experts when their count divides the "model" size, and either's
-    heads and kv heads when both counts divide it (MLA attention runs
-    whole). A dim that does not divide stays gathered, as ``_fit_axes``
-    leaves it whole. Empty for every other family or without a "model"
-    axis above 1."""
+    its experts when their count divides the "model" size, rwkv6's (SSM)
+    d_ff, vocab and time-mix heads when their count divides it, hymba's
+    (HYBRID) d_ff (its MLP and its mamba channels) and vocab, and the
+    dense, MoE and hybrid attention's heads and kv heads when both counts
+    divide it (MLA attention runs whole). A dim that does not divide
+    stays gathered, as ``_fit_axes`` leaves it whole. Empty for the
+    encoder-decoder and the VLM, or without a "model" axis above 1."""
     from repro_torch.configs.base import Family
     m = specs.tp_degree(mesh)
     if m <= 1:
@@ -537,6 +567,11 @@ def tp_keeps(cfg, mesh) -> frozenset:
     elif cfg.family == Family.MOE and cfg.moe:
         keep = {"vocab"} | ({"expert"} if cfg.moe.num_experts % m == 0
                             else set())
+    elif cfg.family == Family.SSM:
+        return frozenset({"d_ff", "vocab"} | (
+            {"heads"} if cfg.num_heads % m == 0 else set()))
+    elif cfg.family == Family.HYBRID:
+        keep = {"d_ff", "vocab"}
     else:
         return frozenset()
     if (not cfg.kv_lora_rank and cfg.num_heads % m == 0
@@ -673,10 +708,11 @@ def regather_saved():
 class GatheredStack:
     """A serving cache leaf stacked along layers, (L, ...), whose rank
     block is split over mesh dims the step's compute needs whole (an
-    encoder-decoder's cross K / V, heads or channels of a family that runs
-    them whole; not a self-attention K / V sequence over "model", which
-    flash decode reads as the rank's block): ``stack[i]`` is layer i gathered over ``gathers`` ((mesh dim, leaf
-    dim) pairs, outer first), the same tensor until another layer is read;
+    encoder-decoder's cross K / V; not a self-attention K / V sequence over
+    "model", which flash decode reads as the rank's block, nor a recurrent
+    state over the heads or channels the rank runs): ``stack[i]`` is
+    layer i gathered over ``gathers`` ((mesh dim, leaf dim) pairs, outer
+    first), the same tensor until another layer is read;
     then, or at ``flush``, the rank's block of it is written back in
     place, so the model's in-place writes land in the rank's block. One
     layer is gathered at a time."""
